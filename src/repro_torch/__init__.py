@@ -1,0 +1,20 @@
+"""repro_torch: the PyRadiomics-cuda shape path on PyTorch and CUDA.
+
+A port of the JAX package ``repro`` to an NVIDIA H100, laid out like it
+(``core/``, ``kernels/``, ``data/``), that imports neither JAX nor ``repro``.
+The two TPU kernels of single-case shape extraction are replaced by CUDA
+C++ kernels written for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first
+use; beside each sits its plain PyTorch version.  Entry points run on the
+card unless the caller passes ``device='cpu'``, and raise when there is no
+card.
+
+The system has no learned weights.  The only state carried across from the
+reference is the marching-cubes tables and the case data, and the port
+regenerates both with its own copies of the numpy generators
+(``core/mc_tables.py``, ``data/synthetic.py``); tests hold every table and
+``make_case`` array-equal to the reference's.  No other conversion function
+is needed.
+"""
+from repro_torch.core import ShapeFeatureExtractor, StageTimes, crop_to_roi, resolve_device
+
+__all__ = ["ShapeFeatureExtractor", "StageTimes", "crop_to_roi", "resolve_device"]

@@ -1,0 +1,9 @@
+"""Kernels of the shape path: hand-written CUDA for the card, plain PyTorch beside.
+
+    marching_cubes -- csrc/marching_cubes.cu wrapper (mesh volume + area)
+    diameter       -- csrc/diameter.cu wrapper (4-combo farthest pair)
+    prune          -- exact candidate pruning (plain PyTorch on the device)
+    ref            -- the plain PyTorch versions and the path's plain ops
+    ops            -- device-resolved entry points
+    _build         -- nvcc build + ctypes loader
+"""

@@ -1,0 +1,218 @@
+"""Plain PyTorch versions of the shape path's reference ops and kernels.
+
+Counterpart of ``repro.kernels.ref``.  These run on whatever device their
+input lies on.  The vertex-field, count and compaction ops are the main
+path's own steps on every device (the reference has no TPU kernel for
+them either).  :func:`mc_volume_area` and :func:`max_diameters_sq` are the
+plain versions of the two CUDA kernels: the kernel wrappers take them only
+for a tensor on the CPU, and ``chip_smoke.py`` holds each kernel against
+them on the card.
+
+Conventions
+-----------
+* volumes are ``(nx, ny, nz)`` float32 tensors; a voxel is *inside* iff
+  ``value > iso`` (binary masks with ``iso=0.5``, as PyRadiomics uses).
+* ``spacing``/``origin`` map index space to physical space:
+  ``pos_phys = origin + index * spacing``.
+* mesh vertices are deduplicated by construction: every *grid edge* owns at
+  most one vertex, stored in three dense per-axis fields (VX, VY, VZ).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import mc_tables as mct
+
+NEG = -1e30
+# elements of one (rows, M) block of the plain pair sweep: bounds its memory
+_SWEEP_ELEMS = 1 << 24
+
+
+class VertexFields(NamedTuple):
+    """Dense per-axis vertex fields."""
+
+    vx: torch.Tensor  # (nx-1, ny, nz, 3) positions on x-directed edges
+    vy: torch.Tensor  # (nx, ny-1, nz, 3)
+    vz: torch.Tensor  # (nx, ny, nz-1, 3)
+    ax: torch.Tensor  # (nx-1, ny, nz) bool, edge active
+    ay: torch.Tensor
+    az: torch.Tensor
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _interp(v0, v1, iso):
+    """Interpolation parameter of the iso crossing along an edge."""
+    denom = v1 - v0
+    safe = torch.where(denom.abs() < 1e-30, torch.ones_like(denom), denom)
+    return ((iso - v0) / safe).clamp(0.0, 1.0)
+
+
+def vertex_fields(vol, iso=0.5, spacing=(1.0, 1.0, 1.0), origin=(0.0, 0.0, 0.0),
+                  index_offset=None) -> VertexFields:
+    """Deduplicated mesh-vertex fields (pure elementwise pass).
+
+    ``index_offset`` shifts the per-axis grid indices before the physical
+    mapping, so a sub-window of a larger volume emits positions in the full
+    volume's index frame; the integer offset add is exact.
+    """
+    vol = torch.as_tensor(vol, dtype=torch.float32)
+    dev = vol.device
+    sp = _f32(spacing, dev)
+    og = _f32(origin, dev)
+    off = None if index_offset is None else _f32(index_offset, dev)
+    inside = vol > iso
+
+    def axis_field(axis):
+        sl0 = [slice(None)] * 3
+        sl1 = [slice(None)] * 3
+        sl0[axis] = slice(0, -1)
+        sl1[axis] = slice(1, None)
+        v0, v1 = vol[tuple(sl0)], vol[tuple(sl1)]
+        act = inside[tuple(sl0)] != inside[tuple(sl1)]
+        t = _interp(v0, v1, iso)
+        idx = list(torch.meshgrid(
+            *(torch.arange(n, dtype=torch.float32, device=dev) for n in v0.shape),
+            indexing="ij",
+        ))
+        if off is not None:
+            idx = [g + off[a] for a, g in enumerate(idx)]
+        idx[axis] = idx[axis] + t
+        return torch.stack(idx, dim=-1) * sp + og, act
+
+    vx, ax = axis_field(0)
+    vy, ay = axis_field(1)
+    vz, az = axis_field(2)
+    return VertexFields(vx, vy, vz, ax, ay, az)
+
+
+def count_vertices(f: VertexFields) -> torch.Tensor:
+    return f.ax.sum() + f.ay.sum() + f.az.sum()
+
+
+def compact_vertices(f: VertexFields, max_vertices: int):
+    """Gather active-edge vertices into a padded (max_vertices, 3) array.
+
+    Returns ``(verts, mask, n_active)``.  The order is the reference's
+    stable active-first sort (``argsort(~act, stable=True)``) in full:
+    actives in field order (x, y, z, row-major), then the inactive slots in
+    field order, which carry their edges' positions, not zeros.  Excess
+    actives beyond ``max_vertices`` are dropped (callers size the cap from
+    :func:`count_vertices`).
+    """
+    pos = torch.cat([f.vx.reshape(-1, 3), f.vy.reshape(-1, 3), f.vz.reshape(-1, 3)])
+    act = torch.cat([f.ax.reshape(-1), f.ay.reshape(-1), f.az.reshape(-1)])
+    order = torch.argsort((~act).to(torch.uint8), stable=True)[:max_vertices]
+    return pos[order], act[order], act.sum()
+
+
+def centred_origin(shape, spacing) -> np.ndarray:
+    """The marching-cubes origin ``-0.5 * shape * spacing`` (float32).
+
+    Centring keeps the signed tetrahedron volumes small, which bounds f32
+    cancellation; the kernel and the plain version both use it.
+    """
+    sp = torch.as_tensor(spacing, dtype=torch.float32).cpu().numpy().reshape(3)
+    return np.float32(-0.5) * np.asarray(shape, np.float32) * sp
+
+
+def _cell_cube_index(vol, iso):
+    """(nx-1, ny-1, nz-1) int32 marching-cubes case index per cell."""
+    inside = (vol > iso).to(torch.int32)
+    cx, cy, cz = (n - 1 for n in vol.shape)
+    idx = torch.zeros((cx, cy, cz), dtype=torch.int32, device=vol.device)
+    for c, (dx, dy, dz) in enumerate(mct.CORNERS.tolist()):
+        idx += inside[dx:dx + cx, dy:dy + cy, dz:dz + cz] << c
+    return idx
+
+
+def _cross(u, w):
+    u0, u1, u2 = u.unbind(-1)
+    w0, w1, w2 = w.unbind(-1)
+    return u1 * w2 - u2 * w1, u2 * w0 - u0 * w2, u0 * w1 - u1 * w0
+
+
+def mc_volume_area(vol, iso=0.5, spacing=(1.0, 1.0, 1.0)):
+    """Plain version of the marching-cubes kernel: ``(|sum vol|, sum area)``.
+
+    Same centred origin, cube index, edge map, table and per-triangle
+    formulas as ``csrc/marching_cubes.cu`` (and the Pallas kernel), written
+    as vectorised ops over the cells the surface crosses; only the order of
+    the final sums differs from the kernel.  Returns two 0-dim float32
+    tensors on ``vol``'s device.
+    """
+    vol = torch.as_tensor(vol, dtype=torch.float32)
+    dev = vol.device
+    f = vertex_fields(vol, iso, spacing, centred_origin(vol.shape, spacing))
+    idx = _cell_cube_index(vol, iso)
+    i, j, k = ((idx != 0) & (idx != 255)).nonzero(as_tuple=True)
+    fields = (f.vx, f.vy, f.vz)
+    e = torch.stack([
+        fields[a][i + ox, j + oy, k + oz]
+        for a, (ox, oy, oz) in zip(mct.EDGE_CELL_AXIS.tolist(), mct.EDGE_CELL_OFFSET.tolist())
+    ], dim=1)  # (n, 12, 3)
+    tids = torch.as_tensor(mct.TRI_TABLE, dtype=torch.int64, device=dev)[idx[i, j, k].long()]
+    tri = torch.gather(e, 1, tids.clamp(min=0)[..., None].expand(-1, -1, 3))
+    tri = tri.reshape(-1, mct.MAX_TRIS, 3, 3)
+    valid = tids.reshape(-1, mct.MAX_TRIS, 3)[..., 0] >= 0
+    a, b, c = tri[valid].unbind(1)
+    n0, n1, n2 = _cross(b - a, c - a)
+    area = 0.5 * torch.sqrt(n0 * n0 + n1 * n1 + n2 * n2 + 1e-30)
+    d0, d1, d2 = _cross(b, c)
+    a0, a1, a2 = a.unbind(-1)
+    svol = (a0 * d0 + a1 * d1 + a2 * d2) / 6.0
+    return svol.sum().abs(), area.sum()
+
+
+def diameter_input(verts, mask, block: int) -> torch.Tensor:
+    """Pair-sweep input shared by the diameter kernel and its plain version.
+
+    Fills invalid slots with the first valid vertex and centres on the
+    bounding-box midpoint, exactly as ``repro.kernels.ref.max_diameters_sq``
+    does; a duplicated point never raises a maximum, so the sweep needs no
+    mask.  Returns the (3, Mp) SoA transpose, padded to a multiple of
+    ``block`` with duplicates of the last vertex.
+    """
+    verts = torch.as_tensor(verts, dtype=torch.float32)
+    m = torch.as_tensor(mask, device=verts.device).bool()
+    if verts.ndim != 2 or verts.shape[1] != 3 or m.shape != verts.shape[:1]:
+        raise ValueError(f"need verts (M, 3) and mask (M,), got {tuple(verts.shape)} "
+                         f"and {tuple(m.shape)}")
+    if verts.shape[0] == 0:
+        raise ValueError("empty vertex list")
+    v0 = verts[m.to(torch.uint8).argmax()]
+    vfill = torch.where(m[:, None], verts, v0)
+    vfill = vfill - 0.5 * (vfill.amin(0) + vfill.amax(0))
+    pad = -vfill.shape[0] % block
+    if pad:
+        vfill = torch.cat([vfill, vfill[-1:].expand(pad, 3)])
+    return vfill.t().contiguous()
+
+
+def diameter_sweep(v: torch.Tensor) -> torch.Tensor:
+    """(4,) max squared distances [3D, xy, xz, yz] over all pairs of ``v``.
+
+    ``v`` is the (3, Mp) output of :func:`diameter_input`.  Row blocks bound
+    the memory; the per-pair operation order is the kernel's.
+    """
+    mp = v.shape[1]
+    rows = max(1, min(mp, _SWEEP_ELEMS // mp))
+    best = torch.full((4,), NEG, dtype=torch.float32, device=v.device)
+    for r0 in range(0, mp, rows):
+        dx, dy, dz = (v[a, r0:r0 + rows, None] - v[a, None, :] for a in range(3))
+        qx, qy, qz = dx * dx, dy * dy, dz * dz
+        qxy = qx + qy
+        best = torch.maximum(best, torch.stack([
+            (qxy + qz).amax(), qxy.amax(), (qx + qz).amax(), (qy + qz).amax(),
+        ]))
+    return best.clamp(min=0.0)
+
+
+def max_diameters_sq(verts, mask, block: int = 256) -> torch.Tensor:
+    """Plain version of the diameter kernel: (4,) float32 squared maxima."""
+    return diameter_sweep(diameter_input(verts, mask, block))

@@ -21,6 +21,10 @@ def pytest_configure(config):
         "markers",
         "tier1: fast correctness gate run by scripts/ci_smoke.sh",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's hand kernels); skips without one",
+    )
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,111 @@
+"""Rules of the PyTorch port: no JAX, no reference import, no CPU fallback.
+
+Also holds the state carried across from the reference (the marching-cubes
+tables and the synthetic case data) equal to the JAX package's.
+"""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import mc_tables as jax_mct  # noqa: E402
+from repro.data import nifti as jax_nifti  # noqa: E402
+from repro.data import synthetic as jax_synth  # noqa: E402
+from repro_torch.core import ShapeFeatureExtractor, mc_tables  # noqa: E402
+from repro_torch.data import nifti, synthetic  # noqa: E402
+from repro_torch.kernels import marching_cubes, ops  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+_FORBIDDEN_IMPORT = re.compile(r"^\s*(?:from|import)\s+(?:jax|repro)\b", re.M)
+
+
+def test_import_loads_no_jax_or_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core.shape_features, repro_torch.kernels.ops\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sources_import_no_jax_or_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "examples" / "quickstart_torch.py"]
+    assert len(files) > 10
+    offenders = [str(p) for p in files if _FORBIDDEN_IMPORT.search(p.read_text())]
+    assert not offenders
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShapeFeatureExtractor()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.mc_volume_area(np.zeros((3, 3, 3), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.max_diameters(np.zeros((2, 3), np.float32), np.ones(2, bool))
+
+
+def test_unknown_device_and_variant_raise():
+    with pytest.raises(ValueError):
+        ShapeFeatureExtractor(device="meta")
+    with pytest.raises(ValueError):
+        ShapeFeatureExtractor(device="cpu", diameter_variant="gram")
+
+
+@pytest.mark.parametrize("name", ["CORNERS", "EDGES", "TRI_TABLE", "N_TRIS",
+                                  "EDGE_CELL_AXIS", "EDGE_CELL_OFFSET", "MAX_TRIS"])
+def test_mc_tables_equal_reference(name):
+    ours, theirs = getattr(mc_tables, name), getattr(jax_mct, name)
+    np.testing.assert_array_equal(ours, theirs)
+    assert np.asarray(ours).dtype == np.asarray(theirs).dtype
+
+
+def test_cuda_table_header_is_generated_from_tables():
+    assert marching_cubes.TABLE_HEADER.read_text() == marching_cubes.tri_table_source()
+
+
+@pytest.mark.parametrize("shape,seed,spacing", [
+    ((48, 40, 36), 11, (1.0, 1.0, 1.0)),
+    ((28, 30, 59), 1, (2.0, 1.0, 0.5)),
+    ((39, 33, 11), 19, (0.8, 0.8, 3.0)),
+])
+def test_make_case_equals_reference(shape, seed, spacing):
+    ours = synthetic.make_case(shape, seed=seed, spacing=spacing)
+    theirs = jax_synth.make_case(shape, seed=seed, spacing=spacing)
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+
+
+def test_table2_cases_equal_reference():
+    assert synthetic.TABLE2_CASES == jax_synth.TABLE2_CASES
+
+
+@pytest.mark.parametrize("suffix,dtype,slope,inter", [
+    (".nii", np.uint8, 0.0, 0.0),
+    (".nii.gz", np.float32, 0.0, 0.0),
+    (".nii", np.int16, 2.0, -1024.0),
+])
+def test_read_nifti_equals_reference(tmp_path, suffix, dtype, slope, inter):
+    rng = np.random.default_rng(0)
+    data = (rng.random((7, 5, 4)) * 100).astype(dtype)
+    path = jax_nifti.write_nifti(tmp_path / f"case{suffix}", data, (0.8, 0.8, 2.5),
+                                 scl_slope=slope, scl_inter=inter)
+    ours, theirs = nifti.read_nifti(path), jax_nifti.read_nifti(path)
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
