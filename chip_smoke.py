@@ -6,12 +6,14 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``src/repro_torch/csrc`` with nvcc,
-holds each against its plain PyTorch version on the card, drives the main
-path (single-case shape extraction through ``ShapeFeatureExtractor``) over
-the 20 synthetic Table-2 cases, checks the features against the port's CPU
-path, and prints one JSON line per kernel and a last JSON status line.
-Any failed check raises, so the script exits non-zero; without a CUDA
-device it exits non-zero before printing any result.
+holds each against its plain PyTorch version on the card, drives the two
+main paths -- single-case shape extraction (``ShapeFeatureExtractor``) over
+the 20 synthetic Table-2 cases, and the batched two-pass extractor
+(``BatchedExtractor``) over a 60-case cohort of them -- checks the
+features against the port's CPU path, and prints the kernels line and a
+last JSON status line.  Any failed check raises, so the script exits
+non-zero; without a CUDA device it exits non-zero before printing any
+result.
 
 Phases:
   1. set-up: card, versions, TF32 flags, kernel build
@@ -23,7 +25,23 @@ Phases:
      prune off, launch counts reset just before and read just after;
      features against the CPU path at rtol 1e-4, prune on == off bitwise;
      then one traced case for the device's busy and idle share
-  5. the kernels line; 6. the status line
+  5. batched kernels: one uncounted run of the batched path over the cohort
+     (table2_suite seeds 0, 1, 2: 60 cases) records every launch's inputs;
+     each launch is held against its plain version (compaction and
+     diameter bitwise, MC rtol 1e-5) and each case against a launch of its
+     own, a batch of one (MC and diameter bitwise); the compaction kernel
+     also on five keep patterns x B in {1, 3, 16} x M in {512, 4096,
+     131072}; times, device times, bounds and the library yardstick at the
+     largest launch
+  6. batched main path: launch counts reset, BatchedExtractor().run over
+     the 60 cases, counts read; rows == extract_one bitwise (seed 0), ==
+     phase 4's CPU features at rtol 1e-4, device_compact off == on
+     bitwise, prune off == on diameters bitwise on the 5 smallest cases;
+     cases/s against the single-case loop (two interleaved rounds); one
+     traced run for the busy and idle share; the default and the one-pass
+     path under CUDA sync debugging, no host sync outside the counted
+     fetches
+  7. the kernels line; 8. the status line
 """
 import json
 import statistics
@@ -37,10 +55,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core import ShapeFeatureExtractor, crop_to_roi  # noqa: E402
+from repro_torch.core import BatchedExtractor, ShapeFeatureExtractor, crop_to_roi  # noqa: E402
 from repro_torch.core import mc_tables  # noqa: E402
 from repro_torch.data.synthetic import table2_suite  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import compact as cp  # noqa: E402
 from repro_torch.kernels import diameter as dm  # noqa: E402
 from repro_torch.kernels import marching_cubes as mc  # noqa: E402
 
@@ -63,6 +82,10 @@ KEYS = [
     "LeastAxisLength", "Elongation", "Flatness",
 ]
 DIAM_KEYS = KEYS[8:12]
+# the batched row's columns, by name in the single-case feature dict
+ROW_KEYS = ["MeshVolume", "SurfaceArea", "Maximum3DDiameter", "Maximum2DDiameterSlice",
+            "Maximum2DDiameterRow", "Maximum2DDiameterColumn", "_n_mesh_vertices"]
+PATTERNS = ["random", "zero-survivor", "all-survivor", "cap-boundary", "overflow"]
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -105,9 +128,83 @@ def kernel_us(per_kernel, names):
     return f"{total:.2f} us" if total > 0 else "not measured"
 
 
+def zero_counts():
+    """Sets every kernel's launch count to 0."""
+    mc.LAUNCHES = dm.LAUNCHES = cp.LAUNCHES = 0
+
+
+def read_counts():
+    """Launches of each kernel since :func:`zero_counts`.  The single-case
+    wrappers launch the batched kernels with a batch of one, so each path
+    is counted in a run of its own."""
+    return {"marching_cubes": mc.LAUNCHES, "diameter": dm.LAUNCHES, "compact": cp.LAUNCHES}
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def mc_bound_ms(vols, dev):
+    """Least time (ms) of marching cubes over ``vols`` (a list of volumes):
+    each voxel read once, or the FP32 operations of its cells and
+    triangles, whichever is larger."""
+    n_tris = cells = 0
+    table = torch.as_tensor(mc_tables.N_TRIS, device=dev)
+    for vol in vols:
+        cube = ref._cell_cube_index(vol, 0.5).long()
+        n_tris += int(table[cube].sum())
+        cells += cube.numel()
+    nbytes = 4 * sum(v.numel() for v in vols) + 8 * len(vols)
+    ops_ = MC_OPS_PER_CELL * cells + MC_OPS_PER_TRIANGLE * n_tris
+    return {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "operations": ops_ / PEAK_FP32_PER_S * 1e3}, n_tris
+
+
+def diam_bound_ms(masks):
+    """Least time (ms) of the pair sweeps over (M,) or (B, M) masks: 13
+    bytes per slot and 16 per result, or 14 FP32 operations per pair of
+    valid vertices, whichever is larger."""
+    masks = masks.reshape(-1, masks.shape[-1])
+    valid = masks.sum(1).double()
+    pairs = int((valid * (valid + 1) / 2).sum())
+    return {"bytes": (13 * masks.numel() + 16 * len(masks)) / PEAK_BYTES_PER_S * 1e3,
+            "operations": DIAM_OPS_PER_PAIR * pairs / PEAK_FP32_PER_S * 1e3}, pairs
+
+
+def keep_pattern(case, m, cap, rng):
+    """The five keep patterns of tests/test_pipeline_device_compact.py."""
+    if case == "random":
+        return rng.random(m) < 0.3
+    if case == "zero-survivor":
+        return np.zeros(m, bool)
+    if case == "all-survivor":
+        return np.ones(m, bool)
+    keep = np.zeros(m, bool)
+    keep[rng.choice(m, size=cap if case == "cap-boundary" else cap + 57, replace=False)] = True
+    return keep
+
+
+class Recorder:
+    """Wraps a module's kernel wrapper so that one run of the main path
+    leaves a copy of every launch's inputs (for the kernel checks)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def record(*args, **kwargs):
+            self.calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                    for a in args))
+            return self.fn(*args, **kwargs)
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
 
 
 def sphere_volume(n, r):
@@ -165,11 +262,7 @@ def main():
               f"rtol 1e-5 ok, repeat bitwise ok")
     mc_ms = time_ms(lambda: mc.mc_volume_area(big_dev, 0.5, sp))
     mc_plain_ms = time_ms(lambda: ref.mc_volume_area(big_dev, 0.5, sp))
-    cube = ref._cell_cube_index(big_dev, 0.5).long()
-    n_tris = int(torch.as_tensor(mc_tables.N_TRIS, device=dev)[cube].sum())
-    mc_bytes = 4 * big.size + 2 * 4
-    mc_ops = MC_OPS_PER_CELL * cube.numel() + MC_OPS_PER_TRIANGLE * n_tris
-    mc_bound = {"bytes": mc_bytes / PEAK_BYTES_PER_S * 1e3, "operations": mc_ops / PEAK_FP32_PER_S * 1e3}
+    mc_bound, n_tris = mc_bound_ms([big_dev], dev)
     mc_dev, _ = device_trace(lambda: mc.mc_volume_area(big_dev, 0.5, sp), reps=10)
     print(f"[mc] 00001-1: kernel {mc_ms:.4f} ms/call (device kernels "
           f"{kernel_us(mc_dev, ['mc_partials_kernel', 'mc_finalize_kernel'])}), plain "
@@ -201,9 +294,7 @@ def main():
     diam_ms = time_ms(lambda: dm.max_diameters_sq(verts, vmask))
     diam_plain_ms = time_ms(lambda: ref.max_diameters_sq(verts, vmask, dm.DEFAULT_BLOCK),
                             reps=5, warmup=1)
-    pairs = n_big * (n_big + 1) // 2
-    diam_bound = {"bytes": (13 * len(verts) + 16) / PEAK_BYTES_PER_S * 1e3,
-                  "operations": DIAM_OPS_PER_PAIR * pairs / PEAK_FP32_PER_S * 1e3}
+    diam_bound, pairs = diam_bound_ms(vmask)
     diam_dev, _ = device_trace(lambda: dm.max_diameters_sq(verts, vmask), reps=10)
     print(f"[diam] 00001-1: kernel {diam_ms:.4f} ms/call (device kernels "
           f"{kernel_us(diam_dev, ['diameter_tiles_kernel', 'diameter_finalize_kernel'])}), plain "
@@ -219,8 +310,7 @@ def main():
 
     # -- 4. the main path ---------------------------------------------------
     ext = ShapeFeatureExtractor()  # default device: the card
-    mc.LAUNCHES = 0
-    dm.LAUNCHES = 0
+    zero_counts()
     results = {}
     t0 = time.perf_counter()
     for name, img, msk, sp in suite:
@@ -231,7 +321,7 @@ def main():
     wall_s = time.perf_counter() - t0
     img, msk, sp = cases["00001-1"]
     unpruned = ShapeFeatureExtractor(prune=False).execute(img, msk, sp)
-    launches = {"mc_volume_area": mc.LAUNCHES, "max_diameters_sq": dm.LAUNCHES}
+    launches = read_counts()
     print(f"[main] {len(suite)} cases in {wall_s:.3f} s = {len(suite) / wall_s:.3f} cases/s; "
           f"launches {launches}")
     # wall_ms: host clock around execute; it adds the untimed PCA and feature
@@ -251,15 +341,17 @@ def main():
           f"{[pruned[k] for k in DIAM_KEYS]} vs {[unpruned[k] for k in DIAM_KEYS]}")
     print("[main] 00001-1: prune on == prune off diameters, bitwise")
     cpu = ShapeFeatureExtractor(device="cpu")
+    cpu_feats = {}  # phase 6 holds the batched rows against these too
     for name, img, msk, sp in suite:
-        ref_feats = cpu.execute(img, msk, sp)
+        ref_feats = cpu_feats[name] = cpu.execute(img, msk, sp)
         feats = results[name][0]
         for k in KEYS:
             np.testing.assert_allclose(feats[k], ref_feats[k], rtol=1e-4, err_msg=f"{name} {k}")
         check(feats["_n_mesh_vertices"] == ref_feats["_n_mesh_vertices"], f"{name}: vertex count")
     print(f"[main] all {len(suite)} cases: card == CPU path (17 features rtol 1e-4, "
           f"vertex counts exact)")
-    check(all(n > 0 for n in launches.values()), f"a kernel of the path never ran: {launches}")
+    check(launches["marching_cubes"] > 0 and launches["diameter"] > 0,
+          f"a kernel of the path never ran: {launches}")
     # device busy and idle share of one traced execute (after the counted run)
     for name in ("00001-1", "00009-2"):
         img, msk, sp = cases[name]
@@ -270,23 +362,204 @@ def main():
               f"share {1 - busy_ms / wall_ms:.4f}, {len(per_kernel)} kernel names; top: "
               + "; ".join(f"{k[:48]} {us:.1f} us" for k, us in top))
 
-    # -- 5. kernels line ----------------------------------------------------
+    # -- 5. batched kernels ---------------------------------------------------
+    cohort = [c for seed in (0, 1, 2) for c in table2_suite(seed=seed)]
+    cohort_cases = [(img, msk, sp) for _, img, msk, sp in cohort]
+    t0 = time.perf_counter()
+    with Recorder(cp, "compact_batch") as rec_cp, \
+            Recorder(mc, "mc_volume_area_batch") as rec_mc, \
+            Recorder(dm, "max_diameters_sq_batch") as rec_dm:
+        BatchedExtractor().run(cohort_cases)
+    torch.cuda.synchronize()
+    print(f"[batch] uncounted recording run over {len(cohort)} cases: "
+          f"{time.perf_counter() - t0:.3f} s; launches recorded: compaction "
+          f"{len(rec_cp.calls)}, MC {len(rec_mc.calls)}, diameter {len(rec_dm.calls)}")
+
+    # compaction: five keep patterns, then every launch of the run, bitwise
+    rng = np.random.default_rng(0)
+    cp_err = 0.0
+    for m in (512, 4096, 131072):
+        for b in (1, 3, 16):
+            cap = m // 2
+            v = torch.from_numpy((rng.normal(size=(b, m, 3)) * 20).astype(np.float32)).to(dev)
+            for pattern in PATTERNS:
+                k = torch.from_numpy(np.stack([keep_pattern(pattern, m, cap, rng)
+                                               for _ in range(b)])).to(dev)
+                got, want = cp.compact_batch(v, k, cap), ref.compact_batch(v, k, cap)
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"compaction kernel vs plain, {pattern} B={b} M={m}")
+                cp_err = max(cp_err, float((got[0] - want[0]).abs().max()))
+    print(f"[batch] compaction == plain bitwise: 5 patterns x B in (1, 3, 16) x "
+          f"M in (512, 4096, 131072)")
+    for v, k, cap in rec_cp.calls:
+        got, want = cp.compact_batch(v, k, cap), ref.compact_batch(v, k, cap)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"compaction kernel vs plain on the main path's launch B={len(v)} cap={cap}")
+        cp_err = max(cp_err, float((got[0] - want[0]).abs().max()))
+    print(f"[batch] compaction == plain bitwise on all {len(rec_cp.calls)} launches of the "
+          f"run: " + ", ".join(f"{tuple(v.shape[:2])}->{cap}" for v, _, cap in rec_cp.calls))
+    cv, ck, ccap = max(rec_cp.calls, key=lambda c: c[0].numel())
+    cp_ms = time_ms(lambda: cp.compact_batch(cv, ck, ccap))
+    cp_plain_ms = time_ms(lambda: ref.compact_batch(cv, ck, ccap))
+    cp_lib_ms = time_ms(lambda: [cv[b][ck[b]] for b in range(len(cv))])
+    # bytes the function must move: every keep flag, the survivors below cap,
+    # every output slot and mask byte, the counts
+    cb, cm_ = ck.shape
+    c_read = int(ck.sum(1).clamp(max=ccap).sum())
+    cp_bound = {"bytes": (cb * cm_ + 12 * c_read + 13 * cb * ccap + 4 * cb)
+                / PEAK_BYTES_PER_S * 1e3}
+    cp_dev, _ = device_trace(lambda: cp.compact_batch(cv, ck, ccap), reps=10)
+    print(f"[batch] compaction at the largest launch (B={cb}, M={cm_}, cap={ccap}): kernel "
+          f"{cp_ms:.4f} ms/call (device {kernel_us(cp_dev, ['compact_kernel'])}), plain "
+          f"{cp_plain_ms:.4f} ms, library (per-case boolean gather) {cp_lib_ms:.4f} ms, "
+          f"bound {cp_bound['bytes']:.6f} ms (bytes; {c_read} survivors read)")
+
+    # batched MC: every launch against the plain version and each case alone
+    mcb_err = 0.0
+    for vols, iso, sps in rec_mc.calls:
+        got = mc.mc_volume_area_batch(vols, iso, sps)
+        plain = ref.mc_volume_area_batch(vols, iso, sps)
+        np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(), rtol=1e-5,
+                                   err_msg=f"batched MC vs plain, bucket {tuple(vols.shape)}")
+        mcb_err = max(mcb_err, float((got - plain).abs().max()))
+        for b in range(len(vols)):
+            one = torch.stack(mc.mc_volume_area(vols[b], iso, sps[b]))
+            check(torch.equal(got[b], one),
+                  f"batched MC vs batch of one, bucket {tuple(vols.shape)} case {b}")
+    print(f"[batch] batched MC == batch of one bitwise and == plain at rtol 1e-5 on all "
+          f"{len(rec_mc.calls)} launches ({sum(len(c[0]) for c in rec_mc.calls)} cases); "
+          f"max |kernel - plain| = {mcb_err}")
+    mv, miso, msps = max(rec_mc.calls, key=lambda c: c[0].numel())
+    mcb_ms = time_ms(lambda: mc.mc_volume_area_batch(mv, miso, msps))
+    mcb_plain_ms = time_ms(lambda: ref.mc_volume_area_batch(mv, miso, msps), reps=5, warmup=1)
+    mcb_bound, mcb_tris = mc_bound_ms(list(mv), dev)
+    mcb_dev, _ = device_trace(lambda: mc.mc_volume_area_batch(mv, miso, msps), reps=10)
+    print(f"[batch] batched MC at the largest launch {tuple(mv.shape)}: kernel {mcb_ms:.4f} "
+          f"ms/call (device "
+          f"{kernel_us(mcb_dev, ['mc_partials_kernel', 'mc_finalize_kernel'])}), "
+          f"plain {mcb_plain_ms:.4f} ms, bound {max(mcb_bound.values()):.5f} ms (bytes "
+          f"{mcb_bound['bytes']:.5f}, ops {mcb_bound['operations']:.5f}; {mcb_tris} triangles)")
+
+    # batched diameter: every launch against the plain version and each case alone
+    dmb_err = 0.0
+    for v, k in rec_dm.calls:
+        got = dm.max_diameters_sq_batch(v, k)
+        plain = ref.max_diameters_sq_batch(v, k, dm.DEFAULT_BLOCK)
+        check(torch.equal(got, plain), f"batched diameter vs plain, stack {tuple(v.shape)}")
+        dmb_err = max(dmb_err, float((got - plain).abs().max()))
+        for b in range(len(v)):
+            check(torch.equal(got[b], dm.max_diameters_sq(v[b], k[b])),
+                  f"batched diameter vs batch of one, stack {tuple(v.shape)} case {b}")
+    print(f"[batch] batched diameter == plain == batch of one bitwise on all "
+          f"{len(rec_dm.calls)} launches: "
+          + ", ".join(f"{tuple(v.shape[:2])}" for v, _ in rec_dm.calls))
+    dv, dk = max(rec_dm.calls, key=lambda c: diam_bound_ms(c[1])[1])
+    dmb_ms = time_ms(lambda: dm.max_diameters_sq_batch(dv, dk))
+    dmb_plain_ms = time_ms(lambda: ref.max_diameters_sq_batch(dv, dk, dm.DEFAULT_BLOCK),
+                           reps=5, warmup=1)
+    dmb_bound, dmb_pairs = diam_bound_ms(dk)
+    dmb_dev, _ = device_trace(lambda: dm.max_diameters_sq_batch(dv, dk), reps=10)
+    print(f"[batch] batched diameter at the launch with most pairs {tuple(dv.shape)}: kernel "
+          f"{dmb_ms:.4f} ms/call (device "
+          f"{kernel_us(dmb_dev, ['diameter_tiles_kernel', 'diameter_finalize_kernel'])}), "
+          f"plain {dmb_plain_ms:.4f} ms, bound {max(dmb_bound.values()):.5f} ms "
+          f"({dmb_pairs} pairs x {DIAM_OPS_PER_PAIR} FP32 ops)")
+    del rec_cp, rec_mc, rec_dm
+
+    # -- 6. the batched main path -------------------------------------------
+    ext = BatchedExtractor()  # default device: the card
+    zero_counts()
+    t0 = time.perf_counter()
+    rows, stats = ext.run(cohort_cases)
+    batch_s = [time.perf_counter() - t0]
+    batch_launches = read_counts()
+    print(f"[bmain] run over {len(cohort)} cases: {batch_s[0]:.3f} s = "
+          f"{len(cohort) / batch_s[0]:.3f} cases/s; launches {batch_launches}")
+    print(f"[bmain] host_fetches {stats['host_fetches']}; pruned_cases "
+          f"{stats['pruned_cases']}; vertex_buckets {stats['vertex_buckets']}; "
+          f"prune_seconds {stats['prune_seconds']:.4f}")
+    print(f"[bmain] plan {json.dumps(stats['plan'])}")
+    check(all(n > 0 for n in batch_launches.values()),
+          f"a kernel of the batched path never ran: {batch_launches}")
+    rows = np.stack(rows)
+    check(rows.shape == (len(cohort), 7) and np.isfinite(rows).all()
+          and (rows[:, :6] > 0).all(), "batched rows: shape, finite, positive")
+    for i, (name, img, msk, sp) in enumerate(cohort[:len(suite)]):
+        one = ext.extract_one(img, msk, sp)
+        check(np.array_equal(one, rows[i]), f"{name}: run != extract_one: {rows[i]} vs {one}")
+        want = np.array([cpu_feats[name][k] for k in ROW_KEYS])
+        np.testing.assert_allclose(rows[i, :6], want[:6], rtol=1e-4, err_msg=f"{name} vs CPU")
+        check(rows[i, 6] == want[6], f"{name}: vertex count {rows[i, 6]} vs {want[6]}")
+    print(f"[bmain] seed 0: run == extract_one bitwise and == phase 4's CPU features "
+          f"(rtol 1e-4, vertex counts exact) on all {len(suite)} cases")
+    host_rows, host_stats = BatchedExtractor(device_compact=False).run(cohort_cases[:len(suite)])
+    check(np.array_equal(np.stack(host_rows), rows[:len(suite)]),
+          "device_compact=False != True on the seed-0 window")
+    print(f"[bmain] seed 0: device_compact=False == True bitwise (host_fetches "
+          f"{host_stats['host_fetches']})")
+    small = sorted(range(len(suite)), key=lambda i: suite[i][2].size)[:5]
+    one_ext = BatchedExtractor(prune=False)
+    one_ext.run([cohort_cases[i] for i in small[:1]])  # first use of the one-pass path
+    with one_ext.executor.strict_syncs():
+        one_rows, one_stats = one_ext.run([cohort_cases[i] for i in small])
+    check(not one_stats["errors"] and np.array_equal(np.stack(one_rows)[:, 2:6], rows[small, 2:6]),
+          f"prune=False != prune=True diameters on the 5 smallest seed-0 cases: "
+          f"{one_stats['errors']}")
+    print(f"[bmain] prune=False == prune=True diameters bitwise on "
+          f"{[suite[i][0] for i in small]} (host_fetches {one_stats['host_fetches']}; "
+          f"no other host sync under CUDA sync debugging)")
+
+    single = ShapeFeatureExtractor()
+    single_s = []
+    for rnd in range(2):
+        t0 = time.perf_counter()
+        for img, msk, sp in cohort_cases:
+            single.execute(img, msk, sp)
+        single_s.append(time.perf_counter() - t0)
+        if rnd == 0:
+            t0 = time.perf_counter()
+            ext.run(cohort_cases)
+            batch_s.append(time.perf_counter() - t0)
+    print("[bmain] cases/s over the 60 cases, rounds in order batched, single, batched, "
+          f"single: batched {[round(len(cohort) / t, 3) for t in batch_s]}, single-case "
+          f"loop {[round(len(cohort) / t, 3) for t in single_s]}")
+    seed0 = cohort_cases[:len(suite)]
+    per_kernel, wall_ms = device_trace(lambda: ext.run(seed0))
+    busy_ms = sum(per_kernel.values()) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[btrace] run over the 20 seed-0 cases: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, {len(per_kernel)} "
+          "kernel names; top: " + "; ".join(f"{k[:48]} {us:.1f} us" for k, us in top))
+    # every host sync of a window is one of the executor's counted fetches
+    with ext.executor.strict_syncs():
+        strict_rows, strict_stats = ext.run(seed0)
+    check(not strict_stats["errors"] and np.array_equal(np.stack(strict_rows), rows[:len(suite)]),
+          f"seed-0 rows under CUDA sync debugging differ: {strict_stats['errors']}")
+    print(f"[bmain] seed 0 under CUDA sync debugging ('error' outside the counted "
+          f"fetches): no other host sync; host_fetches {strict_stats['host_fetches']}")
+
+    # -- 7. kernels line ----------------------------------------------------
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
+        return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(bound.values()),
+                "bound_by": max(bound, key=bound.get), "library_ms": library_ms}
+
     kernels = [
-        {"name": "mc_volume_area", "route": "cuda",
-         "source": "src/repro_torch/csrc/marching_cubes.cu",
-         "replaces": "src/repro/kernels/marching_cubes.py:98",
-         "launches": launches["mc_volume_area"], "max_abs_err": mc_err,
-         "ms": mc_ms, "plain_ms": mc_plain_ms, "bound_ms": max(mc_bound.values()),
-         "bound_by": max(mc_bound, key=mc_bound.get), "library_ms": None},
-        {"name": "max_diameters_sq", "route": "cuda",
-         "source": "src/repro_torch/csrc/diameter.cu",
-         "replaces": "src/repro/kernels/diameter.py:137",
-         "launches": launches["max_diameters_sq"], "max_abs_err": diam_err,
-         "ms": diam_ms, "plain_ms": diam_plain_ms, "bound_ms": max(diam_bound.values()),
-         "bound_by": max(diam_bound, key=diam_bound.get), "library_ms": None},
+        entry("mc_volume_area", "marching_cubes.cu", "src/repro/kernels/marching_cubes.py:98",
+              launches["marching_cubes"], mc_err, mc_ms, mc_plain_ms, mc_bound, None),
+        entry("max_diameters_sq", "diameter.cu", "src/repro/kernels/diameter.py:137",
+              launches["diameter"], diam_err, diam_ms, diam_plain_ms, diam_bound, None),
+        entry("compact_batch", "compact.cu", "src/repro/kernels/compact.py:80",
+              batch_launches["compact"], cp_err, cp_ms, cp_plain_ms, cp_bound, cp_lib_ms),
+        entry("mc_volume_area_batch", "marching_cubes.cu",
+              "src/repro/kernels/marching_cubes.py:330", batch_launches["marching_cubes"],
+              mcb_err, mcb_ms, mcb_plain_ms, mcb_bound, None),
+        entry("max_diameters_sq_batch", "diameter.cu", "src/repro/kernels/diameter.py:137",
+              batch_launches["diameter"], dmb_err, dmb_ms, dmb_plain_ms, dmb_bound, None),
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 6. status ------------------------------------------------------------
+    # -- 8. status ------------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

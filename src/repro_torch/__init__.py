@@ -2,9 +2,12 @@
 
 A port of the JAX package ``repro`` to an NVIDIA H100, laid out like it
 (``core/``, ``kernels/``, ``data/``), that imports neither JAX nor ``repro``.
-The two TPU kernels of single-case shape extraction are replaced by CUDA
-C++ kernels written for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first
-use; beside each sits its plain PyTorch version.  Entry points run on the
+It runs single-case shape extraction (``ShapeFeatureExtractor``) and the
+batched two-pass cohort path (``BatchedExtractor``).  The TPU kernels on
+those paths (marching cubes, the diameter sweep, segmented compaction, and
+the batched forms of the first two) are replaced by CUDA C++ kernels
+written for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use;
+beside each sits its plain PyTorch version.  Entry points run on the
 card unless the caller passes ``device='cpu'``, and raise when there is no
 card.
 
@@ -15,6 +18,13 @@ regenerates both with its own copies of the numpy generators
 ``make_case`` array-equal to the reference's.  No other conversion function
 is needed.
 """
-from repro_torch.core import ShapeFeatureExtractor, StageTimes, crop_to_roi, resolve_device
+from repro_torch.core import (
+    BatchedExtractor,
+    ShapeFeatureExtractor,
+    StageTimes,
+    crop_to_roi,
+    resolve_device,
+)
 
-__all__ = ["ShapeFeatureExtractor", "StageTimes", "crop_to_roi", "resolve_device"]
+__all__ = ["BatchedExtractor", "ShapeFeatureExtractor", "StageTimes", "crop_to_roi",
+           "resolve_device"]

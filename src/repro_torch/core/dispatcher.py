@@ -26,3 +26,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+
+
+def to_device(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Host data (numpy, a list, a CPU tensor) as a tensor on ``device``,
+    queued without a host sync.
+
+    A pageable host-to-device copy synchronises the stream, so on the card
+    the data goes through a pinned staging buffer and a ``non_blocking``
+    copy; PyTorch's pinned allocator keeps the buffer until the copy is
+    done.  A tensor already on the card is only moved to ``device``.
+    """
+    x = torch.as_tensor(x, dtype=dtype)
+    if device.type != "cuda" or x.device.type != "cpu":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)

@@ -1,0 +1,588 @@
+"""Executor layer: runs :class:`~repro_torch.core.plan.ExtractionPlan`s with a
+device-resident data plane on the card.
+
+Counterpart of ``repro.core.executor`` for the counted schedule with
+count-sized prep.  ``submit_window`` turns one window of cases into
+device launches, ``collect_window`` drains the results; the thin
+:class:`~repro_torch.core.pipeline.BatchedExtractor` facade sits on top.
+
+Data plane of one window:
+
+* **pass 0 (prep):** each case is cropped, padded to its shape bucket and
+  staged on the device once; its dedup vertex fields and count are
+  computed there, the count is fetched (one host sync per non-empty case)
+  and sizes the case's vertex cap, and the stable active-first compaction
+  fills a ``(cap, 3)`` vertex list on the device;
+* **pass 1:** per cap group, one batched pruning bound
+  (``prune.keep_mask_batch``), one ``(B, 2)`` count fetch that sizes each
+  case's pruned bucket (``prune.plan_compaction``), and one compaction
+  kernel launch per target bucket (``kernels/compact``); the vertex data
+  never leaves the card;
+* **pass 2a:** one batched marching-cubes launch per shape bucket, sliced
+  straight off a device pool of the staged masks;
+* **pass 2b:** one batched diameter launch per pruned vertex bucket, off
+  the pass-1 stacks.
+
+Every launch of passes 2a and 2b is queued before any result is drained,
+and each chunk is drained with one fetch.  ``batch_size`` cuts a group
+into chunks of at most that many cases.  PyTorch runs eagerly, so there
+is no compile cache and a short last chunk is launched as it is.
+
+Every device-to-host copy of the executor goes through :meth:`_fetch`,
+under the reference's stage names (``prep``, ``pass1``, ``pass2a``,
+``pass2b``, ``pass2``), and every host-to-device copy is queued from
+pinned memory (``dispatcher.to_device``), so on the default path and the
+one-pass path ``transfer_log`` counts every host sync; the tests hold it
+equal to the reference's, and on the card hold ``submit_window`` to no
+other sync.  The host-compaction baseline also pulls each cap group's
+keep mask inside ``ops.prune_candidates_batch``, uncounted, as the
+reference does.
+
+Parity baselines, as in the reference: ``device_compact=False`` fetches
+each case's vertex list in pass 0 and compacts the survivors on the host;
+``prune=False`` runs the one-pass path (caps from ``plan.vertex_hint``,
+no pruning).  Both give the same rows as the default, bitwise.
+
+A case that fails to load or validate (a NaN-poisoned mask, a bad
+spacing, a loader that raises) is quarantined as an all-NaN row with an
+``errors`` entry in the window stats; an empty mask gives a zero row; the
+rest of the window is unchanged.
+
+Not ported yet, and refused with ``ValueError``: ``schedule='static'`` or
+``'auto'``, ``prep='hint'`` and ``extract_stream`` (ROADMAP.md Queue 1
+item 4(b)), feature families other than shape (item 5), diameter variants
+other than ``'seqacc'`` (item 6), ``retry`` (item 8) and ``mesh``
+(item 9).
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import plan as planlib
+from repro_torch.core.dispatcher import resolve_device, to_device
+from repro_torch.core.shape_features import crop_to_roi
+from repro_torch.kernels import diameter as _diam
+from repro_torch.kernels import marching_cubes as _mc
+from repro_torch.kernels import ops
+from repro_torch.kernels import prune as prune_kernels
+
+
+@contextlib.contextmanager
+def _sync_allowed():
+    """Lifts a CUDA sync debug mode (see :meth:`PlanExecutor.strict_syncs`)
+    for one counted fetch."""
+    prev = torch.cuda.get_sync_debug_mode()
+    if prev:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        if prev:
+            torch.cuda.set_sync_debug_mode(prev)
+
+
+def _unported(what: str, item: str) -> ValueError:
+    return ValueError(f"{what} is not ported yet (ROADMAP.md, Queue 1 item {item})")
+
+
+@dataclasses.dataclass
+class _Prepped:
+    """Pass-0 state for one case (None mask = empty-mask or quarantined case).
+
+    ``mask`` is the bucket-padded mask, staged on the device (the pool
+    entry); ``verts``/``vmask`` stay on the device on the device-compaction
+    path and are host numpy on the host path.
+    """
+
+    mask: torch.Tensor | None = None
+    spacing: np.ndarray | None = None
+    shape: tuple | None = None  # padded shape bucket (MC group key)
+    roi_shape: tuple | None = None  # pre-pad cropped shape (pad stats)
+    verts: object | None = None
+    vmask: object | None = None
+    n_vertices: int = 0  # pre-prune dedup vertex count (a feature)
+    vertex_cap: int = 0  # vertex bucket the diameter sweep runs at
+    prune_info: object | None = None
+    error: str | None = None  # quarantined case: the row degrades to NaNs
+
+
+@dataclasses.dataclass
+class _Window:
+    """One submitted window: every launch issued, nothing drained yet."""
+
+    prepped: list
+    plan: planlib.ExtractionPlan
+    mc_futs: list
+    diam_futs: list
+    fused_futs: list
+    t_prune: float
+
+
+class PlanExecutor:
+    """Plan-driven batched extraction engine (see the module docstring).
+
+    Owns the submit/collect loops and the ``transfer_log`` host-sync
+    census.  ``device`` defaults to ``'cuda'`` and raises without a card;
+    ``device='cpu'`` runs the plain versions of the kernels.
+    ``variant``, ``mc_block`` and ``compact_block`` accept ``'auto'``,
+    which resolves to the port's fixed defaults until the autotuner is
+    ported.
+    """
+
+    N_FEATURES = planlib.row_width(planlib.DEFAULT_FAMILIES)
+    # [vol, area, d3, dxy, dxz, dyz, n_vertices]
+
+    def __init__(self, device=None, variant="auto", mesh=None, prune: bool = True,
+                 mc_block="auto", k_dirs: int = 16, device_compact: bool = True,
+                 compact_block="auto", schedule: str = "counted", prep: str = "count",
+                 transfer_callback=None, retry=None, families=None):
+        self.device = resolve_device(device)
+        if schedule in ("static", "auto"):
+            raise _unported(f"schedule={schedule!r}", "4(b)")
+        if schedule != "counted":
+            raise ValueError(f"schedule must be one of ('counted', 'static', 'auto'), "
+                             f"got {schedule!r}")
+        if prep == "hint":
+            raise _unported("prep='hint'", "4(b)")
+        if prep != "count":
+            raise ValueError(f"prep must be one of ('count', 'hint'), got {prep!r}")
+        self.families = planlib.resolve_families(families)
+        if self.families != planlib.DEFAULT_FAMILIES:
+            raise _unported(f"families={self.families!r}", "5")
+        if variant not in ("auto", "seqacc"):
+            raise _unported(f"diameter variant {variant!r}", "6")
+        if retry is not None:
+            raise _unported("retry", "8")
+        if mesh is not None:
+            raise _unported("mesh", "9")
+        self.n_features = planlib.row_width(self.families)
+        self.variant = variant
+        self.prune = prune
+        self.mc_block = _mc.DEFAULT_BLOCK if mc_block == "auto" else int(mc_block)
+        self.diam_block = _diam.DEFAULT_BLOCK
+        self.k_dirs = k_dirs
+        self.device_compact = device_compact
+        self.compact_block = compact_block
+        self.schedule = schedule
+        self.prep = prep
+        self.transfer_log = collections.Counter()
+        self._transfer_cb = transfer_callback
+
+    # -- host-sync accounting ----------------------------------------------
+
+    def _fetch(self, stage: str, x) -> np.ndarray:
+        """The ONLY device-to-host copy point of the executor.
+
+        Counts every host materialisation per stage in ``transfer_log``.
+        """
+        self.transfer_log[stage] += 1
+        if self._transfer_cb is not None:
+            self._transfer_cb(stage, x)
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            with _sync_allowed():
+                return x.cpu().numpy()
+        if isinstance(x, torch.Tensor):
+            return x.numpy()
+        return np.asarray(x)
+
+    @staticmethod
+    @contextlib.contextmanager
+    def strict_syncs():
+        """Context in which a CUDA host sync outside :meth:`_fetch` raises.
+
+        Sets PyTorch's CUDA sync debug mode to ``'error'``; :meth:`_fetch`
+        lifts it for its own copy.  The check behind the claim that
+        ``transfer_log`` counts every host sync of a submitted window.
+        """
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    # -- launches ------------------------------------------------------------
+
+    def _mc_launch(self, shape, masks, spacings):
+        """Pass 2a: batched MC over one chunk of a shape bucket's pool."""
+        return ops.mc_volume_area_batch(masks, 0.5, spacings, device=self.device,
+                                        block=self.mc_block)
+
+    def _diam_launch(self, cap, verts, vmasks):
+        """Pass 2b: batched diameter sweep over one chunk of a vertex bucket."""
+        return ops.max_diameters_batch(verts, vmasks, device=self.device,
+                                       block=self.diam_block)
+
+    def _fused_launch(self, bucket: planlib.Bucket, masks, spacings):
+        """The one-pass path (``prune=False``): (B, 7) rows of one chunk.
+
+        Batched MC, then per case the vertex fields and the stable
+        compaction into the bucket's hint-sized cap, then one batched
+        sweep over the unpruned lists; the count rides along on the device.
+        """
+        mc = ops.mc_volume_area_batch(masks, 0.5, spacings, device=self.device,
+                                      block=self.mc_block)
+        verts, vmasks, counts = zip(*(
+            ops.compact_vertices(ops.vertex_fields(m, 0.5, sp), bucket.vertex_cap)
+            for m, sp in zip(masks, spacings)
+        ))
+        d = ops.max_diameters_batch(torch.stack(verts), torch.stack(vmasks),
+                                    device=self.device, block=self.diam_block)
+        n = torch.stack(counts).to(torch.float32)[:, None]
+        return torch.cat([mc, d, n], dim=1)
+
+    # -- submit/drain loops ------------------------------------------------
+
+    def _submit(self, entries, launch, make_chunk, batch_size=None):
+        """Launch every chunk of every entry; returns ``[(idxs, future)]``.
+
+        ``entries`` yields ``(group key, case indices, payload)``;
+        ``make_chunk(payload, start, chunk)`` gives one chunk's stacked
+        inputs and ``launch(key, *inputs)`` queues its kernels.  CUDA
+        launches are asynchronous, so the whole window is queued before
+        the collector drains anything.
+        """
+        futs = []
+        for gkey, idxs, payload in entries:
+            bs = batch_size or len(idxs)
+            for s in range(0, len(idxs), bs):
+                chunk = idxs[s : s + bs]
+                futs.append((chunk, launch(gkey, *make_chunk(payload, s, chunk))))
+        return futs
+
+    def _drain(self, futs, stage: str) -> dict:
+        """Fetch submitted futures into ``{case index: np row}``."""
+        out: dict[int, np.ndarray] = {}
+        for idxs, fut in futs:
+            o = self._fetch(stage, fut)
+            for j, i in enumerate(idxs):
+                out[i] = o[j]
+        return out
+
+    @staticmethod
+    def _stacked_chunk(arrays, s, chunk):
+        """Chunk maker over stacked groups (pools, pass-1 output): slices."""
+        return tuple(a[s : s + len(chunk)] for a in arrays)
+
+    def _host_chunk(self, arrays_for_case):
+        """Chunk maker over host per-case arrays (the host-compaction feed)."""
+
+        def make(_, s, chunk):
+            cols = zip(*(arrays_for_case(i) for i in chunk))
+            return tuple(to_device(np.stack(c), self.device) for c in cols)
+
+        return make
+
+    def _pool(self, prepped, idxs):
+        """Device pool of one shape group: (stacked masks, (B, 3) host spacings)."""
+        return (
+            torch.stack([prepped[i].mask for i in idxs]),
+            np.stack([prepped[i].spacing for i in idxs]),
+        )
+
+    # -- pass 0: prep + device staging --------------------------------------
+
+    def _prep_case(self, image, mask, spacing, fields: bool = True) -> _Prepped:
+        """Crop, bucket-pad, stage and compact one case (pass 0).
+
+        ``fields=False`` (the one-pass path, which computes the vertex
+        fields in its own launch) sizes the cap from ``plan.vertex_hint``
+        instead of the measured count.  ``image`` is not read: the shape
+        family needs only the mask.
+        """
+        sp = np.asarray(spacing, np.float32)
+        if not np.any(mask):
+            return _Prepped(spacing=sp)  # empty mask: all-zero feature row
+        _, m, _ = crop_to_roi(mask, mask)
+        roi_shape = m.shape
+        bshape = planlib.shape_bucket(tuple(s - 2 for s in roi_shape))
+        pad = [(0, bs - ms) for bs, ms in zip(bshape, roi_shape)]
+        mdev = to_device(np.pad(m, pad), self.device)  # the pool entry
+        if not fields:
+            hint = planlib.vertex_hint(tuple(s - 2 for s in roi_shape), sp)
+            return _Prepped(mask=mdev, spacing=sp, shape=bshape, roi_shape=roi_shape,
+                            n_vertices=hint, vertex_cap=planlib.vertex_bucket(hint))
+        f = ops.vertex_fields(mdev, 0.5, sp)
+        n = int(self._fetch("prep", ops.count_vertices(f)))
+        cap = planlib.vertex_bucket(n)
+        verts, vmask, _ = ops.compact_vertices(f, cap)
+        if not self.device_compact:  # host path: pull the list per case
+            verts = self._fetch("prep", verts)
+            vmask = self._fetch("prep", vmask)
+        return _Prepped(mask=mdev, spacing=sp, shape=bshape, roi_shape=roi_shape,
+                        verts=verts, vmask=vmask, n_vertices=n, vertex_cap=cap)
+
+    def _prep_case_safe(self, case, fields: bool = True) -> _Prepped:
+        """Quarantining wrapper around :meth:`_prep_case` (pass 0).
+
+        ``case`` is an ``(image, mask, spacing)`` tuple or a zero-argument
+        loader returning one.  Any exception -- a loader error, a
+        non-finite mask or spacing, a crop failure -- quarantines the case:
+        its row is all-NaN, its message rides the window stats, and the
+        rest of the window is untouched.
+        """
+        try:
+            if callable(case):
+                case = case()
+            image, mask, spacing = case
+            m = np.asarray(mask)
+            if np.issubdtype(m.dtype, np.floating) and not np.isfinite(m).all():
+                raise ValueError("non-finite mask (poisoned case)")
+            sp = np.asarray(spacing, np.float64)
+            if sp.shape != (3,) or not np.isfinite(sp).all() or (sp <= 0).any():
+                raise ValueError(f"invalid spacing {spacing!r}")
+            return self._prep_case(image, mask, spacing, fields=fields)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as e:  # the row-level error record
+            return _Prepped(error=f"{type(e).__name__}: {e}")
+
+    def _meta(self, p: _Prepped) -> planlib.CaseMeta:
+        if p.mask is None:
+            return planlib.CaseMeta(None, None, 0, 0)
+        return planlib.CaseMeta(p.shape, p.roi_shape, p.vertex_cap, p.n_vertices)
+
+    def prep_case(self, case) -> _Prepped:
+        """Pass-0 prep of one case, quarantining any load or validation
+        failure (see :meth:`_prep_case_safe`)."""
+        return self._prep_case_safe(case, fields=self.prune)
+
+    def case_meta(self, p: _Prepped) -> planlib.CaseMeta:
+        """Planning metadata of a prepped case."""
+        return self._meta(p)
+
+    # -- pass 1 --------------------------------------------------------------
+
+    def _prune_pass(self, plan, prepped):
+        """Pass 1 (host path): batched bound + per-case host compaction."""
+        for _, idxs in plan.cap_groups.items():
+            batch = ops.prune_candidates_batch(
+                np.stack([prepped[i].verts for i in idxs]),
+                np.stack([prepped[i].vmask for i in idxs]),
+                k_dirs=self.k_dirs, device=self.device,
+            )
+            for i, (v2, m2, info) in zip(idxs, batch):
+                prepped[i].verts, prepped[i].vmask = v2, m2
+                prepped[i].vertex_cap = len(v2)
+                prepped[i].prune_info = info
+
+    def _pass1_counted(self, plan, prepped):
+        """Pass 1 (device path): batched bound + device compaction.
+
+        Per cap group, one bound over the stacked lists, one ``(B, 2)``
+        count fetch that sizes the pruned buckets, and one compaction
+        launch per target bucket.  Decisions come from
+        ``prune.plan_compaction``, the rule the host path follows too.
+        Returns the pass-2b feed: ``[(bucket, case indices, (verts, vmask))]``.
+        """
+        entries = []
+        for cap, idxs in plan.cap_groups.items():
+            verts = torch.stack([prepped[i].verts for i in idxs])
+            masks = torch.stack([prepped[i].vmask for i in idxs])
+            keep, _ = prune_kernels.keep_mask_batch(verts, masks, self.k_dirs)
+            # the one host sync of pass 1: a small (B, 2) matrix
+            counts = self._fetch("pass1", torch.stack([masks.sum(1), keep.sum(1)], dim=1))
+            plans = [
+                prune_kernels.plan_compaction(cap, int(mv), int(mk), planlib.vertex_bucket)
+                for mv, mk in counts
+            ]
+            for i, (cap_out, info) in zip(idxs, plans):
+                prepped[i].prune_info = info
+                prepped[i].vertex_cap = cap_out or cap
+            # keep-originals cases feed pass 2b at their input cap
+            groups = planlib.group_indices(
+                [cap_out if cap_out else ("orig", cap) for cap_out, _ in plans]
+            )
+            for gkey, js in groups.items():
+                if len(js) == len(idxs):  # the whole group agrees: reuse the stacks
+                    sub = (verts, masks, keep)
+                else:
+                    take = to_device(np.asarray(js, np.int64), self.device)
+                    sub = tuple(a.index_select(0, take) for a in (verts, masks, keep))
+                gidxs = [idxs[j] for j in js]
+                if isinstance(gkey, tuple):  # unpruned: originals, input cap
+                    entries.append((cap, gidxs, sub[:2]))
+                    continue
+                cv, cm, _ = ops.compact_survivors_batch(
+                    sub[0], sub[2], gkey, device=self.device, block=self.compact_block)
+                entries.append((gkey, gidxs, (cv, cm)))
+        return entries
+
+    # -- window API ----------------------------------------------------------
+
+    def submit_window(self, cases, batch_size=None) -> _Window:
+        """Prep one window and issue every device launch for it (no drains).
+
+        Each case is an ``(image, mask, spacing)`` tuple or a zero-argument
+        loader; a case that fails to load or validate is quarantined.
+        """
+        prepped = [self._prep_case_safe(c, fields=self.prune) for c in cases]
+        return self.submit_prepped(prepped, batch_size)
+
+    def submit_prepped(self, prepped, batch_size=None) -> _Window:
+        """Plan and submit already-prepped cases."""
+        plan = planlib.build_plan([self._meta(p) for p in prepped], self.schedule,
+                                  families=self.families)
+        if not self.prune:
+            fused_entries = [
+                (bucket, idxs, self._pool(prepped, idxs))
+                for bucket, idxs in plan.fused_groups.items()
+            ]
+            fused_futs = self._submit(fused_entries, self._fused_launch,
+                                      self._stacked_chunk, batch_size)
+            return _Window(prepped, plan, [], [], fused_futs, 0.0)
+
+        t1 = time.perf_counter()
+        if self.device_compact:
+            entries = self._pass1_counted(plan, prepped)
+        else:
+            self._prune_pass(plan, prepped)
+            entries = None
+        t_prune = time.perf_counter() - t1
+
+        mc_entries = [
+            (shape, idxs, self._pool(prepped, idxs))
+            for shape, idxs in plan.shape_groups.items()
+        ]
+        mc_futs = self._submit(mc_entries, self._mc_launch, self._stacked_chunk, batch_size)
+        if entries is not None:
+            diam_futs = self._submit(entries, self._diam_launch, self._stacked_chunk,
+                                     batch_size)
+        else:
+            groups = planlib.group_indices(
+                [None if p.mask is None else len(p.verts) for p in prepped]
+            )
+            diam_futs = self._submit(
+                ((k, idxs, None) for k, idxs in groups.items()),
+                self._diam_launch,
+                self._host_chunk(lambda i: (prepped[i].verts, prepped[i].vmask)),
+                batch_size,
+            )
+        return _Window(prepped, plan, mc_futs, diam_futs, [], t_prune)
+
+    def resubmit_window(self, window: _Window) -> _Window:
+        """Re-submit a window from its prepped device state.
+
+        Pass 1 may have overwritten each case's ``vertex_cap`` with its
+        pass-2b bucket and attached a ``PruneInfo``; both are reset to the
+        prep-time state (the cap is the length of the retained vertex
+        list) before re-planning, so the re-run equals a first run.
+        """
+        for p in window.prepped:
+            if p.mask is None or p.error is not None:
+                continue
+            if p.verts is not None:
+                p.vertex_cap = int(p.verts.shape[0])
+                p.prune_info = None
+        return self.submit_prepped(window.prepped)
+
+    def collect_window(self, window: _Window):
+        """Drain one submitted window; returns ``(rows, stats)`` in input order."""
+        prepped = window.prepped
+        if window.fused_futs:  # one-pass path
+            out = self._drain(window.fused_futs, "pass2")
+            rows = [
+                self._degenerate_row(p) if p.mask is None else np.asarray(out[i], np.float32)
+                for i, p in enumerate(prepped)
+            ]
+            return rows, self._window_stats(window)
+        mc_out = self._drain(window.mc_futs, "pass2a")
+        d_out = self._drain(window.diam_futs, "pass2b")
+        rows = [
+            self._degenerate_row(p) if p.mask is None
+            else self._assemble_row(mc_out[i], d_out[i], p.n_vertices)
+            for i, p in enumerate(prepped)
+        ]
+        return rows, self._window_stats(window)
+
+    @staticmethod
+    def _assemble_row(mc, d, n_vertices) -> np.ndarray:
+        """The shape row: [volume, area, 4 diameters, vertex count], float32."""
+        return np.concatenate([np.asarray(mc, np.float32), np.asarray(d, np.float32),
+                               np.asarray([n_vertices], np.float32)])
+
+    def _degenerate_row(self, p: _Prepped) -> np.ndarray:
+        """Row of a case that ran no launches: zeros (empty mask) or NaNs
+        (quarantined; the message rides the window stats)."""
+        if p.error is not None:
+            return np.full(self.n_features, np.nan, np.float32)
+        return np.zeros(self.n_features, np.float32)
+
+    def _window_stats(self, window: _Window) -> dict:
+        prepped = window.prepped
+        infos = [p.prune_info for p in prepped if p.prune_info is not None]
+        pruned = [inf for inf in infos if inf.pruned]
+        return {
+            "families": list(self.families),
+            "buckets": len(window.plan.shape_groups),
+            "vertex_buckets": len({p.vertex_cap for p in prepped if p.vertex_cap}),
+            "pruned_cases": len(pruned),
+            "empty_cases": sum(1 for p in prepped if p.mask is None and p.error is None),
+            "quarantined_cases": sum(1 for p in prepped if p.error is not None),
+            "errors": {i: p.error for i, p in enumerate(prepped) if p.error is not None},
+            "mean_keep_fraction": (
+                float(np.mean([inf.keep_fraction for inf in infos])) if infos else 1.0
+            ),
+            "prune_seconds": window.t_prune,
+            "plan": window.plan.stats(),
+        }
+
+    # -- public driving ------------------------------------------------------
+
+    def run(self, cases: Sequence, batch_size: int | None = None):
+        """Extract features for (image, mask, spacing) cases (one window).
+
+        Returns a list of (7,) float32 rows in input order plus stats.
+        """
+        t0 = time.perf_counter()
+        fetches0 = dict(self.transfer_log)
+        window = self.submit_window(list(cases), batch_size)
+        results, stats = self.collect_window(window)
+        dt = time.perf_counter() - t0
+        stats.update(
+            cases=window.plan.n_cases,
+            seconds=dt,
+            cases_per_second=window.plan.n_cases / dt if dt > 0 else float("inf"),
+            data_parallel=1,
+            two_pass=self.prune,
+            device_compact=self.prune and self.device_compact,
+            schedule=self.schedule,
+            prep=self.prep,
+            host_fetches={
+                k: v - fetches0.get(k, 0)
+                for k, v in self.transfer_log.items()
+                if v - fetches0.get(k, 0)
+            },
+        )
+        return results, stats
+
+    def extract_stream(self, *args, **kwargs):
+        raise _unported("extract_stream", "4(b)")
+
+    def extract_one(self, image, mask, spacing) -> np.ndarray:
+        """Single-case path with the pipeline's stages: the parity oracle.
+
+        The same bucket padding, pruning and kernels, without batching:
+        the single-case MC and diameter kernels and host compaction.  An
+        empty mask gives zeros.  Batching never changes a row: ``run``
+        equals this bitwise.
+        """
+        p = self._prep_case(image, mask, spacing)
+        if p.mask is None:
+            return np.zeros(self.n_features, np.float32)
+        verts = torch.as_tensor(p.verts, device=self.device)
+        vmask = torch.as_tensor(p.vmask, device=self.device)
+        if self.prune:
+            verts, vmask, p.prune_info = ops.prune_candidates(verts, vmask, k_dirs=self.k_dirs)
+        vol, area = ops.mc_volume_area(p.mask, 0.5, p.spacing, device=self.device,
+                                       block=self.mc_block)
+        d = ops.max_diameters(verts, vmask, device=self.device, block=self.diam_block)
+        out = self._fetch("extract_one", torch.cat([torch.stack([vol, area]), d]))
+        return self._assemble_row(out[:2], out[2:], p.n_vertices)

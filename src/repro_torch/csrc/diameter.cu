@@ -8,12 +8,19 @@
 // 4 add, 4 max) and the sweep visits M(M+1)/2 pairs against 12 bytes of
 // input per vertex.  The TPU walked the upper-triangle tiles in order and
 // carried one accumulator across its sequential grid; blocks on the H100
-// run in no order, so here a 1-D grid covers exactly the nb(nb+1)/2
-// upper-triangle (row tile, column tile) pairs, decoded from blockIdx.x.
+// run in no order, so here the grid's x dimension covers exactly the
+// nb(nb+1)/2 upper-triangle (row tile, column tile) pairs, decoded from
+// blockIdx.x.
 // Each block stages its column tile in shared memory (every thread reads
 // the same element, a broadcast), each thread keeps its row vertex and 4
 // running maxima in registers, and a second pass takes the max of the
 // per-block partials.  Max is order-free, so the result is deterministic.
+//
+// One launch sweeps a (batch, 3, mp) stack of lists, one per grid row: the
+// single-case path is its batch of one, and pass 2b of the batched pipeline
+// (where the reference maps max_diameters_sq_pallas over a stack with
+// lax.map) its batch of many.  Max is order-free, so a list's result is the
+// same bits alone or in a stack.
 //
 // Each per-pair operation is an explicitly rounded intrinsic in the plain
 // version's order (kernels/ref.py diameter_sweep), never contracted to an
@@ -38,18 +45,19 @@ __device__ __forceinline__ void tile_of(long long t, long long nb, int& i, int& 
   j = (int)(nb - 1 - (u - k * (k + 1) / 2));
 }
 
-__global__ void __launch_bounds__(1024)
-    diameter_tiles_kernel(const float* __restrict__ v, int mp, int nb,
-                          float* __restrict__ partials) {
-  extern __shared__ float4 col[];
+// This block's (4,) maxima over upper-triangle tile `tile` of one (3, mp)
+// SoA list; the result is valid in thread 0.
+__device__ __forceinline__ void tile_maxima(const float* __restrict__ v, int mp, int nb,
+                                            long long tile, float4* col, float (&m)[4]) {
   int i, j;
-  tile_of(blockIdx.x, nb, i, j);
+  tile_of(tile, nb, i, j);
   const int r = i * blockDim.x + threadIdx.x, c = j * blockDim.x + threadIdx.x;
   col[threadIdx.x] = make_float4(v[c], v[mp + c], v[2 * mp + c], 0.0f);
   const float rx = v[r], ry = v[mp + r], rz = v[2 * mp + r];
   __syncthreads();
 
-  float m[4] = {kNeg, kNeg, kNeg, kNeg};  // 3D, xy, xz, yz
+#pragma unroll
+  for (int q = 0; q < 4; ++q) m[q] = kNeg;  // 3D, xy, xz, yz
 #pragma unroll 8
   for (int q = 0; q < (int)blockDim.x; ++q) {
     const float4 p = col[q];
@@ -62,13 +70,10 @@ __global__ void __launch_bounds__(1024)
     m[3] = fmaxf(m[3], __fadd_rn(qy, qz));
   }
   block_reduce<4>(m, MaxOp{}, kNeg);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) partials[4 * (size_t)blockIdx.x + q] = m[q];
-  }
 }
 
-__global__ void diameter_finalize_kernel(const float* __restrict__ partials, long long ntiles,
+// The max over one list's per-tile partials, clamped at 0.
+__device__ __forceinline__ void finalize(const float* __restrict__ partials, long long ntiles,
                                          float* __restrict__ out) {
   float m[4] = {kNeg, kNeg, kNeg, kNeg};
   for (long long t = threadIdx.x; t < ntiles; t += blockDim.x) {
@@ -82,24 +87,47 @@ __global__ void diameter_finalize_kernel(const float* __restrict__ partials, lon
   }
 }
 
+// List b = blockIdx.y of a (batch, 3, mp) stack: its tiles on blockIdx.x
+// and its partials in their own row.
+__global__ void __launch_bounds__(1024)
+    diameter_tiles_kernel(const float* __restrict__ v, int mp, int nb,
+                          float* __restrict__ partials) {
+  extern __shared__ float4 col[];
+  const size_t b = blockIdx.y;
+  float m[4];
+  tile_maxima(v + 3 * (size_t)mp * b, mp, nb, blockIdx.x, col, m);
+  if (threadIdx.x == 0) {
+    float* pb = partials + 4 * (size_t)gridDim.x * b;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) pb[4 * (size_t)blockIdx.x + q] = m[q];
+  }
+}
+
+__global__ void diameter_finalize_kernel(const float* __restrict__ partials, long long ntiles,
+                                         float* __restrict__ out) {
+  const size_t b = blockIdx.x;
+  finalize(partials + 4 * ntiles * b, ntiles, out + 4 * b);
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// v: (3, mp) float32 SoA on the device, mp a multiple of `block`.
-// partials: 4 * nb(nb+1)/2 floats of scratch, nb = mp / block.  out: 4
-// floats.  Launches on `stream`, does not wait.
-int max_diameters_sq_launch(const float* v, int mp, int block, float* partials, float* out,
-                            void* stream) {
+// v: (batch, 3, mp) float32 SoA on the device, each list centred, filled
+// and padded, mp a multiple of `block`.  partials: 4 * batch * nb(nb+1)/2
+// floats of scratch, nb = mp / block.  out: (batch, 4).  Launches on
+// `stream`, does not wait.
+int max_diameters_sq_launch(const float* v, int batch, int mp, int block, float* partials,
+                            float* out, void* stream) {
   const long long nb = mp / block, ntiles = nb * (nb + 1) / 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  diameter_tiles_kernel<<<(unsigned)ntiles, block, block * sizeof(float4), s>>>(v, mp, (int)nb,
-                                                                              partials);
+  diameter_tiles_kernel<<<dim3((unsigned)ntiles, batch), block, block * sizeof(float4), s>>>(
+      v, mp, (int)nb, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  diameter_finalize_kernel<<<1, 256, 0, s>>>(partials, ntiles, out);
+  diameter_finalize_kernel<<<batch, 256, 0, s>>>(partials, ntiles, out);
   return cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-// Marching-cubes mesh volume and surface area of one (nx, ny, nz) float32
-// volume: (|sum of signed tetrahedron volumes|, sum of triangle areas).
+// Marching-cubes mesh volume and surface area of (nx, ny, nz) float32
+// volumes: (|sum of signed tetrahedron volumes|, sum of triangle areas).
 //
 // Replaces the TPU kernel repro/kernels/marching_cubes.py::_mc_kernel as
 // mc_volume_area_pallas calls it: the same cube index (value > iso), edge
@@ -14,12 +14,19 @@
 // not serialise as constant-cache reads would.  The TPU kernel's overlapping
 // brick restack and one-hot matmul lookup have no use here.
 //
+// One launch runs a stack of same-shape volumes, one per grid row: the
+// single-case path is its batch of one, and pass 2a of the batched pipeline
+// (marching_cubes.py::mc_volume_area_batch_pallas, the TPU kernel under
+// lax.map) its batch of many.
+//
 // Determinism: each thread sums its cells in grid-stride order, each block
 // reduces with a fixed shuffle tree to one (volume, area) partial, and one
-// block sums the partials in a fixed order.  No float atomics, so two runs
-// on one input are bitwise equal.  Built with -fmad=false, every product
-// and sum is rounded as in the plain version (kernels/ref.py), so the two
-// differ only in the order of the final sums.
+// block per case sums its partials in a fixed order.  Every case gets the
+// grid of its volume alone, so a case's result is the same bits alone or
+// in a stack.  No float atomics, so two runs on one input are bitwise
+// equal.  Built with -fmad=false, every product and sum is rounded as in
+// the plain version (kernels/ref.py), so the two differ only in the order
+// of the final sums.
 
 #include <cuda_runtime.h>
 
@@ -95,17 +102,24 @@ __device__ __forceinline__ void add_triangle(float3 a, float3 b, float3 c, float
   vol += (a.x * bcx + a.y * bcy + a.z * bcz) / 6.0f;
 }
 
-__global__ void __launch_bounds__(1024)
-    mc_partials_kernel(const float* __restrict__ vol, int nx, int ny, int nz, Geometry g,
-                       float* __restrict__ partials) {
-  __shared__ signed char tri[256 * kSlots];
+// Copies the triangle table into shared memory; every thread of the block
+// calls it before the first lookup.
+__device__ __forceinline__ void load_table(signed char* tri) {
   for (int q = threadIdx.x; q < 256 * kSlots; q += blockDim.x) tri[q] = kTriTable[q];
   __syncthreads();
+}
 
+// This block's (signed volume, area) partial of one volume: each thread sums
+// its cells in grid-stride order over gridDim.x blocks, then a fixed shuffle
+// tree reduces the block.  The result is valid in thread 0.
+__device__ __forceinline__ void block_partial(const float* __restrict__ vol, int nx, int ny,
+                                              int nz, const Geometry& g,
+                                              const signed char* tri, float (&acc)[2]) {
   const unsigned cy = ny - 1, cz = nz - 1;
   const unsigned ncells = (unsigned)(nx - 1) * cy * cz;  // < 2^31, checked by the wrapper
   const size_t sx = (size_t)ny * nz, sy = nz;
-  float acc[2] = {0.0f, 0.0f};  // signed volume, area
+  acc[0] = 0.0f;  // signed volume
+  acc[1] = 0.0f;  // area
   for (unsigned c = blockIdx.x * blockDim.x + threadIdx.x; c < ncells;
        c += gridDim.x * blockDim.x) {
     const int k = c % cz, j = (c / cz) % cy, i = c / cz / cy;
@@ -124,14 +138,11 @@ __global__ void __launch_bounds__(1024)
     }
   }
   block_reduce<2>(acc, SumOp{}, 0.0f);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = acc[0];
-    partials[gridDim.x + blockIdx.x] = acc[1];
-  }
 }
 
-__global__ void mc_finalize_kernel(const float* __restrict__ partials, int nparts,
-                                   float* __restrict__ out) {
+// Sums one case's per-block partials in a fixed order: (|volume|, area).
+__device__ __forceinline__ void finalize(const float* __restrict__ partials, int nparts,
+                                         float* __restrict__ out) {
   float acc[2] = {0.0f, 0.0f};
   for (int b = threadIdx.x; b < nparts; b += blockDim.x) {
     acc[0] += partials[b];
@@ -144,23 +155,52 @@ __global__ void mc_finalize_kernel(const float* __restrict__ partials, int npart
   }
 }
 
+// Case b = blockIdx.y of a stack: its own volume, spacing and origin
+// (geo[6b..6b+5]), over gridDim.x blocks.  The wrapper gives every case the
+// grid of its volume alone, so a case's partials, and with them its result,
+// are the same bits alone or in a stack.
+__global__ void __launch_bounds__(1024)
+    mc_partials_kernel(const float* __restrict__ vols, int nx, int ny, int nz, float iso,
+                       const float* __restrict__ geo, float* __restrict__ partials) {
+  __shared__ signed char tri[256 * kSlots];
+  load_table(tri);
+  const size_t b = blockIdx.y;
+  const float* gb = geo + 6 * b;
+  const Geometry g{iso, {gb[0], gb[1], gb[2]}, {gb[3], gb[4], gb[5]}};
+  float acc[2];
+  block_partial(vols + b * nx * ny * (size_t)nz, nx, ny, nz, g, tri, acc);
+  if (threadIdx.x == 0) {
+    float* pb = partials + 2 * gridDim.x * b;
+    pb[blockIdx.x] = acc[0];
+    pb[gridDim.x + blockIdx.x] = acc[1];
+  }
+}
+
+__global__ void mc_finalize_kernel(const float* __restrict__ partials, int nparts,
+                                   float* __restrict__ out) {
+  const size_t b = blockIdx.x;
+  finalize(partials + 2 * nparts * b, nparts, out + 2 * b);
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// vol: (nx, ny, nz) float32, C order, on the device.  partials: 2 * nblocks
-// floats of scratch.  out: 2 floats.  Launches on `stream`, does not wait.
-int mc_volume_area_launch(const float* vol, int nx, int ny, int nz, float iso, float spx,
-                          float spy, float spz, float ox, float oy, float oz, float* partials,
-                          int nblocks, int threads, float* out, void* stream) {
-  const Geometry g{iso, {spx, spy, spz}, {ox, oy, oz}};
+// vols: (batch, nx, ny, nz) float32, C order, on the device.  geo: (batch, 6)
+// float32 [spacing, centred origin] per case.  partials: 2 * nblocks * batch
+// floats of scratch.  out: (batch, 2).  Launches on `stream`, does not
+// wait.
+int mc_volume_area_launch(const float* vols, int batch, int nx, int ny, int nz, float iso,
+                          const float* geo, float* partials, int nblocks, int threads,
+                          float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mc_partials_kernel<<<nblocks, threads, 0, s>>>(vol, nx, ny, nz, g, partials);
+  mc_partials_kernel<<<dim3(nblocks, batch), threads, 0, s>>>(vols, nx, ny, nz, iso, geo,
+                                                              partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mc_finalize_kernel<<<1, 256, 0, s>>>(partials, nblocks, out);
+  mc_finalize_kernel<<<batch, 256, 0, s>>>(partials, nblocks, out);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Kernels of the shape path: hand-written CUDA for the card, plain PyTorch beside.
 
-    marching_cubes -- csrc/marching_cubes.cu wrapper (mesh volume + area)
-    diameter       -- csrc/diameter.cu wrapper (4-combo farthest pair)
+    marching_cubes -- csrc/marching_cubes.cu wrappers (mesh volume + area)
+    diameter       -- csrc/diameter.cu wrappers (4-combo farthest pair)
+    compact        -- csrc/compact.cu wrapper (segmented survivor compaction)
     prune          -- exact candidate pruning (plain PyTorch on the device)
     ref            -- the plain PyTorch versions and the path's plain ops
     ops            -- device-resolved entry points

@@ -1,10 +1,11 @@
 """Device-resolved entry points of the shape path.
 
-Counterpart of ``repro.kernels.ops`` for the single-case slice.  Each
-kernel entry takes ``device`` (default ``'cuda'``, see
+Counterpart of ``repro.kernels.ops`` for the single-case and batched
+shape paths.  Each kernel entry takes ``device`` (default ``'cuda'``, see
 ``repro_torch.core.dispatcher``), moves its inputs there and calls the
 kernel wrapper, which launches the CUDA kernel for a CUDA tensor and the
-plain version for a CPU tensor.
+plain version for a CPU tensor.  ``block='auto'`` resolves to the port's
+fixed defaults: the autotuner is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,8 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.dispatcher import resolve_device
+from repro_torch.core.dispatcher import resolve_device, to_device
 from repro_torch.core.plan import vertex_bucket  # noqa: F401  (re-export)
+from repro_torch.kernels import compact as _compact
 from repro_torch.kernels import diameter as _diam
 from repro_torch.kernels import marching_cubes as _mc
 from repro_torch.kernels import prune as _prune
@@ -24,16 +26,51 @@ from repro_torch.kernels import ref as _ref
 def mc_volume_area(vol, iso=0.5, spacing=(1.0, 1.0, 1.0), *, device=None,
                    block=_mc.DEFAULT_BLOCK):
     """(mesh_volume, surface_area) of the isosurface of ``vol``."""
-    vol = torch.as_tensor(vol, dtype=torch.float32, device=resolve_device(device))
+    vol = to_device(vol, resolve_device(device), torch.float32)
     return _mc.mc_volume_area(vol.contiguous(), iso, spacing, block=block)
 
 
 def max_diameters(verts, mask, *, device=None, block=_diam.DEFAULT_BLOCK):
     """(4,) [3D, Slice(xy), Row(xz), Column(yz)] max diameters."""
     dev = resolve_device(device)
-    verts = torch.as_tensor(verts, dtype=torch.float32, device=dev)
-    mask = torch.as_tensor(mask, device=dev).bool()
+    verts = to_device(verts, dev, torch.float32)
+    mask = to_device(mask, dev).bool()
     return _diam.max_diameters(verts, mask, block=block)
+
+
+def mc_volume_area_batch(vols, iso=0.5, spacings=None, *, device=None,
+                         block=_mc.DEFAULT_BLOCK):
+    """Batched :func:`mc_volume_area` over one shape bucket (pass 2a).
+
+    ``vols``: (B, nx, ny, nz) bucket-padded masks, ``spacings``: (B, 3)
+    host metadata -> (B, 2) [volume, area] rows on the device.
+    """
+    vols = to_device(vols, resolve_device(device), torch.float32)
+    return _mc.mc_volume_area_batch(vols.contiguous(), iso, spacings, block=block)
+
+
+def max_diameters_batch(verts, masks, *, device=None, block=_diam.DEFAULT_BLOCK):
+    """(B, 4) [3D, Slice(xy), Row(xz), Column(yz)] max diameters of a
+    (B, M, 3) stack (pass 2b)."""
+    dev = resolve_device(device)
+    verts = to_device(verts, dev, torch.float32)
+    masks = to_device(masks, dev).bool()
+    return _diam.max_diameters_batch(verts, masks, block=block)
+
+
+def compact_survivors_batch(verts, keep, cap: int, *, device=None, block="auto"):
+    """Batched segmented compaction of keep-mask survivors (pass 1).
+
+    ``verts``: (B, M, 3), ``keep``: (B, M) -> ``(out, mask, n)`` device
+    tensors: ``out`` (B, cap, 3), ``mask`` (B, cap) bool, ``n`` (B,) int32
+    total survivor counts.  Bitwise the host path's ``np.nonzero`` gather
+    and zero pad.
+    """
+    dev = resolve_device(device)
+    verts = to_device(verts, dev, torch.float32).contiguous()
+    keep = to_device(keep, dev).bool().contiguous()
+    block = _compact.DEFAULT_BLOCK if block == "auto" else int(block)
+    return _compact.compact_batch(verts, keep, cap, block=block)
 
 
 def _rebucket_pruned(orig_verts, orig_mask, v2, m2, info):
@@ -67,6 +104,27 @@ def prune_candidates(verts, mask, k_dirs: int = 16):
     """
     v2, m2, info = _prune.prune_vertices(verts, mask, k_dirs=k_dirs)
     return _rebucket_pruned(verts, mask, v2, m2, info)
+
+
+def prune_candidates_batch(verts, masks, k_dirs: int = 16, *, device=None):
+    """Batched :func:`prune_candidates` for a (B, M, 3) stack of cases.
+
+    ``verts``/``masks`` are host arrays.  The keep-mask bound runs once
+    over the whole stack on ``device``; compaction and re-bucketing run
+    per case on the host, because the pruned counts M' are ragged.
+    Returns a list of B numpy ``(verts', mask', info)`` triples.  The
+    batched pipeline's ``device_compact=False`` path; the default path pairs
+    :func:`repro_torch.kernels.prune.keep_mask_batch` with
+    :func:`compact_survivors_batch` instead.
+    """
+    verts_np = np.asarray(verts, np.float32)
+    masks_np = np.asarray(masks).astype(bool)
+    pruned = _prune.prune_vertices_batch(verts_np, masks_np, k_dirs=k_dirs,
+                                         device=resolve_device(device))
+    return [
+        _rebucket_pruned(v, m, v2, m2, info)
+        for v, m, (v2, m2, info) in zip(verts_np, masks_np, pruned)
+    ]
 
 
 def vertex_fields(vol, iso=0.5, spacing=(1.0, 1.0, 1.0), origin=(0.0, 0.0, 0.0),

@@ -1,8 +1,13 @@
 """Exact candidate pruning for the O(M^2) diameter search.
 
-Counterpart of ``repro.kernels.prune`` (single-case part).  The keep mask
-is plain PyTorch on the vertices' device, as the reference's is plain jnp
-(it has no TPU kernel); compaction stays on the host, as in the reference.
+Counterpart of ``repro.kernels.prune``.  The keep mask is plain PyTorch on
+the vertices' device, as the reference's is plain jnp (it has no TPU
+kernel), for one case (:func:`candidate_keep_mask`) or a (B, M) stack
+(:func:`keep_mask_batch`, the batched pipeline's pass-1 bound).  The
+survivors are compacted on the host here (the single-case path and the
+batched ``device_compact=False`` baseline) or on the card by
+``kernels/compact``; :func:`plan_compaction` is the one decision rule both
+follow.
 
 Method (per combo c in {3D, xy, xz, yz}, restricted to c's axes):
 
@@ -28,9 +33,12 @@ bounds (``torch.backends.cuda.matmul.allow_tf32`` must stay False).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+
+from repro_torch.core.dispatcher import to_device
 
 COMBOS = ((0, 1, 2), (0, 1), (0, 2), (1, 2))  # 3D, xy, xz, yz
 
@@ -81,51 +89,94 @@ def _directions(combo: tuple, k: int) -> np.ndarray:
     return d.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _constants(device: torch.device, k_dirs: int):
+    """The bound's constant tensors on ``device``, made once: the (8, 3)
+    corner signs and, per combo, its (3,) axis selector and (K', 3)
+    directions."""
+    signs = to_device(np.asarray(_CORNER_SIGNS, np.float32), device)
+    per_combo = []
+    for combo in COMBOS:
+        axes = np.zeros(3, np.float32)
+        axes[list(combo)] = 1.0
+        per_combo.append((to_device(axes, device),
+                          to_device(_directions(combo, k_dirs), device)))
+    return signs, tuple(per_combo)
+
+
 def candidate_keep_mask(verts, mask, k_dirs: int = 16):
     """Exact per-vertex keep mask for the 4-combo diameter search.
 
     Returns ``(keep, lower_sq)`` on ``verts``' device: ``keep`` is an (M,)
     bool mask (False = provably not an endpoint of any of the 4 maxima, or
     invalid), and ``lower_sq`` the (4,) squared lower bounds per combo.
+    The batch of one of :func:`keep_mask_batch`, so a case's mask is the
+    same bits alone or in a stack.
+    """
+    verts = torch.as_tensor(verts, dtype=torch.float32)
+    mask = torch.as_tensor(mask, device=verts.device)
+    keep, lower_sq = keep_mask_batch(verts[None], mask[None], k_dirs)
+    return keep[0], lower_sq[0]
+
+
+def _sq3(x: torch.Tensor) -> torch.Tensor:
+    """``(x * x).sum(-1)`` over a last axis of 3, as ``(x0² + x1²) + x2²``.
+
+    Written out so the rounding never depends on the reduction kernel a
+    tensor's shape selects.
+    """
+    return x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1] + x[..., 2] * x[..., 2]
+
+
+def keep_mask_batch(verts, masks, k_dirs: int = 16):
+    """:func:`candidate_keep_mask` over a (B, M, 3) stack, on its device.
+
+    Returns ``(keep, lower_sq)``: a (B, M) bool mask and the (B, 4)
+    squared lower bounds.  The batched pipeline's pass-1 bound.  A case's
+    result does not depend on the rest of the stack: every step is
+    elementwise, an exact min/max/arg-extreme (first index on ties) or a
+    written-out 3-term sum, and the projection ``pc @ d.T`` is taken per
+    case at the single-case (M, 3) x (3, K) shape, because a GEMM library
+    may pick another kernel, and another rounding, for a folded
+    (B*M, 3) product.
     """
     verts = torch.as_tensor(verts, dtype=torch.float32)
     dev = verts.device
-    m = torch.as_tensor(mask, device=dev).bool()
-    v0 = verts[m.to(torch.uint8).argmax()]  # first valid vertex (callers reject empty)
-    vfill = torch.where(m[:, None], verts, v0)
-    signs = torch.tensor(_CORNER_SIGNS, dtype=torch.float32, device=dev)
+    m = torch.as_tensor(masks, device=dev).bool()
+    if verts.ndim != 3 or verts.shape[2] != 3 or m.shape != verts.shape[:2]:
+        raise ValueError(f"need verts (B, M, 3) and masks (B, M), got "
+                         f"{tuple(verts.shape)} and {tuple(m.shape)}")
+    b = torch.arange(verts.shape[0], device=dev)
+    v0 = verts[b, m.to(torch.uint8).argmax(1)]  # (B, 3) first valid vertex
+    vfill = torch.where(m[..., None], verts, v0[:, None, :])
+    signs, per_combo = _constants(dev, k_dirs)
 
     keep_any = torch.zeros(m.shape, dtype=torch.bool, device=dev)
     lower_sq = []
-    for combo in COMBOS:
-        axes = torch.zeros(3, dtype=torch.float32, device=dev)
-        axes[list(combo)] = 1.0
-        pc = vfill * axes  # off-combo axes zeroed
-        d = torch.as_tensor(_directions(combo, k_dirs), device=dev)  # (K, 3)
-        proj = pc @ d.T  # (M, K)
+    for axes, d in per_combo:
+        pc = vfill * axes  # (B, M, 3), off-combo axes zeroed
+        proj = torch.stack([pc_b @ d.T for pc_b in pc])  # (B, M, K)
         # bias invalid (duplicated-fill) slots out of the extreme search so
         # the witnesses are real valid vertices
-        pmax = torch.where(m[:, None], proj, -torch.inf)
-        pmin = torch.where(m[:, None], proj, torch.inf)
-        ext = torch.cat([pmax.argmax(0), pmin.argmin(0)])
-        e = pc[ext]  # (2K, 3) extreme points
-        de = e[:, None, :] - e[None, :, :]
-        l2 = (de * de).sum(-1).amax()  # squared lower bound
+        pmax = torch.where(m[..., None], proj, -torch.inf)
+        pmin = torch.where(m[..., None], proj, torch.inf)
+        ext = torch.cat([pmax.argmax(1), pmin.argmin(1)], dim=1)  # (B, 2K)
+        e = torch.gather(pc, 1, ext[..., None].expand(-1, -1, 3))  # extreme points
+        l2 = _sq3(e[:, :, None, :] - e[:, None, :, :]).flatten(1).amax(1)  # (B,)
 
-        lo = pc.amin(0)
-        hi = pc.amax(0)
-        corners = lo + signs * (hi - lo)  # (8, 3); duplicates are harmless
-        dc = pc[:, None, :] - corners[None, :, :]
-        ub_corner2 = (dc * dc).sum(-1).amax(1)  # (M,)
-        r = ((pc - 0.5 * (lo + hi)) ** 2).sum(-1).sqrt()
-        ub_centre2 = (r + r.amax()) ** 2
+        lo = pc.amin(1, keepdim=True)  # (B, 1, 3)
+        hi = pc.amax(1, keepdim=True)
+        corners = lo + signs * (hi - lo)  # (B, 8, 3); duplicates are harmless
+        ub_corner2 = _sq3(pc[:, :, None, :] - corners[:, None, :, :]).amax(2)  # (B, M)
+        r = _sq3(pc - 0.5 * (lo + hi)).sqrt()
+        ub_centre2 = (r + r.amax(1, keepdim=True)) ** 2
         ub2 = torch.minimum(ub_corner2, ub_centre2)
-        keep_any |= ub2 * float(_SLACK) >= l2
+        keep_any |= ub2 * float(_SLACK) >= l2[:, None]
         # force-keep the extreme witnesses: dropping one would move the
         # candidate bounding box and with it the sweep's centring
-        keep_any[ext] = True
+        keep_any.scatter_(1, ext, True)
         lower_sq.append(l2)
-    return keep_any & m, torch.stack(lower_sq)
+    return keep_any & m, torch.stack(lower_sq, dim=1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +187,10 @@ class PruneInfo:
     m_valid: int  # valid vertices before pruning
     m_kept: int  # surviving candidates (M')
     pruned: bool  # False when pruning was skipped (degenerate input)
+
+    @property
+    def keep_fraction(self) -> float:
+        return self.m_kept / self.m_valid if self.m_valid else 1.0
 
 
 def _compact_survivors(verts_np, mask_np, keep):
@@ -171,3 +226,44 @@ def prune_vertices(verts, mask, k_dirs: int = 16):
     else:
         keep = candidate_keep_mask(verts, mask, k_dirs=k_dirs)[0].cpu().numpy()
     return _compact_survivors(verts_np, mask_np, keep)
+
+
+def plan_compaction(m_total: int, m_valid: int, m_kept: int, bucket_fn):
+    """Shared pruned/kept decision for both compaction paths.
+
+    Composes the degenerate-input rule of :func:`_compact_survivors`
+    (fewer than 2 valid or surviving vertices, or nothing pruned -> keep
+    the originals) with the re-bucketing rule of
+    ``ops._rebucket_pruned`` (a survivor bucket no smaller than the input
+    wins nothing -> keep the originals).  Returns ``(cap, info)`` where
+    ``cap`` is the M' bucket to compact into, or ``None`` when the case
+    keeps its original arrays.  Both the host path and the device path
+    derive their ``PruneInfo`` from this single function, so the two can
+    never drift.
+    """
+    if m_valid < 2 or m_kept < 2 or m_kept >= m_valid:
+        return None, PruneInfo(m_total, m_valid, m_valid, False)
+    cap = int(bucket_fn(m_kept))
+    if cap >= m_total:
+        return None, PruneInfo(m_total, m_valid, m_valid, False)
+    return cap, PruneInfo(m_total, m_valid, m_kept, True)
+
+
+def prune_vertices_batch(verts, masks, k_dirs: int = 16, device=None):
+    """Batched pass-1 bound on ``device``, host compaction per case.
+
+    ``verts``: (B, M, 3), ``masks``: (B, M), host arrays.  One
+    :func:`keep_mask_batch` on ``device`` (default the CPU) computes every
+    case's bound; the survivors are compacted on the host per case because
+    their counts M' are ragged.  Returns a list of B numpy
+    ``(verts', mask', info)`` triples with the degenerate-input semantics
+    of :func:`prune_vertices`.
+    """
+    verts_np = np.asarray(verts, np.float32)
+    masks_np = np.asarray(masks).astype(bool)
+    dev = torch.device("cpu" if device is None else device)
+    keep = keep_mask_batch(to_device(verts_np, dev), to_device(masks_np, dev), k_dirs)[0]
+    return [
+        _compact_survivors(v, m, k)
+        for v, m, k in zip(verts_np, masks_np, keep.cpu().numpy())
+    ]

@@ -3,10 +3,11 @@
 Counterpart of ``repro.kernels.ref``.  These run on whatever device their
 input lies on.  The vertex-field, count and compaction ops are the main
 path's own steps on every device (the reference has no TPU kernel for
-them either).  :func:`mc_volume_area` and :func:`max_diameters_sq` are the
-plain versions of the two CUDA kernels: the kernel wrappers take them only
-for a tensor on the CPU, and ``chip_smoke.py`` holds each kernel against
-them on the card.
+them either).  :func:`mc_volume_area`, :func:`max_diameters_sq` and the
+batched :func:`mc_volume_area_batch`, :func:`max_diameters_sq_batch` and
+:func:`compact_batch` are the plain versions of the CUDA kernels: the
+kernel wrappers take them only for a tensor on the CPU, and
+``chip_smoke.py`` holds each kernel against them on the card.
 
 Conventions
 -----------
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import mc_tables as mct
+from repro_torch.core.dispatcher import to_device
 
 NEG = -1e30
 # elements of one (rows, M) block of the plain pair sweep: bounds its memory
@@ -43,7 +45,7 @@ class VertexFields(NamedTuple):
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return to_device(x, device, torch.float32)
 
 
 def _interp(v0, v1, iso):
@@ -176,22 +178,37 @@ def diameter_input(verts, mask, block: int) -> torch.Tensor:
     bounding-box midpoint, exactly as ``repro.kernels.ref.max_diameters_sq``
     does; a duplicated point never raises a maximum, so the sweep needs no
     mask.  Returns the (3, Mp) SoA transpose, padded to a multiple of
-    ``block`` with duplicates of the last vertex.
+    ``block`` with duplicates of the last vertex.  The batch of one of
+    :func:`diameter_input_batch`.
     """
     verts = torch.as_tensor(verts, dtype=torch.float32)
     m = torch.as_tensor(mask, device=verts.device).bool()
     if verts.ndim != 2 or verts.shape[1] != 3 or m.shape != verts.shape[:1]:
         raise ValueError(f"need verts (M, 3) and mask (M,), got {tuple(verts.shape)} "
                          f"and {tuple(m.shape)}")
-    if verts.shape[0] == 0:
+    return diameter_input_batch(verts[None], m[None], block)[0]
+
+
+def diameter_input_batch(verts, masks, block: int) -> torch.Tensor:
+    """:func:`diameter_input` over a (B, M, 3) stack: (B, 3, Mp), the batched
+    diameter kernel's input.  Every step is per case, elementwise or an
+    exact min/max, so a case's rows are the same bits alone or in a stack.
+    """
+    verts = torch.as_tensor(verts, dtype=torch.float32)
+    m = torch.as_tensor(masks, device=verts.device).bool()
+    if verts.ndim != 3 or verts.shape[2] != 3 or m.shape != verts.shape[:2]:
+        raise ValueError(f"need verts (B, M, 3) and masks (B, M), got "
+                         f"{tuple(verts.shape)} and {tuple(m.shape)}")
+    if verts.shape[1] == 0:
         raise ValueError("empty vertex list")
-    v0 = verts[m.to(torch.uint8).argmax()]
-    vfill = torch.where(m[:, None], verts, v0)
-    vfill = vfill - 0.5 * (vfill.amin(0) + vfill.amax(0))
-    pad = -vfill.shape[0] % block
+    b = torch.arange(verts.shape[0], device=verts.device)
+    v0 = verts[b, m.to(torch.uint8).argmax(1)]  # (B, 3) first valid vertex
+    vfill = torch.where(m[..., None], verts, v0[:, None, :])
+    vfill = vfill - 0.5 * (vfill.amin(1, keepdim=True) + vfill.amax(1, keepdim=True))
+    pad = -vfill.shape[1] % block
     if pad:
-        vfill = torch.cat([vfill, vfill[-1:].expand(pad, 3)])
-    return vfill.t().contiguous()
+        vfill = torch.cat([vfill, vfill[:, -1:].expand(-1, pad, 3)], dim=1)
+    return vfill.transpose(1, 2).contiguous()
 
 
 def diameter_sweep(v: torch.Tensor) -> torch.Tensor:
@@ -216,3 +233,41 @@ def diameter_sweep(v: torch.Tensor) -> torch.Tensor:
 def max_diameters_sq(verts, mask, block: int = 256) -> torch.Tensor:
     """Plain version of the diameter kernel: (4,) float32 squared maxima."""
     return diameter_sweep(diameter_input(verts, mask, block))
+
+
+def max_diameters_sq_batch(verts, masks, block: int = 256) -> torch.Tensor:
+    """Plain version of the batched diameter kernel: (B, 4) squared maxima,
+    per case :func:`diameter_input` then :func:`diameter_sweep`."""
+    return torch.stack([max_diameters_sq(v, m, block) for v, m in zip(verts, masks)])
+
+
+def mc_volume_area_batch(vols, iso=0.5, spacings=None) -> torch.Tensor:
+    """Plain version of the batched marching-cubes kernel: (B, 2) rows of
+    ``(|sum vol|, sum area)``, per case :func:`mc_volume_area`."""
+    vols = torch.as_tensor(vols, dtype=torch.float32)
+    if spacings is None:
+        spacings = np.ones((vols.shape[0], 3), np.float32)
+    return torch.stack([torch.stack(mc_volume_area(v, iso, sp))
+                        for v, sp in zip(vols, spacings)])
+
+
+def compact_batch(verts, keep, cap: int):
+    """Plain version of the compaction kernel: stable segmented compaction.
+
+    ``verts``: (B, M, 3) float32, ``keep``: (B, M) -> ``(out, mask, n)``
+    with ``out``: (B, cap, 3), ``mask``: (B, cap) bool and ``n``: (B,)
+    int32.  An exclusive prefix sum over ``keep`` gives each survivor its
+    slot: survivors keep their order in slots ``0..n-1``, slots past the
+    survivors hold zeros and a False mask, survivors past ``cap`` are
+    dropped, and ``n`` counts every survivor (before the drop), as
+    ``repro.kernels.compact.compact_batch_ref`` does.
+    """
+    verts = torch.as_tensor(verts, dtype=torch.float32)
+    k = torch.as_tensor(keep, device=verts.device).bool()
+    pos = torch.cumsum(k.to(torch.int64), dim=1) - 1  # output slot per survivor
+    bi, vi = (k & (pos < cap)).nonzero(as_tuple=True)
+    out = torch.zeros((k.shape[0], cap, 3), dtype=torch.float32, device=verts.device)
+    out[bi, pos[bi, vi]] = verts[bi, vi]
+    n = k.sum(1).to(torch.int32)
+    mask = torch.arange(cap, device=verts.device) < n.clamp(max=cap)[:, None]
+    return out, mask, n
