@@ -6,10 +6,11 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``src/repro_torch/csrc`` with nvcc,
-holds each against its plain PyTorch version on the card, drives the two
+holds each against its plain PyTorch version on the card, drives the three
 main paths -- single-case shape extraction (``ShapeFeatureExtractor``) over
-the 20 synthetic Table-2 cases, and the batched two-pass extractor
-(``BatchedExtractor``) over a 60-case cohort of them -- checks the
+the 20 synthetic Table-2 cases, the batched two-pass extractor
+(``BatchedExtractor``) over a 60-case cohort of them, and the same cohort
+with the intensity families (shape, first-order, GLCM) -- checks the
 features against the port's CPU path, and prints the kernels line and a
 last JSON status line.  Any failed check raises, so the script exits
 non-zero; without a CUDA device it exits non-zero before printing any
@@ -41,7 +42,22 @@ Phases:
      traced run for the busy and idle share; the default and the one-pass
      path under CUDA sync debugging, no host sync outside the counted
      fetches
-  7. the kernels line; 8. the status line
+  7. intensity families: one uncounted three-family run over the cohort
+     records every first-order and GLCM launch (and the masked range its
+     pool took once for both, held equal to intensity_range); each is held
+     against its plain version on the same inputs and range (first-order
+     bitwise, GLCM exactly), each case against
+     a batch of one, the first-order kernel at block 1024, 2048 and 8192
+     bitwise, the largest GLCM count below 2^24; then launch counts reset,
+     BatchedExtractor(families=(shape, firstorder, glcm)).run over the 60
+     cases, counts read; rows == extract_one bitwise (seed 0), the family
+     columns of all 60 == the port's CPU path (GLCM and first-order min, max,
+     percentiles and entropy exactly, the rest rtol 1e-4), the shape
+     columns == phase 6's shape-only rows bitwise; the host-fetch census
+     and no other sync under CUDA sync debugging; times, device times and
+     bounds at the largest launch; cases/s against the shape-only run (two
+     interleaved rounds) and one traced run's idle share
+  8. the kernels line; 9. the status line
 """
 import json
 import statistics
@@ -61,6 +77,8 @@ from repro_torch.data.synthetic import table2_suite  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import compact as cp  # noqa: E402
 from repro_torch.kernels import diameter as dm  # noqa: E402
+from repro_torch.kernels import firstorder as fo  # noqa: E402
+from repro_torch.kernels import glcm as gl  # noqa: E402
 from repro_torch.kernels import marching_cubes as mc  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM bandwidth
@@ -74,6 +92,18 @@ MC_OPS_PER_CELL = 8
 MC_OPS_PER_TRIANGLE = 75
 # per pair: 3 sub, 3 mul, 4 add, 4 max (csrc/diameter.cu)
 DIAM_OPS_PER_PAIR = 14
+# FP32 operations the intensity functions need (csrc/quantize.cuh,
+# firstorder.cu, glcm.cu): a mask compare per voxel; quantising a masked
+# voxel is 5 (sub, div, floor, max, min); first-order adds a square and two
+# additions per masked voxel, GLCM per pair a neighbour compare and the
+# neighbour's quantisation
+QUANT_OPS = 5
+FO_OPS_PER_MASKED = 3 + QUANT_OPS
+GLCM_OPS_PER_PAIR = 1 + QUANT_OPS
+FAMS = ("shape", "firstorder", "glcm")
+# the reference's census for the cohort: one family fetch per shape bucket
+FAMILY_FETCHES = {"prep": 60, "pass1": 8, "pass2a": 26, "pass2b": 18,
+                  "firstorder": 26, "glcm": 26}
 KEYS = [
     "MeshVolume", "VoxelVolume", "SurfaceArea", "SurfaceVolumeRatio",
     "Sphericity", "Compactness1", "Compactness2", "SphericalDisproportion",
@@ -130,14 +160,15 @@ def kernel_us(per_kernel, names):
 
 def zero_counts():
     """Sets every kernel's launch count to 0."""
-    mc.LAUNCHES = dm.LAUNCHES = cp.LAUNCHES = 0
+    mc.LAUNCHES = dm.LAUNCHES = cp.LAUNCHES = fo.LAUNCHES = gl.LAUNCHES = 0
 
 
 def read_counts():
     """Launches of each kernel since :func:`zero_counts`.  The single-case
     wrappers launch the batched kernels with a batch of one, so each path
     is counted in a run of its own."""
-    return {"marching_cubes": mc.LAUNCHES, "diameter": dm.LAUNCHES, "compact": cp.LAUNCHES}
+    return {"marching_cubes": mc.LAUNCHES, "diameter": dm.LAUNCHES, "compact": cp.LAUNCHES,
+            "firstorder": fo.LAUNCHES, "glcm": gl.LAUNCHES}
 
 
 def check(cond, what):
@@ -172,6 +203,29 @@ def diam_bound_ms(masks):
             "operations": DIAM_OPS_PER_PAIR * pairs / PEAK_FP32_PER_S * 1e3}, pairs
 
 
+def intensity_bounds_ms(masks, glcm_out):
+    """Least time (ms) of each intensity function on one launch's inputs.
+
+    Bytes: the float32 mask at every voxel and the float32 image at the
+    masked voxels only (neither function needs an unmasked intensity),
+    the two (B,) range vectors, and the output rows, each once.
+    Operations: what these inputs need (masked voxels, valid pairs; the
+    pairs are half the symmetrised counts).
+    """
+    batch, voxels = masks.shape[0], masks[0].numel()
+    masked = int((masks > 0).sum())
+    pairs = int(glcm_out.double().sum()) // 2
+    nb = fo.N_BINS
+    in_bytes = 4 * batch * voxels + 4 * masked + 8 * batch
+    fo_b = {"bytes": (in_bytes + 4 * batch * fo.packed_width(nb)) / PEAK_BYTES_PER_S * 1e3,
+            "operations": (batch * voxels + FO_OPS_PER_MASKED * masked)
+            / PEAK_FP32_PER_S * 1e3}
+    gl_b = {"bytes": (in_bytes + 4 * batch * nb * nb) / PEAK_BYTES_PER_S * 1e3,
+            "operations": (batch * voxels + QUANT_OPS * masked + GLCM_OPS_PER_PAIR * pairs)
+            / PEAK_FP32_PER_S * 1e3}
+    return fo_b, gl_b, masked, pairs
+
+
 def keep_pattern(case, m, cap, rng):
     """The five keep patterns of tests/test_pipeline_device_compact.py."""
     if case == "random":
@@ -193,11 +247,17 @@ class Recorder:
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.calls = []
+        self.kwargs = []  # each call's keyword arguments, beside ``calls``
 
     def __enter__(self):
+        def copy(a):
+            if isinstance(a, tuple):
+                return tuple(copy(x) for x in a)
+            return a.clone() if isinstance(a, torch.Tensor) else a
+
         def record(*args, **kwargs):
-            self.calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                                    for a in args))
+            self.calls.append(copy(args))
+            self.kwargs.append({k: copy(v) for k, v in kwargs.items()})
             return self.fn(*args, **kwargs)
 
         setattr(self.module, self.name, record)
@@ -479,7 +539,7 @@ def main():
           f"{stats['pruned_cases']}; vertex_buckets {stats['vertex_buckets']}; "
           f"prune_seconds {stats['prune_seconds']:.4f}")
     print(f"[bmain] plan {json.dumps(stats['plan'])}")
-    check(all(n > 0 for n in batch_launches.values()),
+    check(all(batch_launches[k] > 0 for k in ("marching_cubes", "diameter", "compact")),
           f"a kernel of the batched path never ran: {batch_launches}")
     rows = np.stack(rows)
     check(rows.shape == (len(cohort), 7) and np.isfinite(rows).all()
@@ -538,7 +598,148 @@ def main():
     print(f"[bmain] seed 0 under CUDA sync debugging ('error' outside the counted "
           f"fetches): no other host sync; host_fetches {strict_stats['host_fetches']}")
 
-    # -- 7. kernels line ----------------------------------------------------
+    # -- 7. the intensity families ------------------------------------------
+    t0 = time.perf_counter()
+    with Recorder(fo, "firstorder_packed_batch") as rec_fo, \
+            Recorder(gl, "glcm_matrix_batch") as rec_gl:
+        BatchedExtractor(families=FAMS).run(cohort_cases)
+    torch.cuda.synchronize()
+    print(f"[fam] uncounted recording run over {len(cohort)} cases: "
+          f"{time.perf_counter() - t0:.3f} s; launches recorded: first-order "
+          f"{len(rec_fo.calls)}, GLCM {len(rec_gl.calls)}")
+    fo_err = gl_err = 0.0
+    for (imgs, msks), kw in zip(rec_fo.calls, rec_fo.kwargs):
+        flat = (len(imgs), -1)
+        check(all(torch.equal(a, b) for a, b in zip(
+                  kw["value_range"], ref.intensity_range(imgs.reshape(flat), msks.reshape(flat),
+                                                         dim=1))),
+              f"the pool's masked range != intensity_range, bucket {tuple(imgs.shape)}")
+        got = fo.firstorder_packed_batch(imgs, msks, **kw)
+        plain = fo.firstorder_packed_batch_ref(imgs, msks, kw["n_bins"], kw["value_range"])
+        check(torch.equal(got, plain),
+              f"first-order kernel vs plain not bitwise, bucket {tuple(imgs.shape)}")
+        fo_err = max(fo_err, float((got - plain).abs().max()))
+        for blk in (1024, 8192):
+            check(torch.equal(fo.firstorder_packed_batch(imgs, msks, block=blk), got),
+                  f"first-order block {blk} vs {fo.DEFAULT_BLOCK}, bucket {tuple(imgs.shape)}")
+        for b in range(len(imgs)):
+            check(torch.equal(fo.firstorder_packed_batch(imgs[b:b + 1], msks[b:b + 1])[0],
+                              got[b]),
+                  f"first-order batched vs batch of one, bucket {tuple(imgs.shape)} case {b}")
+    print(f"[fam] first-order kernel == plain == batch of one bitwise, and at block 1024, "
+          f"2048 and 8192, on all {len(rec_fo.calls)} launches "
+          f"({sum(len(c[0]) for c in rec_fo.calls)} cases)")
+    gl_max = 0
+    for (imgs, msks), kw in zip(rec_gl.calls, rec_gl.kwargs):
+        got = gl.glcm_matrix_batch(imgs, msks, **kw)
+        plain = gl.glcm_matrix_batch_ref(imgs, msks, kw["n_bins"], kw["value_range"])
+        check(torch.equal(got, plain), f"GLCM kernel vs plain, bucket {tuple(imgs.shape)}")
+        gl_err = max(gl_err, float((got - plain).abs().max()))
+        gl_max = max(gl_max, int(got.max()))
+        for b in range(len(imgs)):
+            check(torch.equal(gl.glcm_matrix_batch(imgs[b:b + 1], msks[b:b + 1])[0], got[b]),
+                  f"GLCM batched vs batch of one, bucket {tuple(imgs.shape)} case {b}")
+    check(gl_max < 2 ** 24, f"a GLCM count of {gl_max} is not exact in float32")
+    print(f"[fam] GLCM kernel == plain == batch of one exactly on all {len(rec_gl.calls)} "
+          f"launches; largest count {gl_max} < 2^24")
+    # the largest launch, with the masked range its pool took for both families
+    big = max(range(len(rec_fo.calls)), key=lambda j: rec_fo.calls[j][0].numel())
+    (fi, fm), fkw = rec_fo.calls[big], rec_fo.kwargs[big]
+    rng_args = (fi.reshape(len(fi), -1), fm.reshape(len(fi), -1))
+    rng_dev, _ = device_trace(lambda: ref.intensity_range(*rng_args, dim=1), reps=10)
+    fo_ms = time_ms(lambda: fo.firstorder_packed_batch(fi, fm, **fkw))
+    fo_plain_ms = time_ms(lambda: fo.firstorder_packed_batch_ref(fi, fm, fkw["n_bins"],
+                                                                 fkw["value_range"]),
+                          reps=5, warmup=1)
+    fo_dev, _ = device_trace(lambda: fo.firstorder_packed_batch(fi, fm, **fkw), reps=10)
+    gl_ms = time_ms(lambda: gl.glcm_matrix_batch(fi, fm, **fkw))
+    gl_plain_ms = time_ms(lambda: gl.glcm_matrix_batch_ref(fi, fm, fkw["n_bins"],
+                                                           fkw["value_range"]),
+                          reps=5, warmup=1)
+    gl_dev, _ = device_trace(lambda: gl.glcm_matrix_batch(fi, fm, **fkw), reps=10)
+    fo_bound, gl_bound, masked, pairs = intensity_bounds_ms(fm, gl.glcm_matrix_batch(fi, fm,
+                                                                                     **fkw))
+    print(f"[fam] the pool's masked range at the largest launch {tuple(fi.shape)}, taken once "
+          f"for both families: device {sum(rng_dev.values()):.2f} us over {len(rng_dev)} "
+          "kernel names")
+    for label, ms, plain_ms, per_kernel, names, bound in [
+            ("first-order", fo_ms, fo_plain_ms, fo_dev,
+             ["fo_partials_kernel", "fo_fold_kernel"], fo_bound),
+            ("GLCM", gl_ms, gl_plain_ms, gl_dev,
+             ["glcm_counts_kernel", "glcm_symmetrise_kernel"], gl_bound)]:
+        print(f"[fam] {label} at the largest launch {tuple(fi.shape)} ({masked} masked "
+              f"voxels, {pairs} pairs): kernel {ms:.4f} ms/call (device kernels "
+              f"{kernel_us(per_kernel, names)}: "
+              + ", ".join(f"{n} {kernel_us(per_kernel, [n])}" for n in names)
+              + f"; the whole call {sum(per_kernel.values()):.2f} us), plain "
+              f"{plain_ms:.4f} ms, bound {max(bound.values()):.5f} ms (bytes "
+              f"{bound['bytes']:.5f}, ops {bound['operations']:.5f}); kernel / bound "
+              f"{ms / max(bound.values()):.1f}x")
+    del rec_fo, rec_gl
+
+    fext = BatchedExtractor(families=FAMS)  # default device: the card
+    zero_counts()
+    t0 = time.perf_counter()
+    frows, fstats = fext.run(cohort_cases)
+    fam_s = [time.perf_counter() - t0]
+    fam_launches = read_counts()
+    print(f"[fmain] three-family run over {len(cohort)} cases: {fam_s[0]:.3f} s = "
+          f"{len(cohort) / fam_s[0]:.3f} cases/s; launches {fam_launches}")
+    print(f"[fmain] host_fetches {fstats['host_fetches']}")
+    check(all(n > 0 for n in fam_launches.values()),
+          f"a kernel of the three-family path never ran: {fam_launches}")
+    check(fam_launches["firstorder"] == fam_launches["glcm"] == fstats["plan"]["shape_buckets"],
+          f"one launch per family and shape bucket: {fam_launches}")
+    check(fstats["host_fetches"] == FAMILY_FETCHES,
+          f"host fetches {fstats['host_fetches']} != the reference's {FAMILY_FETCHES}")
+    frows = np.stack(frows)
+    check(frows.shape == (len(cohort), 20) and np.isfinite(frows).all(),
+          "three-family rows: shape, finite")
+    check(np.array_equal(frows[:, :7], rows),
+          "shape columns of the three-family run != the shape-only run")
+    for i, (name, img, msk, sp) in enumerate(cohort[:len(suite)]):
+        one = fext.extract_one(img, msk, sp)
+        check(np.array_equal(one, frows[i]), f"{name}: run != extract_one: {frows[i]} vs {one}")
+    t0 = time.perf_counter()
+    cpu_fam, _ = BatchedExtractor(device="cpu", families=("firstorder", "glcm")).run(
+        cohort_cases)
+    cpu_fam = np.stack(cpu_fam)
+    fam = frows[:, 7:]
+    fo_exact = [2, 3, 4, 5, 6, 8]  # min, max, P10, median, P90, entropy
+    check(np.array_equal(fam[:, 9:], cpu_fam[:, 9:]), "GLCM columns != the CPU path")
+    check(np.array_equal(fam[:, fo_exact], cpu_fam[:, fo_exact]),
+          "first-order min, max, percentiles or entropy != the CPU path")
+    np.testing.assert_allclose(fam, cpu_fam, rtol=1e-4, err_msg="family columns vs the CPU path")
+    fo_rel = float(np.max(np.abs(fam[:, :9] - cpu_fam[:, :9])
+                          / np.maximum(np.abs(cpu_fam[:, :9]), 1e-30)))
+    print(f"[fmain] seed 0: run == extract_one bitwise; all {len(cohort)} cases: shape "
+          f"columns == the shape-only rows bitwise; family columns vs the port's CPU path "
+          f"({time.perf_counter() - t0:.3f} s): GLCM and first-order min, max, percentiles, entropy exact, largest relative "
+          f"first-order difference {fo_rel:.3e} (rtol 1e-4); bitwise equal: "
+          f"{np.array_equal(fam, cpu_fam)}")
+    with fext.executor.strict_syncs():
+        strict_rows, strict_stats = fext.run(cohort_cases)
+    check(not strict_stats["errors"] and np.array_equal(np.stack(strict_rows), frows),
+          f"three-family rows under CUDA sync debugging differ: {strict_stats['errors']}")
+    print(f"[fmain] the {len(cohort)} cases under CUDA sync debugging ('error' outside the "
+          f"counted fetches): no other host sync; host_fetches {strict_stats['host_fetches']}")
+    shape_s = []
+    for which in ("shape", "fam", "fam", "shape"):
+        t0 = time.perf_counter()
+        (ext if which == "shape" else fext).run(cohort_cases)
+        (shape_s if which == "shape" else fam_s).append(time.perf_counter() - t0)
+    print("[fmain] cases/s over the 60 cases, rounds in order shape, three-family, "
+          f"three-family, shape: three-family {[round(len(cohort) / t, 3) for t in fam_s[1:]]} "
+          f"(counted run {len(cohort) / fam_s[0]:.3f}), shape-only "
+          f"{[round(len(cohort) / t, 3) for t in shape_s]}")
+    per_kernel, wall_ms = device_trace(lambda: fext.run(seed0))
+    busy_ms = sum(per_kernel.values()) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[ftrace] three-family run over the 20 seed-0 cases: wall {wall_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, {len(per_kernel)} "
+          "kernel names; top: " + "; ".join(f"{k[:48]} {us:.1f} us" for k, us in top))
+
+    # -- 8. kernels line ----------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -557,9 +758,13 @@ def main():
               mcb_err, mcb_ms, mcb_plain_ms, mcb_bound, None),
         entry("max_diameters_sq_batch", "diameter.cu", "src/repro/kernels/diameter.py:137",
               batch_launches["diameter"], dmb_err, dmb_ms, dmb_plain_ms, dmb_bound, None),
+        entry("firstorder_packed_batch", "firstorder.cu", "src/repro/kernels/firstorder.py:227",
+              fam_launches["firstorder"], fo_err, fo_ms, fo_plain_ms, fo_bound, None),
+        entry("glcm_matrix_batch", "glcm.cu", "src/repro/kernels/glcm.py:146",
+              fam_launches["glcm"], gl_err, gl_ms, gl_plain_ms, gl_bound, None),
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 8. status ------------------------------------------------------------
+    # -- 9. status ------------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
-"""repro_torch: the PyRadiomics-cuda shape path on PyTorch and CUDA.
+"""repro_torch: PyRadiomics-cuda's feature extraction on PyTorch and CUDA.
 
 A port of the JAX package ``repro`` to an NVIDIA H100, laid out like it
 (``core/``, ``kernels/``, ``data/``), that imports neither JAX nor ``repro``.
 It runs single-case shape extraction (``ShapeFeatureExtractor``) and the
-batched two-pass cohort path (``BatchedExtractor``).  The TPU kernels on
-those paths (marching cubes, the diameter sweep, segmented compaction, and
-the batched forms of the first two) are replaced by CUDA C++ kernels
-written for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use;
+batched two-pass cohort path (``BatchedExtractor``) with the shape,
+first-order and GLCM feature families.  The TPU kernels on those paths
+(marching cubes, the diameter sweep, segmented compaction, the batched
+forms of the first two, first-order stats and GLCM) are replaced by CUDA
+C++ kernels written for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use;
 beside each sits its plain PyTorch version.  Entry points run on the
 card unless the caller passes ``device='cpu'``, and raise when there is no
 card.

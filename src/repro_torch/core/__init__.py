@@ -1,8 +1,9 @@
-"""Core: 3D shape feature extraction on the card, one case or a batch.
+"""Core: feature extraction on the card, one case (shape) or a batch (shape,
+first-order, GLCM).
 
 Public API:
     ShapeFeatureExtractor   -- PyRadiomics-compatible single-case extractor
-    BatchedExtractor        -- batched two-pass multi-case extractor
+    BatchedExtractor        -- batched two-pass multi-case extractor, any families
     StageTimes              -- per-stage wall-clock breakdown (paper Table 2)
     crop_to_roi             -- host-side ROI crop + pad
     resolve_device          -- 'cuda' by default, 'cpu' on request, no fallback

@@ -23,15 +23,27 @@ Data plane of one window:
 * **pass 2b:** one batched diameter launch per pruned vertex bucket, off
   the pass-1 stacks.
 
-Every launch of passes 2a and 2b is queued before any result is drained,
-and each chunk is drained with one fetch.  ``batch_size`` cuts a group
-into chunks of at most that many cases.  PyTorch runs eagerly, so there
+Feature families (``core/plan.FAMILIES``): any subset of shape,
+first-order and GLCM.  With an intensity family, pass 0 stages each
+case's cropped, bucket-padded intensity volume once beside its mask; one
+intensity pool per shape bucket (the image stack, the mask stack that pass
+2a also reads, and each case's masked range) is shared by both families,
+and one first-order (``kernels/firstorder``) and one GLCM
+(``kernels/glcm``) launch per shape bucket chunk are queued before pass 1.  Each family
+drains under its own stage, so the shape stages' fetches do not change;
+the host turns each fetched payload into its feature columns.  An
+intensity-only request runs no vertex stage and no shape pass.  Rows are
+``plan.row_width(families)`` wide, in canonical family order.
+
+Every launch of passes 2a and 2b and of the families is queued before
+any result is drained, and each chunk is drained with one fetch.
+``batch_size`` cuts a group into chunks of at most that many cases.  PyTorch runs eagerly, so there
 is no compile cache and a short last chunk is launched as it is.
 
 Every device-to-host copy of the executor goes through :meth:`_fetch`,
 under the reference's stage names (``prep``, ``pass1``, ``pass2a``,
-``pass2b``, ``pass2``), and every host-to-device copy is queued from
-pinned memory (``dispatcher.to_device``), so on the default path and the
+``pass2b``, ``pass2``, ``firstorder``, ``glcm``), and every host-to-device
+copy is queued from pinned memory (``dispatcher.to_device``), so on the default path and the
 one-pass path ``transfer_log`` counts every host sync; the tests hold it
 equal to the reference's, and on the card hold ``submit_window`` to no
 other sync.  The host-compaction baseline also pulls each cap group's
@@ -44,15 +56,16 @@ each case's vertex list in pass 0 and compacts the survivors on the host;
 no pruning).  Both give the same rows as the default, bitwise.
 
 A case that fails to load or validate (a NaN-poisoned mask, a bad
-spacing, a loader that raises) is quarantined as an all-NaN row with an
+spacing, a loader that raises, and with an intensity family a missing,
+mismatched or non-finite image) is quarantined as an all-NaN row with an
 ``errors`` entry in the window stats; an empty mask gives a zero row; the
 rest of the window is unchanged.
 
 Not ported yet, and refused with ``ValueError``: ``schedule='static'`` or
 ``'auto'``, ``prep='hint'`` and ``extract_stream`` (ROADMAP.md Queue 1
-item 4(b)), feature families other than shape (item 5), diameter variants
-other than ``'seqacc'`` (item 6), ``retry`` (item 8) and ``mesh``
-(item 9).
+item 4(b)), diameter variants other than ``'seqacc'`` and tuned
+first-order and GLCM blocks (item 6; the families run at the fixed
+default ``block``), ``retry`` (item 8) and ``mesh`` (item 9).
 """
 from __future__ import annotations
 
@@ -69,9 +82,12 @@ from repro_torch.core import plan as planlib
 from repro_torch.core.dispatcher import resolve_device, to_device
 from repro_torch.core.shape_features import crop_to_roi
 from repro_torch.kernels import diameter as _diam
+from repro_torch.kernels import firstorder as _fo
+from repro_torch.kernels import glcm as _glcm
 from repro_torch.kernels import marching_cubes as _mc
 from repro_torch.kernels import ops
 from repro_torch.kernels import prune as prune_kernels
+from repro_torch.kernels import ref as _ref
 
 
 @contextlib.contextmanager
@@ -97,11 +113,14 @@ class _Prepped:
     """Pass-0 state for one case (None mask = empty-mask or quarantined case).
 
     ``mask`` is the bucket-padded mask, staged on the device (the pool
-    entry); ``verts``/``vmask`` stay on the device on the device-compaction
-    path and are host numpy on the host path.
+    entry); ``image`` the bucket-padded intensity volume, staged beside it
+    when an intensity family is requested; ``verts``/``vmask`` stay on the
+    device on the device-compaction path and are host numpy on the host
+    path.
     """
 
     mask: torch.Tensor | None = None
+    image: torch.Tensor | None = None
     spacing: np.ndarray | None = None
     shape: tuple | None = None  # padded shape bucket (MC group key)
     roi_shape: tuple | None = None  # pre-pad cropped shape (pad stats)
@@ -123,6 +142,7 @@ class _Window:
     diam_futs: list
     fused_futs: list
     t_prune: float
+    family_futs: dict  # {family: [(idxs, future)]}: the intensity launches
 
 
 class PlanExecutor:
@@ -133,7 +153,9 @@ class PlanExecutor:
     ``device='cpu'`` runs the plain versions of the kernels.
     ``variant``, ``mc_block`` and ``compact_block`` accept ``'auto'``,
     which resolves to the port's fixed defaults until the autotuner is
-    ported.
+    ported; the intensity families run at their kernels' default
+    ``block``.  ``families`` is any request ``plan.resolve_families``
+    takes; ``n_bins`` the intensity families' bin count.
     """
 
     N_FEATURES = planlib.row_width(planlib.DEFAULT_FAMILIES)
@@ -142,7 +164,7 @@ class PlanExecutor:
     def __init__(self, device=None, variant="auto", mesh=None, prune: bool = True,
                  mc_block="auto", k_dirs: int = 16, device_compact: bool = True,
                  compact_block="auto", schedule: str = "counted", prep: str = "count",
-                 transfer_callback=None, retry=None, families=None):
+                 transfer_callback=None, retry=None, families=None, n_bins: int = 32):
         self.device = resolve_device(device)
         if schedule in ("static", "auto"):
             raise _unported(f"schedule={schedule!r}", "4(b)")
@@ -154,8 +176,6 @@ class PlanExecutor:
         if prep != "count":
             raise ValueError(f"prep must be one of ('count', 'hint'), got {prep!r}")
         self.families = planlib.resolve_families(families)
-        if self.families != planlib.DEFAULT_FAMILIES:
-            raise _unported(f"families={self.families!r}", "5")
         if variant not in ("auto", "seqacc"):
             raise _unported(f"diameter variant {variant!r}", "6")
         if retry is not None:
@@ -163,6 +183,10 @@ class PlanExecutor:
         if mesh is not None:
             raise _unported("mesh", "9")
         self.n_features = planlib.row_width(self.families)
+        self.n_bins = int(n_bins)
+        _ref.check_bins(self.n_bins)
+        self._shape_on = "shape" in self.families
+        self._needs_intensity = planlib.needs_intensity(self.families)
         self.variant = variant
         self.prune = prune
         self.mc_block = _mc.DEFAULT_BLOCK if mc_block == "auto" else int(mc_block)
@@ -219,6 +243,18 @@ class PlanExecutor:
         """Pass 2b: batched diameter sweep over one chunk of a vertex bucket."""
         return ops.max_diameters_batch(verts, vmasks, device=self.device,
                                        block=self.diam_block)
+
+    def _family_launch(self, family: str):
+        """The launch of one intensity family over one chunk of a shape
+        bucket's intensity pool: packed stats rows (first-order) or count
+        matrices (GLCM), left on the device."""
+        op = ops.firstorder_packed_batch if family == "firstorder" else ops.glcm_matrix_batch
+
+        def launch(shape, images, masks, lo, hi):
+            return op(images, masks, device=self.device, n_bins=self.n_bins,
+                      value_range=(lo, hi))
+
+        return launch
 
     def _fused_launch(self, bucket: planlib.Bucket, masks, spacings):
         """The one-pass path (``prune=False``): (B, 7) rows of one chunk.
@@ -287,6 +323,36 @@ class PlanExecutor:
             np.stack([prepped[i].spacing for i in idxs]),
         )
 
+    @staticmethod
+    def _ipool(images, masks):
+        """Intensity pool of one shape group: ``(images, masks, lo, hi)``,
+        the stacks and each case's masked range, taken once and shared by
+        every intensity family."""
+        flat = (len(images), -1)
+        lo, hi = _ref.intensity_range(images.reshape(flat), masks.reshape(flat), dim=1)
+        return images, masks, lo, hi
+
+    def _submit_families(self, plan, prepped, pools, batch_size=None) -> dict:
+        """Queue every intensity-family launch of a planned window.
+
+        One launch per (family, shape bucket, chunk), all queued before
+        anything is drained; no host fetch happens here.  ``pools`` holds
+        the shape groups' mask stacks, which pass 2a shares.
+        """
+        families = [f for f in plan.families if f != "shape"]
+        if not families:
+            return {}
+        entries = [
+            (shape, idxs, self._ipool(torch.stack([prepped[i].image for i in idxs]),
+                                      pools[shape][0]))
+            for shape, idxs in plan.shape_groups.items()
+        ]
+        return {
+            family: self._submit(entries, self._family_launch(family),
+                                 self._stacked_chunk, batch_size)
+            for family in families
+        }
+
     # -- pass 0: prep + device staging --------------------------------------
 
     def _prep_case(self, image, mask, spacing, fields: bool = True) -> _Prepped:
@@ -294,21 +360,40 @@ class PlanExecutor:
 
         ``fields=False`` (the one-pass path, which computes the vertex
         fields in its own launch) sizes the cap from ``plan.vertex_hint``
-        instead of the measured count.  ``image`` is not read: the shape
-        family needs only the mask.
+        instead of the measured count.  With an intensity family, the
+        image is checked (present, of the mask's shape, finite), cropped
+        with the mask and staged once beside it; a shape-only request
+        never reads it.  An intensity-only request stops after staging:
+        no vertex stage runs, and the shape bucket still keys the family
+        launches.
         """
         sp = np.asarray(spacing, np.float32)
         if not np.any(mask):
             return _Prepped(spacing=sp)  # empty mask: all-zero feature row
-        _, m, _ = crop_to_roi(mask, mask)
+        if self._needs_intensity:
+            img = None if image is None else np.asarray(image)
+            if img is None or img.shape != np.shape(mask):
+                raise ValueError("intensity families requested but the case has no "
+                                 "matching intensity image")
+            if np.issubdtype(img.dtype, np.floating) and not np.isfinite(img).all():
+                raise ValueError("non-finite intensity image (poisoned case)")
+            im, m, _ = crop_to_roi(img, mask)
+        else:
+            _, m, _ = crop_to_roi(mask, mask)
         roi_shape = m.shape
         bshape = planlib.shape_bucket(tuple(s - 2 for s in roi_shape))
         pad = [(0, bs - ms) for bs, ms in zip(bshape, roi_shape)]
         mdev = to_device(np.pad(m, pad), self.device)  # the pool entry
+        # staged once; shared by every intensity family
+        idev = to_device(np.pad(im, pad), self.device) if self._needs_intensity else None
+        if not self._shape_on:
+            return _Prepped(mask=mdev, image=idev, spacing=sp, shape=bshape,
+                            roi_shape=roi_shape)
         if not fields:
             hint = planlib.vertex_hint(tuple(s - 2 for s in roi_shape), sp)
-            return _Prepped(mask=mdev, spacing=sp, shape=bshape, roi_shape=roi_shape,
-                            n_vertices=hint, vertex_cap=planlib.vertex_bucket(hint))
+            return _Prepped(mask=mdev, image=idev, spacing=sp, shape=bshape,
+                            roi_shape=roi_shape, n_vertices=hint,
+                            vertex_cap=planlib.vertex_bucket(hint))
         f = ops.vertex_fields(mdev, 0.5, sp)
         n = int(self._fetch("prep", ops.count_vertices(f)))
         cap = planlib.vertex_bucket(n)
@@ -316,8 +401,9 @@ class PlanExecutor:
         if not self.device_compact:  # host path: pull the list per case
             verts = self._fetch("prep", verts)
             vmask = self._fetch("prep", vmask)
-        return _Prepped(mask=mdev, spacing=sp, shape=bshape, roi_shape=roi_shape,
-                        verts=verts, vmask=vmask, n_vertices=n, vertex_cap=cap)
+        return _Prepped(mask=mdev, image=idev, spacing=sp, shape=bshape,
+                        roi_shape=roi_shape, verts=verts, vmask=vmask, n_vertices=n,
+                        vertex_cap=cap)
 
     def _prep_case_safe(self, case, fields: bool = True) -> _Prepped:
         """Quarantining wrapper around :meth:`_prep_case` (pass 0).
@@ -326,7 +412,8 @@ class PlanExecutor:
         loader returning one.  Any exception -- a loader error, a
         non-finite mask or spacing, a crop failure -- quarantines the case:
         its row is all-NaN, its message rides the window stats, and the
-        rest of the window is untouched.
+        rest of the window is untouched.  With an intensity family, a
+        missing, mismatched or non-finite image quarantines it too.
         """
         try:
             if callable(case):
@@ -347,7 +434,8 @@ class PlanExecutor:
     def _meta(self, p: _Prepped) -> planlib.CaseMeta:
         if p.mask is None:
             return planlib.CaseMeta(None, None, 0, 0)
-        return planlib.CaseMeta(p.shape, p.roi_shape, p.vertex_cap, p.n_vertices)
+        return planlib.CaseMeta(p.shape, p.roi_shape, p.vertex_cap, p.n_vertices,
+                                intensity=p.image is not None)
 
     def prep_case(self, case) -> _Prepped:
         """Pass-0 prep of one case, quarantining any load or validation
@@ -430,6 +518,12 @@ class PlanExecutor:
         """Plan and submit already-prepped cases."""
         plan = planlib.build_plan([self._meta(p) for p in prepped], self.schedule,
                                   families=self.families)
+        # the shape groups' mask stacks, built once for the families and pass 2a
+        pools = ({shape: self._pool(prepped, idxs) for shape, idxs in plan.shape_groups.items()}
+                 if self._needs_intensity or self.prune else {})
+        family_futs = self._submit_families(plan, prepped, pools, batch_size)
+        if not self._shape_on:  # intensity only: the family launches are the window
+            return _Window(prepped, plan, [], [], [], 0.0, family_futs)
         if not self.prune:
             fused_entries = [
                 (bucket, idxs, self._pool(prepped, idxs))
@@ -437,7 +531,7 @@ class PlanExecutor:
             ]
             fused_futs = self._submit(fused_entries, self._fused_launch,
                                       self._stacked_chunk, batch_size)
-            return _Window(prepped, plan, [], [], fused_futs, 0.0)
+            return _Window(prepped, plan, [], [], fused_futs, 0.0, family_futs)
 
         t1 = time.perf_counter()
         if self.device_compact:
@@ -447,10 +541,7 @@ class PlanExecutor:
             entries = None
         t_prune = time.perf_counter() - t1
 
-        mc_entries = [
-            (shape, idxs, self._pool(prepped, idxs))
-            for shape, idxs in plan.shape_groups.items()
-        ]
+        mc_entries = [(shape, idxs, pools[shape]) for shape, idxs in plan.shape_groups.items()]
         mc_futs = self._submit(mc_entries, self._mc_launch, self._stacked_chunk, batch_size)
         if entries is not None:
             diam_futs = self._submit(entries, self._diam_launch, self._stacked_chunk,
@@ -465,7 +556,7 @@ class PlanExecutor:
                 self._host_chunk(lambda i: (prepped[i].verts, prepped[i].vmask)),
                 batch_size,
             )
-        return _Window(prepped, plan, mc_futs, diam_futs, [], t_prune)
+        return _Window(prepped, plan, mc_futs, diam_futs, [], t_prune, family_futs)
 
     def resubmit_window(self, window: _Window) -> _Window:
         """Re-submit a window from its prepped device state.
@@ -484,29 +575,51 @@ class PlanExecutor:
         return self.submit_prepped(window.prepped)
 
     def collect_window(self, window: _Window):
-        """Drain one submitted window; returns ``(rows, stats)`` in input order."""
+        """Drain one submitted window; returns ``(rows, stats)`` in input order.
+
+        The intensity families drain first (they were submitted first),
+        each under its own stage; then the shape stages.
+        """
         prepped = window.prepped
+        fam_out = {family: self._drain(futs, family)
+                   for family, futs in window.family_futs.items()}
+        shape_out = {}
         if window.fused_futs:  # one-pass path
-            out = self._drain(window.fused_futs, "pass2")
-            rows = [
-                self._degenerate_row(p) if p.mask is None else np.asarray(out[i], np.float32)
-                for i, p in enumerate(prepped)
-            ]
-            return rows, self._window_stats(window)
-        mc_out = self._drain(window.mc_futs, "pass2a")
-        d_out = self._drain(window.diam_futs, "pass2b")
+            shape_out = self._drain(window.fused_futs, "pass2")
+        elif self._shape_on:
+            mc_out = self._drain(window.mc_futs, "pass2a")
+            d_out = self._drain(window.diam_futs, "pass2b")
+            shape_out = {i: self._shape_row(mc_out[i], d_out[i], prepped[i].n_vertices)
+                         for i in mc_out}
         rows = [
             self._degenerate_row(p) if p.mask is None
-            else self._assemble_row(mc_out[i], d_out[i], p.n_vertices)
+            else self._assemble_row(i, shape_out.get(i), fam_out)
             for i, p in enumerate(prepped)
         ]
         return rows, self._window_stats(window)
 
     @staticmethod
-    def _assemble_row(mc, d, n_vertices) -> np.ndarray:
+    def _shape_row(mc, d, n_vertices) -> np.ndarray:
         """The shape row: [volume, area, 4 diameters, vertex count], float32."""
         return np.concatenate([np.asarray(mc, np.float32), np.asarray(d, np.float32),
                                np.asarray([n_vertices], np.float32)])
+
+    def _family_row(self, family: str, payload) -> np.ndarray:
+        """One case's fetched family payload as its feature columns, by the
+        host derivations: packed stats -> 9 first-order features, count
+        matrix -> 4 Haralick features."""
+        if family == "firstorder":
+            return _fo.features_from_packed_np(payload, self.n_bins)
+        return _glcm.glcm_features_from_matrix_np(payload, self.n_bins)
+
+    def _assemble_row(self, i, shape_row, fam_out) -> np.ndarray:
+        """Concatenate one case's family parts in canonical family order."""
+        parts = [
+            np.asarray(shape_row, np.float32) if family == "shape"
+            else self._family_row(family, fam_out[family][i])
+            for family in self.families
+        ]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def _degenerate_row(self, p: _Prepped) -> np.ndarray:
         """Row of a case that ran no launches: zeros (empty mask) or NaNs
@@ -539,7 +652,9 @@ class PlanExecutor:
     def run(self, cases: Sequence, batch_size: int | None = None):
         """Extract features for (image, mask, spacing) cases (one window).
 
-        Returns a list of (7,) float32 rows in input order plus stats.
+        Returns a list of ``(plan.row_width(families),)`` float32 rows in
+        input order (``plan.family_slices`` maps each family to its
+        columns) plus stats.
         """
         t0 = time.perf_counter()
         fetches0 = dict(self.transfer_log)
@@ -570,19 +685,29 @@ class PlanExecutor:
         """Single-case path with the pipeline's stages: the parity oracle.
 
         The same bucket padding, pruning and kernels, without batching:
-        the single-case MC and diameter kernels and host compaction.  An
-        empty mask gives zeros.  Batching never changes a row: ``run``
-        equals this bitwise.
+        the single-case MC and diameter kernels and host compaction, and
+        each intensity family at batch depth 1.  Returns a
+        ``(plan.row_width(families),)`` row; an empty mask gives zeros.
+        Batching never changes a row: ``run`` equals this bitwise.
         """
         p = self._prep_case(image, mask, spacing)
         if p.mask is None:
             return np.zeros(self.n_features, np.float32)
-        verts = torch.as_tensor(p.verts, device=self.device)
-        vmask = torch.as_tensor(p.vmask, device=self.device)
-        if self.prune:
-            verts, vmask, p.prune_info = ops.prune_candidates(verts, vmask, k_dirs=self.k_dirs)
-        vol, area = ops.mc_volume_area(p.mask, 0.5, p.spacing, device=self.device,
-                                       block=self.mc_block)
-        d = ops.max_diameters(verts, vmask, device=self.device, block=self.diam_block)
-        out = self._fetch("extract_one", torch.cat([torch.stack([vol, area]), d]))
-        return self._assemble_row(out[:2], out[2:], p.n_vertices)
+        shape_row = None
+        if self._shape_on:
+            verts = torch.as_tensor(p.verts, device=self.device)
+            vmask = torch.as_tensor(p.vmask, device=self.device)
+            if self.prune:
+                verts, vmask, p.prune_info = ops.prune_candidates(verts, vmask,
+                                                                  k_dirs=self.k_dirs)
+            vol, area = ops.mc_volume_area(p.mask, 0.5, p.spacing, device=self.device,
+                                           block=self.mc_block)
+            d = ops.max_diameters(verts, vmask, device=self.device, block=self.diam_block)
+            out = self._fetch("extract_one", torch.cat([torch.stack([vol, area]), d]))
+            shape_row = self._shape_row(out[:2], out[2:], p.n_vertices)
+        fam_out = {
+            family: self._fetch(family, self._family_launch(family)(
+                p.shape, *self._ipool(p.image[None], p.mask[None])))
+            for family in self.families if family != "shape"
+        }
+        return self._assemble_row(0, shape_row, fam_out)

@@ -12,7 +12,8 @@ group of cases.  It is split, as in the reference, into
   pass 0 stages and compacts each case, pass 1 runs the pruning bound and
   the compaction kernel per cap group, pass 2a the batched
   marching-cubes kernel per shape bucket, pass 2b the batched diameter
-  kernel per pruned vertex bucket.
+  kernel per pruned vertex bucket; the intensity families run the
+  first-order and GLCM kernels per shape bucket in the same window.
 
 Usage::
 
@@ -21,6 +22,8 @@ Usage::
     # rows[i]: [MeshVolume, SurfaceArea, Maximum3DDiameter,
     #           Maximum2DDiameterSlice, Maximum2DDiameterRow,
     #           Maximum2DDiameterColumn, n_vertices]
+    ext = BatchedExtractor(families=("shape", "firstorder", "glcm"))
+    rows, stats = ext.run(cases)   # 20 columns: plan.family_slices(ext.families)
 
 ``run`` / ``extract_batch`` extract one window; ``extract_one`` is the
 single-case parity oracle (identical stages, no batching, bitwise the
@@ -40,7 +43,7 @@ from repro_torch.core.executor import PlanExecutor
 
 
 class BatchedExtractor:
-    """Batched multi-case shape extraction on one card.
+    """Batched multi-case feature extraction on one card.
 
     The facade over ``plan.build_plan`` + ``executor.PlanExecutor``.
     ``device`` defaults to ``'cuda'`` and raises ``RuntimeError`` without a
@@ -48,7 +51,9 @@ class BatchedExtractor:
     ``prune=True`` (default) runs the two-pass pruned pipeline,
     ``prune=False`` the one-pass path; ``device_compact=True`` (default)
     compacts pass 1's survivors on the card, ``device_compact=False`` on
-    the host.  Only ``schedule='counted'`` and ``prep='count'`` are
+    the host.  ``families`` picks any of ``"shape"`` (the default),
+    ``"firstorder"`` and ``"glcm"``; ``n_bins`` is the intensity families'
+    bin count.  Only ``schedule='counted'`` and ``prep='count'`` are
     ported; the other options of the reference raise ``ValueError``
     naming their ROADMAP item.
     """
@@ -58,16 +63,17 @@ class BatchedExtractor:
     def __init__(self, device=None, variant="auto", mesh=None, prune: bool = True,
                  mc_block="auto", k_dirs: int = 16, device_compact: bool = True,
                  compact_block="auto", schedule: str = "counted", prep: str = "count",
-                 transfer_callback=None, retry=None, families=None):
+                 transfer_callback=None, retry=None, families=None, n_bins: int = 32):
         self.executor = ex = PlanExecutor(
             device=device, variant=variant, mesh=mesh, prune=prune, mc_block=mc_block,
             k_dirs=k_dirs, device_compact=device_compact, compact_block=compact_block,
             schedule=schedule, prep=prep, transfer_callback=transfer_callback,
-            retry=retry, families=families,
+            retry=retry, families=families, n_bins=n_bins,
         )
         self.device = ex.device
         self.families = ex.families
         self.n_features = ex.n_features
+        self.n_bins = ex.n_bins
         self.variant = ex.variant
         self.prune = ex.prune
         self.device_compact = ex.device_compact
@@ -77,7 +83,8 @@ class BatchedExtractor:
     def run(self, cases: Sequence, batch_size: int | None = None):
         """Extract features for (image, mask, spacing) cases (one window).
 
-        Returns a list of (7,) float32 rows in input order plus stats.
+        Returns a list of ``(plan.row_width(families),)`` float32 rows in
+        input order plus stats.
         """
         return self.executor.run(list(cases), batch_size)
 

@@ -1,8 +1,11 @@
-"""Kernels of the shape path: hand-written CUDA for the card, plain PyTorch beside.
+"""Kernels of the shape and intensity paths: hand-written CUDA for the card,
+plain PyTorch beside.
 
     marching_cubes -- csrc/marching_cubes.cu wrappers (mesh volume + area)
     diameter       -- csrc/diameter.cu wrappers (4-combo farthest pair)
     compact        -- csrc/compact.cu wrapper (segmented survivor compaction)
+    firstorder     -- csrc/firstorder.cu wrapper (packed first-order stats)
+    glcm           -- csrc/glcm.cu wrapper (symmetric co-occurrence counts)
     prune          -- exact candidate pruning (plain PyTorch on the device)
     ref            -- the plain PyTorch versions and the path's plain ops
     ops            -- device-resolved entry points

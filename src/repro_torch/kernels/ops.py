@@ -1,9 +1,9 @@
-"""Device-resolved entry points of the shape path.
+"""Device-resolved entry points of the shape and intensity paths.
 
 Counterpart of ``repro.kernels.ops`` for the single-case and batched
-shape paths.  Each kernel entry takes ``device`` (default ``'cuda'``, see
-``repro_torch.core.dispatcher``), moves its inputs there and calls the
-kernel wrapper, which launches the CUDA kernel for a CUDA tensor and the
+shape paths and the batched intensity families.  Each kernel entry takes
+``device`` (default ``'cuda'``, see ``repro_torch.core.dispatcher``),
+moves its inputs there and calls the kernel wrapper, which launches the CUDA kernel for a CUDA tensor and the
 plain version for a CPU tensor.  ``block='auto'`` resolves to the port's
 fixed defaults: the autotuner is not ported yet.
 """
@@ -18,6 +18,8 @@ from repro_torch.core.dispatcher import resolve_device, to_device
 from repro_torch.core.plan import vertex_bucket  # noqa: F401  (re-export)
 from repro_torch.kernels import compact as _compact
 from repro_torch.kernels import diameter as _diam
+from repro_torch.kernels import firstorder as _fo
+from repro_torch.kernels import glcm as _glcm
 from repro_torch.kernels import marching_cubes as _mc
 from repro_torch.kernels import prune as _prune
 from repro_torch.kernels import ref as _ref
@@ -71,6 +73,40 @@ def compact_survivors_batch(verts, keep, cap: int, *, device=None, block="auto")
     keep = to_device(keep, dev).bool().contiguous()
     block = _compact.DEFAULT_BLOCK if block == "auto" else int(block)
     return _compact.compact_batch(verts, keep, cap, block=block)
+
+
+def _volumes(images, masks, device):
+    dev = resolve_device(device)
+    return (to_device(images, dev, torch.float32).contiguous(),
+            to_device(masks, dev, torch.float32).contiguous())
+
+
+def firstorder_packed_batch(images, masks, *, device=None, n_bins=_fo.N_BINS,
+                            block=_fo.DEFAULT_BLOCK, value_range=None):
+    """Batched packed first-order stats over bucket-padded stacks.
+
+    ``images``/``masks``: (B, nx, ny, nz) -> (B, packed_width) device rows
+    ``[count, sum, sum_sq, hist, lo, hi, bin_width]`` (see
+    ``kernels/firstorder``); the feature row derives on the host via
+    ``firstorder.features_from_packed_np``.  A case's row is the same bits
+    at any batch depth and any ``block``.
+    """
+    images, masks = _volumes(images, masks, device)
+    return _fo.firstorder_packed_batch(images, masks, n_bins=n_bins, block=block,
+                                       value_range=value_range)
+
+
+def glcm_matrix_batch(images, masks, *, device=None, n_bins=_glcm.N_BINS,
+                      block=_glcm.DEFAULT_BLOCK, value_range=None):
+    """Batched symmetric GLCM count matrices: (B, n_bins, n_bins) float32.
+
+    Integer-valued counts, exact at any batch depth and ``block``; the
+    Haralick row derives on the host via
+    ``glcm.glcm_features_from_matrix_np``.
+    """
+    images, masks = _volumes(images, masks, device)
+    return _glcm.glcm_matrix_batch(images, masks, n_bins=n_bins, block=block,
+                                   value_range=value_range)
 
 
 def _rebucket_pruned(orig_verts, orig_mask, v2, m2, info):

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the shape path's reference ops and kernels.
+"""Plain PyTorch versions of the reference ops and the shape path's kernels.
 
 Counterpart of ``repro.kernels.ref``.  These run on whatever device their
 input lies on.  The vertex-field, count and compaction ops are the main
@@ -8,6 +8,10 @@ batched :func:`mc_volume_area_batch`, :func:`max_diameters_sq_batch` and
 :func:`compact_batch` are the plain versions of the CUDA kernels: the
 kernel wrappers take them only for a tensor on the CPU, and
 ``chip_smoke.py`` holds each kernel against them on the card.
+:func:`intensity_range` and :func:`quantize_intensity` are the intensity
+families' shared quantisation contract, :func:`check_bins` and
+:func:`check_volumes` what both of their kernels take (the plain versions
+of those kernels live in ``kernels/firstorder.py`` and ``kernels/glcm.py``).
 
 Conventions
 -----------
@@ -31,6 +35,7 @@ from repro_torch.core.dispatcher import to_device
 NEG = -1e30
 # elements of one (rows, M) block of the plain pair sweep: bounds its memory
 _SWEEP_ELEMS = 1 << 24
+MAX_BINS = 64  # the intensity kernels' shared histogram size
 
 
 class VertexFields(NamedTuple):
@@ -271,3 +276,69 @@ def compact_batch(verts, keep, cap: int):
     n = k.sum(1).to(torch.int32)
     mask = torch.arange(cap, device=verts.device) < n.clamp(max=cap)[:, None]
     return out, mask, n
+
+
+# ---------------------------------------------------------------------------
+# intensity-family helpers (first-order / GLCM): shared quantisation contract
+# ---------------------------------------------------------------------------
+
+def intensity_range(image, mask, dim=None):
+    """Masked intensity ``(lo, hi)``: exact min and max, so any reduction
+    order gives the same bits.  An empty mask gives ``(0, 0)``.
+
+    ``dim=None`` reduces the whole array (one case, as the reference);
+    an int reduces that axis only (a flattened ``(B, L)`` stack: ``dim=1``).
+    """
+    img = torch.as_tensor(image, dtype=torch.float32)
+    m = torch.as_tensor(mask, device=img.device) > 0
+    if dim is None:
+        img, m, dim = img.reshape(-1), m.reshape(-1), 0
+    any_ = m.any(dim)
+    lo = torch.where(any_, img.masked_fill(~m, float("inf")).amin(dim), 0.0)
+    hi = torch.where(any_, img.masked_fill(~m, float("-inf")).amax(dim), 0.0)
+    return lo, hi
+
+
+def quantize_intensity(image, mask, lo, hi, n_bins: int):
+    """Fixed-bin-count discretisation: float32 bin ids in ``[0, n_bins)``.
+
+    ``(q, width)`` with ``width = (hi - lo) / n_bins`` and
+    ``q = clip(floor((img - lo) / safe), 0, n_bins - 1)``, ``safe = width``
+    where it is positive and 1 elsewhere; masked-out voxels go to bin 0.
+    The operations and their order are the reference's, so every bin edge
+    falls where it does there.  Both divisions are true divisions by a
+    tensor: PyTorch on the card turns a division by a Python number into
+    a multiplication by its reciprocal, which can move a bin edge.
+    ``lo``/``hi`` are tensors broadcastable against ``image``.
+    """
+    img = torch.as_tensor(image, dtype=torch.float32)
+    span = hi - lo
+    width = span / torch.full_like(span, float(n_bins))
+    safe = torch.where(width > 0, width, torch.ones_like(width))
+    q = torch.clamp(torch.floor((img - lo) / safe), 0.0, float(n_bins - 1))
+    m = torch.as_tensor(mask, device=img.device) > 0
+    return torch.where(m, q, torch.zeros_like(q)), width
+
+
+def check_bins(n_bins: int) -> None:
+    """The bin counts both intensity kernels take (their shared histograms)."""
+    if not 1 <= n_bins <= MAX_BINS:
+        raise ValueError(f"n_bins must be in [1, {MAX_BINS}], got {n_bins}")
+
+
+def check_volumes(images: torch.Tensor, masks: torch.Tensor) -> None:
+    """What both intensity kernels take: contiguous (B, X, Y, Z) float32
+    images and masks of one shape on one CUDA device."""
+    if images.device.type != "cuda" or masks.device != images.device:
+        raise ValueError(f"images and masks must share one CUDA device, got "
+                         f"{images.device} and {masks.device}")
+    if images.dtype != torch.float32 or masks.dtype != torch.float32:
+        raise ValueError(f"need float32 images and masks, got {images.dtype}, {masks.dtype}")
+    if (images.ndim != 4 or masks.shape != images.shape or not images.is_contiguous()
+            or not masks.is_contiguous()):
+        raise ValueError(f"need contiguous (B, X, Y, Z) images and masks of one shape, got "
+                         f"{tuple(images.shape)} and {tuple(masks.shape)}")
+    batch, voxels = images.shape[0], images[0].numel()
+    if not 1 <= batch < 2 ** 16 or not 1 <= voxels < 2 ** 31:
+        raise ValueError(f"batch {batch} of {voxels}-voxel volumes is outside the "
+                         f"kernels' grid")

@@ -153,12 +153,17 @@ def test_transfer_callback_sees_every_fetch():
 @pytest.mark.parametrize("kwargs,item", [
     ({"schedule": "static"}, "item 4(b)"), ({"schedule": "auto"}, "item 4(b)"),
     ({"prep": "hint"}, "item 4(b)"), ({"mesh": object()}, "item 9"),
-    ({"retry": object()}, "item 8"), ({"families": ("shape", "glcm")}, "item 5"),
-    ({"families": "firstorder"}, "item 5"), ({"variant": "gram"}, "item 6"),
+    ({"retry": object()}, "item 8"), ({"variant": "gram"}, "item 6"),
 ])
 def test_unported_options_raise_naming_roadmap_item(kwargs, item):
     with pytest.raises(ValueError, match=rf"ROADMAP.*{re.escape(item)}"):
         BatchedExtractor(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("families,n_features", [(("shape", "glcm"), 11), ("firstorder", 9)])
+def test_family_requests_are_accepted(families, n_features):
+    ext = BatchedExtractor(device="cpu", families=families)
+    assert ext.n_features == n_features and ext.n_bins == 32
 
 
 def test_extract_stream_raises_naming_roadmap_item():

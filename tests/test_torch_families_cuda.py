@@ -1,0 +1,142 @@
+"""The intensity families' CUDA kernels on the card: each against its plain
+version, and the three-family batched extractor end to end.
+
+Skipped without a CUDA device (a CUDA kernel has no CPU mode).  Run on an
+H100 with ``PYTHONPATH=src python -m pytest -q tests/test_torch_families_cuda.py``.
+The first-order kernel does the plain version's arithmetic in its order
+(a fixed pairwise tree per 1024-voxel chunk, a left fold over chunks), so
+the two agree bitwise, at every ``block`` and batch depth; the GLCM
+kernel's integer counts equal the plain version's exactly.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import crop_to_roi  # noqa: E402
+from repro_torch.core.pipeline import BatchedExtractor  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.kernels import firstorder, glcm, ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+FAMS = ("shape", "firstorder", "glcm")
+KERNELS = {"firstorder": (firstorder, firstorder.firstorder_packed_batch,
+                          firstorder.firstorder_packed_batch_ref),
+           "glcm": (glcm, glcm.glcm_matrix_batch, glcm.glcm_matrix_batch_ref)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda")
+
+
+def _random_stack(dev, shape=(3, 33, 20, 17), seed=0):
+    """CT-like images and random masks; case 1 is constant, the last empty."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.normal(40.0, 15.0, shape).astype(np.float32)
+    msks = (rng.random(shape) < 0.6).astype(np.float32)
+    imgs[1] = 7.0
+    msks[-1] = 0.0
+    return torch.from_numpy(imgs).to(dev), torch.from_numpy(msks).to(dev)
+
+
+def _case_00001_1(dev):
+    name, img, msk, _ = synthetic.table2_suite(seed=0)[2]
+    assert name == "00001-1"
+    im, m, _ = crop_to_roi(img, msk)
+    return torch.from_numpy(im[None]).to(dev), torch.from_numpy(m[None]).to(dev)
+
+
+def _inputs(kind, dev):
+    return _case_00001_1(dev) if kind == "00001-1" else _random_stack(dev)
+
+
+@pytest.mark.parametrize("kind", ["random", "00001-1"])
+@pytest.mark.parametrize("family", sorted(KERNELS))
+def test_kernel_equals_plain(dev, family, kind):
+    module, kernel, plain = KERNELS[family]
+    imgs, msks = _inputs(kind, dev)
+    before = module.LAUNCHES
+    got = kernel(imgs, msks)
+    torch.cuda.synchronize()
+    assert module.LAUNCHES == before + 1  # the kernel ran, not the plain version
+    want = plain(imgs, msks)
+    assert got.dtype == want.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("n_bins", [8, 64])
+@pytest.mark.parametrize("family", sorted(KERNELS))
+def test_kernel_equals_plain_other_bin_counts(dev, family, n_bins):
+    _, kernel, plain = KERNELS[family]
+    imgs, msks = _random_stack(dev, seed=3)
+    assert torch.equal(kernel(imgs, msks, n_bins=n_bins), plain(imgs, msks, n_bins))
+
+
+@pytest.mark.parametrize("family,blocks", [("firstorder", (1024, 2048, 8192)),
+                                           ("glcm", (256, 2048, 8192))])
+def test_block_never_changes_a_bit(dev, family, blocks):
+    _, kernel, _ = KERNELS[family]
+    imgs, msks = _case_00001_1(dev)
+    outs = [kernel(imgs, msks, block=b) for b in blocks]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.parametrize("family", sorted(KERNELS))
+def test_batched_equals_batch_of_one(dev, family):
+    _, kernel, _ = KERNELS[family]
+    imgs, msks = _random_stack(dev, seed=1)
+    batched = kernel(imgs, msks)
+    for b in range(len(imgs)):
+        assert torch.equal(kernel(imgs[b:b + 1], msks[b:b + 1])[0], batched[b])
+
+
+@pytest.mark.parametrize("family", sorted(KERNELS))
+def test_given_range_equals_own_range(dev, family):
+    """The executor hands both kernels the masked range its pool took once."""
+    _, kernel, plain = KERNELS[family]
+    imgs, msks = _random_stack(dev, seed=2)
+    flat = (len(imgs), -1)
+    rng = ref.intensity_range(imgs.reshape(flat), msks.reshape(flat), dim=1)
+    got = kernel(imgs, msks, value_range=rng)
+    assert torch.equal(got, kernel(imgs, msks))
+    assert torch.equal(got, plain(imgs, msks, value_range=rng))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    imgs, msks = _random_stack(dev)
+    for _, kernel, _ in KERNELS.values():
+        with pytest.raises(ValueError):
+            kernel(imgs, msks.cpu())
+        with pytest.raises(ValueError):
+            kernel(imgs, msks.to(torch.float64))
+        with pytest.raises(ValueError):
+            kernel(imgs[:, :, :, 1:], msks[:, :, :, 1:])  # not contiguous
+
+
+def test_three_family_run_on_card(dev):
+    """Rows equal extract_one bitwise and the CPU path (GLCM and the exact
+    first-order columns exactly); the window syncs only in its fetches."""
+    cases = [synthetic.make_case(s, seed=seed) for s, seed in
+             [((24, 20, 16), 1), ((28, 22, 18), 2), ((50, 24, 20), 2), ((52, 28, 22), 4)]]
+    ext = BatchedExtractor(families=FAMS)
+    before = (firstorder.LAUNCHES, glcm.LAUNCHES)
+    rows, stats = ext.run(cases)
+    assert (firstorder.LAUNCHES - before[0], glcm.LAUNCHES - before[1]) == (
+        stats["plan"]["shape_buckets"],) * 2
+    rows = np.stack(rows)
+    for case, row in zip(cases, rows):
+        np.testing.assert_array_equal(ext.extract_one(*case), row)
+    cpu, cpu_stats = BatchedExtractor(device="cpu", families=FAMS).run(cases)
+    cpu = np.stack(cpu)
+    np.testing.assert_allclose(rows[:, :6], cpu[:, :6], rtol=1e-4)
+    np.testing.assert_array_equal(rows[:, 6:], cpu[:, 6:])  # the families: bitwise
+    assert stats["host_fetches"] == cpu_stats["host_fetches"]
+    with ext.executor.strict_syncs():
+        strict, strict_stats = ext.run(cases)
+    assert not strict_stats["errors"]  # a sync in prep would quarantine its case
+    np.testing.assert_array_equal(np.stack(strict), rows)
+    assert strict_stats["host_fetches"] == stats["host_fetches"]

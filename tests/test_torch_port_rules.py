@@ -31,7 +31,8 @@ def test_import_loads_no_jax_or_reference():
         "import sys\n"
         "import repro_torch, repro_torch.core.shape_features, repro_torch.kernels.ops\n"
         "import repro_torch.core.pipeline, repro_torch.core.executor, repro_torch.core.plan\n"
-        "import repro_torch.kernels.compact\n"
+        "import repro_torch.kernels.compact, repro_torch.kernels.firstorder\n"
+        "import repro_torch.kernels.glcm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -59,6 +60,10 @@ def test_default_device_raises_without_cuda():
         ops.mc_volume_area(np.zeros((3, 3, 3), np.float32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.max_diameters(np.zeros((2, 3), np.float32), np.ones(2, bool))
+    vols = np.zeros((1, 3, 3, 3), np.float32)
+    for entry in (ops.firstorder_packed_batch, ops.glcm_matrix_batch):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(vols, vols)
 
 
 def test_unknown_device_and_variant_raise():
