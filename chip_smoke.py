@@ -9,10 +9,11 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` with nvcc,
 holds each against its plain PyTorch version on the card, drives the three
 main paths -- single-case shape extraction (``ShapeFeatureExtractor``) over
 the 20 synthetic Table-2 cases, the batched two-pass extractor
-(``BatchedExtractor``) over a 60-case cohort of them, and the same cohort
-with the intensity families (shape, first-order, GLCM) -- checks the
-features against the port's CPU path, and prints the kernels line and a
-last JSON status line.  Any failed check raises, so the script exits
+(``BatchedExtractor``) over a 60-case cohort of them, the same cohort
+with the intensity families (shape, first-order, GLCM), and the
+out-of-core tiled path (``BatchedExtractor(tiled=True)``, ``TiledCase``) --
+checks the features against the port's CPU path or the in-core path, and
+prints the kernels line and a last JSON status line.  Any failed check raises, so the script exits
 non-zero; without a CUDA device it exits non-zero before printing any
 result.
 
@@ -57,7 +58,22 @@ Phases:
      and no other sync under CUDA sync debugging; times, device times and
      bounds at the largest launch; cases/s against the shape-only run (two
      interleaved rounds) and one traced run's idle share
-  8. the kernels line; 9. the status line
+  8. the tiled path: the marching-cubes window kernel (row 2) on case
+     00001-1's bucket frame cut into 4 z-windows, each granule against the
+     plain version (rtol 1e-5), the assembled partials' finalize == the
+     in-core kernel bitwise and == plain (rtol 1e-5); launch counts reset,
+     BatchedExtractor(families=(shape, firstorder), tiled=True,
+     tile_mem_mb=8) runs 00001-1 out-of-core (10 tiles), counts read; the
+     tiled row == in-core extract_one bitwise for prune levels none and
+     occupancy, 'bounds' at rtol 1e-5 on the diameters and exact
+     elsewhere, == the CPU path at rtol 1e-4; the same run under CUDA sync
+     debugging; every window, finalize and touched-chunk fold launch held
+     against its plain version; walls against extract_one (two
+     interleaved rounds); a 512^3 analytic sphere (FnSlabSource) under an
+     8 MiB budget == its in-core extract_one bitwise; a 1024^3 sphere
+     (4 GiB, never materialised) under 64 MiB, 'bounds', against the
+     analytic volume and diameter, traced for the device's idle share
+  9. the kernels line; 10. the status line
 """
 import json
 import statistics
@@ -72,7 +88,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import BatchedExtractor, ShapeFeatureExtractor, crop_to_roi  # noqa: E402
-from repro_torch.core import mc_tables  # noqa: E402
+from repro_torch.core import TiledCase, mc_tables  # noqa: E402
+from repro_torch.core import plan as planlib  # noqa: E402
+from repro_torch.data.tiles import FnSlabSource  # noqa: E402
 from repro_torch.data.synthetic import table2_suite  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import compact as cp  # noqa: E402
@@ -101,6 +119,8 @@ QUANT_OPS = 5
 FO_OPS_PER_MASKED = 3 + QUANT_OPS
 GLCM_OPS_PER_PAIR = 1 + QUANT_OPS
 FAMS = ("shape", "firstorder", "glcm")
+TILED_FAMS = ("shape", "firstorder")
+TILED_BIG_N = 1024  # the out-of-core sphere's edge (4 GiB materialised)
 # the reference's census for the cohort: one family fetch per shape bucket
 FAMILY_FETCHES = {"prep": 60, "pass1": 8, "pass2a": 26, "pass2b": 18,
                   "firstorder": 26, "glcm": 26}
@@ -161,6 +181,7 @@ def kernel_us(per_kernel, names):
 def zero_counts():
     """Sets every kernel's launch count to 0."""
     mc.LAUNCHES = dm.LAUNCHES = cp.LAUNCHES = fo.LAUNCHES = gl.LAUNCHES = 0
+    mc.SLAB_LAUNCHES = mc.FINALIZE_LAUNCHES = fo.FOLD_LAUNCHES = 0
 
 
 def read_counts():
@@ -168,7 +189,9 @@ def read_counts():
     wrappers launch the batched kernels with a batch of one, so each path
     is counted in a run of its own."""
     return {"marching_cubes": mc.LAUNCHES, "diameter": dm.LAUNCHES, "compact": cp.LAUNCHES,
-            "firstorder": fo.LAUNCHES, "glcm": gl.LAUNCHES}
+            "firstorder": fo.LAUNCHES, "glcm": gl.LAUNCHES,
+            "mc_slab_partials": mc.SLAB_LAUNCHES, "mc_partials_finalize": mc.FINALIZE_LAUNCHES,
+            "fold_packed_chunks": fo.FOLD_LAUNCHES}
 
 
 def check(cond, what):
@@ -265,6 +288,33 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.fn)
+
+
+def sphere_slabs(n, rfrac):
+    """``fn(z0, z1)``: planes of an analytic sphere of radius ``rfrac * n``
+    centred in an n^3 volume, made on demand (a ``FnSlabSource``)."""
+    ax = ((np.arange(n) - n / 2) / (n * rfrac)) ** 2
+    axy = ax[:, None] + ax[None, :]
+
+    def fn(z0, z1):
+        az = ((np.arange(z0, z1) - n / 2) / (n * rfrac)) ** 2
+        return (axy[:, :, None] + az[None, None, :] < 1.0).astype(np.float32)
+
+    return fn
+
+
+def traced(fn):
+    """``(result, wall seconds, device busy seconds)`` of one call of ``fn``
+    under a torch.profiler trace of the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.device_time_total for e in prof.key_averages()) / 1e6
+    return out, wall, busy
 
 
 def sphere_volume(n, r):
@@ -686,7 +736,8 @@ def main():
     print(f"[fmain] three-family run over {len(cohort)} cases: {fam_s[0]:.3f} s = "
           f"{len(cohort) / fam_s[0]:.3f} cases/s; launches {fam_launches}")
     print(f"[fmain] host_fetches {fstats['host_fetches']}")
-    check(all(n > 0 for n in fam_launches.values()),
+    check(all(fam_launches[k] > 0 for k in ("marching_cubes", "diameter", "compact",
+                                            "firstorder", "glcm")),
           f"a kernel of the three-family path never ran: {fam_launches}")
     check(fam_launches["firstorder"] == fam_launches["glcm"] == fstats["plan"]["shape_buckets"],
           f"one launch per family and shape bucket: {fam_launches}")
@@ -739,7 +790,246 @@ def main():
           f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, {len(per_kernel)} "
           "kernel names; top: " + "; ".join(f"{k[:48]} {us:.1f} us" for k, us in top))
 
-    # -- 8. kernels line ----------------------------------------------------
+    # -- 8. the tiled path ----------------------------------------------------
+    # 8a. the window kernel (row 2) on 00001-1's bucket frame, cut into 4 windows
+    img, msk, sp = cases["00001-1"]
+    _, m_roi, _ = crop_to_roi(msk, msk)
+    bshape = planlib.shape_bucket(tuple(s - 2 for s in m_roi.shape))
+    frame = np.pad(m_roi, [(0, b - s) for b, s in zip(bshape, m_roi.shape)])
+    frame_dev = torch.from_numpy(frame).to(dev)
+    cz = mc.DEFAULT_CHUNK_Z
+    ngran, bpg = mc.layout(bshape, cz)
+    zpad = np.pad(frame, ((0, 0), (0, 0), (0, ngran * cz + 1 - bshape[2])))
+    bounds = np.linspace(0, ngran, 5).round().astype(int)
+    parts, slab_err = [], 0.0
+    for k0, k1 in zip(bounds[:-1], bounds[1:]):
+        win = torch.from_numpy(np.ascontiguousarray(zpad[:, :, k0 * cz:k1 * cz + 1])).to(dev)
+        kv, ka = mc.mc_slab_partials(win, 0.5, sp, full_shape=bshape, k0=int(k0), chunk_z=cz)
+        kv2, ka2 = mc.mc_slab_partials(win, 0.5, sp, full_shape=bshape, k0=int(k0), chunk_z=cz)
+        check(torch.equal(kv, kv2) and torch.equal(ka, ka2), f"window {k0}: runs differ")
+        pv, pa = ref.mc_slab_partials(win, 0.5, sp, full_shape=bshape, k0=int(k0), chunk_z=cz)
+        got = torch.stack([kv.reshape(len(kv), -1).sum(1),
+                           ka.reshape(len(ka), -1).sum(1)]).cpu().numpy()
+        want = torch.stack([pv, pa]).cpu().numpy()
+        # a granule's signed volume can sit near zero: atol 1e-3 there
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3,
+                                   err_msg=f"window kernel vs plain, granules {k0}..{k1}")
+        slab_err = max(slab_err, float(np.max(np.abs(got - want))))
+        parts.append((kv, ka))
+    full_v, full_a = (torch.cat([p[i] for p in parts]) for i in range(2))
+    tv, ta = mc.mc_partials_finalize(full_v, full_a)
+    iv, ia = mc.mc_volume_area(frame_dev, 0.5, sp)
+    check(torch.equal(torch.stack([tv, ta]), torch.stack([iv, ia])),
+          f"assembled windows' finalize {[tv.item(), ta.item()]} != in-core kernel "
+          f"{[iv.item(), ia.item()]}")
+    pv, pa = ref.mc_volume_area(frame_dev, 0.5, sp)
+    np.testing.assert_allclose([tv.item(), ta.item()], [pv.item(), pa.item()], rtol=1e-5,
+                               err_msg="assembled windows' finalize vs plain")
+    fv, fa = ref.mc_partials_fold(full_v, full_a)
+    fin_err = float(max(abs(tv.item() - fv.item()), abs(ta.item() - fa.item())))
+    np.testing.assert_allclose([tv.item(), ta.item()], [fv.item(), fa.item()], rtol=1e-5,
+                               err_msg="finalize kernel vs plain fold")
+    print(f"[tiled] 00001-1 frame {bshape}: {ngran} granules x {bpg} blocks; windows at "
+          f"granules {bounds.tolist()}: each granule == plain (rtol 1e-5; max |diff| "
+          f"{slab_err:.3e}), repeat bitwise; assembled finalize == in-core kernel bitwise "
+          f"{[tv.item(), ta.item()]}, == plain (rtol 1e-5)")
+
+    # 8b. the main path: 00001-1 out-of-core at 8 MiB, then the checks
+    text = BatchedExtractor(families=TILED_FAMS, tiled=True, tile_mem_mb=8.0,
+                            tile_prune="occupancy")
+    case_t = (img, msk, sp)
+    zero_counts()
+    t0 = time.perf_counter()
+    trows, tstats = text.run([case_t])
+    tiled_s = [time.perf_counter() - t0]
+    tiled_launches = read_counts()
+    tiles = tstats["tiled"]
+    print(f"[tmain] 00001-1 out-of-core: {tiled_s[0]:.3f} s; tiled {json.dumps({k: v for k, v in tiles.items() if k != 'census'})}; "
+          f"launches {tiled_launches}")
+    check(tiles["cases"] == 1 and tiles["tiles"] >= 8, f"00001-1 not tiled into >= 8: {tiles}")
+    check(all(tiled_launches[k] > 0 for k in ("mc_slab_partials", "mc_partials_finalize",
+                                              "fold_packed_chunks", "diameter")),
+          f"a kernel of the tiled path never ran: {tiled_launches}")
+    incore = BatchedExtractor(families=TILED_FAMS)
+    oracle = incore.extract_one(img, msk, sp)
+    check(np.array_equal(trows[0], oracle), f"tiled != extract_one: {trows[0]} vs {oracle}")
+    cpu_row = BatchedExtractor(device="cpu", families=TILED_FAMS).extract_one(img, msk, sp)
+    fo_exact = [9, 10, 11, 12, 13, 15]  # first-order min, max, P10, median, P90, entropy
+    check(trows[0][6] == cpu_row[6] and np.array_equal(trows[0][fo_exact], cpu_row[fo_exact]),
+          "tiled vertex count or exact first-order columns != the CPU path")
+    np.testing.assert_allclose(trows[0], cpu_row, rtol=1e-4, err_msg="tiled vs the CPU path")
+    with Recorder(mc, "mc_slab_partials") as rec_sl, \
+            Recorder(mc, "mc_partials_finalize") as rec_fin, \
+            Recorder(fo, "fold_packed_chunks") as rec_fold:
+        res_none = BatchedExtractor(families=TILED_FAMS, tile_mem_mb=8.0,
+                                    tile_prune="none").extract_tiled(case_t)
+    check(np.array_equal(res_none.row, oracle), "tile_prune='none' != extract_one")
+    res_b = BatchedExtractor(families=TILED_FAMS, tile_mem_mb=8.0,
+                             tile_prune="bounds").extract_tiled(case_t)
+    check(np.array_equal(res_b.row[:2], oracle[:2]) and np.array_equal(res_b.row[6:], oracle[6:]),
+          "tile_prune='bounds' moved a column other than the diameters")
+    np.testing.assert_allclose(res_b.row[2:6], oracle[2:6], rtol=1e-5,
+                               err_msg="tile_prune='bounds' diameters")
+    with text.executor.strict_syncs():
+        strict = text.extract_tiled(case_t)
+    check(np.array_equal(strict.row, oracle), "tiled row under CUDA sync debugging differs")
+    print(f"[tmain] tiled == extract_one bitwise for prune none and occupancy; bounds "
+          f"diameters rtol 1e-5 (bitwise: {np.array_equal(res_b.row, oracle)}), other columns "
+          f"exact; == the CPU path (rtol 1e-4; count and exact first-order columns equal); "
+          f"no host sync outside the counted fetches {strict.stats['host_fetches']}; host "
+          f"seconds {strict.stats['seconds']}; tiles "
+          f"none {res_none.stats['tiles']}/{res_none.stats['tiles_skipped']} skipped, bounds "
+          f"{res_b.stats['tiles_bounds_pruned']} pruned; staged peak "
+          f"{strict.stats['staged_bytes_peak']} (census {strict.stats['census_bytes_peak']}) "
+          f"<= {8 * 2**20}")
+    check(strict.stats["staged_bytes_peak"] <= 8 * 2**20, "00001-1 staged over budget")
+
+    # every launch of the 'none' run against its plain version
+    for args, kw in zip(rec_sl.calls, rec_sl.kwargs):
+        kv, ka = mc.mc_slab_partials(*args, **kw)
+        pv, pa = ref.mc_slab_partials(*args, **{k: v for k, v in kw.items() if k != "block"})
+        got = torch.stack([kv.reshape(len(kv), -1).sum(1),
+                           ka.reshape(len(ka), -1).sum(1)]).cpu().numpy()
+        want = torch.stack([pv, pa]).cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3,
+                                   err_msg=f"window launch k0={kw['k0']} vs plain")
+        slab_err = max(slab_err, float(np.max(np.abs(got - want))))
+    for args, _ in zip(rec_fin.calls, rec_fin.kwargs):
+        kv, ka = mc.mc_partials_finalize(*args)
+        fv, fa = ref.mc_partials_fold(*args)
+        np.testing.assert_allclose([kv.item(), ka.item()], [fv.item(), fa.item()], rtol=1e-5)
+        fin_err = max(fin_err, abs(kv.item() - fv.item()), abs(ka.item() - fa.item()))
+    fold_err = 0.0
+    for (x, m, lo, hi), kw in zip(rec_fold.calls, rec_fold.kwargs):
+        got = fo.fold_packed_chunks(x, m, lo, hi, **kw)
+        stack = (1, x.shape[0], 1, fo.CANON_CHUNK)
+        plain = fo.firstorder_packed_batch_ref(x.reshape(stack), m.reshape(stack),
+                                               kw.get("n_bins", fo.N_BINS),
+                                               (lo.reshape(1), hi.reshape(1)))[0]
+        fold_err = max(fold_err, float((got - plain).abs().max()))
+        check(torch.equal(got, plain), "fold_packed_chunks kernel vs plain not bitwise")
+    print(f"[tmain] every launch of the 'none' run vs plain: {len(rec_sl.calls)} windows "
+          f"(rtol 1e-5), {len(rec_fin.calls)} finalize (rtol 1e-5), {len(rec_fold.calls)} "
+          f"touched-chunk fold over {rec_fold.calls[0][0].shape[0]} chunks (bitwise)")
+
+    # times, device times and bounds at the main path's shapes
+    sargs, skw = max(zip(rec_sl.calls, rec_sl.kwargs), key=lambda c: c[0][0].numel())
+    sv = sargs[0]
+    w = (sv.shape[2] - 1) // skw["chunk_z"]
+    slab_ms = time_ms(lambda: mc.mc_slab_partials(*sargs, **skw))
+    slab_plain_ms = time_ms(lambda: ref.mc_slab_partials(
+        *sargs, **{k: v for k, v in skw.items() if k != "block"}), reps=5, warmup=1)
+    slab_dev, _ = device_trace(lambda: mc.mc_slab_partials(*sargs, **skw), reps=10)
+    slab_bound, slab_tris = mc_bound_ms([sv], dev)
+    slab_bound["bytes"] += 8 * (w - 1) / PEAK_BYTES_PER_S * 1e3  # (vol, area) per granule
+    print(f"[tiled] window kernel at the largest launch {tuple(sv.shape)} ({w} granules, "
+          f"{slab_tris} triangles): {slab_ms:.4f} ms/call (device "
+          f"{kernel_us(slab_dev, ['mc_partials_kernel'])}), plain {slab_plain_ms:.4f} ms, "
+          f"bound {max(slab_bound.values()):.5f} ms (bytes {slab_bound['bytes']:.5f}, ops "
+          f"{slab_bound['operations']:.5f}); launches {tiled_launches['mc_slab_partials']}")
+    fin_args = rec_fin.calls[0]
+    nparts = fin_args[0].numel()
+    fin_ms = time_ms(lambda: mc.mc_partials_finalize(*fin_args))
+    fin_plain_ms = time_ms(lambda: ref.mc_partials_fold(*fin_args))
+    fin_stack = torch.stack([fin_args[0].reshape(-1), fin_args[1].reshape(-1)])
+    fin_lib_ms = time_ms(lambda: torch.sum(fin_stack, dim=1))
+    fin_dev, _ = device_trace(lambda: mc.mc_partials_finalize(*fin_args), reps=10)
+    fin_bound = {"bytes": (8 * nparts + 8) / PEAK_BYTES_PER_S * 1e3,
+                 "operations": 2 * nparts / PEAK_FP32_PER_S * 1e3}
+    print(f"[tiled] finalize over {nparts} x 2 partials: {fin_ms:.4f} ms/call (device "
+          f"{kernel_us(fin_dev, ['mc_finalize_kernel'])}; the whole call "
+          f"{sum(fin_dev.values()):.2f} us), plain {fin_plain_ms:.4f} ms, library "
+          f"(torch.sum over the (2, n) stack) {fin_lib_ms:.4f} ms, bound "
+          f"{max(fin_bound.values()):.6f} ms; launches {tiled_launches['mc_partials_finalize']}")
+    (fx, fm, flo, fhi), fkw = rec_fold.calls[0], rec_fold.kwargs[0]
+    fstack = (1, fx.shape[0], 1, fo.CANON_CHUNK)
+    fold_ms = time_ms(lambda: fo.fold_packed_chunks(fx, fm, flo, fhi, **fkw))
+    fold_plain_ms = time_ms(lambda: fo.firstorder_packed_batch_ref(
+        fx.reshape(fstack), fm.reshape(fstack), fo.N_BINS, (flo.reshape(1), fhi.reshape(1))),
+        reps=5, warmup=1)
+    fold_dev, _ = device_trace(lambda: fo.fold_packed_chunks(fx, fm, flo, fhi, **fkw), reps=10)
+    fold_masked = int((fm > 0).sum())
+    fold_bound = {"bytes": (4 * fm.numel() + 4 * fold_masked + 8 + 4 * fo.packed_width(fo.N_BINS))
+                  / PEAK_BYTES_PER_S * 1e3,
+                  "operations": (fm.numel() + FO_OPS_PER_MASKED * fold_masked)
+                  / PEAK_FP32_PER_S * 1e3}
+    print(f"[tiled] touched-chunk fold over {fx.shape[0]} chunks ({fold_masked} masked "
+          f"voxels): {fold_ms:.4f} ms/call (device "
+          f"{kernel_us(fold_dev, ['fo_partials_kernel', 'fo_fold_kernel'])}), plain "
+          f"{fold_plain_ms:.4f} ms, bound {max(fold_bound.values()):.6f} ms (bytes); launches "
+          f"{tiled_launches['fold_packed_chunks']}")
+    del rec_sl, rec_fin, rec_fold
+
+    incore_s = []
+    for which in ("incore", "tiled", "tiled", "incore"):
+        t0 = time.perf_counter()
+        if which == "incore":
+            incore.extract_one(img, msk, sp)
+        else:
+            text.run([case_t])
+        torch.cuda.synchronize()
+        (incore_s if which == "incore" else tiled_s).append(time.perf_counter() - t0)
+    print(f"[tmain] 00001-1 wall, rounds in order in-core, tiled, tiled, in-core: tiled run "
+          f"{[round(t, 4) for t in tiled_s[1:]]} s (counted run {tiled_s[0]:.4f}), in-core "
+          f"extract_one {[round(t, 4) for t in incore_s]} s")
+    per_kernel, wall_ms = device_trace(lambda: text.run([case_t]))
+    busy_ms = sum(per_kernel.values()) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[ttrace] 00001-1 tiled run: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.4f}; top: "
+          + "; ".join(f"{k[:48]} {us:.1f} us" for k, us in top))
+
+    # 8c. a 512^3 analytic sphere under 8 MiB == its in-core extract_one
+    n_mid = 512
+    fn_mid = sphere_slabs(n_mid, 0.42)
+    sph = BatchedExtractor(mc_chunk=4, tiled=True, tile_mem_mb=8.0, tile_prune="occupancy")
+    t0 = time.perf_counter()
+    res_mid = sph.extract_tiled(TiledCase(FnSlabSource(fn_mid, (n_mid,) * 3)))
+    mid_s = time.perf_counter() - t0
+    vol_mid = fn_mid(0, n_mid)  # 512 MiB, materialised for the in-core oracle only
+    t0 = time.perf_counter()
+    oracle_mid = sph.extract_one(None, vol_mid, (1.0, 1.0, 1.0))
+    mid_incore_s = time.perf_counter() - t0
+    del vol_mid
+    check(np.array_equal(res_mid.row, oracle_mid),
+          f"{n_mid}^3 tiled {res_mid.row} != in-core {oracle_mid}")
+    check(res_mid.stats["staged_bytes_peak"] <= 8 * 2**20, f"{n_mid}^3 staged over budget")
+    r = n_mid * 0.42
+    check(abs(res_mid.row[0] / (4 / 3 * np.pi * r ** 3) - 1) < 0.01, f"{n_mid}^3 volume")
+    print(f"[tbig] {n_mid}^3 sphere under 8 MiB (occupancy, mc_chunk 4): {mid_s:.3f} s, "
+          f"in-core extract_one {mid_incore_s:.3f} s, == bitwise; tiles "
+          f"{res_mid.stats['tiles']} ({res_mid.stats['tiles_skipped']} skipped), staged peak "
+          f"{res_mid.stats['staged_bytes_peak']} B (census {res_mid.stats['census_bytes_peak']} "
+          f"B); host seconds {res_mid.stats['seconds']}; "
+          f"row {res_mid.row.tolist()}")
+
+    # 8d. the out-of-core case: a 1024^3 sphere (4 GiB) under 64 MiB, never materialised
+    n_big = TILED_BIG_N
+    budget = 4 * n_big ** 3 // 64
+    big_ext = BatchedExtractor(mc_chunk=4, tiled=True, tile_mem_mb=budget / 2**20,
+                               tile_prune="bounds")
+    torch.cuda.reset_peak_memory_stats()
+    res_big, big_wall, big_busy = traced(lambda: big_ext.extract_tiled(
+        TiledCase(FnSlabSource(sphere_slabs(n_big, 0.45), (n_big,) * 3))))
+    r = n_big * 0.45
+    st = res_big.stats
+    check(st["staged_bytes_peak"] <= budget, f"{n_big}^3 staged {st['staged_bytes_peak']} B")
+    check(abs(res_big.row[0] / (4 / 3 * np.pi * r ** 3) - 1) < 0.005,
+          f"{n_big}^3 volume {res_big.row[0]}")
+    check(abs(res_big.row[2] / (2 * r) - 1) < 0.01, f"{n_big}^3 diameter {res_big.row[2]}")
+    check(np.isfinite(res_big.row).all(), f"{n_big}^3 row not finite")
+    print(f"[tbig] {n_big}^3 sphere ({4 * n_big ** 3 / 2**30:.0f} GiB) under {budget} B "
+          f"(bounds, mc_chunk 4): wall {big_wall:.3f} s (traced), device busy "
+          f"{big_busy:.3f} s, idle share {1 - big_busy / big_wall:.4f}; tiles {st['tiles']} "
+          f"({st['tiles_skipped']} skipped, {st['tiles_bounds_pruned']} bounds-pruned), staged "
+          f"peak {st['staged_bytes_peak']} B (census {st['census_bytes_peak']} B), device "
+          f"memory peak "
+          f"{torch.cuda.max_memory_allocated()} B; volume {res_big.row[0]:.1f} (analytic "
+          f"{4 / 3 * np.pi * r ** 3:.1f}), 3D diameter {res_big.row[2]:.3f} (analytic "
+          f"{2 * r:.3f}); {st['n_vertices']} vertices, {st['emitted_vertices']} emitted; "
+          f"host_fetches {st['host_fetches']}; host seconds {st['seconds']}")
+
+    # -- 9. kernels line ----------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -762,9 +1052,18 @@ def main():
               fam_launches["firstorder"], fo_err, fo_ms, fo_plain_ms, fo_bound, None),
         entry("glcm_matrix_batch", "glcm.cu", "src/repro/kernels/glcm.py:146",
               fam_launches["glcm"], gl_err, gl_ms, gl_plain_ms, gl_bound, None),
+        entry("mc_slab_partials", "marching_cubes.cu", "src/repro/kernels/marching_cubes.py:98",
+              tiled_launches["mc_slab_partials"], slab_err, slab_ms, slab_plain_ms, slab_bound,
+              None),
+        entry("mc_partials_finalize", "marching_cubes.cu",
+              "src/repro/kernels/marching_cubes.py:315", tiled_launches["mc_partials_finalize"],
+              fin_err, fin_ms, fin_plain_ms, fin_bound, fin_lib_ms),
+        entry("fold_packed_chunks", "firstorder.cu", "src/repro/kernels/firstorder.py:227",
+              tiled_launches["fold_packed_chunks"], fold_err, fold_ms, fold_plain_ms, fold_bound,
+              None),
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 9. status ------------------------------------------------------------
+    # -- 10. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -35,9 +35,11 @@ def to_device(x, device: torch.device, dtype: torch.dtype | None = None) -> torc
     A pageable host-to-device copy synchronises the stream, so on the card
     the data goes through a pinned staging buffer and a ``non_blocking``
     copy; PyTorch's pinned allocator keeps the buffer until the copy is
-    done.  A tensor already on the card is only moved to ``device``.
+    done.  A strided host view is made contiguous first: copying one to the
+    card would stage it through pageable memory and sync.  A tensor already
+    on the card is only moved to ``device``.
     """
     x = torch.as_tensor(x, dtype=dtype)
     if device.type != "cuda" or x.device.type != "cpu":
         return x.to(device)
-    return x.pin_memory().to(device, non_blocking=True)
+    return x.contiguous().pin_memory().to(device, non_blocking=True)

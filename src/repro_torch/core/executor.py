@@ -61,6 +61,11 @@ mismatched or non-finite image) is quarantined as an all-NaN row with an
 ``errors`` entry in the window stats; an empty mask gives a zero row; the
 rest of the window is unchanged.
 
+The out-of-core engine (``core/tiled``) runs on an executor: its device,
+its kernel choices (``_resolve_mc``, ``_resolve_diameter``), its family row
+derivation and its ``_fetch`` census.  ``mc_chunk`` is the z-granule of the
+marching-cubes partial layout that the in-core passes and the tiles share.
+
 Not ported yet, and refused with ``ValueError``: ``schedule='static'`` or
 ``'auto'``, ``prep='hint'`` and ``extract_stream`` (ROADMAP.md Queue 1
 item 4(b)), diameter variants other than ``'seqacc'`` and tuned
@@ -154,17 +159,23 @@ class PlanExecutor:
     ``variant``, ``mc_block`` and ``compact_block`` accept ``'auto'``,
     which resolves to the port's fixed defaults until the autotuner is
     ported; the intensity families run at their kernels' default
-    ``block``.  ``families`` is any request ``plan.resolve_families``
-    takes; ``n_bins`` the intensity families' bin count.
+    ``block``.  ``mc_chunk`` is the z-granule, in cell planes, of the
+    marching-cubes partial layout (default ``marching_cubes.
+    DEFAULT_CHUNK_Z`` = 8, the reference's Pallas brick depth); the
+    in-core passes and the tiled engine (``core/tiled.py``) use the same
+    value, so their rows agree bitwise.  ``families`` is any request
+    ``plan.resolve_families`` takes; ``n_bins`` the intensity families'
+    bin count.
     """
 
     N_FEATURES = planlib.row_width(planlib.DEFAULT_FAMILIES)
     # [vol, area, d3, dxy, dxz, dyz, n_vertices]
 
     def __init__(self, device=None, variant="auto", mesh=None, prune: bool = True,
-                 mc_block="auto", k_dirs: int = 16, device_compact: bool = True,
-                 compact_block="auto", schedule: str = "counted", prep: str = "count",
-                 transfer_callback=None, retry=None, families=None, n_bins: int = 32):
+                 mc_block="auto", mc_chunk: int | None = None, k_dirs: int = 16,
+                 device_compact: bool = True, compact_block="auto",
+                 schedule: str = "counted", prep: str = "count", transfer_callback=None,
+                 retry=None, families=None, n_bins: int = 32):
         self.device = resolve_device(device)
         if schedule in ("static", "auto"):
             raise _unported(f"schedule={schedule!r}", "4(b)")
@@ -190,6 +201,10 @@ class PlanExecutor:
         self.variant = variant
         self.prune = prune
         self.mc_block = _mc.DEFAULT_BLOCK if mc_block == "auto" else int(mc_block)
+        self.mc_chunk = _mc.DEFAULT_CHUNK_Z if mc_chunk is None else int(mc_chunk)
+        if self.mc_chunk < 1:
+            raise ValueError(f"mc_chunk must be a positive number of cell planes, "
+                             f"got {mc_chunk}")
         self.diam_block = _diam.DEFAULT_BLOCK
         self.k_dirs = k_dirs
         self.device_compact = device_compact
@@ -234,10 +249,20 @@ class PlanExecutor:
 
     # -- launches ------------------------------------------------------------
 
+    def _resolve_mc(self, shape=None):
+        """``(block, chunk_z)`` of the MC kernel: the port's fixed choices
+        (the autotuner is not ported yet), the same for every shape."""
+        return self.mc_block, self.mc_chunk
+
+    def _resolve_diameter(self, cap=None):
+        """``(variant, block)`` of the diameter sweep: ``'seqacc'`` at the
+        fixed block, the only variant ported."""
+        return "seqacc", self.diam_block
+
     def _mc_launch(self, shape, masks, spacings):
         """Pass 2a: batched MC over one chunk of a shape bucket's pool."""
         return ops.mc_volume_area_batch(masks, 0.5, spacings, device=self.device,
-                                        block=self.mc_block)
+                                        block=self.mc_block, chunk_z=self.mc_chunk)
 
     def _diam_launch(self, cap, verts, vmasks):
         """Pass 2b: batched diameter sweep over one chunk of a vertex bucket."""
@@ -264,7 +289,7 @@ class PlanExecutor:
         sweep over the unpruned lists; the count rides along on the device.
         """
         mc = ops.mc_volume_area_batch(masks, 0.5, spacings, device=self.device,
-                                      block=self.mc_block)
+                                      block=self.mc_block, chunk_z=self.mc_chunk)
         verts, vmasks, counts = zip(*(
             ops.compact_vertices(ops.vertex_fields(m, 0.5, sp), bucket.vertex_cap)
             for m, sp in zip(masks, spacings)
@@ -701,7 +726,7 @@ class PlanExecutor:
                 verts, vmask, p.prune_info = ops.prune_candidates(verts, vmask,
                                                                   k_dirs=self.k_dirs)
             vol, area = ops.mc_volume_area(p.mask, 0.5, p.spacing, device=self.device,
-                                           block=self.mc_block)
+                                           block=self.mc_block, chunk_z=self.mc_chunk)
             d = ops.max_diameters(verts, vmask, device=self.device, block=self.diam_block)
             out = self._fetch("extract_one", torch.cat([torch.stack([vol, area]), d]))
             shape_row = self._shape_row(out[:2], out[2:], p.n_vertices)

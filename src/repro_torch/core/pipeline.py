@@ -32,14 +32,28 @@ same row).  ``prune=False`` (one-pass, unpruned) and
 baselines.  Empty masks give zero rows; cases that fail to load or
 validate give NaN rows and an ``errors`` entry in the stats.
 
-Not ported yet: tiled and served extraction (ROADMAP.md Queue 1 items 7
-and 9), and the options the executor refuses (see ``core/executor``).
+Out-of-core cases (``core/tiled``): a ``TiledCase`` always takes the tiled
+engine, and with ``tiled=True`` so does a tuple whose staged frame would
+exceed the tile budget (``tile_mem_mb``, default ``REPRO_TILE_MEM_MB``);
+``run`` merges their rows back in input order with ``stats["tiled"]``, and
+``extract_tiled`` runs one case.  ``tile_prune`` is ``'none'``,
+``'occupancy'`` or ``'bounds'``; ``mc_chunk`` the marching-cubes z-granule
+both paths share, so a tiled row equals ``extract_one``'s bitwise.
+
+Not ported yet: served extraction (ROADMAP.md Queue 1 item 9),
+``extract_stream`` with the tiled segments in a stream (item 4(b)), and
+the options the executor refuses (see ``core/executor``).
 """
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
+
+from repro_torch.core import plan as planlib
 from repro_torch.core.executor import PlanExecutor
+from repro_torch.core.tiled import TiledExtractor
+from repro_torch.data.tiles import TiledCase
 
 
 class BatchedExtractor:
@@ -61,15 +75,22 @@ class BatchedExtractor:
     N_FEATURES = PlanExecutor.N_FEATURES
 
     def __init__(self, device=None, variant="auto", mesh=None, prune: bool = True,
-                 mc_block="auto", k_dirs: int = 16, device_compact: bool = True,
-                 compact_block="auto", schedule: str = "counted", prep: str = "count",
-                 transfer_callback=None, retry=None, families=None, n_bins: int = 32):
+                 mc_block="auto", mc_chunk: int | None = None, k_dirs: int = 16,
+                 device_compact: bool = True, compact_block="auto",
+                 schedule: str = "counted", prep: str = "count", transfer_callback=None,
+                 retry=None, families=None, n_bins: int = 32, tiled: bool = False,
+                 tile_prune: str = "bounds", tile_mem_mb: float | None = None):
         self.executor = ex = PlanExecutor(
             device=device, variant=variant, mesh=mesh, prune=prune, mc_block=mc_block,
-            k_dirs=k_dirs, device_compact=device_compact, compact_block=compact_block,
-            schedule=schedule, prep=prep, transfer_callback=transfer_callback,
-            retry=retry, families=families, n_bins=n_bins,
+            mc_chunk=mc_chunk, k_dirs=k_dirs, device_compact=device_compact,
+            compact_block=compact_block, schedule=schedule, prep=prep,
+            transfer_callback=transfer_callback, retry=retry, families=families,
+            n_bins=n_bins,
         )
+        self.tiled = bool(tiled)
+        self.tile_prune = tile_prune
+        self._tile_budget = None if tile_mem_mb is None else int(tile_mem_mb * 2**20)
+        self._tiledx = None  # built on the first tiled case (family-validated)
         self.device = ex.device
         self.families = ex.families
         self.n_features = ex.n_features
@@ -80,20 +101,87 @@ class BatchedExtractor:
         self.schedule = ex.schedule
         self.prep = ex.prep
 
+    @property
+    def tiled_extractor(self) -> TiledExtractor:
+        """The lazily built out-of-core engine (``core/tiled``)."""
+        if self._tiledx is None:
+            self._tiledx = TiledExtractor(self.executor, budget_bytes=self._tile_budget,
+                                          tile_prune=self.tile_prune)
+        return self._tiledx
+
+    def _route_tiled(self, case) -> bool:
+        """Should ``case`` take the out-of-core path?
+
+        A ``TiledCase`` always does (constructing one is the opt-in).  With
+        ``tiled=True``, a materialised tuple whose staged frame (mask and,
+        with an intensity family, image, float32) would exceed the tile
+        budget does too; loader callables stay in-core, since their shape
+        is unknown until loaded.
+        """
+        if isinstance(case, TiledCase):
+            return True
+        if not self.tiled or not (isinstance(case, (tuple, list)) and len(case) == 3):
+            return False
+        mask = np.asarray(case[1])
+        if mask.ndim != 3:
+            return False
+        staged = 4 * mask.size * (1 + int(self.executor._needs_intensity))
+        return staged > self.tiled_extractor.budget_bytes
+
+    @staticmethod
+    def _as_tiled(case) -> TiledCase:
+        if isinstance(case, TiledCase):
+            return case
+        image, mask, spacing = case
+        return TiledCase(mask, image=image, spacing=spacing)
+
+    def extract_tiled(self, case):
+        """Run one case (a ``TiledCase`` or an ``(image, mask, spacing)``
+        tuple) through the out-of-core engine; returns its
+        ``core.tiled.TiledResult`` (row, metadata, tile stats)."""
+        return self.tiled_extractor.extract(self._as_tiled(case))
+
     def run(self, cases: Sequence, batch_size: int | None = None):
         """Extract features for (image, mask, spacing) cases (one window).
 
         Returns a list of ``(plan.row_width(families),)`` float32 rows in
-        input order plus stats.
+        input order plus stats.  Cases routed out-of-core (see
+        :meth:`_route_tiled`) run through the tiled engine and merge back
+        in input order; their metadata joins the stats as a
+        ``plan.WindowCensus`` under ``stats["tiled"]``, and the in-core
+        window's ``host_fetches`` count the in-core cases alone.
         """
-        return self.executor.run(list(cases), batch_size)
+        cases = list(cases)
+        tiled_idx = [i for i, c in enumerate(cases) if self._route_tiled(c)]
+        if not tiled_idx:
+            return self.executor.run(cases, batch_size)
+        skip = set(tiled_idx)
+        incore = [c for i, c in enumerate(cases) if i not in skip]
+        rows, stats = self.executor.run(incore, batch_size) if incore else ([], {"cases": 0})
+        rows = list(rows)
+        census = planlib.WindowCensus()
+        tile_stats = []
+        for i in tiled_idx:
+            res = self.tiled_extractor.extract(self._as_tiled(cases[i]))
+            rows.insert(i, res.row)
+            census.add(res.meta)
+            tile_stats.append(res.stats)
+        stats = dict(stats)
+        stats["tiled"] = {
+            "cases": len(tiled_idx),
+            "census": census,
+            **{k: sum(s.get(k, 0) for s in tile_stats)
+               for k in ("tiles", "tiles_skipped", "tiles_bounds_pruned")},
+        }
+        return rows, stats
 
     def extract_batch(self, cases: Sequence, batch_size: int | None = None):
         """Alias of :meth:`run`."""
         return self.run(cases, batch_size)
 
     def extract_stream(self, *args, **kwargs):
-        """Not ported yet (ROADMAP.md Queue 1 item 4(b)); raises ValueError."""
+        """Not ported yet, nor its tiled segments (ROADMAP.md Queue 1 item
+        4(b)); raises ValueError."""
         return self.executor.extract_stream(*args, **kwargs)
 
     def extract_one(self, image, mask, spacing):

@@ -1,32 +1,55 @@
 // Marching-cubes mesh volume and surface area of (nx, ny, nz) float32
 // volumes: (|sum of signed tetrahedron volumes|, sum of triangle areas).
 //
-// Replaces the TPU kernel repro/kernels/marching_cubes.py::_mc_kernel as
-// mc_volume_area_pallas calls it: the same cube index (value > iso), edge
+// Replaces the TPU kernel repro/kernels/marching_cubes.py::_mc_kernel in
+// both of its uses: as mc_volume_area_pallas calls it (whole volumes; and
+// under lax.map, mc_volume_area_batch_pallas) and with z_scal, as
+// mc_brick_partials_pallas calls it for one z-window of a tiled volume,
+// its per-brick partials returned unreduced and folded by
+// mc_partials_finalize.  The same cube index (value > iso), edge
 // interpolation, edge numbering, triangle table and per-triangle formulas,
-// against the centred origin -0.5 * shape * spacing that the caller passes.
+// against the centred origin -0.5 * shape * spacing of the whole volume,
+// which the caller passes.
 //
 // Bound on the H100: device memory.  Every voxel is read once (4 bytes per
 // voxel at 3.35 TB/s); only the cells the surface crosses do arithmetic.
-// The design reads each cell's 8 corners in place, one thread per cell (the
-// neighbours' loads hit L1), drops empty and full cells at once, and keeps
-// the triangle table in shared memory, where a warp's different lookups do
-// not serialise as constant-cache reads would.  The TPU kernel's overlapping
+// The design reads each cell's 8 corners in place (the neighbours' loads
+// hit L1), drops empty and full cells at once, and keeps the triangle
+// table in shared memory, where a warp's different lookups do not
+// serialise as constant-cache reads would.  The TPU kernel's overlapping
 // brick restack and one-hot matmul lookup have no use here.
 //
-// One launch runs a stack of same-shape volumes, one per grid row: the
-// single-case path is its batch of one, and pass 2a of the batched pipeline
-// (marching_cubes.py::mc_volume_area_batch_pallas, the TPU kernel under
-// lax.map) its batch of many.
+// The partial layout, shared by the in-core and the tiled paths: the cells
+// of a volume are cut along z into granules of cz cell planes (granule g
+// holds the cells with k in [g*cz, (g+1)*cz)).  A granule's cells, in
+// granule-local order l = (i * (ny-1) + j) * cz + (k - g*cz), are split
+// into runs of kCellsPerThread * blockDim.x; block b of the granule sums
+// run b, thread t the cells l = b*run + r*blockDim.x + t for r = 0, 1, ...
+// in turn, and a fixed shuffle tree reduces the block to one (volume,
+// area) partial.  So a granule's partials depend on (nx-1, ny-1, cz), the
+// local cell index and the thread count alone: not on how many granules
+// one launch covers, nor on the card's SM count.  A cell past the volume's
+// last cell plane (the short last granule, or the zero planes a tile stages
+// past the frame) counts as empty, and an empty cell adds nothing, so a
+// z-window covering granules k0..k1 computes exactly the partials the
+// whole volume computes for them.  The z index is the global cell plane,
+// an exact integer, converted to float once.
 //
-// Determinism: each thread sums its cells in grid-stride order, each block
-// reduces with a fixed shuffle tree to one (volume, area) partial, and one
-// block per case sums its partials in a fixed order.  Every case gets the
-// grid of its volume alone, so a case's result is the same bits alone or
-// in a stack.  No float atomics, so two runs on one input are bitwise
-// equal.  Built with -fmad=false, every product and sum is rounded as in
-// the plain version (kernels/ref.py), so the two differ only in the order
-// of the final sums.
+// Launches: mc_volume_area_launch runs the partials of every granule of a
+// stack of same-shape volumes (grid (blocks per granule, granules, batch))
+// and then the finalize, which sums one case's (granules x blocks) partials
+// in a fixed order and takes |volume|.  The single-case path is its batch
+// of one, pass 2a of the batched pipeline its batch of many.
+// mc_slab_partials_launch runs the partials of one z-window with its z
+// offset and returns them unreduced; the tiled engine assembles every
+// window's partials into the whole granule grid (skipped windows stay
+// +0.0, the bits an empty granule gives) and calls mc_finalize_launch, the
+// same finalize.  So tiled and in-core agree bitwise.
+//
+// No float atomics, so two runs on one input are bitwise equal.  Built
+// with -fmad=false, every product and sum is rounded as in the plain
+// version (kernels/ref.py), so the two differ only in the order of the
+// sums inside a granule and in the final fold.
 
 #include <cuda_runtime.h>
 
@@ -37,11 +60,13 @@ namespace {
 
 constexpr int kSlots = 15;  // 3 * MAX_TRIS edge ids per case, -1 padded
 constexpr int kMaxTris = 5;
+constexpr int kCellsPerThread = 8;  // granule-local cells one thread sums
+constexpr int kFinalizeThreads = 512;
 
 struct Geometry {
   float iso;
   float sp[3];   // voxel spacing
-  float org[3];  // centred origin
+  float org[3];  // centred origin of the whole volume
 };
 
 __device__ __forceinline__ float interp(float v0, float v1, float iso) {
@@ -68,6 +93,7 @@ __device__ __forceinline__ float3 edge_vertex(int axis, int x, int y, int z, flo
 // the corners in mc_tables.CORNERS order:
 //   0 (0,0,0)  1 (1,0,0)  2 (1,1,0)  3 (0,1,0)
 //   4 (0,0,1)  5 (1,0,1)  6 (1,1,1)  7 (0,1,1)
+// k is the global cell plane.
 __device__ __forceinline__ float3 cell_edge_vertex(int e, const float (&v)[8], int i, int j,
                                                    int k, const Geometry& g) {
   switch (e) {
@@ -109,20 +135,33 @@ __device__ __forceinline__ void load_table(signed char* tri) {
   __syncthreads();
 }
 
-// This block's (signed volume, area) partial of one volume: each thread sums
-// its cells in grid-stride order over gridDim.x blocks, then a fixed shuffle
-// tree reduces the block.  The result is valid in thread 0.
-__device__ __forceinline__ void block_partial(const float* __restrict__ vol, int nx, int ny,
-                                              int nz, const Geometry& g,
-                                              const signed char* tri, float (&acc)[2]) {
-  const unsigned cy = ny - 1, cz = nz - 1;
-  const unsigned ncells = (unsigned)(nx - 1) * cy * cz;  // < 2^31, checked by the wrapper
+// Block (blockIdx.x, blockIdx.y) of case blockIdx.z: run blockIdx.x of
+// granule blockIdx.y of a window whose planes start at global cell plane
+// kz0 (see the head of this file).  vols: (batch, nx, ny, nz) float32;
+// cells with a global plane >= kz_end, or past the window's last plane,
+// are empty.  partials: (batch, 2, gridDim.y, gridDim.x), volume then area.
+__global__ void __launch_bounds__(1024)
+    mc_partials_kernel(const float* __restrict__ vols, int nx, int ny, int nz, int cz,
+                       int kz0, int kz_end, float iso, const float* __restrict__ geo,
+                       float* __restrict__ partials) {
+  __shared__ signed char tri[256 * kSlots];
+  load_table(tri);
+  const size_t b = blockIdx.z;
+  const float* gb = geo + 6 * b;
+  const Geometry g{iso, {gb[0], gb[1], gb[2]}, {gb[3], gb[4], gb[5]}};
+  const float* vol = vols + b * nx * ny * (size_t)nz;
+  const int cy = ny - 1;
+  const int gran_cells = (nx - 1) * cy * cz;  // < 2^31, checked by the wrapper
+  const int k_base = blockIdx.y * cz;         // window-local first plane of the granule
   const size_t sx = (size_t)ny * nz, sy = nz;
-  acc[0] = 0.0f;  // signed volume
-  acc[1] = 0.0f;  // area
-  for (unsigned c = blockIdx.x * blockDim.x + threadIdx.x; c < ncells;
-       c += gridDim.x * blockDim.x) {
-    const int k = c % cz, j = (c / cz) % cy, i = c / cz / cy;
+  float acc[2] = {0.0f, 0.0f};  // signed volume, area
+  const int run0 = blockIdx.x * kCellsPerThread * blockDim.x + threadIdx.x;
+  for (int r = 0; r < kCellsPerThread; ++r) {
+    const int l = run0 + r * blockDim.x;
+    if (l >= gran_cells) break;
+    const int kk = l % cz, j = (l / cz) % cy, i = l / cz / cy;
+    const int k = k_base + kk;  // window-local cell plane
+    if (k >= nz - 1 || kz0 + k >= kz_end) continue;
     const float* p = vol + i * sx + j * sy + k;
     const float v[8] = {p[0], p[sx], p[sx + sy], p[sy],
                         p[1], p[sx + 1], p[sx + sy + 1], p[sy + 1]};
@@ -131,55 +170,40 @@ __device__ __forceinline__ void block_partial(const float* __restrict__ vol, int
     for (int q = 0; q < 8; ++q) idx |= (v[q] > g.iso) << q;
     if (idx == 0 || idx == 255) continue;
     const signed char* row = tri + idx * kSlots;
+    const int kg = kz0 + k;  // global cell plane, exact
     for (int t = 0; t < kMaxTris && row[3 * t] >= 0; ++t) {
-      add_triangle(cell_edge_vertex(row[3 * t], v, i, j, k, g),
-                   cell_edge_vertex(row[3 * t + 1], v, i, j, k, g),
-                   cell_edge_vertex(row[3 * t + 2], v, i, j, k, g), acc[0], acc[1]);
+      add_triangle(cell_edge_vertex(row[3 * t], v, i, j, kg, g),
+                   cell_edge_vertex(row[3 * t + 1], v, i, j, kg, g),
+                   cell_edge_vertex(row[3 * t + 2], v, i, j, kg, g), acc[0], acc[1]);
     }
   }
   block_reduce<2>(acc, SumOp{}, 0.0f);
+  if (threadIdx.x == 0) {
+    const size_t nparts = (size_t)gridDim.x * gridDim.y;
+    const size_t at = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    partials[2 * nparts * b + at] = acc[0];
+    partials[2 * nparts * b + nparts + at] = acc[1];
+  }
 }
 
-// Sums one case's per-block partials in a fixed order: (|volume|, area).
-__device__ __forceinline__ void finalize(const float* __restrict__ partials, int nparts,
-                                         float* __restrict__ out) {
+// Case blockIdx.x: sums its nparts volume and nparts area partials in a
+// fixed order (thread t takes t, t + blockDim.x, ... then the block tree),
+// then (|volume|, area).
+__global__ void __launch_bounds__(kFinalizeThreads)
+    mc_finalize_kernel(const float* __restrict__ partials, int nparts,
+                       float* __restrict__ out) {
+  const size_t b = blockIdx.x;
+  const float* pb = partials + 2 * (size_t)nparts * b;
   float acc[2] = {0.0f, 0.0f};
-  for (int b = threadIdx.x; b < nparts; b += blockDim.x) {
-    acc[0] += partials[b];
-    acc[1] += partials[nparts + b];
+  for (int q = threadIdx.x; q < nparts; q += blockDim.x) {
+    acc[0] += pb[q];
+    acc[1] += pb[nparts + q];
   }
   block_reduce<2>(acc, SumOp{}, 0.0f);
   if (threadIdx.x == 0) {
-    out[0] = fabsf(acc[0]);
-    out[1] = acc[1];
+    out[2 * b] = fabsf(acc[0]);
+    out[2 * b + 1] = acc[1];
   }
-}
-
-// Case b = blockIdx.y of a stack: its own volume, spacing and origin
-// (geo[6b..6b+5]), over gridDim.x blocks.  The wrapper gives every case the
-// grid of its volume alone, so a case's partials, and with them its result,
-// are the same bits alone or in a stack.
-__global__ void __launch_bounds__(1024)
-    mc_partials_kernel(const float* __restrict__ vols, int nx, int ny, int nz, float iso,
-                       const float* __restrict__ geo, float* __restrict__ partials) {
-  __shared__ signed char tri[256 * kSlots];
-  load_table(tri);
-  const size_t b = blockIdx.y;
-  const float* gb = geo + 6 * b;
-  const Geometry g{iso, {gb[0], gb[1], gb[2]}, {gb[3], gb[4], gb[5]}};
-  float acc[2];
-  block_partial(vols + b * nx * ny * (size_t)nz, nx, ny, nz, g, tri, acc);
-  if (threadIdx.x == 0) {
-    float* pb = partials + 2 * gridDim.x * b;
-    pb[blockIdx.x] = acc[0];
-    pb[gridDim.x + blockIdx.x] = acc[1];
-  }
-}
-
-__global__ void mc_finalize_kernel(const float* __restrict__ partials, int nparts,
-                                   float* __restrict__ out) {
-  const size_t b = blockIdx.x;
-  finalize(partials + 2 * nparts * b, nparts, out + 2 * b);
 }
 
 }  // namespace
@@ -188,20 +212,38 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// vols: (batch, nx, ny, nz) float32, C order, on the device.  geo: (batch, 6)
-// float32 [spacing, centred origin] per case.  partials: 2 * nblocks * batch
-// floats of scratch.  out: (batch, 2).  Launches on `stream`, does not
-// wait.
-int mc_volume_area_launch(const float* vols, int batch, int nx, int ny, int nz, float iso,
-                          const float* geo, float* partials, int nblocks, int threads,
-                          float* out, void* stream) {
+// Partials of one z-window: vols (batch, nx, ny, nz) float32, C order, on
+// the device, its planes starting at global cell plane kz0; cells at global
+// planes >= kz_end are empty.  ngran granules of cz planes, bpg blocks of
+// `threads` per granule.  geo: (batch, 6) float32 [spacing, centred origin
+// of the whole volume] per case.  partials: (batch, 2, ngran, bpg).
+// Launches on `stream`, does not wait.
+int mc_slab_partials_launch(const float* vols, int batch, int nx, int ny, int nz, int cz,
+                            int kz0, int kz_end, float iso, const float* geo, int ngran,
+                            int bpg, int threads, float* partials, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mc_partials_kernel<<<dim3(nblocks, batch), threads, 0, s>>>(vols, nx, ny, nz, iso, geo,
-                                                              partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mc_finalize_kernel<<<batch, 256, 0, s>>>(partials, nblocks, out);
+  mc_partials_kernel<<<dim3(bpg, ngran, batch), threads, 0, s>>>(vols, nx, ny, nz, cz, kz0,
+                                                                 kz_end, iso, geo, partials);
   return cudaGetLastError();
+}
+
+// partials: (batch, 2, nparts) -> out: (batch, 2) [|volume|, area].
+int mc_finalize_launch(const float* partials, int batch, int nparts, float* out,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mc_finalize_kernel<<<batch, kFinalizeThreads, 0, s>>>(partials, nparts, out);
+  return cudaGetLastError();
+}
+
+// Whole volumes: the partials of all ngran granules, then the finalize.
+// partials: (batch, 2, ngran, bpg) scratch; out: (batch, 2).
+int mc_volume_area_launch(const float* vols, int batch, int nx, int ny, int nz, int cz,
+                          float iso, const float* geo, int ngran, int bpg, int threads,
+                          float* partials, float* out, void* stream) {
+  int err = mc_slab_partials_launch(vols, batch, nx, ny, nz, cz, 0, nz - 1, iso, geo, ngran,
+                                    bpg, threads, partials, stream);
+  if (err != cudaSuccess) return err;
+  return mc_finalize_launch(partials, batch, ngran * bpg, out, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,7 @@
 """Minimal NIfTI-1 reader (pure numpy + stdlib gzip).
 
-The port's own copy of ``repro.data.nifti``, so ``repro_torch`` reads
-real NIfTI inputs without importing the JAX package.  The windowed slab
-reader belongs to the tiled path and is not part of this copy yet.
+The port's own copy of ``repro.data.nifti``'s readers, so ``repro_torch``
+reads real NIfTI inputs without importing the JAX package.
 
 Supports the subset PyRadiomics workflows need: single-file ``.nii`` /
 ``.nii.gz``, scalar volumes, little-endian, dtypes {uint8, int16, int32,
@@ -14,6 +13,9 @@ clear error rather than misread.
 
 * :func:`read_nifti_header` -- 352-byte peek (shape, dtype, spacing,
   rescale, offset) without touching the data section.
+* :func:`read_nifti_slab` -- a z-window ``[z0, z1)`` of an uncompressed
+  ``.nii`` without loading the volume (NIfTI is Fortran order, so a
+  z-slab is one contiguous byte range): the tiled path's reader.
 * :func:`read_nifti` -- the full volume, read as one z-slab over the whole
   z-range (gz files are decompressed to an in-memory stream first).
 """
@@ -52,6 +54,11 @@ class NiftiHeader(NamedTuple):
     def shape3(self) -> tuple:
         """``shape`` padded with trailing 1s to exactly 3 dims."""
         return tuple(self.shape) + (1,) * (3 - len(self.shape))
+
+    @property
+    def data_bytes(self) -> int:
+        """Size of the stored data section (pre-rescale dtype)."""
+        return int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
 
 
 def _parse_header(raw: bytes, gzipped: bool) -> NiftiHeader:
@@ -162,6 +169,29 @@ def _slab_from_stream(f, hdr: NiftiHeader, z0: int, z1: int) -> np.ndarray:
         )
     data = np.frombuffer(buf, hdr.dtype, count=nx * ny * (z1 - z0))
     return np.ascontiguousarray(data.reshape((nx, ny, z1 - z0), order="F"))
+
+
+def read_nifti_slab(path, z0: int, z1: int):
+    """Windowed read of z-planes ``[z0, z1)`` without loading the volume.
+
+    Returns ``(slab (X, Y, z1-z0) ndarray, spacing (3,) float32)`` with
+    the header's intensity rescale applied (same rule as
+    :func:`read_nifti`).  Only uncompressed ``.nii`` can be windowed: a
+    ``.nii.gz`` DEFLATE stream has no random access, so it is refused
+    with the workaround spelled out rather than silently buffering the
+    whole file.
+    """
+    path = Path(path)
+    hdr = read_nifti_header(path)
+    if hdr.gzipped:
+        raise ValueError(
+            f"cannot read a slab from compressed NIfTI {path.name}: gzip "
+            "streams do not support seeking; decompress it first (e.g. "
+            "`gunzip` to a .nii file, or load fully via read_nifti)"
+        )
+    with open(path, "rb") as f:
+        slab = _slab_from_stream(f, hdr, z0, z1)
+    return _apply_scl(slab, hdr), hdr.spacing
 
 
 def read_nifti(path):

@@ -20,8 +20,11 @@ chunk adds exact zeros.  Against the reference, whose chunk sums are
 ``jnp.sum`` in an order XLA picks, count, histogram and range are exact
 and the two sums agree to float32 rounding.
 
-``fold_packed_chunks`` (the tiled path's fold) is not ported yet
-(ROADMAP.md Queue 1 item 7).
+:func:`fold_packed_chunks` is the tiled path's entry to the same kernel:
+the stack of mask-touched chunks of a frame, in ascending chunk order,
+with the census's range.  An untouched chunk's row is exact zeros and the
+fold is a left fold in chunk order, so folding only the touched chunks
+gives the in-core row bitwise.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ N_BINS = 32          # default fixed-bin-count discretisation
 CANON_CHUNK = 1024   # canonical accumulation granule (see module docstring)
 DEFAULT_BLOCK = 2048  # voxels per CUDA block: canonical chunks it folds in turn
 LAUNCHES = 0  # kernel launches by firstorder_packed_batch on CUDA tensors
+FOLD_LAUNCHES = 0  # kernel launches by fold_packed_chunks on CUDA tensors
 
 FEATURES = ("Mean", "StdDev", "Minimum", "Maximum", "Percentile10",
             "Median", "Percentile90", "Energy", "Entropy")
@@ -151,6 +155,30 @@ def firstorder_packed_batch_ref(images, masks, n_bins: int = N_BINS,
     return torch.cat([acc, lo[:, None], hi[:, None], width[:, None]], dim=1)
 
 
+def _launch(images: torch.Tensor, masks: torch.Tensor, n_bins: int, block: int,
+            value_range) -> torch.Tensor:
+    """The kernel's launch over a checked (B, X, Y, Z) stack on the card."""
+    _ref.check_volumes(images, masks)
+    batch = images.shape[0]
+    voxels = images[0].numel()
+    lo, hi = (value_range if value_range is not None else
+              _ref.intensity_range(images.reshape(batch, -1), masks.reshape(batch, -1), dim=1))
+    nc = -(-voxels // CANON_CHUNK)
+    partials = torch.empty((batch, nc, stats_width(n_bins)), dtype=torch.float32,
+                           device=images.device)
+    out = torch.empty((batch, packed_width(n_bins)), dtype=torch.float32,
+                      device=images.device)
+    lib = _build.load("firstorder", _SIGNATURES)
+    with torch.cuda.device(images.device):
+        err = lib.firstorder_packed_launch(
+            images.data_ptr(), masks.data_ptr(), lo.data_ptr(), hi.data_ptr(), batch,
+            voxels, n_bins, block // CANON_CHUNK, partials.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "firstorder_packed_batch")
+    return out
+
+
 def firstorder_packed_batch(images: torch.Tensor, masks: torch.Tensor, *,
                             n_bins: int = N_BINS, block: int = DEFAULT_BLOCK,
                             value_range=None) -> torch.Tensor:
@@ -171,23 +199,37 @@ def firstorder_packed_batch(images: torch.Tensor, masks: torch.Tensor, *,
     _ref.check_bins(n_bins)
     if images.device.type == "cpu":
         return firstorder_packed_batch_ref(images, masks, n_bins, value_range)
-    _ref.check_volumes(images, masks)
-    batch = images.shape[0]
-    voxels = images[0].numel()
-    lo, hi = (value_range if value_range is not None else
-              _ref.intensity_range(images.reshape(batch, -1), masks.reshape(batch, -1), dim=1))
-    nc = -(-voxels // CANON_CHUNK)
-    partials = torch.empty((batch, nc, stats_width(n_bins)), dtype=torch.float32,
-                           device=images.device)
-    out = torch.empty((batch, packed_width(n_bins)), dtype=torch.float32,
-                      device=images.device)
-    lib = _build.load("firstorder", _SIGNATURES)
-    with torch.cuda.device(images.device):
-        err = lib.firstorder_packed_launch(
-            images.data_ptr(), masks.data_ptr(), lo.data_ptr(), hi.data_ptr(), batch,
-            voxels, n_bins, block // CANON_CHUNK, partials.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, err, "firstorder_packed_batch")
+    out = _launch(images, masks, n_bins, block, value_range)
     LAUNCHES += 1
     return out
+
+
+def fold_packed_chunks(x: torch.Tensor, m: torch.Tensor, lo, hi,
+                       n_bins: int = N_BINS) -> torch.Tensor:
+    """``(packed_width,)`` packed stats from a stack of touched chunks.
+
+    Replaces ``repro.kernels.firstorder.fold_packed_chunks`` (the tiled
+    path's fold).  ``x``/``m``: (nt, CANON_CHUNK) float32 masked values and
+    mask lanes of the mask-touched canonical chunks of a frame, in
+    ascending global chunk order; ``lo``/``hi`` the masked intensity range
+    (exact min and max, so a streamed census has the same bits).  Each
+    chunk's row is the in-core row of that chunk and the fold is the
+    in-core left fold, so the result equals the in-core row of the whole
+    frame bitwise.  A CUDA tensor runs the first-order kernel
+    (``csrc/firstorder.cu``) on the stack, one case of ``nt`` chunks; a CPU
+    tensor its plain version.
+    """
+    global FOLD_LAUNCHES
+    _ref.check_bins(n_bins)
+    if x.ndim != 2 or x.shape[1] != CANON_CHUNK or m.shape != x.shape or not len(x):
+        raise ValueError(f"need (nt, {CANON_CHUNK}) chunk stacks, got {tuple(x.shape)} "
+                         f"and {tuple(m.shape)}")
+    stack = (1, x.shape[0], 1, CANON_CHUNK)  # one case whose flattening is the stack
+    rng = tuple(torch.as_tensor(v, dtype=torch.float32, device=x.device).reshape(1)
+                for v in (lo, hi))
+    if x.device.type == "cpu":
+        return firstorder_packed_batch_ref(x.reshape(stack), m.reshape(stack), n_bins, rng)[0]
+    out = _launch(x.contiguous().reshape(stack), m.contiguous().reshape(stack), n_bins,
+                  DEFAULT_BLOCK, rng)
+    FOLD_LAUNCHES += 1
+    return out[0]

@@ -4,13 +4,22 @@
 ``repro.kernels.marching_cubes.mc_volume_area_pallas`` and its TPU kernel
 ``_mc_kernel``; :func:`mc_volume_area_batch` replaces
 ``mc_volume_area_batch_pallas`` (that kernel under ``lax.map``), the
-batched pipeline's pass 2a.  One kernel (``csrc/marching_cubes.cu``)
-serves both: a launch runs a stack of same-shape volumes, and the
-single-case entry is its batch of one.  It runs one thread per cell over
-each volume in place; the source says what bounds it and how the design
-answers that.  The plain versions are
-:func:`repro_torch.kernels.ref.mc_volume_area` and
-:func:`repro_torch.kernels.ref.mc_volume_area_batch`.
+batched pipeline's pass 2a; :func:`mc_slab_partials` and
+:func:`mc_partials_finalize` replace ``mc_brick_partials_pallas`` (the
+kernel with ``z_scal``) and ``mc_partials_finalize``, the tiled path's
+per-window partials and their one reduction.  One kernel
+(``csrc/marching_cubes.cu``) serves all of them over one partial layout:
+z-granules of ``chunk_z`` cell planes (default :data:`DEFAULT_CHUNK_Z`),
+each reduced in an order fixed by the volume's x-y extent, ``chunk_z`` and
+``block`` alone.  A whole-volume launch runs a stack of same-shape volumes
+(the single-case entry is its batch of one) and ends in the finalize; a
+window launch returns its granules' partials unreduced, so the tiled
+engine's assembled grid finalizes to the in-core bits.  The source says
+what bounds the kernel and how the design answers that.  The plain
+versions are :func:`repro_torch.kernels.ref.mc_volume_area`,
+:func:`~repro_torch.kernels.ref.mc_volume_area_batch`,
+:func:`~repro_torch.kernels.ref.mc_slab_partials` and
+:func:`~repro_torch.kernels.ref.mc_partials_fold`.
 
 The triangle table reaches the kernel as a generated header,
 ``csrc/mc_tri_table.cuh``; :func:`write_tri_table_header` rewrites it from
@@ -30,41 +39,81 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 DEFAULT_BLOCK = 256  # threads per block
-_BLOCKS_PER_SM = 8  # grid cap: one resident wave of 256-thread blocks
-LAUNCHES = 0  # kernel launches on CUDA tensors, single-case and batched
+DEFAULT_CHUNK_Z = _ref.MC_CHUNK_Z  # cell planes per z-granule of the partial layout
+CELLS_PER_THREAD = 8  # csrc/marching_cubes.cu kCellsPerThread
+LAUNCHES = 0  # whole-volume launches (mc_volume_area_launch), single-case and batched
+SLAB_LAUNCHES = 0  # z-window launches (mc_slab_partials_launch), the tiled path
+FINALIZE_LAUNCHES = 0  # finalize launches of assembled window partials
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"mc_volume_area_launch": [_P, _I, _I, _I, _I, _F, _P, _P, _I, _I, _P, _P]}
+_SIGNATURES = {
+    "mc_volume_area_launch": [_P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _I, _P, _P, _P],
+    "mc_slab_partials_launch": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _I, _I, _P, _P],
+    "mc_finalize_launch": [_P, _I, _I, _P, _P],
+}
 TABLE_HEADER = _build.CSRC / "mc_tri_table.cuh"
 
 
 def mc_volume_area(vol: torch.Tensor, iso: float = 0.5, spacing=(1.0, 1.0, 1.0), *,
-                   block: int = DEFAULT_BLOCK):
+                   block: int = DEFAULT_BLOCK, chunk_z: int = DEFAULT_CHUNK_Z):
     """``(|sum of signed volumes|, sum of areas)`` of ``vol``'s isosurface.
 
     Returns two 0-dim float32 tensors on ``vol``'s device: the batch of one
     of :func:`mc_volume_area_batch`.  ``spacing`` is host metadata.
     """
     sp = torch.as_tensor(spacing, dtype=torch.float32).cpu().numpy().reshape(1, 3)
-    out = mc_volume_area_batch(vol[None], iso, sp, block=block)[0]
+    out = mc_volume_area_batch(vol[None], iso, sp, block=block, chunk_z=chunk_z)[0]
     return out[0], out[1]
 
 
-def _grid(shape, device, block: int) -> int:
-    """Blocks per case: one thread per cell, capped at one resident wave.
-    It depends on the volume's shape alone, so each case's grid-stride
-    order, and result, is the same alone or in a stack."""
+def layout(shape, chunk_z: int = DEFAULT_CHUNK_Z, block: int = DEFAULT_BLOCK):
+    """``(granules, blocks per granule)`` of the partial layout of an
+    ``(nx, ny, nz)`` volume (see ``csrc/marching_cubes.cu``).
+
+    A granule holds ``chunk_z`` cell planes; its cells split into runs of
+    ``CELLS_PER_THREAD * block``, one block each.  Both counts depend on
+    the shape, ``chunk_z`` and ``block`` alone, so a case's partials are
+    the same bits alone, in a stack or cut into z-windows.
+    """
     if block % 32 or not 32 <= block <= 1024:
         raise ValueError(f"block must be a multiple of 32 in [32, 1024], got {block}")
-    ncells = max(shape[0] - 1, 0) * max(shape[1] - 1, 0) * max(shape[2] - 1, 0)
-    if ncells >= 2 ** 31:
-        raise ValueError(f"volume {tuple(shape)} has more than 2^31 cells")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-ncells // block), _BLOCKS_PER_SM * sms))
+    if chunk_z < 1:
+        raise ValueError(f"chunk_z must be positive, got {chunk_z}")
+    cx, cy, cz = (max(int(n) - 1, 0) for n in shape)
+    gran_cells = cx * cy * chunk_z
+    run = CELLS_PER_THREAD * block
+    if gran_cells + run >= 2 ** 31:
+        raise ValueError(f"a {chunk_z}-plane granule of {tuple(shape)} has too many cells")
+    ngran = max(1, -(-cz // chunk_z))
+    bpg = max(1, -(-gran_cells // run))
+    if ngran >= 2 ** 16:
+        raise ValueError(f"{ngran} granules exceed the kernel's grid")
+    return ngran, bpg
+
+
+def _geometry(shape, spacings, batch):
+    """(B, 6) host rows [spacing, centred origin of ``shape``] per case."""
+    sp = (np.ones((batch, 3), np.float32) if spacings is None
+          else np.asarray(spacings, np.float32).reshape(batch, 3))
+    return np.concatenate([sp, np.stack([_ref.centred_origin(shape, s) for s in sp])], axis=1)
+
+
+def _check_stack(vols: torch.Tensor, spacings) -> None:
+    if vols.device.type != "cuda":
+        raise ValueError(f"unsupported device {vols.device}")
+    if vols.dtype != torch.float32 or vols.ndim != 4 or not vols.is_contiguous():
+        raise ValueError("vols must be a contiguous 4-D float32 tensor, got "
+                         f"{vols.dtype} {tuple(vols.shape)}")
+    if not 1 <= vols.shape[0] < 2 ** 16:
+        raise ValueError(f"batch of {vols.shape[0]} volumes is outside the kernel's grid")
+    if isinstance(spacings, torch.Tensor) and spacings.device.type != "cpu":
+        raise ValueError("spacings are host metadata: a device tensor would "
+                         "cost a device-to-host sync")
 
 
 def mc_volume_area_batch(vols: torch.Tensor, iso: float = 0.5, spacings=None, *,
-                         block: int = DEFAULT_BLOCK) -> torch.Tensor:
+                         block: int = DEFAULT_BLOCK,
+                         chunk_z: int = DEFAULT_CHUNK_Z) -> torch.Tensor:
     """(B, 2) float32 rows ``(|sum of signed volumes|, sum of areas)``.
 
     ``vols``: (B, nx, ny, nz) float32, one shape bucket; ``spacings``:
@@ -73,39 +122,99 @@ def mc_volume_area_batch(vols: torch.Tensor, iso: float = 0.5, spacings=None, *,
     plain version.  Each case's origin is computed on the host exactly as
     :func:`repro_torch.kernels.ref.centred_origin` does, and the (B, 6)
     geometry reaches the card by a copy queued without a host sync.
+    ``chunk_z`` is the z-granule of the partial layout, which the tiled
+    path shares.
     """
     global LAUNCHES
     if vols.device.type == "cpu":
-        return _ref.mc_volume_area_batch(vols, iso, spacings)
-    if vols.device.type != "cuda":
-        raise ValueError(f"unsupported device {vols.device}")
-    if vols.dtype != torch.float32 or vols.ndim != 4 or not vols.is_contiguous():
-        raise ValueError("vols must be a contiguous 4-D float32 tensor, got "
-                         f"{vols.dtype} {tuple(vols.shape)}")
-    batch = vols.shape[0]
-    if not 1 <= batch < 2 ** 16:
-        raise ValueError(f"batch of {batch} volumes is outside the kernel's grid")
-    if isinstance(spacings, torch.Tensor) and spacings.device.type != "cpu":
-        raise ValueError("spacings are host metadata: a device tensor would "
-                         "cost a device-to-host sync")
-    sp = (np.ones((batch, 3), np.float32) if spacings is None
-          else np.asarray(spacings, np.float32).reshape(batch, 3))
-    shape = tuple(vols.shape[1:])
-    geo = np.concatenate([sp, np.stack([_ref.centred_origin(shape, s) for s in sp])], axis=1)
-    nblocks = _grid(shape, vols.device, block)
-    geo_dev = to_device(geo, vols.device)
-    partials = torch.empty(2 * nblocks * batch, dtype=torch.float32, device=vols.device)
+        return _ref.mc_volume_area_batch(vols, iso, spacings, chunk_z=chunk_z)
+    _check_stack(vols, spacings)
+    batch, shape = vols.shape[0], tuple(vols.shape[1:])
+    ngran, bpg = layout(shape, chunk_z, block)
+    geo_dev = to_device(_geometry(shape, spacings, batch), vols.device)
+    partials = torch.empty((batch, 2, ngran, bpg), dtype=torch.float32, device=vols.device)
     out = torch.empty((batch, 2), dtype=torch.float32, device=vols.device)
     lib = _build.load("marching_cubes", _SIGNATURES)
     with torch.cuda.device(vols.device):
         err = lib.mc_volume_area_launch(
-            vols.data_ptr(), batch, *shape, float(iso), geo_dev.data_ptr(),
-            partials.data_ptr(), nblocks, block, out.data_ptr(),
+            vols.data_ptr(), batch, *shape, chunk_z, float(iso), geo_dev.data_ptr(), ngran,
+            bpg, block, partials.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "mc_volume_area")
     LAUNCHES += 1
     return out
+
+
+def mc_slab_partials(slab: torch.Tensor, iso: float = 0.5, spacing=(1.0, 1.0, 1.0), *,
+                     full_shape, k0: int = 0, chunk_z: int = DEFAULT_CHUNK_Z,
+                     block: int = DEFAULT_BLOCK):
+    """Unreduced ``(vol_p, area_p)`` partials of one z-window of a volume.
+
+    Replaces ``repro.kernels.marching_cubes.mc_brick_partials_pallas``.
+    ``slab``: (nx, ny, w * chunk_z + 1) float32, the planes of granules
+    ``k0 .. k0 + w - 1`` of a volume of ``full_shape`` (its centred origin
+    and last cell plane; cells past that plane count as empty).  On a CUDA
+    tensor each partial is ``(w, blocks per granule)``, the rows of the
+    whole volume's partials for those granules, bitwise; on a CPU tensor
+    the plain version gives ``(w,)`` per-granule sums.  Assemble every
+    window's rows into the whole granule grid (zeros for skipped windows)
+    and reduce it with :func:`mc_partials_finalize`.
+    """
+    global SLAB_LAUNCHES
+    if slab.ndim != 3 or (slab.shape[2] - 1) % chunk_z or slab.shape[2] < 2:
+        raise ValueError(f"window {tuple(slab.shape)} is not a whole number of "
+                         f"chunk_z={chunk_z} granules plus the closing plane")
+    if len(full_shape) != 3 or tuple(slab.shape[:2]) != tuple(full_shape[:2]):
+        raise ValueError(f"window {tuple(slab.shape)} does not match the volume "
+                         f"{tuple(full_shape)} in x and y")
+    if slab.device.type == "cpu":
+        return _ref.mc_slab_partials(slab, iso, spacing, full_shape=full_shape, k0=k0,
+                                     chunk_z=chunk_z)
+    _check_stack(slab[None], spacing)
+    shape = tuple(slab.shape)
+    ngran = (shape[2] - 1) // chunk_z
+    _, bpg = layout(shape, chunk_z, block)
+    geo_dev = to_device(_geometry(tuple(full_shape), np.asarray(spacing, np.float32), 1),
+                        slab.device)
+    partials = torch.empty((2, ngran, bpg), dtype=torch.float32, device=slab.device)
+    lib = _build.load("marching_cubes", _SIGNATURES)
+    with torch.cuda.device(slab.device):
+        err = lib.mc_slab_partials_launch(
+            slab.data_ptr(), 1, *shape, chunk_z, int(k0) * chunk_z, int(full_shape[2]) - 1,
+            float(iso), geo_dev.data_ptr(), ngran, bpg, block, partials.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "mc_slab_partials")
+    SLAB_LAUNCHES += 1
+    return partials[0], partials[1]
+
+
+def mc_partials_finalize(vol_p: torch.Tensor, area_p: torch.Tensor):
+    """``(|sum vol_p|, sum area_p)`` as two 0-dim float32 tensors.
+
+    Replaces ``repro.kernels.marching_cubes.mc_partials_finalize``: the
+    fixed-order reduction that ends the in-core kernel, over a whole
+    assembled granule grid.  A CPU tensor takes the plain fold
+    (:func:`repro_torch.kernels.ref.mc_partials_fold`).
+    """
+    global FINALIZE_LAUNCHES
+    if vol_p.device.type == "cpu":
+        return _ref.mc_partials_fold(vol_p, area_p)
+    if vol_p.shape != area_p.shape or vol_p.device != area_p.device:
+        raise ValueError(f"partials {tuple(vol_p.shape)} and {tuple(area_p.shape)} differ")
+    nparts = vol_p.numel()
+    if not 1 <= nparts < 2 ** 31:
+        raise ValueError(f"{nparts} partials are outside the finalize kernel's range")
+    parts = torch.stack([vol_p.reshape(-1), area_p.reshape(-1)]).to(torch.float32)
+    out = torch.empty(2, dtype=torch.float32, device=vol_p.device)
+    lib = _build.load("marching_cubes", _SIGNATURES)
+    with torch.cuda.device(vol_p.device):
+        err = lib.mc_finalize_launch(parts.data_ptr(), 1, nparts, out.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "mc_partials_finalize")
+    FINALIZE_LAUNCHES += 1
+    return out[0], out[1]
 
 
 def tri_table_source() -> str:

@@ -1,11 +1,12 @@
 """Device-resolved entry points of the shape and intensity paths.
 
-Counterpart of ``repro.kernels.ops`` for the single-case and batched
-shape paths and the batched intensity families.  Each kernel entry takes
+Counterpart of ``repro.kernels.ops`` for the single-case, batched and
+tiled shape paths and the intensity families.  Each kernel entry takes
 ``device`` (default ``'cuda'``, see ``repro_torch.core.dispatcher``),
-moves its inputs there and calls the kernel wrapper, which launches the CUDA kernel for a CUDA tensor and the
-plain version for a CPU tensor.  ``block='auto'`` resolves to the port's
-fixed defaults: the autotuner is not ported yet.
+moves its inputs there and calls the kernel wrapper, which launches the
+CUDA kernel for a CUDA tensor and the plain version for a CPU tensor.
+``block='auto'`` resolves to the port's fixed defaults: the autotuner is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -26,10 +27,10 @@ from repro_torch.kernels import ref as _ref
 
 
 def mc_volume_area(vol, iso=0.5, spacing=(1.0, 1.0, 1.0), *, device=None,
-                   block=_mc.DEFAULT_BLOCK):
+                   block=_mc.DEFAULT_BLOCK, chunk_z=_mc.DEFAULT_CHUNK_Z):
     """(mesh_volume, surface_area) of the isosurface of ``vol``."""
     vol = to_device(vol, resolve_device(device), torch.float32)
-    return _mc.mc_volume_area(vol.contiguous(), iso, spacing, block=block)
+    return _mc.mc_volume_area(vol.contiguous(), iso, spacing, block=block, chunk_z=chunk_z)
 
 
 def max_diameters(verts, mask, *, device=None, block=_diam.DEFAULT_BLOCK):
@@ -41,14 +42,38 @@ def max_diameters(verts, mask, *, device=None, block=_diam.DEFAULT_BLOCK):
 
 
 def mc_volume_area_batch(vols, iso=0.5, spacings=None, *, device=None,
-                         block=_mc.DEFAULT_BLOCK):
+                         block=_mc.DEFAULT_BLOCK, chunk_z=_mc.DEFAULT_CHUNK_Z):
     """Batched :func:`mc_volume_area` over one shape bucket (pass 2a).
 
     ``vols``: (B, nx, ny, nz) bucket-padded masks, ``spacings``: (B, 3)
     host metadata -> (B, 2) [volume, area] rows on the device.
     """
     vols = to_device(vols, resolve_device(device), torch.float32)
-    return _mc.mc_volume_area_batch(vols.contiguous(), iso, spacings, block=block)
+    return _mc.mc_volume_area_batch(vols.contiguous(), iso, spacings, block=block,
+                                    chunk_z=chunk_z)
+
+
+def mc_tile_partials(slab, iso=0.5, spacing=(1.0, 1.0, 1.0), *, device=None, k0=0,
+                     chunk_z=_mc.DEFAULT_CHUNK_Z, full_shape, block=_mc.DEFAULT_BLOCK):
+    """Tile accumulator: unreduced MC partials of one halo-closed z-window.
+
+    The tiled engine's per-tile entry (``core/tiled.py``).  ``slab`` spans
+    granules ``k0 ..`` of a volume of ``full_shape`` plus the closing plane
+    (``w * chunk_z + 1`` deep).  Returns ``(vol_p, area_p)``, the whole
+    volume's partials of those granules (``kernels/marching_cubes.
+    mc_slab_partials``); the caller assembles every window's partials in
+    granule order and reduces once with :func:`mc_tile_finalize`, which
+    gives the in-core bits.
+    """
+    slab = to_device(slab, resolve_device(device), torch.float32)
+    return _mc.mc_slab_partials(slab.contiguous(), iso, spacing, full_shape=full_shape,
+                                k0=k0, chunk_z=chunk_z, block=block)
+
+
+def mc_tile_finalize(vol_partials, area_partials):
+    """Fold assembled tile partials into ``(volume, area)``, two 0-dim
+    tensors on their device: the in-core path's own final reduction."""
+    return _mc.mc_partials_finalize(vol_partials, area_partials)
 
 
 def max_diameters_batch(verts, masks, *, device=None, block=_diam.DEFAULT_BLOCK):
@@ -130,16 +155,18 @@ def _rebucket_pruned(orig_verts, orig_mask, v2, m2, info):
     return v2, m2, info
 
 
-def prune_candidates(verts, mask, k_dirs: int = 16):
+def prune_candidates(verts, mask, k_dirs: int = 16, fetch=None):
     """Exact candidate pruning + re-bucketing for the pair sweep.
 
     The keep mask runs on the vertices' device; compaction and
     re-bucketing run on the host, as in the reference.  Returns numpy
     ``(verts', mask', info)``; on degenerate inputs the originals come back
-    unchanged.
+    unchanged.  ``fetch`` copies a tensor to a host numpy array (default
+    ``.cpu().numpy()``); the tiled engine passes its executor's counted
+    fetch.
     """
-    v2, m2, info = _prune.prune_vertices(verts, mask, k_dirs=k_dirs)
-    return _rebucket_pruned(verts, mask, v2, m2, info)
+    verts_np, mask_np, (v2, m2, info) = _prune.prune_on_host(verts, mask, k_dirs, fetch)
+    return _rebucket_pruned(verts_np, mask_np, v2, m2, info)
 
 
 def prune_candidates_batch(verts, masks, k_dirs: int = 16, *, device=None):

@@ -210,22 +210,26 @@ def _compact_survivors(verts_np, mask_np, keep):
     )
 
 
-def prune_vertices(verts, mask, k_dirs: int = 16):
+def prune_on_host(verts, mask, k_dirs: int = 16, fetch=None):
     """Prune on the vertices' device, compact the survivors on the host.
 
-    Returns ``(verts', mask', info)`` as numpy arrays with
-    ``verts'.shape == (M', 3)`` and an all-true mask.  Degenerate inputs
-    (fewer than 2 survivors, or nothing pruned) return the originals.
+    ``fetch`` copies a tensor to a host numpy array (default
+    ``.cpu().numpy()``; the tiled engine passes its executor's counted
+    fetch).  Returns ``(verts_np, mask_np, (verts', mask', info))``: the
+    host copies of the inputs, then numpy arrays with ``verts'.shape ==
+    (M', 3)`` and an all-true mask.  Degenerate inputs (fewer than 2
+    survivors, or nothing pruned) return the originals.
     """
+    fetch = fetch or (lambda t: t.cpu().numpy())
     verts = torch.as_tensor(verts, dtype=torch.float32)
     mask = torch.as_tensor(mask, device=verts.device).bool()
-    verts_np = verts.cpu().numpy()
-    mask_np = mask.cpu().numpy()
+    verts_np = fetch(verts)
+    mask_np = fetch(mask)
     if int(mask_np.sum()) < 2:  # callers reject empty; skip the bound
         keep = np.zeros(len(verts_np), bool)
     else:
-        keep = candidate_keep_mask(verts, mask, k_dirs=k_dirs)[0].cpu().numpy()
-    return _compact_survivors(verts_np, mask_np, keep)
+        keep = fetch(candidate_keep_mask(verts, mask, k_dirs=k_dirs)[0])
+    return verts_np, mask_np, _compact_survivors(verts_np, mask_np, keep)
 
 
 def plan_compaction(m_total: int, m_valid: int, m_kept: int, bucket_fn):
@@ -257,7 +261,7 @@ def prune_vertices_batch(verts, masks, k_dirs: int = 16, device=None):
     case's bound; the survivors are compacted on the host per case because
     their counts M' are ragged.  Returns a list of B numpy
     ``(verts', mask', info)`` triples with the degenerate-input semantics
-    of :func:`prune_vertices`.
+    of :func:`prune_on_host`.
     """
     verts_np = np.asarray(verts, np.float32)
     masks_np = np.asarray(masks).astype(bool)

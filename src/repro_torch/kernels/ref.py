@@ -3,9 +3,10 @@
 Counterpart of ``repro.kernels.ref``.  These run on whatever device their
 input lies on.  The vertex-field, count and compaction ops are the main
 path's own steps on every device (the reference has no TPU kernel for
-them either).  :func:`mc_volume_area`, :func:`max_diameters_sq` and the
+them either).  :func:`mc_volume_area`, :func:`max_diameters_sq`, the
 batched :func:`mc_volume_area_batch`, :func:`max_diameters_sq_batch` and
-:func:`compact_batch` are the plain versions of the CUDA kernels: the
+:func:`compact_batch`, and the tiled path's :func:`mc_slab_partials` and
+:func:`mc_partials_fold` are the plain versions of the CUDA kernels: the
 kernel wrappers take them only for a tensor on the CPU, and
 ``chip_smoke.py`` holds each kernel against them on the card.
 :func:`intensity_range` and :func:`quantize_intensity` are the intensity
@@ -36,6 +37,7 @@ NEG = -1e30
 # elements of one (rows, M) block of the plain pair sweep: bounds its memory
 _SWEEP_ELEMS = 1 << 24
 MAX_BINS = 64  # the intensity kernels' shared histogram size
+MC_CHUNK_Z = 8  # cell planes per z-granule of the marching-cubes partial layout
 
 
 class VertexFields(NamedTuple):
@@ -144,19 +146,45 @@ def _cross(u, w):
     return u1 * w2 - u2 * w1, u2 * w0 - u0 * w2, u0 * w1 - u1 * w0
 
 
-def mc_volume_area(vol, iso=0.5, spacing=(1.0, 1.0, 1.0)):
-    """Plain version of the marching-cubes kernel: ``(|sum vol|, sum area)``.
+def _tree_sum(y: torch.Tensor) -> torch.Tensor:
+    """Sum of a 1-D tensor by a fixed pairwise tree: zero-pad to a power
+    of two, then halve (``y[:h] + y[h:]``) down to one element.  Every add
+    is elementwise, so the bits depend on the values and their order only."""
+    n = 1 << max(0, (y.numel() - 1).bit_length())
+    y = torch.nn.functional.pad(y, (0, n - y.numel()))
+    while y.numel() > 1:
+        h = y.numel() // 2
+        y = y[:h] + y[h:]
+    return y[0]
 
-    Same centred origin, cube index, edge map, table and per-triangle
-    formulas as ``csrc/marching_cubes.cu`` (and the Pallas kernel), written
-    as vectorised ops over the cells the surface crosses; only the order of
-    the final sums differs from the kernel.  Returns two 0-dim float32
-    tensors on ``vol``'s device.
+
+def mc_slab_partials(vol, iso=0.5, spacing=(1.0, 1.0, 1.0), *, full_shape, k0=0,
+                     chunk_z=MC_CHUNK_Z):
+    """Plain version of the marching-cubes partials: per-granule ``(vol, area)``.
+
+    ``vol`` holds the planes of a z-window of a volume of ``full_shape``
+    that starts at granule ``k0`` (granules of ``chunk_z`` cell planes).
+    Positions are in the whole volume's index frame
+    (``vertex_fields(..., index_offset=(0, 0, k0 * chunk_z))``) against its
+    centred origin, and cells past its last cell plane count as empty, so
+    a window gives the whole volume's partials of its granules bitwise.
+    Same cube index, edge map, table and per-triangle formulas as
+    ``csrc/marching_cubes.cu``; each granule's triangles, in cell order,
+    sum by :func:`_tree_sum`.  Returns two ``(ceil((nz - 1) / chunk_z),)``
+    float32 tensors on ``vol``'s device.
     """
     vol = torch.as_tensor(vol, dtype=torch.float32)
     dev = vol.device
-    f = vertex_fields(vol, iso, spacing, centred_origin(vol.shape, spacing))
+    ngran = max(1, -(-(vol.shape[2] - 1) // chunk_z))
+    vol_p = torch.zeros(ngran, dtype=torch.float32, device=dev)
+    area_p = torch.zeros(ngran, dtype=torch.float32, device=dev)
+    if min(vol.shape) < 2:
+        return vol_p, area_p
+    kz0 = int(k0) * chunk_z
+    f = vertex_fields(vol, iso, spacing, centred_origin(full_shape, spacing),
+                      index_offset=(0.0, 0.0, float(kz0)))
     idx = _cell_cube_index(vol, iso)
+    idx[:, :, max(int(full_shape[2]) - 1 - kz0, 0):] = 0  # past the last cell plane
     i, j, k = ((idx != 0) & (idx != 255)).nonzero(as_tuple=True)
     fields = (f.vx, f.vy, f.vz)
     e = torch.stack([
@@ -173,7 +201,42 @@ def mc_volume_area(vol, iso=0.5, spacing=(1.0, 1.0, 1.0)):
     d0, d1, d2 = _cross(b, c)
     a0, a1, a2 = a.unbind(-1)
     svol = (a0 * d0 + a1 * d1 + a2 * d2) / 6.0
-    return svol.sum().abs(), area.sum()
+    # each triangle's granule; a stable sort keeps cell order inside one
+    gran = (k // chunk_z)[:, None].expand(-1, mct.MAX_TRIS)[valid]
+    order = torch.argsort(gran, stable=True)
+    counts = torch.bincount(gran, minlength=ngran).tolist()
+    svol, area = svol[order], area[order]
+    start = 0
+    for g, n in enumerate(counts):
+        if n:
+            vol_p[g] = _tree_sum(svol[start:start + n])
+            area_p[g] = _tree_sum(area[start:start + n])
+        start += n
+    return vol_p, area_p
+
+
+def mc_partials_fold(vol_p, area_p):
+    """Plain version of the partials' finalize: ``(|sum vol_p|, sum
+    area_p)`` by :func:`_tree_sum` over the flattened partials, two 0-dim
+    float32 tensors.  A fixed order: the same assembled partials give the
+    same bits."""
+    vol_p = torch.as_tensor(vol_p, dtype=torch.float32)
+    area_p = torch.as_tensor(area_p, dtype=torch.float32)
+    return _tree_sum(vol_p.reshape(-1)).abs(), _tree_sum(area_p.reshape(-1))
+
+
+def mc_volume_area(vol, iso=0.5, spacing=(1.0, 1.0, 1.0), chunk_z=MC_CHUNK_Z):
+    """Plain version of the marching-cubes kernel: ``(|sum vol|, sum area)``.
+
+    :func:`mc_slab_partials` over the whole volume, then
+    :func:`mc_partials_fold`: the kernel's granule layout, cube index, edge
+    map, table and per-triangle formulas, with the centred origin; only
+    the order of the sums inside a granule and of the fold differs from
+    the kernel.  Returns two 0-dim float32 tensors on ``vol``'s device.
+    """
+    vol = torch.as_tensor(vol, dtype=torch.float32)
+    return mc_partials_fold(*mc_slab_partials(vol, iso, spacing, full_shape=tuple(vol.shape),
+                                              chunk_z=chunk_z))
 
 
 def diameter_input(verts, mask, block: int) -> torch.Tensor:
@@ -246,13 +309,13 @@ def max_diameters_sq_batch(verts, masks, block: int = 256) -> torch.Tensor:
     return torch.stack([max_diameters_sq(v, m, block) for v, m in zip(verts, masks)])
 
 
-def mc_volume_area_batch(vols, iso=0.5, spacings=None) -> torch.Tensor:
+def mc_volume_area_batch(vols, iso=0.5, spacings=None, chunk_z=MC_CHUNK_Z) -> torch.Tensor:
     """Plain version of the batched marching-cubes kernel: (B, 2) rows of
     ``(|sum vol|, sum area)``, per case :func:`mc_volume_area`."""
     vols = torch.as_tensor(vols, dtype=torch.float32)
     if spacings is None:
         spacings = np.ones((vols.shape[0], 3), np.float32)
-    return torch.stack([torch.stack(mc_volume_area(v, iso, sp))
+    return torch.stack([torch.stack(mc_volume_area(v, iso, sp, chunk_z))
                         for v, sp in zip(vols, spacings)])
 
 
