@@ -6,19 +6,29 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``src/repro_torch/csrc`` with nvcc,
-holds each against its plain PyTorch version on the card, drives the three
-main paths -- single-case shape extraction (``ShapeFeatureExtractor``) over
+holds each against its plain PyTorch version on the card, drives the main
+paths -- single-case shape extraction (``ShapeFeatureExtractor``) over
 the 20 synthetic Table-2 cases, the batched two-pass extractor
 (``BatchedExtractor``) over a 60-case cohort of them, the same cohort
-with the intensity families (shape, first-order, GLCM), and the
-out-of-core tiled path (``BatchedExtractor(tiled=True)``, ``TiledCase``) --
-checks the features against the port's CPU path or the in-core path, and
-prints the kernels line and a last JSON status line.  Any failed check raises, so the script exits
+with the intensity families (shape, first-order, GLCM), the
+out-of-core tiled path (``BatchedExtractor(tiled=True)``, ``TiledCase``)
+and the diameter variant axis with its autotuner -- checks the features
+against the port's CPU path or the in-core path, and prints the kernels
+line and a last JSON status line.  The autotune cache is a fresh
+temporary file, so no run reads another run's winners; an untimed pass
+warms it, and no timed or sync-debug phase runs a sweep.  Any failed check raises, so the script exits
 non-zero; without a CUDA device it exits non-zero before printing any
 result.
 
 Phases:
-  1. set-up: card, versions, TF32 flags, kernel build
+  1. set-up: card, versions, TF32 flags, kernel build, a fresh autotune
+     cache warmed by an untimed pass over every configuration phases 4-8
+     run (the 60 cases single-case, batched, with the families, on the
+     host-compaction and one-pass paths, extract_one, and 00001-1 tiled at
+     the three prune levels); autotune.SWEEPS is then held still through
+     phases 2-8, but for the 512^3 sphere's cold run (8c); prints the
+     warm pass's sweep seconds by kind and each diameter winner beside
+     seqacc/256 at the same key
   2. marching-cubes kernel vs plain (case 00001-1 and a sphere), rtol 1e-5,
      two runs bitwise equal; kernel, plain and bound times
   3. diameter kernel vs plain, bitwise (00001-1's unpruned vertex list and
@@ -72,13 +82,39 @@ Phases:
      interleaved rounds); a 512^3 analytic sphere (FnSlabSource) under an
      8 MiB budget == its in-core extract_one bitwise; a 1024^3 sphere
      (4 GiB, never materialised) under 64 MiB, 'bounds', against the
-     analytic volume and diameter, traced for the device's idle share
-  9. the kernels line; 10. the status line
+     analytic volume and diameter, traced for the device's idle share.  The
+     512^3 sphere runs the default 'auto': a first run on an empty cache
+     of its own times the first use's sweeps (its pruned bucket is known
+     only after a run), the timed run is warm.  The 1024^3 sphere runs
+     'seqacc', so no sweep lands in its timed run; an untimed sweep at its
+     pruned bucket follows it
+  9. the variant axis and the autotuner: each variant's kernel against its
+     plain version on the same prepared input -- 00001-1's unpruned list,
+     the largest pass-2b stack and random inputs with masked slots at
+     blocks 128, 256, 512 -- the direct variants bitwise (and bitwise
+     seqacc's kernel), gram at rtol 1e-6 and under 1e-3 of an f64 oracle
+     at paper scale; each stack row == its batch of one; the Fig. 1 table
+     (variant x block at both inputs: ms/call, device time, the function's
+     bound, the variant's counted work, one timed plain call); a cold
+     sweep at two fresh (bucket, depth) keys stores the argmin of its own
+     table, a second lookup launches nothing; three uncached sweeps each
+     at 00001-1's unpruned list and the largest pass-2b stack show whether
+     the winners hold; launch counts reset,
+     BatchedExtractor(variant='auto') over the 60 cases == variant
+     'seqacc' bitwise with phase 6's host-fetch census; per variant, launch
+     counts reset, ShapeFeatureExtractor(diameter_variant=v) over the 20
+     cases and 00001-1 unpruned and BatchedExtractor(variant=v) over the
+     60, counts read, == seqacc bitwise (gram rtol 1e-6); a torch.cdist
+     yardstick at 00001-1's list
+  10. the kernels line; 11. the status line
 """
+import collections
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -98,6 +134,7 @@ from repro_torch.kernels import diameter as dm  # noqa: E402
 from repro_torch.kernels import firstorder as fo  # noqa: E402
 from repro_torch.kernels import glcm as gl  # noqa: E402
 from repro_torch.kernels import marching_cubes as mc  # noqa: E402
+from repro_torch.runtime import autotune  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM bandwidth
 # and float32 outside the tensor cores.
@@ -110,6 +147,13 @@ MC_OPS_PER_CELL = 8
 MC_OPS_PER_TRIANGLE = 75
 # per pair: 3 sub, 3 mul, 4 add, 4 max (csrc/diameter.cu)
 DIAM_OPS_PER_PAIR = 14
+# H100 SXM FP64 tensor-core peak (NVIDIA data sheet, dense, 700 W): the
+# 'gram' variant's products
+PEAK_FP64_TC_PER_S = 67e12
+VARIANT_BLOCKS = (128, 256, 512)
+# the reference's kernel body of each variant (src/repro/kernels/diameter.py)
+VARIANT_REPLACES = {"fused": 122, "tri": 122, "naive": 122, "tri_prefetch": 150,
+                    "nomask": 174, "gram": 88}
 # FP32 operations the intensity functions need (csrc/quantize.cuh,
 # firstorder.cu, glcm.cu): a mask compare per voxel; quantising a masked
 # voxel is 5 (sub, div, floor, max, min); first-order adds a square and two
@@ -180,18 +224,43 @@ def kernel_us(per_kernel, names):
 
 def zero_counts():
     """Sets every kernel's launch count to 0."""
-    mc.LAUNCHES = dm.LAUNCHES = cp.LAUNCHES = fo.LAUNCHES = gl.LAUNCHES = 0
+    mc.LAUNCHES = cp.LAUNCHES = fo.LAUNCHES = gl.LAUNCHES = 0
     mc.SLAB_LAUNCHES = mc.FINALIZE_LAUNCHES = fo.FOLD_LAUNCHES = 0
+    dm.LAUNCHES.update(dict.fromkeys(dm.VARIANTS, 0))
 
 
 def read_counts():
-    """Launches of each kernel since :func:`zero_counts`.  The single-case
+    """Launches of each kernel since :func:`zero_counts`: ``diameter`` over
+    every variant, ``diameter[v]`` each variant's own.  The single-case
     wrappers launch the batched kernels with a batch of one, so each path
     is counted in a run of its own."""
-    return {"marching_cubes": mc.LAUNCHES, "diameter": dm.LAUNCHES, "compact": cp.LAUNCHES,
-            "firstorder": fo.LAUNCHES, "glcm": gl.LAUNCHES,
+    return {"marching_cubes": mc.LAUNCHES, "diameter": sum(dm.LAUNCHES.values()),
+            "compact": cp.LAUNCHES, "firstorder": fo.LAUNCHES, "glcm": gl.LAUNCHES,
             "mc_slab_partials": mc.SLAB_LAUNCHES, "mc_partials_finalize": mc.FINALIZE_LAUNCHES,
-            "fold_packed_chunks": fo.FOLD_LAUNCHES}
+            "fold_packed_chunks": fo.FOLD_LAUNCHES,
+            **{f"diameter[{v}]": n for v, n in dm.LAUNCHES.items()}}
+
+
+def check_no_sweep(sweeps, phase):
+    """Fails if an autotune sweep ran since ``sweeps`` was read."""
+    check(autotune.SWEEPS == sweeps,
+          f"{phase}: {autotune.SWEEPS - sweeps} autotune sweep(s) ran on a warm cache")
+    print(f"[{phase}] autotune.SWEEPS unchanged ({sweeps}): cache hits only")
+
+
+def tuned_vs_default(key, rec):
+    """One cached diameter entry: its winner and seqacc/256 at the same key
+    (another kind's entry: its winner)."""
+    if "variant" not in rec:
+        return f"{key}: block {rec['block']} {rec['us']:.2f} us"
+    table = rec["table"]
+    base = table.get(f"{dm.DEFAULT_VARIANT}/{dm.DEFAULT_BLOCK}")
+    return (f"{key.split('/', 2)[2]}: {rec['variant']}/{rec['block']} {rec['us']:.2f} us, "
+            f"seqacc/256 " + (f"{base:.2f} us ({rec['us'] / base:.3f}x)" if base else "not swept"))
+
+
+def sweep_seconds():
+    return sum(autotune.SWEEP_SECONDS.values())
 
 
 def check(cond, what):
@@ -317,6 +386,51 @@ def traced(fn):
     return out, wall, busy
 
 
+def warm_autotune(suite, cases, cohort_cases):
+    """Runs, untimed, every configuration that phases 4-8 run on the
+    cohort and 00001-1 with ``'auto'``, so each of their autotune lookups
+    (diameter, compaction and family blocks at each launch's bucket and
+    depth) is a cache hit.  Returns the seconds it took."""
+    t0 = time.perf_counter()
+    seed0 = cohort_cases[:len(suite)]
+    single = ShapeFeatureExtractor()
+    for img, msk, sp in cohort_cases:
+        single.execute(img, msk, sp)
+    img, msk, sp = cases["00001-1"]
+    ShapeFeatureExtractor(prune=False).execute(img, msk, sp)
+    for ext in (BatchedExtractor(), BatchedExtractor(families=FAMS)):
+        ext.run(cohort_cases)
+        ext.run(seed0)
+        for case in seed0:
+            ext.extract_one(*case)
+    BatchedExtractor(device_compact=False).run(seed0)
+    small = sorted(range(len(suite)), key=lambda i: suite[i][2].size)[:5]
+    one = BatchedExtractor(prune=False)
+    one.run([seed0[i] for i in small[:1]])
+    one.run([seed0[i] for i in small])
+    BatchedExtractor(families=TILED_FAMS).extract_one(img, msk, sp)
+    for level in ("occupancy", "none", "bounds"):
+        BatchedExtractor(families=TILED_FAMS, tiled=True, tile_mem_mb=8.0,
+                         tile_prune=level).extract_tiled((img, msk, sp))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def paper_scale_cloud(seed, m=384):
+    """Vertices at KITS19-like physical scale (tests/test_gram_precision.py)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.uniform(0.0, 1.0, size=(m, 3)) * np.array([512, 512, 512], np.float64)
+    return (idx * np.array([0.7, 0.7, 5.0])).astype(np.float32)
+
+
+def diameters_f64(verts):
+    """The f64 oracle of the four diameters of a small cloud."""
+    v = verts.astype(np.float64)
+    q = (v[:, None, :] - v[None, :, :]) ** 2
+    return np.sqrt([p.max() for p in (q.sum(-1), q[..., 0] + q[..., 1], q[..., 0] + q[..., 2],
+                                      q[..., 1] + q[..., 2])])
+
+
 def sphere_volume(n, r):
     g = np.arange(n) - (n - 1) / 2
     x, y, z = np.meshgrid(g, g, g, indexing="ij")
@@ -349,6 +463,26 @@ def main():
 
     suite = table2_suite(seed=0)
     cases = {name: (img, msk, sp) for name, img, msk, sp in suite}
+    cohort = [c for seed in (0, 1, 2) for c in table2_suite(seed=seed)]
+    cohort_cases = [(img, msk, sp) for _, img, msk, sp in cohort]
+    # a fresh autotune cache: no run reads another run's winners
+    fd, cache_file = tempfile.mkstemp(prefix="repro_autotune_", suffix=".json")
+    os.close(fd)
+    os.unlink(cache_file)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = cache_file
+    os.environ.pop("REPRO_AUTOTUNE", None)  # sweeps on, as the card's default
+    print(f"[setup] autotune cache {cache_file} (fresh)")
+    warm_s = warm_autotune(suite, cases, cohort_cases)
+    entries = json.load(open(cache_file))["entries"]
+    sweeps_warm = autotune.SWEEPS
+    print(f"[setup] warm pass (untimed): {warm_s:.3f} s, {sweeps_warm} sweeps taking "
+          f"{sweep_seconds():.3f} s by kind "
+          f"{ {k: round(v, 3) for k, v in autotune.SWEEP_SECONDS.items()} }, cache entries by "
+          f"kind {dict(sorted(collections.Counter(k.split('/')[0] for k in entries).items()))}; "
+          f"diameter winners "
+          f"{dict(sorted(collections.Counter(e['variant'] + '/' + str(e['block']) for k, e in entries.items() if k.startswith('diameter/')).items()))}")
+    for key in sorted(k for k in entries if k.startswith("diameter/")):
+        print(f"[setup] warm {tuned_vs_default(key, entries[key])}")
     img, msk, sp = cases["00001-1"]
     _, big, _ = crop_to_roi(img, msk)
     big_dev = torch.from_numpy(big).to(dev)
@@ -471,10 +605,9 @@ def main():
         print(f"[trace] {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle "
               f"share {1 - busy_ms / wall_ms:.4f}, {len(per_kernel)} kernel names; top: "
               + "; ".join(f"{k[:48]} {us:.1f} us" for k, us in top))
+    check_no_sweep(sweeps_warm, "main")
 
     # -- 5. batched kernels ---------------------------------------------------
-    cohort = [c for seed in (0, 1, 2) for c in table2_suite(seed=seed)]
-    cohort_cases = [(img, msk, sp) for _, img, msk, sp in cohort]
     t0 = time.perf_counter()
     with Recorder(cp, "compact_batch") as rec_cp, \
             Recorder(mc, "mc_volume_area_batch") as rec_mc, \
@@ -582,6 +715,7 @@ def main():
     t0 = time.perf_counter()
     rows, stats = ext.run(cohort_cases)
     batch_s = [time.perf_counter() - t0]
+    bmain_fetches = stats["host_fetches"]
     batch_launches = read_counts()
     print(f"[bmain] run over {len(cohort)} cases: {batch_s[0]:.3f} s = "
           f"{len(cohort) / batch_s[0]:.3f} cases/s; launches {batch_launches}")
@@ -647,6 +781,7 @@ def main():
           f"seed-0 rows under CUDA sync debugging differ: {strict_stats['errors']}")
     print(f"[bmain] seed 0 under CUDA sync debugging ('error' outside the counted "
           f"fetches): no other host sync; host_fetches {strict_stats['host_fetches']}")
+    check_no_sweep(sweeps_warm, "bmain")
 
     # -- 7. the intensity families ------------------------------------------
     t0 = time.perf_counter()
@@ -789,6 +924,7 @@ def main():
     print(f"[ftrace] three-family run over the 20 seed-0 cases: wall {wall_ms:.3f} ms, device "
           f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, {len(per_kernel)} "
           "kernel names; top: " + "; ".join(f"{k[:48]} {us:.1f} us" for k, us in top))
+    check_no_sweep(sweeps_warm, "fmain")
 
     # -- 8. the tiled path ----------------------------------------------------
     # 8a. the window kernel (row 2) on 00001-1's bucket frame, cut into 4 windows
@@ -982,7 +1118,24 @@ def main():
     # 8c. a 512^3 analytic sphere under 8 MiB == its in-core extract_one
     n_mid = 512
     fn_mid = sphere_slabs(n_mid, 0.42)
+    check_no_sweep(sweeps_warm, "tmain")
     sph = BatchedExtractor(mc_chunk=4, tiled=True, tile_mem_mb=8.0, tile_prune="occupancy")
+    # the default ('auto') tiled path's first use, on an empty cache of its
+    # own: every lookup of the run is cold
+    cold_file = cache_file + ".cold"
+    os.environ["REPRO_AUTOTUNE_CACHE"] = cold_file
+    sweeps0, sweep_s0 = autotune.SWEEPS, sweep_seconds()
+    t0 = time.perf_counter()
+    sph.extract_tiled(TiledCase(FnSlabSource(fn_mid, (n_mid,) * 3)))
+    mid_cold_s = time.perf_counter() - t0
+    swept = json.load(open(cold_file))["entries"]
+    os.environ["REPRO_AUTOTUNE_CACHE"] = cache_file
+    os.unlink(cold_file)
+    check(autotune.SWEEPS - sweeps0 == len(swept) > 0, f"{n_mid}^3 cold run: {swept}")
+    print(f"[tbig] {n_mid}^3 sphere, cold 'auto' run (an empty cache): {mid_cold_s:.3f} s, of "
+          f"it {autotune.SWEEPS - sweeps0} sweep(s) {sweep_seconds() - sweep_s0:.3f} s; "
+          + "; ".join(tuned_vs_default(k, v) for k, v in sorted(swept.items())))
+    sweeps_mid = autotune.SWEEPS
     t0 = time.perf_counter()
     res_mid = sph.extract_tiled(TiledCase(FnSlabSource(fn_mid, (n_mid,) * 3)))
     mid_s = time.perf_counter() - t0
@@ -996,7 +1149,9 @@ def main():
     check(res_mid.stats["staged_bytes_peak"] <= 8 * 2**20, f"{n_mid}^3 staged over budget")
     r = n_mid * 0.42
     check(abs(res_mid.row[0] / (4 / 3 * np.pi * r ** 3) - 1) < 0.01, f"{n_mid}^3 volume")
-    print(f"[tbig] {n_mid}^3 sphere under 8 MiB (occupancy, mc_chunk 4): {mid_s:.3f} s, "
+    check_no_sweep(sweeps_mid, "tbig")
+    print(f"[tbig] {n_mid}^3 sphere under 8 MiB (occupancy, mc_chunk 4), warm 'auto' run: "
+          f"{mid_s:.3f} s, "
           f"in-core extract_one {mid_incore_s:.3f} s, == bitwise; tiles "
           f"{res_mid.stats['tiles']} ({res_mid.stats['tiles_skipped']} skipped), staged peak "
           f"{res_mid.stats['staged_bytes_peak']} B (census {res_mid.stats['census_bytes_peak']} "
@@ -1006,8 +1161,11 @@ def main():
     # 8d. the out-of-core case: a 1024^3 sphere (4 GiB) under 64 MiB, never materialised
     n_big = TILED_BIG_N
     budget = 4 * n_big ** 3 // 64
-    big_ext = BatchedExtractor(mc_chunk=4, tiled=True, tile_mem_mb=budget / 2**20,
+    big_ext = BatchedExtractor(mc_chunk=4, tiled=True, tile_mem_mb=budget / 2**20, variant="seqacc",
                                tile_prune="bounds")
+    resolve, big_caps = big_ext.executor._resolve_diameter, []
+    big_ext.executor._resolve_diameter = lambda cap, depth=1: (
+        big_caps.append((cap, depth)), resolve(cap, depth))[1]
     torch.cuda.reset_peak_memory_stats()
     res_big, big_wall, big_busy = traced(lambda: big_ext.extract_tiled(
         TiledCase(FnSlabSource(sphere_slabs(n_big, 0.45), (n_big,) * 3))))
@@ -1028,8 +1186,202 @@ def main():
           f"{4 / 3 * np.pi * r ** 3:.1f}), 3D diameter {res_big.row[2]:.3f} (analytic "
           f"{2 * r:.3f}); {st['n_vertices']} vertices, {st['emitted_vertices']} emitted; "
           f"host_fetches {st['host_fetches']}; host seconds {st['seconds']}")
+    check_no_sweep(sweeps_mid, "tbig")
+    # what 'auto' would add to that run: an untimed sweep at its pruned bucket
+    for cap, depth in big_caps:
+        key = autotune.sweep_key(cap, "cuda", depth)
+        cached = autotune.AutotuneCache().get(key) is not None
+        sweep_s0 = sweep_seconds()
+        autotune.get_diameter_config(cap, dev, batch=depth)
+        print(f"[tbig] {n_big}^3 sphere's streamed pair at M{cap}/B{depth}: "
+              + ("already cached" if cached else
+                 f"cold sweep {sweep_seconds() - sweep_s0:.3f} s; ")
+              + tuned_vs_default(key, autotune.AutotuneCache().get(key)))
 
-    # -- 9. kernels line ----------------------------------------------------
+    # -- 9. the variant axis and the autotuner --------------------------------
+    variants = ("seqacc",) + tuple(v for v in dm.VARIANTS if v != "seqacc")
+
+    def agree(got, want, variant, what):
+        """Direct variants bitwise, gram at rtol 1e-6; returns max |got - want|."""
+        if variant == "gram":
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-6,
+                                       err_msg=what)
+        else:
+            check(torch.equal(got, want), f"{what}: {got.tolist()} vs {want.tolist()}")
+        return float((got - want).abs().max())
+
+    # 9a. each kernel against its plain version and seqacc's kernel
+    var_err = dict.fromkeys(variants, 0.0)
+    for variant in variants:
+        for label, v, keep in diam_inputs[1:]:
+            for block in VARIANT_BLOCKS:
+                k = dm.max_diameters_sq(v, keep, block=block, variant=variant)
+                p = ref.max_diameters_sq(v, keep, block, variant)
+                var_err[variant] = max(var_err[variant], agree(
+                    k, p, variant, f"{variant} kernel vs plain, {label}, block {block}"))
+                agree(k, dm.max_diameters_sq(v, keep, block=block), variant,
+                      f"{variant} kernel vs seqacc's kernel, {label}, block {block}")
+    print(f"[var] random M in (1, 2, 513, 4096) with masked slots x blocks {VARIANT_BLOCKS}: "
+          f"every direct variant == its plain version == seqacc's kernel bitwise; gram within "
+          f"rtol 1e-6 of both (max |kernel - plain| {var_err['gram']:.3e})")
+    big_inputs = [("00001-1 unpruned", verts[None], vmask[None]),
+                  (f"pass-2b stack {tuple(dv.shape[:2])}", dv, dk)]
+    var_plain_ms = {}
+    for label, x, m in big_inputs:
+        base = dm.max_diameters_sq_batch(x, m)
+        for variant in variants:
+            k = dm.max_diameters_sq_batch(x, m, variant=variant)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            p = ref.max_diameters_sq_batch(x, m, dm.DEFAULT_BLOCK, variant)
+            end.record()
+            end.synchronize()
+            var_plain_ms[label, variant] = start.elapsed_time(end)
+            var_err[variant] = max(var_err[variant],
+                                   agree(k, p, variant, f"{variant} kernel vs plain, {label}"))
+            agree(k, base, variant, f"{variant} kernel vs seqacc's kernel, {label}")
+            for b in range(len(x)):
+                check(torch.equal(k[b], dm.max_diameters_sq(x[b], m[b], variant=variant)),
+                      f"{variant}: stack row {b} != its batch of one, {label}")
+        print(f"[var] {label}: every variant's kernel vs its plain version and seqacc's kernel "
+              f"(direct bitwise, gram rtol 1e-6), each row == its batch of one bitwise; plain "
+              f"ms (one call) " + ", ".join(f"{v} {var_plain_ms[label, v]:.1f}" for v in variants))
+    gram_rel = 0.0
+    for seed in range(6):
+        cloud = paper_scale_cloud(seed)
+        t = torch.from_numpy(cloud).to(dev)
+        got = dm.max_diameters(t, torch.ones(len(t), dtype=torch.bool, device=dev), block=128,
+                               variant="gram").double().cpu().numpy()
+        want = diameters_f64(cloud)
+        gram_rel = max(gram_rel, float(np.max(np.abs(got - want) / want)))
+    check(gram_rel < 1e-3, f"gram vs the f64 oracle at paper scale: {gram_rel:.3e}")
+    print(f"[var] gram vs the f64 oracle on 6 paper-scale clouds (384 vertices, 0.7x0.7x5 mm "
+          f"x 512^3): largest relative error {gram_rel:.3e} (< 1e-3)")
+
+    # 9b. the Fig. 1 table on the card
+    fig1 = {}
+    print("[fig1] input                     variant       block   ms/call  device_us  "
+          "bound_ms  work_ms(flop_estimate)  plain_ms")
+    for label, x, m in big_inputs:
+        bound, pairs = diam_bound_ms(m)
+        for variant in variants:
+            for block in VARIANT_BLOCKS:
+                def call():
+                    return dm.max_diameters_sq_batch(x, m, block=block, variant=variant)
+                ms = time_ms(call, reps=10, warmup=2)
+                per_kernel, _ = device_trace(call, reps=3)
+                dev_us = sum(us for key, us in per_kernel.items() if "diameter_" in key)
+                fp32 = len(x) * dm.flop_estimate(x.shape[1], block, variant)
+                fp64 = len(x) * dm.tensor_flop_estimate(x.shape[1], block, variant)
+                work_ms = max(fp32 / PEAK_FP32_PER_S, fp64 / PEAK_FP64_TC_PER_S) * 1e3
+                fig1[label, variant, block] = ms
+                print(f"[fig1] {label:25s} {variant:12s} {block:5d} {ms:9.4f} {dev_us:10.2f} "
+                      f"{max(bound.values()):9.5f} {work_ms:10.5f} ({fp32:.4g} FP32"
+                      f"{f', {fp64:.4g} FP64 TC' if fp64 else ''})  "
+                      f"{var_plain_ms[label, variant]:.1f}")
+        print(f"[fig1] {label}: bound {max(bound.values()):.5f} ms = {pairs} valid pairs x "
+              f"{DIAM_OPS_PER_PAIR} FP32 ops / 67 TFLOP/s; fastest "
+              f"{min((k for k in fig1 if k[0] == label), key=fig1.get)[1:]}")
+
+    # 9c. the autotuner on the card: cold sweeps at two fresh keys, then hits
+    cache = autotune.AutotuneCache()
+    cold = [(b, d) for b, d in ((1024, 16), (4096, 8), (16384, 4), (65536, 2), (1536, 3),
+                                (12288, 1))
+            if cache.get(autotune.sweep_key(b, "cuda", d)) is None][:2]
+    check(len(cold) == 2, "no two cold diameter keys left")
+    for bucket, depth in cold:
+        sweeps0 = autotune.SWEEPS
+        cfg = autotune.get_diameter_config(bucket, dev, batch=depth)
+        rec = cache.get(autotune.sweep_key(bucket, "cuda", depth))
+        table = rec["table"]
+        won = f"{cfg.variant}/{cfg.block}"
+        check(autotune.SWEEPS == sweeps0 + 1 and table[won] == min(table.values())
+              and won == f"{rec['variant']}/{rec['block']}",
+              f"cold sweep M{bucket}/B{depth}: winner {cfg} is not its table's argmin {table}")
+        zero_counts()
+        again = autotune.get_diameter_config(bucket, dev, batch=depth)
+        check(again == cfg and not any(read_counts().values()) and autotune.SWEEPS == sweeps0 + 1,
+              f"the second lookup of M{bucket}/B{depth} launched or swept: {read_counts()}")
+        print(f"[tune] cold M{bucket}/B{autotune.batch_bucket(depth)}: winner {cfg.variant}/"
+              f"{cfg.block} = argmin of its table (us) "
+              + ", ".join(f"{k} {us:.1f}" for k, us in sorted(table.items(), key=lambda kv: kv[1]))
+              + "; a second lookup launched nothing")
+    # the same sweep three times, uncached, at 00001-1's unpruned list and the
+    # largest pass-2b stack: do the winners hold?
+    for bucket, depth in ((verts.shape[0], 1), (dv.shape[1], dv.shape[0])):
+        wins, seq = [], []
+        for _ in range(3):
+            best, table = autotune.sweep_diameter(bucket, dev, batch=depth)
+            wins.append(f"{best.variant}/{best.block}")
+            seq.append("/".join(f"{table[f'seqacc/{b}']:.1f}" for b in VARIANT_BLOCKS
+                                if f"seqacc/{b}" in table))
+        print(f"[tune] three sweeps at M{bucket}/B{depth}: winners {wins}; seqacc at blocks "
+              f"{VARIANT_BLOCKS} (us) {seq}; last table "
+              + ", ".join(f"{k} {us:.1f}" for k, us in sorted(table.items(),
+                                                               key=lambda kv: kv[1])))
+    sweeps_tuned = autotune.SWEEPS
+    zero_counts()
+    a_rows, a_stats = BatchedExtractor(variant="auto").run(cohort_cases)
+    auto_launches = read_counts()
+    a_rows = np.stack(a_rows)
+    check(np.array_equal(a_rows, rows) and a_stats["host_fetches"] == bmain_fetches,
+          f"variant='auto' rows or host fetches {a_stats['host_fetches']} differ from phase 6's")
+    print(f"[tune] BatchedExtractor(variant='auto') over the {len(cohort)} cases: launches "
+          f"{auto_launches}; rows == phase 6's bitwise, host_fetches {a_stats['host_fetches']}")
+
+    # 9d. each variant's own main paths, counted
+    var_single, var_batch, var_feats = {}, {}, {}
+    img, msk, sp = cases["00001-1"]
+    for variant in variants:
+        vx = ShapeFeatureExtractor(diameter_variant=variant)
+        zero_counts()
+        t0 = time.perf_counter()
+        var_feats[variant] = [vx.execute(*c[1:]) for c in suite]
+        var_feats[variant].append(ShapeFeatureExtractor(diameter_variant=variant, prune=False)
+                                  .execute(img, msk, sp))
+        single_s = time.perf_counter() - t0
+        var_single[variant] = read_counts()
+        zero_counts()
+        t0 = time.perf_counter()
+        v_rows, v_stats = BatchedExtractor(variant=variant).run(cohort_cases)
+        batch_s_v = time.perf_counter() - t0
+        var_batch[variant] = read_counts()
+        key = f"diameter[{variant}]"
+        check(var_single[variant][key] > 0 and var_batch[variant][key] > 0
+              and var_single[variant]["diameter"] == var_single[variant][key]
+              and var_batch[variant]["diameter"] == var_batch[variant][key],
+              f"{variant}: its kernel did not carry the path: {var_single[variant]}, "
+              f"{var_batch[variant]}")
+        check(v_stats["host_fetches"] == bmain_fetches,
+              f"{variant}: host fetches {v_stats['host_fetches']} != phase 6's {bmain_fetches}")
+        v_rows = np.stack(v_rows)
+        got = np.array([[f[k] for k in DIAM_KEYS] for f in var_feats[variant]])
+        want = np.array([[f[k] for k in DIAM_KEYS] for f in var_feats["seqacc"]])
+        if variant == "gram":
+            np.testing.assert_allclose(got, want, rtol=1e-6, err_msg="gram single-case diameters")
+            np.testing.assert_allclose(v_rows, rows, rtol=1e-6, err_msg="gram batched rows")
+        else:
+            check(np.array_equal(got, want) and np.array_equal(v_rows, rows),
+                  f"{variant}: single-case diameters or batched rows != seqacc's")
+        print(f"[vmain] {variant:12s} single-case 20 cases + 00001-1 unpruned {single_s:.3f} s, "
+              f"launches {var_single[variant][key]}; batched 60 cases {batch_s_v:.3f} s, "
+              f"launches {var_batch[variant][key]}; single-case diameters == seqacc's, rows "
+              f"== phase 6's 'auto' rows, {'rtol 1e-6' if variant == 'gram' else 'bitwise'}; "
+              f"host_fetches as phase 6")
+    check_no_sweep(sweeps_tuned, "vmain")
+
+    # 9e. the library yardstick at 00001-1's list: torch.cdist (3D combo only)
+    torch.cuda.empty_cache()
+    valid = verts[vmask]
+    lib_ms = time_ms(lambda: torch.cdist(valid, valid).amax(), reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    print(f"[var] yardstick at 00001-1's {len(valid)} valid vertices: torch.cdist(v, v).amax() "
+          f"{lib_ms:.4f} ms (3D combo only) vs seqacc {fig1['00001-1 unpruned', 'seqacc', 256]:.4f} "
+          f"ms (all 4 combos)")
+    os.unlink(cache_file)
+
+    # -- 10. kernels line ---------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -1040,14 +1392,16 @@ def main():
         entry("mc_volume_area", "marching_cubes.cu", "src/repro/kernels/marching_cubes.py:98",
               launches["marching_cubes"], mc_err, mc_ms, mc_plain_ms, mc_bound, None),
         entry("max_diameters_sq", "diameter.cu", "src/repro/kernels/diameter.py:137",
-              launches["diameter"], diam_err, diam_ms, diam_plain_ms, diam_bound, None),
+              var_single["seqacc"]["diameter[seqacc]"], diam_err, diam_ms, diam_plain_ms,
+              diam_bound, lib_ms),
         entry("compact_batch", "compact.cu", "src/repro/kernels/compact.py:80",
               batch_launches["compact"], cp_err, cp_ms, cp_plain_ms, cp_bound, cp_lib_ms),
         entry("mc_volume_area_batch", "marching_cubes.cu",
               "src/repro/kernels/marching_cubes.py:330", batch_launches["marching_cubes"],
               mcb_err, mcb_ms, mcb_plain_ms, mcb_bound, None),
         entry("max_diameters_sq_batch", "diameter.cu", "src/repro/kernels/diameter.py:137",
-              batch_launches["diameter"], dmb_err, dmb_ms, dmb_plain_ms, dmb_bound, None),
+              var_batch["seqacc"]["diameter[seqacc]"], dmb_err, dmb_ms, dmb_plain_ms, dmb_bound,
+              None),
         entry("firstorder_packed_batch", "firstorder.cu", "src/repro/kernels/firstorder.py:227",
               fam_launches["firstorder"], fo_err, fo_ms, fo_plain_ms, fo_bound, None),
         entry("glcm_matrix_batch", "glcm.cu", "src/repro/kernels/glcm.py:146",
@@ -1061,9 +1415,16 @@ def main():
         entry("fold_packed_chunks", "firstorder.cu", "src/repro/kernels/firstorder.py:227",
               tiled_launches["fold_packed_chunks"], fold_err, fold_ms, fold_plain_ms, fold_bound,
               None),
+    ] + [
+        entry(f"max_diameters_sq[{v}]", "diameter.cu",
+              f"src/repro/kernels/diameter.py:{VARIANT_REPLACES[v]}",
+              var_single[v][f"diameter[{v}]"], var_err[v],
+              fig1["00001-1 unpruned", v, dm.DEFAULT_BLOCK], var_plain_ms["00001-1 unpruned", v],
+              diam_bound, lib_ms)
+        for v in variants if v != "seqacc"
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 10. status -----------------------------------------------------------
+    # -- 11. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,12 @@ It runs single-case shape extraction (``ShapeFeatureExtractor``), the
 batched two-pass cohort path (``BatchedExtractor``) with the shape,
 first-order and GLCM feature families, and out-of-core tiled extraction
 (``TiledExtractor``, ``TiledCase``, ``BatchedExtractor(tiled=True)``) with
-shape and first-order.  The TPU kernels on those paths (marching cubes and
-its per-window partials, the diameter sweep, segmented compaction, the
-batched forms of the first two, first-order stats and GLCM) are replaced
-by CUDA C++ kernels written for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use;
+shape and first-order, each with every diameter variant of the reference
+and the autotuner that picks among them (``runtime/autotune``).  The TPU
+kernels on those paths (marching cubes and its per-window partials, the
+diameter sweep in all seven variants, segmented compaction, the batched
+forms of the first two, first-order stats and GLCM) are replaced by CUDA
+C++ kernels written for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use;
 beside each sits its plain PyTorch version.  Entry points run on the
 card unless the caller passes ``device='cpu'``, and raise when there is no
 card.

@@ -7,6 +7,13 @@ an entry point runs on the card unless the caller asks for the CPU.
     None / 'cuda' / 'cuda:N' -- the hand-written CUDA kernels; raises
                                 RuntimeError when no CUDA device exists
     'cpu'                    -- the plain PyTorch versions (tests, oracles)
+
+Kernel configurations: :func:`diameter_config`, :func:`compact_config`,
+:func:`firstorder_config` and :func:`glcm_config` resolve ``'auto'``
+through the measured autotune cache (``repro_torch.runtime.autotune``) on
+the card and to the fixed defaults on the CPU, which has no axis to tune;
+an explicit value always passes through.  They may run a measuring sweep
+on a cache miss, which synchronises the card.
 """
 from __future__ import annotations
 
@@ -43,3 +50,53 @@ def to_device(x, device: torch.device, dtype: torch.dtype | None = None) -> torc
     if device.type != "cuda" or x.device.type != "cpu":
         return x.to(device)
     return x.contiguous().pin_memory().to(device, non_blocking=True)
+
+
+def diameter_config(device, bucket: int, variant: str = "auto", block: int | None = None,
+                    batch: int = 1):
+    """``(variant, block)`` of the diameter kernel for a vertex bucket.
+
+    ``variant='auto'`` reads the autotune cache for the (vertex bucket,
+    batch-depth bucket) pair, sweeping on a miss; an explicit variant
+    passes through at the default block.  An explicit ``block`` always
+    wins over the tuned one.
+    """
+    from repro_torch.runtime import autotune  # local import: avoids a cycle
+
+    if variant != "auto":
+        return variant, (block or autotune.DEFAULT_CONFIG.block)
+    cfg = autotune.get_diameter_config(int(bucket), device, batch=batch)
+    return cfg.variant, (block or cfg.block)
+
+
+def compact_config(device, bucket: int, block="auto", batch: int = 1) -> int:
+    """Threads of the compaction kernel for an input vertex bucket: the
+    tuned value for ``block='auto'``, else ``block``."""
+    from repro_torch.runtime import autotune
+
+    if block is not None and block != "auto":
+        return int(block)
+    return autotune.get_compact_config(int(bucket), device, batch=batch).block
+
+
+def firstorder_config(device, shape, block="auto", batch: int = 1) -> int:
+    """Voxels per block of the first-order kernel for a padded-volume
+    shape (keyed by its ``autotune.mc_shape_bucket``): the tuned value for
+    ``block='auto'``, else ``block``."""
+    from repro_torch.runtime import autotune
+
+    if block is not None and block != "auto":
+        return int(block)
+    return autotune.get_family_config("firstorder", autotune.mc_shape_bucket(shape), device,
+                                      batch=batch).block
+
+
+def glcm_config(device, shape, block="auto", batch: int = 1) -> int:
+    """Voxels per block of the GLCM kernel; the contract of
+    :func:`firstorder_config` against the ``glcm`` namespace."""
+    from repro_torch.runtime import autotune
+
+    if block is not None and block != "auto":
+        return int(block)
+    return autotune.get_family_config("glcm", autotune.mc_shape_bucket(shape), device,
+                                      batch=batch).block

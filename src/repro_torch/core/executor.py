@@ -61,6 +61,18 @@ mismatched or non-finite image) is quarantined as an all-NaN row with an
 ``errors`` entry in the window stats; an empty mask gives a zero row; the
 rest of the window is unchanged.
 
+Kernel configurations resolve per launch, as in the reference:
+``_resolve_diameter(cap, depth)``, ``_resolve_compact(cap_in, depth)``
+and ``_resolve_family_block(family, shape, depth)`` ask
+``core/dispatcher`` for the launch's (bucket, batch depth), which on the
+card reads the measured autotune cache (``runtime/autotune``, sweeping
+once on a miss) and on the CPU gives the defaults.  ``variant`` is
+``'auto'`` or any of ``kernels.diameter.VARIANTS``; ``'auto'`` chooses
+only among the direct variants, which give the same bits, so batched rows
+equal ``extract_one``'s whatever each depth's winner.  The marching-cubes
+block and ``mc_chunk`` stay fixed (``_resolve_mc``): they set the order
+of its partial sums.
+
 The out-of-core engine (``core/tiled``) runs on an executor: its device,
 its kernel choices (``_resolve_mc``, ``_resolve_diameter``), its family row
 derivation and its ``_fetch`` census.  ``mc_chunk`` is the z-granule of the
@@ -68,9 +80,7 @@ marching-cubes partial layout that the in-core passes and the tiles share.
 
 Not ported yet, and refused with ``ValueError``: ``schedule='static'`` or
 ``'auto'``, ``prep='hint'`` and ``extract_stream`` (ROADMAP.md Queue 1
-item 4(b)), diameter variants other than ``'seqacc'`` and tuned
-first-order and GLCM blocks (item 6; the families run at the fixed
-default ``block``), ``retry`` (item 8) and ``mesh`` (item 9).
+item 4(b)), ``retry`` (item 8) and ``mesh`` (item 9).
 """
 from __future__ import annotations
 
@@ -83,6 +93,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import dispatcher
 from repro_torch.core import plan as planlib
 from repro_torch.core.dispatcher import resolve_device, to_device
 from repro_torch.core.shape_features import crop_to_roi
@@ -156,10 +167,11 @@ class PlanExecutor:
     Owns the submit/collect loops and the ``transfer_log`` host-sync
     census.  ``device`` defaults to ``'cuda'`` and raises without a card;
     ``device='cpu'`` runs the plain versions of the kernels.
-    ``variant``, ``mc_block`` and ``compact_block`` accept ``'auto'``,
-    which resolves to the port's fixed defaults until the autotuner is
-    ported; the intensity families run at their kernels' default
-    ``block``.  ``mc_chunk`` is the z-granule, in cell planes, of the
+    ``variant`` (a diameter variant) and ``compact_block`` accept
+    ``'auto'``, the measured choice per launch (see the module
+    docstring); the intensity families always take their tuned ``block``.
+    ``mc_block='auto'`` is the marching-cubes kernel's fixed default.
+    ``mc_chunk`` is the z-granule, in cell planes, of the
     marching-cubes partial layout (default ``marching_cubes.
     DEFAULT_CHUNK_Z`` = 8, the reference's Pallas brick depth); the
     in-core passes and the tiled engine (``core/tiled.py``) use the same
@@ -187,8 +199,8 @@ class PlanExecutor:
         if prep != "count":
             raise ValueError(f"prep must be one of ('count', 'hint'), got {prep!r}")
         self.families = planlib.resolve_families(families)
-        if variant not in ("auto", "seqacc"):
-            raise _unported(f"diameter variant {variant!r}", "6")
+        if variant != "auto":
+            _diam.check_variant(variant)
         if retry is not None:
             raise _unported("retry", "8")
         if mesh is not None:
@@ -205,7 +217,6 @@ class PlanExecutor:
         if self.mc_chunk < 1:
             raise ValueError(f"mc_chunk must be a positive number of cell planes, "
                              f"got {mc_chunk}")
-        self.diam_block = _diam.DEFAULT_BLOCK
         self.k_dirs = k_dirs
         self.device_compact = device_compact
         self.compact_block = compact_block
@@ -250,14 +261,26 @@ class PlanExecutor:
     # -- launches ------------------------------------------------------------
 
     def _resolve_mc(self, shape=None):
-        """``(block, chunk_z)`` of the MC kernel: the port's fixed choices
-        (the autotuner is not ported yet), the same for every shape."""
+        """``(block, chunk_z)`` of the MC kernel: fixed for every shape, as
+        the tiled path's bitwise agreement with the in-core path needs."""
         return self.mc_block, self.mc_chunk
 
-    def _resolve_diameter(self, cap=None):
-        """``(variant, block)`` of the diameter sweep: ``'seqacc'`` at the
-        fixed block, the only variant ported."""
-        return "seqacc", self.diam_block
+    def _resolve_diameter(self, cap, depth: int = 1):
+        """``(variant, block)`` of a diameter launch over ``depth`` lists of
+        ``cap`` slots."""
+        return dispatcher.diameter_config(self.device, cap, self.variant, batch=depth)
+
+    def _resolve_compact(self, cap_in, depth: int = 1) -> int:
+        """Threads of a compaction launch over ``depth`` lists of ``cap_in``
+        slots."""
+        return dispatcher.compact_config(self.device, cap_in, self.compact_block, batch=depth)
+
+    def _resolve_family_block(self, family: str, shape, depth: int = 1) -> int:
+        """``block`` of an intensity-family launch over ``depth`` volumes of
+        the padded ``shape``."""
+        resolver = (dispatcher.firstorder_config if family == "firstorder"
+                    else dispatcher.glcm_config)
+        return resolver(self.device, shape, "auto", batch=depth)
 
     def _mc_launch(self, shape, masks, spacings):
         """Pass 2a: batched MC over one chunk of a shape bucket's pool."""
@@ -266,8 +289,9 @@ class PlanExecutor:
 
     def _diam_launch(self, cap, verts, vmasks):
         """Pass 2b: batched diameter sweep over one chunk of a vertex bucket."""
-        return ops.max_diameters_batch(verts, vmasks, device=self.device,
-                                       block=self.diam_block)
+        variant, block = self._resolve_diameter(cap, len(verts))
+        return ops.max_diameters_batch(verts, vmasks, device=self.device, block=block,
+                                       variant=variant)
 
     def _family_launch(self, family: str):
         """The launch of one intensity family over one chunk of a shape
@@ -276,7 +300,8 @@ class PlanExecutor:
         op = ops.firstorder_packed_batch if family == "firstorder" else ops.glcm_matrix_batch
 
         def launch(shape, images, masks, lo, hi):
-            return op(images, masks, device=self.device, n_bins=self.n_bins,
+            block = self._resolve_family_block(family, shape, len(images))
+            return op(images, masks, device=self.device, n_bins=self.n_bins, block=block,
                       value_range=(lo, hi))
 
         return launch
@@ -294,8 +319,9 @@ class PlanExecutor:
             ops.compact_vertices(ops.vertex_fields(m, 0.5, sp), bucket.vertex_cap)
             for m, sp in zip(masks, spacings)
         ))
+        variant, block = self._resolve_diameter(bucket.vertex_cap, len(verts))
         d = ops.max_diameters_batch(torch.stack(verts), torch.stack(vmasks),
-                                    device=self.device, block=self.diam_block)
+                                    device=self.device, block=block, variant=variant)
         n = torch.stack(counts).to(torch.float32)[:, None]
         return torch.cat([mc, d, n], dim=1)
 
@@ -524,7 +550,8 @@ class PlanExecutor:
                     entries.append((cap, gidxs, sub[:2]))
                     continue
                 cv, cm, _ = ops.compact_survivors_batch(
-                    sub[0], sub[2], gkey, device=self.device, block=self.compact_block)
+                    sub[0], sub[2], gkey, device=self.device,
+                    block=self._resolve_compact(cap, len(gidxs)))
                 entries.append((gkey, gidxs, (cv, cm)))
         return entries
 
@@ -727,7 +754,9 @@ class PlanExecutor:
                                                                   k_dirs=self.k_dirs)
             vol, area = ops.mc_volume_area(p.mask, 0.5, p.spacing, device=self.device,
                                            block=self.mc_block, chunk_z=self.mc_chunk)
-            d = ops.max_diameters(verts, vmask, device=self.device, block=self.diam_block)
+            variant, block = self._resolve_diameter(len(verts))
+            d = ops.max_diameters(verts, vmask, device=self.device, block=block,
+                                  variant=variant)
             out = self._fetch("extract_one", torch.cat([torch.stack([vol, area]), d]))
             shape_row = self._shape_row(out[:2], out[2:], p.n_vertices)
         fam_out = {

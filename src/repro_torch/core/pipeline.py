@@ -67,7 +67,9 @@ class BatchedExtractor:
     compacts pass 1's survivors on the card, ``device_compact=False`` on
     the host.  ``families`` picks any of ``"shape"`` (the default),
     ``"firstorder"`` and ``"glcm"``; ``n_bins`` is the intensity families'
-    bin count.  Only ``schedule='counted'`` and ``prep='count'`` are
+    bin count.  ``variant`` is the diameter variant: ``'auto'`` (the
+    default, the autotuned choice per launch) or any of
+    ``kernels.diameter.VARIANTS``.  Only ``schedule='counted'`` and ``prep='count'`` are
     ported; the other options of the reference raise ``ValueError``
     naming their ROADMAP item.
     """

@@ -98,9 +98,12 @@ class ShapeFeatureExtractor:
 
     ``device`` defaults to ``'cuda'`` and raises ``RuntimeError`` when no
     CUDA device exists; ``device='cpu'`` runs the plain PyTorch versions.
-    ``diameter_variant`` and ``mc_block`` accept ``'auto'``, which for now
-    resolves to the port's fixed defaults (the ``'seqacc'`` sweep with
-    256-vertex tiles, 256-thread MC blocks): autotuning is not ported yet.
+    ``diameter_variant`` is ``'auto'`` (the default) or any of
+    ``kernels.diameter.VARIANTS``: ``'auto'`` takes the measured-best
+    (variant, block) of the case's vertex bucket at depth 1 from the
+    autotune cache on the card (``runtime/autotune``; ``'seqacc'`` at 256
+    on the CPU), and ``diam_block`` overrides the block.  ``mc_block='auto'``
+    is the marching-cubes kernel's fixed default block, which is not tuned.
     ``prune=True`` runs the exact candidate pruning stage before the pair
     sweep; on the card the diameters are bitwise the same either way.
     """
@@ -108,11 +111,11 @@ class ShapeFeatureExtractor:
     def __init__(self, device=None, diameter_variant: str = "auto", mc_block="auto",
                  diam_block: int | None = None, prune: bool = True):
         self.device = resolve_device(device)
-        if diameter_variant not in ("auto", "seqacc"):
-            raise ValueError(f"only the 'seqacc' diameter variant is ported, "
-                             f"got {diameter_variant!r}")
+        if diameter_variant != "auto":
+            _diam.check_variant(diameter_variant)
+        self.diameter_variant = diameter_variant
         self.mc_block = _mc.DEFAULT_BLOCK if mc_block == "auto" else int(mc_block)
-        self.diam_block = diam_block or _diam.DEFAULT_BLOCK
+        self.diam_block = diam_block
         self.prune = prune
         self.last_prune_info = None  # PruneInfo of the most recent case
 
@@ -133,7 +136,8 @@ class ShapeFeatureExtractor:
         self.last_prune_info = None
         if self.prune:
             verts, vmask, self.last_prune_info = ops.prune_candidates(verts, vmask)
-        d = ops.max_diameters(verts, vmask, device=self.device, block=self.diam_block)
+        d = ops.max_diameters(verts, vmask, device=self.device, block=self.diam_block,
+                              variant=self.diameter_variant)
         return d, n
 
     # -- public API ---------------------------------------------------------

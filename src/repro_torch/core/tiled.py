@@ -610,8 +610,8 @@ class TiledExtractor:
                 verts, vmask, _ = ops.prune_candidates(
                     verts, vmask, k_dirs=ex.k_dirs,
                     fetch=lambda x: ex._fetch("tiled_prune", x))
-            _, block = ex._resolve_diameter(len(verts))
-            d = ops.max_diameters(verts, vmask, device=dev, block=block)
+            variant, block = ex._resolve_diameter(len(verts))
+            d = ops.max_diameters(verts, vmask, device=dev, block=block, variant=variant)
         else:
             d = torch.zeros(4, dtype=torch.float32, device=dev)
         out = ex._fetch("tiled_shape", torch.cat([torch.stack([vol, area]), d]))

@@ -2,7 +2,7 @@
 plain PyTorch beside.
 
     marching_cubes -- csrc/marching_cubes.cu wrappers (mesh volume + area)
-    diameter       -- csrc/diameter.cu wrappers (4-combo farthest pair)
+    diameter       -- csrc/diameter.cu wrappers (4-combo farthest pair, every variant)
     compact        -- csrc/compact.cu wrapper (segmented survivor compaction)
     firstorder     -- csrc/firstorder.cu wrapper (packed first-order stats)
     glcm           -- csrc/glcm.cu wrapper (symmetric co-occurrence counts)

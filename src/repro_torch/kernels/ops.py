@@ -5,8 +5,12 @@ tiled shape paths and the intensity families.  Each kernel entry takes
 ``device`` (default ``'cuda'``, see ``repro_torch.core.dispatcher``),
 moves its inputs there and calls the kernel wrapper, which launches the
 CUDA kernel for a CUDA tensor and the plain version for a CPU tensor.
-``block='auto'`` resolves to the port's fixed defaults: the autotuner is
-not ported yet.
+The diameter entries take ``variant`` (any of ``diameter.VARIANTS``, or
+``'auto'``), the compaction and intensity entries ``block``; ``'auto'``
+resolves through ``core/dispatcher`` to the measured autotune cache on
+the card (``runtime/autotune``) and to the fixed defaults on the CPU.
+Marching cubes runs at its fixed defaults: its block sets the order of
+its partial sums.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import dispatcher
 from repro_torch.core.dispatcher import resolve_device, to_device
 from repro_torch.core.plan import vertex_bucket  # noqa: F401  (re-export)
 from repro_torch.kernels import compact as _compact
@@ -33,12 +38,18 @@ def mc_volume_area(vol, iso=0.5, spacing=(1.0, 1.0, 1.0), *, device=None,
     return _mc.mc_volume_area(vol.contiguous(), iso, spacing, block=block, chunk_z=chunk_z)
 
 
-def max_diameters(verts, mask, *, device=None, block=_diam.DEFAULT_BLOCK):
-    """(4,) [3D, Slice(xy), Row(xz), Column(yz)] max diameters."""
+def max_diameters(verts, mask, *, device=None, block=None, variant=_diam.DEFAULT_VARIANT):
+    """(4,) [3D, Slice(xy), Row(xz), Column(yz)] max diameters.
+
+    ``variant='auto'`` takes the tuned (variant, block) of this vertex
+    bucket at depth 1; ``block`` (default: the tuned or default block)
+    always wins.
+    """
     dev = resolve_device(device)
     verts = to_device(verts, dev, torch.float32)
     mask = to_device(mask, dev).bool()
-    return _diam.max_diameters(verts, mask, block=block)
+    variant, block = dispatcher.diameter_config(dev, verts.shape[0], variant, block)
+    return _diam.max_diameters(verts, mask, block=block, variant=variant)
 
 
 def mc_volume_area_batch(vols, iso=0.5, spacings=None, *, device=None,
@@ -76,13 +87,17 @@ def mc_tile_finalize(vol_partials, area_partials):
     return _mc.mc_partials_finalize(vol_partials, area_partials)
 
 
-def max_diameters_batch(verts, masks, *, device=None, block=_diam.DEFAULT_BLOCK):
+def max_diameters_batch(verts, masks, *, device=None, block=None,
+                        variant=_diam.DEFAULT_VARIANT):
     """(B, 4) [3D, Slice(xy), Row(xz), Column(yz)] max diameters of a
-    (B, M, 3) stack (pass 2b)."""
+    (B, M, 3) stack (pass 2b); ``variant`` and ``block`` as in
+    :func:`max_diameters`, tuned at depth B."""
     dev = resolve_device(device)
     verts = to_device(verts, dev, torch.float32)
     masks = to_device(masks, dev).bool()
-    return _diam.max_diameters_batch(verts, masks, block=block)
+    variant, block = dispatcher.diameter_config(dev, verts.shape[1], variant, block,
+                                                batch=verts.shape[0])
+    return _diam.max_diameters_batch(verts, masks, block=block, variant=variant)
 
 
 def compact_survivors_batch(verts, keep, cap: int, *, device=None, block="auto"):
@@ -91,12 +106,13 @@ def compact_survivors_batch(verts, keep, cap: int, *, device=None, block="auto")
     ``verts``: (B, M, 3), ``keep``: (B, M) -> ``(out, mask, n)`` device
     tensors: ``out`` (B, cap, 3), ``mask`` (B, cap) bool, ``n`` (B,) int32
     total survivor counts.  Bitwise the host path's ``np.nonzero`` gather
-    and zero pad.
+    and zero pad.  ``block='auto'`` takes the tuned threads of this input
+    bucket at depth B.
     """
     dev = resolve_device(device)
     verts = to_device(verts, dev, torch.float32).contiguous()
     keep = to_device(keep, dev).bool().contiguous()
-    block = _compact.DEFAULT_BLOCK if block == "auto" else int(block)
+    block = dispatcher.compact_config(dev, verts.shape[1], block, batch=verts.shape[0])
     return _compact.compact_batch(verts, keep, cap, block=block)
 
 
@@ -107,29 +123,35 @@ def _volumes(images, masks, device):
 
 
 def firstorder_packed_batch(images, masks, *, device=None, n_bins=_fo.N_BINS,
-                            block=_fo.DEFAULT_BLOCK, value_range=None):
+                            block="auto", value_range=None):
     """Batched packed first-order stats over bucket-padded stacks.
 
     ``images``/``masks``: (B, nx, ny, nz) -> (B, packed_width) device rows
     ``[count, sum, sum_sq, hist, lo, hi, bin_width]`` (see
     ``kernels/firstorder``); the feature row derives on the host via
     ``firstorder.features_from_packed_np``.  A case's row is the same bits
-    at any batch depth and any ``block``.
+    at any batch depth and any ``block`` (``'auto'``: the tuned block of
+    this volume bucket at depth B).
     """
     images, masks = _volumes(images, masks, device)
+    block = dispatcher.firstorder_config(images.device, images.shape[1:], block,
+                                         batch=images.shape[0])
     return _fo.firstorder_packed_batch(images, masks, n_bins=n_bins, block=block,
                                        value_range=value_range)
 
 
 def glcm_matrix_batch(images, masks, *, device=None, n_bins=_glcm.N_BINS,
-                      block=_glcm.DEFAULT_BLOCK, value_range=None):
+                      block="auto", value_range=None):
     """Batched symmetric GLCM count matrices: (B, n_bins, n_bins) float32.
 
     Integer-valued counts, exact at any batch depth and ``block``; the
     Haralick row derives on the host via
-    ``glcm.glcm_features_from_matrix_np``.
+    ``glcm.glcm_features_from_matrix_np``.  ``block`` as in
+    :func:`firstorder_packed_batch`.
     """
     images, masks = _volumes(images, masks, device)
+    block = dispatcher.glcm_config(images.device, images.shape[1:], block,
+                                   batch=images.shape[0])
     return _glcm.glcm_matrix_batch(images, masks, n_bins=n_bins, block=block,
                                    value_range=value_range)
 

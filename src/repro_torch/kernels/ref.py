@@ -4,7 +4,8 @@ Counterpart of ``repro.kernels.ref``.  These run on whatever device their
 input lies on.  The vertex-field, count and compaction ops are the main
 path's own steps on every device (the reference has no TPU kernel for
 them either).  :func:`mc_volume_area`, :func:`max_diameters_sq`, the
-batched :func:`mc_volume_area_batch`, :func:`max_diameters_sq_batch` and
+batched :func:`mc_volume_area_batch`, :func:`max_diameters_sq_batch` (one
+plain version per diameter variant, over :func:`pair_sweep`) and
 :func:`compact_batch`, and the tiled path's :func:`mc_slab_partials` and
 :func:`mc_partials_fold` are the plain versions of the CUDA kernels: the
 kernel wrappers take them only for a tensor on the CPU, and
@@ -34,6 +35,9 @@ from repro_torch.core import mc_tables as mct
 from repro_torch.core.dispatcher import to_device
 
 NEG = -1e30
+# the diameter variants of the reference (repro.kernels.diameter.VARIANTS)
+DIAMETER_VARIANTS = ("naive", "fused", "tri", "seqacc", "tri_prefetch", "nomask", "gram")
+COMBOS = ((0, 1, 2), (0, 1), (0, 2), (1, 2))  # the axes of [3D, xy, xz, yz]
 # elements of one (rows, M) block of the plain pair sweep: bounds its memory
 _SWEEP_ELEMS = 1 << 24
 MAX_BINS = 64  # the intensity kernels' shared histogram size
@@ -279,34 +283,104 @@ def diameter_input_batch(verts, masks, block: int) -> torch.Tensor:
     return vfill.transpose(1, 2).contiguous()
 
 
-def diameter_sweep(v: torch.Tensor) -> torch.Tensor:
-    """(4,) max squared distances [3D, xy, xz, yz] over all pairs of ``v``.
+def diameter_mask_batch(masks, block: int, device=None) -> torch.Tensor:
+    """(B, Mp) bool: ``masks`` padded with False to the block multiple of
+    :func:`diameter_input_batch`, the mask stream of the masked variants."""
+    m = torch.as_tensor(masks, device=device).bool()
+    pad = -m.shape[1] % block
+    if pad:
+        m = torch.cat([m, m.new_zeros((m.shape[0], pad))], dim=1)
+    return m.contiguous()
 
-    ``v`` is the (3, Mp) output of :func:`diameter_input`.  Row blocks bound
-    the memory; the per-pair operation order is the kernel's.
+
+def tile_schedule(nb: int) -> torch.Tensor:
+    """(2, T) int32 ``(i, j)`` of the ``T = nb(nb+1)/2`` upper-triangle
+    tiles, row-major (``triu_indices``): the schedule the triangular
+    variants read, one tile per block."""
+    return torch.triu_indices(nb, nb).to(torch.int32)
+
+
+def _axis_squares(v, r0, rows, axes, gram):
+    """Per-axis squared differences of rows ``r0:r0+rows`` against every
+    slot of ``v``: ``(r - c)^2`` in float32, or with ``gram`` the augmented
+    product ``[r^2, 1, -2r] @ [1, c^2, c]^T`` in float64, rounded to
+    float32 (the FP64 tensor-core product of the ``gram`` kernel)."""
+    out = {}
+    for a in axes:
+        if gram:
+            r, c = v[a, r0:r0 + rows].double(), v[a].double()
+            lhs = torch.stack([r * r, torch.ones_like(r), -2.0 * r], dim=1)
+            rhs = torch.stack([torch.ones_like(c), c * c, c])
+            out[a] = (lhs @ rhs).float()
+        else:
+            d = v[a, r0:r0 + rows, None] - v[a, None, :]
+            out[a] = d * d
+    return out
+
+
+def pair_sweep(v: torch.Tensor, mask: torch.Tensor | None = None,
+               combos=(0, 1, 2, 3), gram: bool = False) -> torch.Tensor:
+    """Max squared distance of each of ``combos`` over all pairs of ``v``.
+
+    ``v`` is one (3, Mp) output of :func:`diameter_input_batch`; ``combos``
+    index :data:`COMBOS` ([3D, xy, xz, yz]).  With ``mask`` ((Mp,) bool,
+    :func:`diameter_mask_batch`) a pair with an invalid end counts
+    :data:`NEG`, as the masked kernels select it.  A combo sums its axes'
+    squares left to right in float32, the kernels' order.  Row blocks
+    bound the memory.  Returns ``(len(combos),)`` float32, clamped at 0.
     """
     mp = v.shape[1]
     rows = max(1, min(mp, _SWEEP_ELEMS // mp))
-    best = torch.full((4,), NEG, dtype=torch.float32, device=v.device)
+    axes = sorted({a for c in combos for a in COMBOS[c]})
+    best = torch.full((len(combos),), NEG, dtype=torch.float32, device=v.device)
     for r0 in range(0, mp, rows):
-        dx, dy, dz = (v[a, r0:r0 + rows, None] - v[a, None, :] for a in range(3))
-        qx, qy, qz = dx * dx, dy * dy, dz * dz
-        qxy = qx + qy
-        best = torch.maximum(best, torch.stack([
-            (qxy + qz).amax(), qxy.amax(), (qx + qz).amax(), (qy + qz).amax(),
-        ]))
+        q = _axis_squares(v, r0, rows, axes, gram)
+        valid = None if mask is None else mask[r0:r0 + rows, None] & mask[None, :]
+        maxima = []
+        for c in combos:
+            first, *rest = COMBOS[c]
+            s = q[first]
+            for a in rest:
+                s = s + q[a]
+            if valid is not None:
+                s = torch.where(valid, s, NEG)
+            maxima.append(s.amax())
+        best = torch.maximum(best, torch.stack(maxima))
     return best.clamp(min=0.0)
 
 
-def max_diameters_sq(verts, mask, block: int = 256) -> torch.Tensor:
-    """Plain version of the diameter kernel: (4,) float32 squared maxima."""
-    return diameter_sweep(diameter_input(verts, mask, block))
+def max_diameters_sq(verts, mask, block: int = 256, variant: str = "seqacc") -> torch.Tensor:
+    """Plain version of the diameter kernels: (4,) float32 squared maxima,
+    the batch of one of :func:`max_diameters_sq_batch`."""
+    verts = torch.as_tensor(verts, dtype=torch.float32)
+    m = torch.as_tensor(mask, device=verts.device).bool()
+    if verts.ndim != 2 or verts.shape[1] != 3 or m.shape != verts.shape[:1]:
+        raise ValueError(f"need verts (M, 3) and mask (M,), got {tuple(verts.shape)} "
+                         f"and {tuple(m.shape)}")
+    return max_diameters_sq_batch(verts[None], m[None], block, variant)[0]
 
 
-def max_diameters_sq_batch(verts, masks, block: int = 256) -> torch.Tensor:
-    """Plain version of the batched diameter kernel: (B, 4) squared maxima,
-    per case :func:`diameter_input` then :func:`diameter_sweep`."""
-    return torch.stack([max_diameters_sq(v, m, block) for v, m in zip(verts, masks)])
+def max_diameters_sq_batch(verts, masks, block: int = 256,
+                           variant: str = "seqacc") -> torch.Tensor:
+    """Plain version of each diameter variant: (B, 4) squared maxima.
+
+    Every variant sweeps :func:`diameter_input_batch`'s prepared input.
+    ``seqacc`` and ``nomask`` sweep the filled input with no mask;
+    ``fused``, ``tri`` and ``tri_prefetch`` are the masked sweep, ``naive``
+    the masked sweep one combo at a time, and ``gram`` the masked sweep
+    over the augmented Gram products (:func:`pair_sweep`).  A filled slot
+    duplicates a valid vertex, so the direct variants agree bitwise.
+    """
+    if variant not in DIAMETER_VARIANTS:
+        raise ValueError(f"unknown diameter variant {variant!r}; one of {DIAMETER_VARIANTS}")
+    v = diameter_input_batch(verts, masks, block)
+    if variant in ("seqacc", "nomask"):
+        return torch.stack([pair_sweep(x) for x in v])
+    m = diameter_mask_batch(masks, block, v.device)
+    if variant == "naive":
+        return torch.stack([torch.cat([pair_sweep(x, mk, (c,)) for c in range(len(COMBOS))])
+                            for x, mk in zip(v, m)])
+    return torch.stack([pair_sweep(x, mk, gram=variant == "gram") for x, mk in zip(v, m)])
 
 
 def mc_volume_area_batch(vols, iso=0.5, spacings=None, chunk_z=MC_CHUNK_Z) -> torch.Tensor:

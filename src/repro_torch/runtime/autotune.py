@@ -1,0 +1,502 @@
+"""Measured kernel-configuration selection on the card.
+
+Counterpart of ``repro.runtime.autotune`` for the port's kernels.  No
+single configuration wins at every problem size (the paper's Fig. 1
+study), so per static *bucket* (the vertex padding cap for the diameter
+and compaction kernels, the padded volume shape for the intensity
+families) and batch depth this module sweeps the candidates once on the
+card, caches the winner in a JSON file, and hands the cached choice to
+every later call.  The tuned axes:
+
+* **diameter**: ``(variant, block)`` over :data:`DEFAULT_VARIANTS` x
+  :data:`DEFAULT_BLOCKS`, timed as the kernel launch of
+  ``max_diameters_sq_batch`` on a ``(depth, bucket)`` stack, the launch
+  pass 2b issues;
+* **compaction**: the kernel's threads (a multiple of 32 up to 1024);
+* **first-order**: ``block`` (a multiple of ``firstorder.CANON_CHUNK``);
+* **GLCM**: ``block`` (a multiple of ``glcm.THREADS``, 256).
+
+None of these changes a bit of a result: the direct diameter variants
+agree bitwise at every block, compaction copies bits, and the family
+kernels' sums are fixed by their canonical chunks, whatever the block.
+
+Marching cubes is not tuned.  Its ``block`` and ``mc_chunk`` set the order
+of the partial sums (``kernels/marching_cubes.py``), and the tiled path
+equals the in-core path bitwise only because both use the same granule;
+a tuned MC block could break that.  ``mc_block='auto'`` resolves to the
+defaults and the ``mc/cuda`` namespace is not read.  A later change
+either makes the MC order independent of the block or keys the config to
+the frame.
+
+Cache schema (versioned, shared with the reference): one JSON object
+``{"schema": 3, "entries": {...}}`` keyed ``"diameter/cuda/M<bucket>/B<depth>"``,
+``"compact/cuda/M<bucket>/B<depth>"`` and ``"<family>/cuda/S<nx>x<ny>x<nz>/B<depth>"``;
+``B<depth>`` is the power-of-two batch-depth bucket (:func:`batch_bucket`).
+Each record holds the winner and the measured table (microseconds).  The
+reference's files read back here and ours there (its keys carry
+``pallas`` or ``interpret`` where ours carry ``cuda``).  A v1 file (flat,
+no schema) or v2 (depth-less keys) migrates on load (the keys gain
+``/B1``); an unknown future schema reads as empty and is never
+overwritten; a malformed file reads as empty.  Writes are atomic (tmp +
+rename), so concurrent processes at worst re-measure.  The path is
+``REPRO_AUTOTUNE_CACHE``, default ``~/.cache/repro_autotune.json``.
+
+Measurement: each candidate's input is prepared once, outside the
+timing; the candidates take turns, one launch each per round, and each
+launch's device time comes from CUDA events recorded behind a spin kernel
+(so the host's enqueue is not timed); the median of the rounds is kept.
+
+Policy: sweeps run by default on ``'cuda'``; ``REPRO_AUTOTUNE=0``
+disables them (a miss returns the default, uncached).  ``'cpu'`` has no
+axis: ``'auto'`` gives the defaults and never touches the cache.
+:data:`SWEEPS` counts the sweeps this process ran, :data:`SWEEP_SECONDS`
+their host-clock seconds by kind.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import json
+import math
+import os
+import statistics
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import compact as _compact
+from repro_torch.kernels import diameter as _diam
+from repro_torch.kernels import firstorder as _fo
+from repro_torch.kernels import glcm as _glcm
+from repro_torch.kernels import ref as _kref
+
+SCHEMA_VERSION = 3
+
+# 'gram' is left out of 'auto': its bits differ from the direct sweep's in
+# the last place, so an 'auto' that picked it at one bucket or depth and
+# not at another would break batched == single and tiled == in-core.  It
+# runs when asked for by name.  The other direct variants ('fused', 'tri',
+# 'naive') give the same bits but do strictly more work than these.
+DEFAULT_VARIANTS = ("seqacc", "tri_prefetch", "nomask")
+DEFAULT_BLOCKS = (128, 256, 512)
+DEFAULT_COMPACT_BLOCKS = (256, 512, 1024)
+DEFAULT_FIRSTORDER_BLOCKS = (1024, 2048, 4096)
+DEFAULT_GLCM_BLOCKS = (512, 1024, 2048, 4096)
+# variants a cached diameter entry may name for 'auto': the direct ones
+AUTO_VARIANTS = tuple(v for v in _diam.VARIANTS if v != "gram")
+
+REPEAT = 15  # timed rounds of a sweep, each candidate once a round
+MIN_REPEAT = 3  # the fewest rounds where REPEAT would overrun SWEEP_BUDGET_S
+SWEEP_BUDGET_S = 1.0  # device seconds the timed rounds of one sweep aim at
+_SPIN_CYCLES = 1 << 18  # ~0.13 ms of spin ahead of each timed launch
+
+SWEEPS = 0  # measuring sweeps run by this process (any kernel)
+SWEEP_SECONDS = dict.fromkeys(("diameter", "compact", "firstorder", "glcm"), 0.0)
+_PARSED: dict = {}  # path -> (file stamp, parsed JSON): see AutotuneCache._read_raw
+
+
+@dataclasses.dataclass(frozen=True)
+class DiameterConfig:
+    variant: str
+    block: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactConfig:
+    block: int
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyConfig:
+    """One intensity-family kernel configuration (block is the only axis)."""
+
+    block: int
+
+
+DEFAULT_CONFIG = DiameterConfig(_diam.DEFAULT_VARIANT, _diam.DEFAULT_BLOCK)
+DEFAULT_COMPACT_CONFIG = CompactConfig(_compact.DEFAULT_BLOCK)
+DEFAULT_FIRSTORDER_CONFIG = FamilyConfig(_fo.DEFAULT_BLOCK)
+DEFAULT_GLCM_CONFIG = FamilyConfig(_glcm.DEFAULT_BLOCK)
+
+
+def cache_path() -> str:
+    env = os.environ.get("REPRO_AUTOTUNE_CACHE")
+    if env:
+        return env
+    return os.path.join(os.path.expanduser("~"), ".cache", "repro_autotune.json")
+
+
+def _migrate_key(key: str) -> str:
+    """v1/v2 -> v3 key migration: depth-less keys gain the ``/B1`` segment
+    (those sweeps measured single-case launches); other keys pass through."""
+    parts = key.split("/")
+    if len(parts) == 3 and parts[0] in ("diameter", "mc", "compact"):
+        return key + "/B1"
+    return key
+
+
+class AutotuneCache:
+    """Tiny versioned JSON key -> record store with atomic writes.
+
+    On disk ``{"schema": 3, "entries": {key: record}}``.  v1 (flat, no
+    ``schema``) and v2 (depth-less keys) files migrate on load; an unknown
+    schema or a malformed file reads as empty, so a stale cache costs a
+    re-sweep, never a crash.
+    """
+
+    def __init__(self, path: str | None = None):
+        self.path = path or cache_path()
+
+    def _read_raw(self) -> dict:
+        """The file's JSON object, parsed once per version of the file (its
+        inode, size and mtime): a lookup on a warm cache costs a ``stat``."""
+        try:
+            st = os.stat(self.path)
+            stamp = (st.st_ino, st.st_size, st.st_mtime_ns)
+            seen = _PARSED.get(self.path)
+            if seen is not None and seen[0] == stamp:
+                return seen[1]
+            with open(self.path) as f:
+                data = json.load(f)
+        except (OSError, ValueError):
+            return {}
+        data = data if isinstance(data, dict) else {}
+        _PARSED[self.path] = (stamp, data)
+        return data
+
+    def _entries(self) -> dict:
+        raw = self._read_raw()
+        if "schema" not in raw:  # v1: a flat key -> record mapping
+            return {_migrate_key(k): v for k, v in raw.items() if isinstance(v, dict)}
+        if raw.get("schema") == 2:
+            ent = raw.get("entries")
+            if not isinstance(ent, dict):
+                return {}
+            return {_migrate_key(k): v for k, v in ent.items() if isinstance(v, dict)}
+        if raw.get("schema") != SCHEMA_VERSION:
+            return {}  # a future schema: do not guess, re-measure
+        ent = raw.get("entries")
+        return ent if isinstance(ent, dict) else {}
+
+    def get(self, key: str):
+        return self._entries().get(key)
+
+    def put(self, key: str, record: dict) -> None:
+        schema = self._read_raw().get("schema")
+        if isinstance(schema, int) and schema > SCHEMA_VERSION:
+            return  # a newer version owns this file: never destroy its entries
+        entries = dict(self._entries())  # migrates v1/v2 entries forward
+        entries[key] = record
+        payload = {"schema": SCHEMA_VERSION, "entries": entries}
+        d = os.path.dirname(self.path) or "."
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(payload, f, indent=1, sort_keys=True)
+            os.replace(tmp, self.path)
+        except OSError:  # the cache is best-effort
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+
+
+def batch_bucket(depth: int) -> int:
+    """Power-of-two batch-depth bucket (limits the per-depth key space)."""
+    b = 1
+    while b < int(depth):
+        b *= 2
+    return b
+
+
+def sweep_key(bucket: int, backend: str, batch: int = 1) -> str:
+    return f"diameter/{backend}/M{int(bucket)}/B{batch_bucket(batch)}"
+
+
+def compact_key(bucket: int, backend: str, batch: int = 1) -> str:
+    return f"compact/{backend}/M{int(bucket)}/B{batch_bucket(batch)}"
+
+
+def family_key(family: str, shape, backend: str, batch: int = 1) -> str:
+    """``<family>/<backend>/S<nx>x<ny>x<nz>/B<depth>`` for a padded-volume bucket."""
+    nx, ny, nz = (int(s) for s in shape)
+    return f"{family}/{backend}/S{nx}x{ny}x{nz}/B{batch_bucket(batch)}"
+
+
+def mc_shape_bucket(shape, step: int = 32) -> tuple[int, int, int]:
+    """Pad a volume shape up to the autotune bucket grid (limits key space)."""
+    return tuple(max(step, int(math.ceil(int(s) / step)) * step) for s in shape)
+
+
+def _sweep_allowed() -> bool:
+    return os.environ.get("REPRO_AUTOTUNE") != "0"
+
+
+def _time_launches(launches: dict) -> dict:
+    """Median device seconds of each zero-argument launch in ``launches``.
+
+    One untimed round first (lazy kernel loading, the allocator), then
+    rounds that time every candidate once in turn, so a drift of clocks or
+    host load falls on all of them alike: :data:`REPEAT` rounds, fewer (not
+    under :data:`MIN_REPEAT`) where they would take over
+    :data:`SWEEP_BUDGET_S`.  A sample is a pair of CUDA events around one
+    launch, recorded behind a spin kernel that keeps the card busy while
+    the host enqueues the launch: the events bracket the kernel's device
+    time, not the host's.
+    """
+    t0 = time.perf_counter()
+    for call in launches.values():
+        call()
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    rounds = max(MIN_REPEAT, min(REPEAT, int(SWEEP_BUDGET_S / max(round_s, 1e-9))))
+    samples = {k: [] for k in launches}
+    for _ in range(rounds):
+        for k, call in launches.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(_SPIN_CYCLES)
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            samples[k].append(start.elapsed_time(end) * 1e-3)
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def _table(times: dict, name) -> tuple:
+    """``(best, table)`` of measured ``{config: seconds}``, the table keyed
+    ``name(config)`` in microseconds."""
+    best = min(times, key=times.get)
+    return best, {name(c): t * 1e6 for c, t in times.items()}
+
+
+def _cached_or_swept(kind: str, key: str, default, parse, sweep, name):
+    """The config cached under ``key`` (``parse`` of its record, ``None`` when
+    unusable), else ``sweep()``'s winner, stored with its table; ``default``,
+    uncached, when sweeps are off."""
+    global SWEEPS
+    cache = AutotuneCache()
+    hit = cache.get(key)
+    if hit is not None:
+        try:
+            cfg = parse(hit)
+        except (KeyError, TypeError, ValueError):
+            cfg = None
+        if cfg is not None:
+            return cfg
+    if not _sweep_allowed():
+        return default
+    SWEEPS += 1
+    t0 = time.perf_counter()
+    best, table = sweep()
+    SWEEP_SECONDS[kind] += time.perf_counter() - t0
+    cache.put(key, {**dataclasses.asdict(best), "us": table[name(best)], "table": table,
+                    "swept_at": time.strftime("%Y-%m-%dT%H:%M:%S")})
+    return best
+
+
+def _usable(blocks, bucket: int):
+    """Blocks larger than the bucket only pad the grid: drop them, keeping
+    the smallest candidate when all are larger."""
+    return [b for b in blocks if b <= bucket] or [min(blocks)]
+
+
+def _valid_block(block: int) -> bool:
+    return block % 32 == 0 and 32 <= block <= 1024
+
+
+# ---------------------------------------------------------------------------
+# diameter (variant, block)
+# ---------------------------------------------------------------------------
+
+
+def _diameter_name(cfg: DiameterConfig) -> str:
+    return f"{cfg.variant}/{cfg.block}"
+
+
+def _diameter_probe(bucket: int, device, batch: int, seed: int = 0):
+    """A ``(batch, bucket)`` stack of valid, normally scattered vertices."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    verts = torch.from_numpy(
+        (rng.normal(size=(max(1, batch), bucket, 3)) * 10.0).astype(np.float32)).to(dev)
+    return verts, torch.ones(verts.shape[:2], dtype=torch.bool, device=dev)
+
+
+def measure_diameter_configs(bucket: int, device, configs, *, batch: int = 1) -> dict:
+    """Median device seconds of each :class:`DiameterConfig` on one
+    ``(batch, bucket)`` probe stack: the kernel launch pass 2b issues
+    (``diameter.batch_launcher``), its input prepared outside the timing."""
+    verts, masks = _diameter_probe(bucket, device, batch)
+    with torch.cuda.device(verts.device):
+        return _time_launches({c: _diam.batch_launcher(verts, masks, block=c.block,
+                                                       variant=c.variant) for c in configs})
+
+
+def sweep_diameter(bucket: int, device, *, batch: int = 1):
+    """Measure every (variant, block) candidate; returns ``(best, table)``,
+    ``table`` mapping ``"variant/block"`` to microseconds."""
+    configs = [DiameterConfig(v, b) for v in DEFAULT_VARIANTS
+               for b in _usable(DEFAULT_BLOCKS, bucket)]
+    return _table(measure_diameter_configs(bucket, device, configs, batch=batch),
+                  _diameter_name)
+
+
+def _parse_diameter(rec) -> DiameterConfig | None:
+    cfg = DiameterConfig(str(rec["variant"]), int(rec["block"]))
+    return cfg if cfg.variant in AUTO_VARIANTS and _valid_block(cfg.block) else None
+
+
+def get_diameter_config(bucket: int, device, *, batch: int = 1) -> DiameterConfig:
+    """Cached-or-swept best ``(variant, block)`` for a (bucket, depth) pair.
+
+    A cache hit runs no kernel.  A miss sweeps (when allowed, see the
+    module docstring) at the batch-depth bucket of ``batch``, stores the
+    winner and its table, and returns it; when sweeping is not allowed the
+    default comes back uncached.  A cached entry that names ``gram``, an
+    unknown variant or a block the kernel refuses counts as a miss.
+    """
+    backend = torch.device(device).type
+    if backend == "cpu":
+        return DEFAULT_CONFIG
+    return _cached_or_swept(
+        "diameter", sweep_key(bucket, backend, batch), DEFAULT_CONFIG, _parse_diameter,
+        lambda: sweep_diameter(bucket, device, batch=batch_bucket(batch)), _diameter_name)
+
+
+# ---------------------------------------------------------------------------
+# compaction threads
+# ---------------------------------------------------------------------------
+
+
+def _block_name(cfg) -> str:
+    return str(cfg.block)
+
+
+def _compact_probe(bucket: int, device, batch: int, seed: int = 0):
+    """``(verts, keep, cap)``: ~25% of a ``(batch, bucket)`` stack kept (the
+    pipeline's typical keep fraction) into a ``max(512, bucket // 4)`` cap."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    batch = max(1, int(batch))
+    verts = torch.from_numpy(
+        (rng.normal(size=(batch, bucket, 3)) * 10.0).astype(np.float32)).to(dev)
+    keep = torch.from_numpy(rng.random((batch, bucket)) < 0.25).to(dev)
+    return verts, keep, max(512, int(bucket) // 4)
+
+
+def measure_compact_configs(bucket: int, device, configs, *, batch: int = 4) -> dict:
+    """Median device seconds of the compaction kernel at each
+    :class:`CompactConfig`'s threads on one probe."""
+    verts, keep, cap = _compact_probe(bucket, device, batch)
+    with torch.cuda.device(verts.device):
+        return _time_launches({c: functools.partial(_compact.compact_batch, verts, keep, cap,
+                                                    block=c.block) for c in configs})
+
+
+def sweep_compact(bucket: int, device, *, batch: int = 4):
+    """Measure every thread count; returns ``(best, table)`` keyed
+    ``str(block)`` in microseconds."""
+    configs = [CompactConfig(b) for b in DEFAULT_COMPACT_BLOCKS]
+    return _table(measure_compact_configs(bucket, device, configs, batch=batch), _block_name)
+
+
+def _parse_compact(rec) -> CompactConfig | None:
+    cfg = CompactConfig(int(rec["block"]))
+    return cfg if _valid_block(cfg.block) else None
+
+
+def get_compact_config(bucket: int, device, *, batch: int = 1) -> CompactConfig:
+    """Cached-or-swept compaction threads per (input bucket, depth); the
+    contract of :func:`get_diameter_config`."""
+    backend = torch.device(device).type
+    if backend == "cpu":
+        return DEFAULT_COMPACT_CONFIG
+    return _cached_or_swept(
+        "compact", compact_key(bucket, backend, batch), DEFAULT_COMPACT_CONFIG, _parse_compact,
+        lambda: sweep_compact(bucket, device, batch=batch_bucket(batch)), _block_name)
+
+
+# ---------------------------------------------------------------------------
+# intensity-family (firstorder / glcm) blocks
+# ---------------------------------------------------------------------------
+
+_FAMILIES = {
+    "firstorder": (DEFAULT_FIRSTORDER_BLOCKS, DEFAULT_FIRSTORDER_CONFIG, _fo.CANON_CHUNK),
+    "glcm": (DEFAULT_GLCM_BLOCKS, DEFAULT_GLCM_CONFIG, _glcm.THREADS),
+}
+
+
+def _family(family: str):
+    try:
+        return _FAMILIES[family]
+    except KeyError:
+        raise ValueError(f"unknown autotune family namespace {family!r}") from None
+
+
+def _probe_volume(shape) -> np.ndarray:
+    """A centred ellipsoid mask at ~0.35 radius: surface and interior."""
+    g = np.indices(shape, dtype=np.float32)
+    c = (np.asarray(shape, np.float32) - 1.0) / 2.0
+    r = np.maximum(np.asarray(shape, np.float32) * 0.35, 2.0)
+    d2 = sum(((g[i] - c[i]) / r[i]) ** 2 for i in range(3))
+    return (d2 < 1.0).astype(np.float32)
+
+
+def _family_probe(shape, device, batch: int, seed: int = 0):
+    """``(images, masks)``: a ``(batch, *shape)`` stack of the ellipsoid mask
+    and a CT-like image."""
+    dev = torch.device(device)
+    shape = tuple(int(s) for s in shape)
+    batch = max(1, int(batch))
+    rng = np.random.default_rng(seed)
+    mask = torch.from_numpy(_probe_volume(shape)).to(dev)
+    image = torch.from_numpy(rng.normal(40.0, 15.0, size=shape).astype(np.float32)).to(dev)
+    return (image.expand(batch, *shape).contiguous(), mask.expand(batch, *shape).contiguous())
+
+
+def measure_family_configs(family: str, shape, device, configs, *, batch: int = 4) -> dict:
+    """Median device seconds of each :class:`FamilyConfig` of a family on one
+    probe, the launch the executor issues (its masked range taken once,
+    outside the timing, as the executor takes it for both families)."""
+    _family(family)
+    images, masks = _family_probe(shape, device, batch)
+    op = _fo.firstorder_packed_batch if family == "firstorder" else _glcm.glcm_matrix_batch
+    with torch.cuda.device(images.device):
+        rng = _kref.intensity_range(images.reshape(len(images), -1),
+                                    masks.reshape(len(masks), -1), dim=1)
+        return _time_launches({c: functools.partial(op, images, masks, block=c.block,
+                                                    value_range=rng) for c in configs})
+
+
+def sweep_family(family: str, shape, device, *, batch: int = 4):
+    """Measure every block of a family; returns ``(best, table)`` keyed
+    ``str(block)`` in microseconds."""
+    blocks, _, _ = _family(family)
+    configs = [FamilyConfig(b) for b in blocks]
+    return _table(measure_family_configs(family, shape, device, configs, batch=batch),
+                  _block_name)
+
+
+def get_family_config(family: str, shape, device, *, batch: int = 1) -> FamilyConfig:
+    """Cached-or-swept family block per (volume bucket, depth); the
+    contract of :func:`get_diameter_config`.  ``shape`` should already be
+    a bucket (:func:`mc_shape_bucket`).  A cached block that is not a
+    multiple of the kernel's granule counts as a miss."""
+    _, default, granule = _family(family)
+    backend = torch.device(device).type
+    if backend == "cpu":
+        return default
+    shape = tuple(int(s) for s in shape)
+
+    def parse(rec):
+        cfg = FamilyConfig(int(rec["block"]))
+        return cfg if cfg.block > 0 and cfg.block % granule == 0 else None
+
+    return _cached_or_swept(
+        family, family_key(family, shape, backend, batch), default, parse,
+        lambda: sweep_family(family, shape, device, batch=batch_bucket(batch)), _block_name)

@@ -1,0 +1,402 @@
+"""The port's autotuner (``repro_torch.runtime.autotune``), on the CPU.
+
+The port's counterparts of ``tests/test_autotune_cache.py``'s cache,
+migration, malformed-file, future-schema and ``batch_bucket`` tests, run
+on the port's module with its ``cuda`` keys; a v3 file written by either
+package reads back the same entries in the other.  The sweep policy runs
+without a card: the measuring functions are replaced by deterministic
+tables, so a cold lookup on ``'cuda'`` sweeps, stores the argmin and a
+second lookup measures nothing.  The real sweep's round trip on the card is
+``tests/test_torch_variants_cuda.py``.
+"""
+import json
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.runtime import autotune as jax_autotune  # noqa: E402
+from repro_torch.core import ShapeFeatureExtractor, dispatcher  # noqa: E402
+from repro_torch.core.executor import PlanExecutor  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.kernels import compact, diameter, firstorder, glcm  # noqa: E402
+from repro_torch.runtime import autotune  # noqa: E402
+
+
+@pytest.fixture
+def cache_path(tmp_path, monkeypatch):
+    path = str(tmp_path / "autotune.json")
+    monkeypatch.delenv("REPRO_AUTOTUNE", raising=False)
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", path)
+    return path
+
+
+def _fake_times(variant, block):
+    """A deterministic (variant, block) -> seconds table: 'nomask' at 256
+    wins, 'gram' would beat everything if it were measured."""
+    base = {"seqacc": 3.0, "tri_prefetch": 3.2, "nomask": 2.5, "gram": 0.1}.get(variant, 9.0)
+    return (base + abs(block - 256) / 256) * 1e-3
+
+
+@pytest.fixture
+def measured(monkeypatch):
+    """Replaces the diameter measurement; records every measured config."""
+    calls = []
+
+    def measure(bucket, device, configs, *, batch):
+        calls.extend((bucket, c.variant, c.block, batch) for c in configs)
+        return {c: _fake_times(c.variant, c.block) for c in configs}
+
+    monkeypatch.setattr(autotune, "measure_diameter_configs", measure)
+    return calls
+
+
+def _v1_payload():
+    return {"diameter/cuda/M256": {"variant": "tri_prefetch", "block": 128, "us": 11.0,
+                                   "table": {"tri_prefetch/128": 11.0}}}
+
+
+def _v2_payload():
+    return {
+        "schema": 2,
+        "entries": {
+            "diameter/cuda/M256": {"variant": "nomask", "block": 128, "us": 11.0, "table": {}},
+            "compact/cuda/M1024": {"block": 512, "us": 9.0, "table": {}},
+            "bogus-non-dict": 17,
+        },
+    }
+
+
+# -- the cache file ----------------------------------------------------------
+
+def test_defaults_are_the_kernels():
+    assert autotune.DEFAULT_CONFIG == autotune.DiameterConfig("seqacc", diameter.DEFAULT_BLOCK)
+    assert autotune.DEFAULT_COMPACT_CONFIG.block == compact.DEFAULT_BLOCK
+    assert autotune.DEFAULT_FIRSTORDER_CONFIG.block == firstorder.DEFAULT_BLOCK
+    assert autotune.DEFAULT_GLCM_CONFIG.block == glcm.DEFAULT_BLOCK
+    assert "gram" not in autotune.DEFAULT_VARIANTS
+    assert set(autotune.DEFAULT_VARIANTS) <= set(diameter.VARIANTS)
+    assert all(b % firstorder.CANON_CHUNK == 0 for b in autotune.DEFAULT_FIRSTORDER_BLOCKS)
+    assert all(b % glcm.THREADS == 0 for b in autotune.DEFAULT_GLCM_BLOCKS)
+    assert all(b % 32 == 0 and b <= 1024 for b in autotune.DEFAULT_COMPACT_BLOCKS)
+
+
+def test_cache_path_default_and_env(monkeypatch, tmp_path):
+    monkeypatch.delenv("REPRO_AUTOTUNE_CACHE", raising=False)
+    assert autotune.cache_path() == jax_autotune.cache_path()
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "x.json"))
+    assert autotune.cache_path() == str(tmp_path / "x.json")
+
+
+def test_v3_schema_roundtrip_mixed_entries(cache_path):
+    cache = autotune.AutotuneCache()
+    cache.put(autotune.sweep_key(512, "cuda"), {"variant": "seqacc", "block": 256, "us": 1.0})
+    cache.put(autotune.compact_key(4096, "cuda", batch=3), {"block": 512, "us": 2.0})
+    cache.put(autotune.family_key("glcm", (32, 64, 32), "cuda", batch=2),
+              {"block": 1024, "us": 3.0})
+    raw = json.load(open(cache_path))
+    assert raw["schema"] == autotune.SCHEMA_VERSION == 3
+    assert set(raw["entries"]) == {"diameter/cuda/M512/B1", "compact/cuda/M4096/B4",
+                                   "glcm/cuda/S32x64x32/B2"}
+    assert cache.get("diameter/cuda/M512/B1")["variant"] == "seqacc"
+    assert cache.get("glcm/cuda/S32x64x32/B2")["block"] == 1024
+
+
+def test_batch_bucket_is_a_pow2_ladder():
+    assert [autotune.batch_bucket(b) for b in (1, 2, 3, 4, 5, 8, 9, 33)] == \
+        [1, 2, 4, 4, 8, 8, 16, 64]
+    assert autotune.sweep_key(256, "cuda", batch=6) == "diameter/cuda/M256/B8"
+    assert autotune.compact_key(1024, "cuda", batch=3) == "compact/cuda/M1024/B4"
+    assert autotune.family_key("firstorder", (64, 32, 32), "cuda", batch=5) == \
+        "firstorder/cuda/S64x32x32/B8"
+    for shape in [(1, 1, 1), (33, 64, 65), (100, 20, 7)]:
+        assert autotune.mc_shape_bucket(shape) == jax_autotune.mc_shape_bucket(shape)
+
+
+def test_v1_file_migrates_on_load(cache_path, monkeypatch):
+    with open(cache_path, "w") as f:
+        json.dump(_v1_payload(), f)
+    monkeypatch.setattr(autotune, "sweep_diameter",
+                        lambda *a, **k: pytest.fail("migrated v1 entry ignored: re-swept"))
+    assert autotune.get_diameter_config(256, "cuda") == \
+        autotune.DiameterConfig("tri_prefetch", 128)
+
+
+def test_v1_file_upgraded_and_preserved_on_put(cache_path):
+    with open(cache_path, "w") as f:
+        json.dump(_v1_payload(), f)
+    autotune.AutotuneCache().put(autotune.compact_key(1024, "cuda"), {"block": 256})
+    raw = json.load(open(cache_path))
+    assert raw["schema"] == autotune.SCHEMA_VERSION
+    assert raw["entries"]["diameter/cuda/M256/B1"]["variant"] == "tri_prefetch"
+    assert raw["entries"]["compact/cuda/M1024/B1"]["block"] == 256
+
+
+def test_v2_file_migrates_on_load(cache_path, monkeypatch, measured):
+    with open(cache_path, "w") as f:
+        json.dump(_v2_payload(), f)
+    sweep = autotune.sweep_diameter
+    for name in ("sweep_diameter", "sweep_compact"):
+        monkeypatch.setattr(autotune, name,
+                            lambda *a, **k: pytest.fail("migrated v2 entry ignored: re-swept"))
+    assert autotune.get_diameter_config(256, "cuda") == autotune.DiameterConfig("nomask", 128)
+    assert autotune.get_compact_config(1024, "cuda") == autotune.CompactConfig(512)
+    # an unmeasured depth is a miss: the B4 slot sweeps
+    monkeypatch.setattr(autotune, "sweep_diameter", sweep)
+    autotune.get_diameter_config(256, "cuda", batch=4)
+    assert measured and {batch for *_, batch in measured} == {4}
+
+
+def test_v2_file_upgraded_and_preserved_on_put(cache_path):
+    with open(cache_path, "w") as f:
+        json.dump(_v2_payload(), f)
+    autotune.AutotuneCache().put(autotune.sweep_key(256, "cuda", batch=4),
+                                 {"variant": "seqacc", "block": 128})
+    raw = json.load(open(cache_path))
+    assert raw["schema"] == autotune.SCHEMA_VERSION
+    assert set(raw["entries"]) == {"diameter/cuda/M256/B1", "compact/cuda/M1024/B1",
+                                   "diameter/cuda/M256/B4"}
+
+
+def test_unknown_future_schema_resweeps_without_destroying_file(cache_path, measured):
+    future = {"schema": 99, "entries": _v1_payload()}
+    with open(cache_path, "w") as f:
+        json.dump(future, f)
+    cfg = autotune.get_diameter_config(256, "cuda")
+    assert cfg == autotune.DiameterConfig("nomask", 256)
+    assert json.load(open(cache_path)) == future  # untouched
+    n = len(measured)
+    autotune.get_diameter_config(256, "cuda")  # still no cached winner: sweeps again
+    assert len(measured) == 2 * n
+
+
+def test_malformed_file_reads_empty_and_recovers(cache_path):
+    with open(cache_path, "w") as f:
+        f.write("{ not json !!")
+    cache = autotune.AutotuneCache()
+    assert cache.get("diameter/cuda/M256/B1") is None
+    cache.put("k", {"v": 1})
+    assert cache.get("k") == {"v": 1}
+
+
+def test_v3_file_reads_back_in_either_package(cache_path):
+    autotune.AutotuneCache().put(autotune.sweep_key(1024, "cuda", batch=2),
+                                 {"variant": "tri_prefetch", "block": 512, "us": 5.0})
+    jax_cache = jax_autotune.AutotuneCache()
+    assert jax_cache.get("diameter/cuda/M1024/B2")["variant"] == "tri_prefetch"
+    jax_cache.put(jax_autotune.sweep_key(1024, "pallas", batch=2),
+                  {"variant": "gram", "block": 128, "us": 4.0})
+    jax_cache.put(jax_autotune.compact_key(2048, "pallas"), {"block": 256, "us": 1.0})
+    ours = autotune.AutotuneCache()
+    for key in ("diameter/cuda/M1024/B2", "diameter/pallas/M1024/B2",
+                "compact/pallas/M2048/B1"):
+        assert ours.get(key) == jax_cache.get(key)
+    assert json.load(open(cache_path))["schema"] == jax_autotune.SCHEMA_VERSION
+
+
+# -- the sweep policy --------------------------------------------------------
+
+def test_cold_lookup_caches_the_argmin_once(cache_path, measured):
+    sweeps = autotune.SWEEPS
+    cfg = autotune.get_diameter_config(4096, "cuda", batch=3)
+    assert cfg == autotune.DiameterConfig("nomask", 256)
+    assert autotune.SWEEPS == sweeps + 1
+    assert {(v, b) for _, v, b, _ in measured} == {
+        (v, b) for v in autotune.DEFAULT_VARIANTS for b in autotune.DEFAULT_BLOCKS}
+    assert {batch for *_, batch in measured} == {4}  # the depth bucket of 3
+    rec = json.load(open(cache_path))["entries"]["diameter/cuda/M4096/B4"]
+    assert (rec["variant"], rec["block"]) == ("nomask", 256)
+    best = min(rec["table"], key=rec["table"].get)
+    assert best == "nomask/256" and rec["us"] == rec["table"][best]
+    n = len(measured)
+    assert autotune.get_diameter_config(4096, "cuda", batch=4) == cfg  # same depth bucket
+    assert len(measured) == n and autotune.SWEEPS == sweeps + 1
+
+
+def test_small_bucket_sweeps_only_blocks_that_fit(cache_path, measured):
+    autotune.get_diameter_config(128, "cuda")
+    assert {b for _, _, b, _ in measured} == {128}
+
+
+def test_gram_never_wins_auto(cache_path, measured):
+    assert autotune.get_diameter_config(2048, "cuda").variant != "gram"
+    assert all(v != "gram" for _, v, _, _ in measured)
+    # a cached 'gram' entry is a miss for 'auto': it re-sweeps the direct variants
+    autotune.AutotuneCache().put(autotune.sweep_key(8192, "cuda"),
+                                 {"variant": "gram", "block": 128})
+    n = len(measured)
+    assert autotune.get_diameter_config(8192, "cuda").variant == "nomask"
+    assert len(measured) > n
+
+
+@pytest.mark.parametrize("bad", [
+    {"variant": "bogus", "block": 256}, {"variant": "seqacc", "block": 100},
+    {"variant": "seqacc", "block": 2048}, {"block": 256}, {"variant": "seqacc"},
+    {"variant": "seqacc", "block": "big"},
+])
+def test_unusable_diameter_entry_resweeps(cache_path, measured, bad):
+    autotune.AutotuneCache().put(autotune.sweep_key(512, "cuda"), bad)
+    assert autotune.get_diameter_config(512, "cuda") == autotune.DiameterConfig("nomask", 256)
+    assert measured
+
+
+def test_disabled_returns_default_uncached(cache_path, measured, monkeypatch):
+    monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+    assert autotune.get_diameter_config(512, "cuda") == autotune.DEFAULT_CONFIG
+    assert autotune.get_compact_config(512, "cuda") == autotune.DEFAULT_COMPACT_CONFIG
+    assert autotune.get_family_config("glcm", (32, 32, 32), "cuda") == \
+        autotune.DEFAULT_GLCM_CONFIG
+    assert not measured and not os.path.exists(cache_path)
+
+
+def test_cpu_has_no_axis_and_never_touches_the_cache(cache_path, measured, monkeypatch):
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")  # sweeps on: still nothing to tune
+    sweeps = autotune.SWEEPS
+    assert autotune.get_diameter_config(512, "cpu") == autotune.DEFAULT_CONFIG
+    assert autotune.get_compact_config(512, "cpu") == autotune.DEFAULT_COMPACT_CONFIG
+    assert autotune.get_family_config("firstorder", (32, 32, 32), "cpu") == \
+        autotune.DEFAULT_FIRSTORDER_CONFIG
+    case = synthetic.make_case((24, 20, 16), seed=1)
+    ShapeFeatureExtractor(device="cpu").execute(*case)
+    assert dispatcher.diameter_config("cpu", 4096) == ("seqacc", diameter.DEFAULT_BLOCK)
+    assert not measured and autotune.SWEEPS == sweeps and not os.path.exists(cache_path)
+
+
+def test_compact_and_family_sweeps_cache_their_argmin(cache_path, monkeypatch):
+    seen = []
+
+    def compact_time(bucket, device, configs, *, batch):
+        seen.extend(("compact", c.block, batch) for c in configs)
+        return {c: abs(c.block - 512) + 1.0 for c in configs}
+
+    def family_time(family, shape, device, configs, *, batch):
+        seen.extend((family, c.block, batch) for c in configs)
+        return {c: abs(c.block - 4096) + 1.0 for c in configs}
+
+    monkeypatch.setattr(autotune, "measure_compact_configs", compact_time)
+    monkeypatch.setattr(autotune, "measure_family_configs", family_time)
+    assert autotune.get_compact_config(8192, "cuda", batch=5).block == 512
+    assert autotune.get_family_config("firstorder", (64, 32, 32), "cuda", batch=2).block == 4096
+    assert autotune.get_family_config("glcm", (64, 32, 32), "cuda").block == 4096
+    entries = json.load(open(cache_path))["entries"]
+    assert set(entries) == {"compact/cuda/M8192/B8", "firstorder/cuda/S64x32x32/B2",
+                            "glcm/cuda/S64x32x32/B1"}
+    assert {b for k, b, _ in seen if k == "compact"} == set(autotune.DEFAULT_COMPACT_BLOCKS)
+    n = len(seen)
+    autotune.get_compact_config(8192, "cuda", batch=8)
+    autotune.get_family_config("glcm", (64, 32, 32), "cuda")
+    assert len(seen) == n
+
+
+def test_family_sweep_drops_blocks_the_kernel_refuses(cache_path, monkeypatch):
+    seen = []
+    monkeypatch.setattr(autotune, "measure_family_configs",
+                        lambda family, shape, device, configs, *, batch:
+                        seen.extend(c.block for c in configs) or dict.fromkeys(configs, 1.0))
+    with pytest.raises(ValueError, match="unknown autotune family"):
+        autotune.get_family_config("shape", (32, 32, 32), "cuda")
+    # a cached first-order block off the canonical chunk is a miss
+    autotune.AutotuneCache().put(autotune.family_key("firstorder", (32, 32, 32), "cuda"),
+                                 {"block": 1536})
+    seen.clear()
+    assert autotune.get_family_config("firstorder", (32, 32, 32), "cuda").block == 1024
+    assert seen == list(autotune.DEFAULT_FIRSTORDER_BLOCKS)
+
+
+def test_pinned_entries_reach_the_executor(cache_path, monkeypatch):
+    """Entries pinned in the cache are what the executor's resolution
+    hands its launches on the card (no kernel runs: the resolution only
+    reads the device's type)."""
+    monkeypatch.setenv("REPRO_AUTOTUNE", "0")  # a miss must not sweep here
+    cache = autotune.AutotuneCache()
+    cache.put(autotune.compact_key(4096, "cuda", batch=3), {"block": 256})
+    cache.put(autotune.family_key("firstorder", (64, 32, 32), "cuda", batch=2), {"block": 4096})
+    cache.put(autotune.family_key("glcm", (64, 32, 32), "cuda", batch=2), {"block": 512})
+    cache.put(autotune.sweep_key(1024, "cuda", batch=5), {"variant": "tri_prefetch",
+                                                         "block": 128})
+    ex = PlanExecutor(device="cpu")
+    ex.device = torch.device("cuda")
+    assert ex._resolve_compact(4096, 3) == 256
+    assert ex._resolve_family_block("firstorder", (50, 30, 20), 2) == 4096
+    assert ex._resolve_family_block("glcm", (64, 32, 32), 2) == 512
+    assert ex._resolve_diameter(1024, 5) == ("tri_prefetch", 128)
+    assert ex._resolve_diameter(1024, 1) == ("seqacc", diameter.DEFAULT_BLOCK)  # a miss
+    assert ex._resolve_mc((64, 32, 32)) == (ex.mc_block, ex.mc_chunk)  # MC is not tuned
+    pinned = PlanExecutor(device="cpu", variant="gram", compact_block=128)
+    pinned.device = torch.device("cuda")
+    assert pinned._resolve_diameter(1024, 5) == ("gram", diameter.DEFAULT_BLOCK)
+    assert pinned._resolve_compact(4096, 3) == 128
+
+
+def test_explicit_values_pass_through_the_dispatcher(cache_path, measured):
+    assert dispatcher.diameter_config("cuda", 4096, "tri", 512) == ("tri", 512)
+    assert dispatcher.diameter_config("cuda", 4096, "gram") == ("gram", diameter.DEFAULT_BLOCK)
+    assert dispatcher.compact_config("cuda", 4096, 64) == 64
+    assert dispatcher.firstorder_config("cuda", (40, 40, 40), 3072) == 3072
+    assert dispatcher.glcm_config("cuda", (40, 40, 40), "768") == 768
+    assert not measured and not os.path.exists(cache_path)
+
+
+def test_measuring_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        autotune.measure_diameter_configs(512, "cuda", [autotune.DiameterConfig("seqacc", 256)])
+
+
+def test_a_rewritten_file_is_read_again(cache_path):
+    """The parsed file is reused only while the file is unchanged: another
+    process's write is seen by the next lookup."""
+    cache = autotune.AutotuneCache()
+    cache.put(autotune.compact_key(2048, "cuda"), {"block": 256})
+    assert autotune.get_compact_config(2048, "cuda").block == 256
+    with open(cache_path, "w") as f:  # another writer, another size
+        json.dump({"schema": 3, "entries": {"compact/cuda/M2048/B1": {"block": 1024},
+                                            "compact/cuda/M4096/B1": {"block": 512}}}, f)
+    assert autotune.get_compact_config(2048, "cuda").block == 1024
+    assert autotune.get_compact_config(4096, "cuda").block == 512
+
+
+def test_timing_interleaves_candidates_and_keeps_the_median(monkeypatch):
+    """The sweep's timer on a fake card: one warm-up call each, then rounds
+    in which every candidate runs once in turn; each sample is the device
+    time between the events around one launch, and the median is kept."""
+    clock = [0.0]  # the fake card's clock, ms
+    order = []
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            self.t = None
+
+        def record(self):
+            self.t = clock[0]
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return other.t - self.t
+
+    def launch(name, durations):
+        it = iter(durations)
+
+        def call():
+            order.append(name)
+            clock[0] += next(it)
+        return call
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: clock.__setitem__(0, clock[0] + 5))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(autotune, "REPEAT", 5)
+    # warm-up, then five samples each: a's median 2 ms, b's 3 ms despite outliers
+    times = autotune._time_launches({"a": launch("a", [50, 9, 2, 1, 2, 2]),
+                                     "b": launch("b", [50, 3, 3, 0.5, 30, 4])})
+    assert order == ["a", "b"] + ["a", "b"] * 5
+    assert times == {"a": pytest.approx(2e-3), "b": pytest.approx(3e-3)}
+    # a sweep whose rounds would overrun the budget takes MIN_REPEAT rounds
+    monkeypatch.setattr(autotune, "SWEEP_BUDGET_S", 0.0)
+    order.clear()
+    autotune._time_launches({"a": launch("a", [1] * 9)})
+    assert order == ["a"] * (1 + autotune.MIN_REPEAT)

@@ -153,7 +153,7 @@ def test_transfer_callback_sees_every_fetch():
 @pytest.mark.parametrize("kwargs,item", [
     ({"schedule": "static"}, "item 4(b)"), ({"schedule": "auto"}, "item 4(b)"),
     ({"prep": "hint"}, "item 4(b)"), ({"mesh": object()}, "item 9"),
-    ({"retry": object()}, "item 8"), ({"variant": "gram"}, "item 6"),
+    ({"retry": object()}, "item 8"),
 ])
 def test_unported_options_raise_naming_roadmap_item(kwargs, item):
     with pytest.raises(ValueError, match=rf"ROADMAP.*{re.escape(item)}"):

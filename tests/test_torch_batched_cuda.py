@@ -25,6 +25,15 @@ pytestmark = pytest.mark.cuda
 PATTERNS = ["random", "zero-survivor", "all-survivor", "cap-boundary", "overflow"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _autotune_cache(tmp_path_factory):
+    """This module's 'auto' sweeps on the card go to a cache file of its own."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path_factory.mktemp("autotune") / "cache.json"))
+    yield
+    mp.undo()
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -97,10 +106,10 @@ def test_diameter_batch_kernel_bitwise_equals_single(dev, block):
     masks[:, m // 2] = True
     masks[4, :] = False
     masks[4, 3] = True  # one valid vertex: all maxima 0
-    before = diameter.LAUNCHES
+    before = diameter.LAUNCHES["seqacc"]
     got = diameter.max_diameters_sq_batch(verts, masks, block=block)
     torch.cuda.synchronize()
-    assert diameter.LAUNCHES == before + 1
+    assert diameter.LAUNCHES["seqacc"] == before + 1
     assert torch.equal(got, ref.max_diameters_sq_batch(verts, masks, block))
     for b in range(len(verts)):
         assert torch.equal(got[b], diameter.max_diameters_sq(verts[b], masks[b], block=block))
@@ -117,19 +126,21 @@ def test_keep_mask_batch_equals_single_case_on_card(dev):
         assert torch.equal(keep[b], k1) and torch.equal(lower[b], l1)
 
 
-def test_new_wrappers_launch_their_kernels(dev):
+def test_new_wrappers_launch_their_kernels(dev, monkeypatch):
     """A CUDA tensor given to each batched entry launches its kernel, never
-    the plain version: the launch counter moves on every call."""
-    counters = [(compact, "LAUNCHES"), (marching_cubes, "LAUNCHES"),
-                (diameter, "LAUNCHES")]
-    before = [getattr(mod, name) for mod, name in counters]
+    the plain version: the launch counter moves on every call.  No autotune
+    sweep runs (it would launch the kernels too)."""
+    monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+    counters = [lambda: compact.LAUNCHES, lambda: marching_cubes.LAUNCHES,
+                lambda: diameter.LAUNCHES["seqacc"]]
+    before = [count() for count in counters]
     verts = torch.randn((2, 512, 3), device=dev)
     keep = torch.rand((2, 512), device=dev) < 0.5
     ops.compact_survivors_batch(verts, keep, 512, device=dev)
     ops.mc_volume_area_batch(torch.ones((2, 4, 4, 4), device=dev), 0.5, device=dev)
     ops.max_diameters_batch(verts, keep | True, device=dev)
     torch.cuda.synchronize()
-    after = [getattr(mod, name) for mod, name in counters]
+    after = [count() for count in counters]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
     with pytest.raises(ValueError):
         marching_cubes.mc_volume_area_batch(torch.ones((2, 4, 4, 4), device=dev), 0.5,
@@ -141,10 +152,10 @@ def test_new_wrappers_launch_their_kernels(dev):
 def test_batched_extractor_on_card_equals_extract_one(dev):
     cases = [synthetic.make_case(s, seed=seed) for s, seed in
              [((24, 20, 16), 1), ((28, 22, 18), 2), ((50, 24, 20), 2), ((52, 28, 22), 4)]]
-    before = (compact.LAUNCHES, marching_cubes.LAUNCHES, diameter.LAUNCHES)
+    before = (compact.LAUNCHES, marching_cubes.LAUNCHES, sum(diameter.LAUNCHES.values()))
     ext = BatchedExtractor()
     rows, stats = ext.run(cases)
-    after = (compact.LAUNCHES, marching_cubes.LAUNCHES, diameter.LAUNCHES)
+    after = (compact.LAUNCHES, marching_cubes.LAUNCHES, sum(diameter.LAUNCHES.values()))
     assert all(a > b for a, b in zip(after, before)), (before, after)
     for case, row in zip(cases, rows):
         np.testing.assert_array_equal(ext.extract_one(*case), row)

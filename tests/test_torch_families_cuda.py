@@ -26,6 +26,15 @@ KERNELS = {"firstorder": (firstorder, firstorder.firstorder_packed_batch,
            "glcm": (glcm, glcm.glcm_matrix_batch, glcm.glcm_matrix_batch_ref)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _autotune_cache(tmp_path_factory):
+    """This module's 'auto' sweeps on the card go to a cache file of its own."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path_factory.mktemp("autotune") / "cache.json"))
+    yield
+    mp.undo()
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -123,6 +132,7 @@ def test_three_family_run_on_card(dev):
     cases = [synthetic.make_case(s, seed=seed) for s, seed in
              [((24, 20, 16), 1), ((28, 22, 18), 2), ((50, 24, 20), 2), ((52, 28, 22), 4)]]
     ext = BatchedExtractor(families=FAMS)
+    ext.run(cases)  # first use: the autotune sweeps of the family blocks
     before = (firstorder.LAUNCHES, glcm.LAUNCHES)
     rows, stats = ext.run(cases)
     assert (firstorder.LAUNCHES - before[0], glcm.LAUNCHES - before[1]) == (

@@ -33,6 +33,7 @@ def test_import_loads_no_jax_or_reference():
         "import repro_torch.core.pipeline, repro_torch.core.executor, repro_torch.core.plan\n"
         "import repro_torch.kernels.compact, repro_torch.kernels.firstorder\n"
         "import repro_torch.kernels.glcm, repro_torch.core.tiled, repro_torch.data.tiles\n"
+        "import repro_torch.runtime.autotune\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -70,7 +71,7 @@ def test_unknown_device_and_variant_raise():
     with pytest.raises(ValueError):
         ShapeFeatureExtractor(device="meta")
     with pytest.raises(ValueError):
-        ShapeFeatureExtractor(device="cpu", diameter_variant="gram")
+        ShapeFeatureExtractor(device="cpu", diameter_variant="bogus")
 
 
 @pytest.mark.parametrize("name", ["CORNERS", "EDGES", "TRI_TABLE", "N_TRIS",

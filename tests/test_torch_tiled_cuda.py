@@ -28,6 +28,15 @@ SP = np.asarray([1.0, 1.25, 0.75], np.float32)
 FAMS = ["shape", "firstorder"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _autotune_cache(tmp_path_factory):
+    """This module's 'auto' sweeps on the card go to a cache file of its own."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path_factory.mktemp("autotune") / "cache.json"))
+    yield
+    mp.undo()
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():

@@ -1,0 +1,159 @@
+"""The diameter variants' CUDA kernels and the autotuner, on the card.
+
+Skipped without a CUDA device (a CUDA kernel has no CPU mode).  Run on an
+H100 with ``PYTHONPATH=src python -m pytest -q tests/test_torch_variants_cuda.py``.
+The direct variants repeat the plain version's per-pair arithmetic, so
+each kernel's maxima must equal its plain version's and the ``seqacc``
+kernel's bitwise; ``gram`` rounds the FP64 tensor-core product once, as its
+plain version rounds a float64 product, and is held to rtol 1e-6 (the two
+float64 sums may round apart before the float32 rounding).
+"""
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import BatchedExtractor, ShapeFeatureExtractor  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.kernels import diameter, ref  # noqa: E402
+from repro_torch.runtime import autotune  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+VARIANTS = diameter.VARIANTS
+GRAM_PLAIN_RTOL = 1e-6
+
+
+@pytest.fixture(autouse=True)
+def _autotune_cache(tmp_path, monkeypatch):
+    """Each test's 'auto' sweeps go to a cache file of its own."""
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    monkeypatch.delenv("REPRO_AUTOTUNE", raising=False)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _agree(got, want, variant):
+    if variant == "gram":
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=GRAM_PLAIN_RTOL)
+    else:
+        assert torch.equal(got, want), (variant, got, want)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("m", [1, 2, 513, 4096])
+@pytest.mark.parametrize("block", [128, 256])
+def test_variant_kernel_matches_plain(dev, variant, m, block):
+    rng = np.random.default_rng(m)
+    verts = torch.from_numpy((rng.normal(size=(m, 3)) * 50 + 200).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random(m) < 0.7).to(dev)
+    mask[m // 2] = True
+    before = diameter.LAUNCHES[variant]
+    k = diameter.max_diameters_sq(verts, mask, block=block, variant=variant)
+    torch.cuda.synchronize()
+    assert diameter.LAUNCHES[variant] == before + (4 if variant == "naive" else 1)
+    assert bool(torch.isfinite(k).all())
+    _agree(k, ref.max_diameters_sq(verts, mask, block, variant), variant)
+    _agree(k, diameter.max_diameters_sq(verts, mask, block=block), variant)  # seqacc's kernel
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_variant_batch_equals_single(dev, variant):
+    rng = np.random.default_rng(4)
+    m = 1000
+    verts = torch.from_numpy((rng.normal(size=(5, m, 3)) * 50 + 200).astype(np.float32)).to(dev)
+    masks = torch.from_numpy(rng.random((5, m)) < 0.7).to(dev)
+    masks[:, m // 2] = True
+    masks[4, :] = False
+    masks[4, 3] = True  # one valid vertex: all maxima 0
+    got = diameter.max_diameters_sq_batch(verts, masks, block=128, variant=variant)
+    _agree(got, ref.max_diameters_sq_batch(verts, masks, 128, variant), variant)
+    assert torch.equal(got[4], torch.zeros(4, device=dev))
+    for b in range(len(verts)):
+        assert torch.equal(got[b], diameter.max_diameters_sq(verts[b], masks[b], block=128,
+                                                             variant=variant))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_gram_kernel_at_paper_scale(dev, seed):
+    rng = np.random.default_rng(seed)
+    verts = (rng.uniform(0.0, 1.0, size=(384, 3)) * 512 * [0.7, 0.7, 5.0]).astype(np.float32)
+    v = verts.astype(np.float64)
+    q = (v[:, None, :] - v[None, :, :]) ** 2
+    want = np.sqrt([p.max() for p in (q.sum(-1), q[..., 0] + q[..., 1],
+                                       q[..., 0] + q[..., 2], q[..., 1] + q[..., 2])])
+    t = torch.from_numpy(verts).to(dev)
+    got = diameter.max_diameters(t, torch.ones(384, dtype=torch.bool, device=dev), block=128,
+                                 variant="gram").double().cpu().numpy()
+    assert np.max(np.abs(got - want) / want) < 1e-3
+
+
+def test_schedule_is_built_once_per_size(dev):
+    v = torch.randn((1, 600, 3), device=dev)
+    m = torch.ones((1, 600), dtype=torch.bool, device=dev)
+    diameter.max_diameters_sq_batch(v, m, block=128, variant="tri_prefetch")
+    ij = diameter._SCHEDULES[(5, v.device)]
+    assert torch.equal(ij.cpu(), ref.tile_schedule(5))
+    diameter.max_diameters_sq_batch(v, m, block=128, variant="nomask")
+    assert diameter._SCHEDULES[(5, v.device)] is ij
+
+
+def test_variant_wrappers_refuse_bad_inputs(dev):
+    v = torch.zeros((4, 3), device=dev)
+    m = torch.ones(4, dtype=torch.bool, device=dev)
+    for variant in VARIANTS:
+        with pytest.raises(ValueError):
+            diameter.max_diameters_sq(v, m, block=100, variant=variant)
+        with pytest.raises(ValueError):
+            diameter.max_diameters_sq(v.double(), m, variant=variant)
+    with pytest.raises(ValueError):
+        diameter.max_diameters_sq(v, m, variant="bogus")
+
+
+def test_real_sweep_roundtrip(dev, tmp_path):
+    """A cold lookup sweeps on the card and stores the argmin of its own
+    table; the second lookup launches nothing."""
+    sweeps = autotune.SWEEPS
+    cfg = autotune.get_diameter_config(2048, dev, batch=3)
+    assert autotune.SWEEPS == sweeps + 1
+    rec = json.load(open(tmp_path / "autotune.json"))["entries"]["diameter/cuda/M2048/B4"]
+    assert rec["table"][f"{cfg.variant}/{cfg.block}"] == min(rec["table"].values())
+    assert cfg.variant in autotune.DEFAULT_VARIANTS
+    launches = dict(diameter.LAUNCHES)
+    assert autotune.get_diameter_config(2048, dev, batch=4) == cfg
+    assert diameter.LAUNCHES == launches and autotune.SWEEPS == sweeps + 1
+    assert autotune.get_compact_config(4096, dev, batch=2).block in autotune.DEFAULT_COMPACT_BLOCKS
+    assert autotune.get_family_config("glcm", (32, 32, 32), dev).block in \
+        autotune.DEFAULT_GLCM_BLOCKS
+    assert autotune.SWEEPS == sweeps + 3
+
+
+def test_extractors_take_every_variant(dev):
+    cases = [synthetic.make_case(s, seed=seed) for s, seed in
+             [((24, 20, 16), 1), ((50, 24, 20), 2), ((52, 28, 22), 4)]]
+    base = np.stack(BatchedExtractor(variant="seqacc").run(cases)[0])
+    single = ShapeFeatureExtractor(diameter_variant="seqacc").execute(*cases[1])
+    keys = ["Maximum3DDiameter", "Maximum2DDiameterSlice", "Maximum2DDiameterRow",
+            "Maximum2DDiameterColumn"]
+    for variant in ("auto",) + VARIANTS:
+        before = dict(diameter.LAUNCHES)
+        rows = np.stack(BatchedExtractor(variant=variant).run(cases)[0])
+        feats = ShapeFeatureExtractor(diameter_variant=variant).execute(*cases[1])
+        if variant != "auto":
+            assert diameter.LAUNCHES[variant] > before[variant], variant
+        got, want = np.array([feats[k] for k in keys]), np.array([single[k] for k in keys])
+        if variant == "gram":
+            np.testing.assert_allclose(rows, base, rtol=GRAM_PLAIN_RTOL)
+            np.testing.assert_allclose(got, want, rtol=GRAM_PLAIN_RTOL)
+        else:
+            np.testing.assert_array_equal(rows, base, err_msg=variant)
+            np.testing.assert_array_equal(got, want, err_msg=variant)
