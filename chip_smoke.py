@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 It builds the hand-written kernels from ``src/repro_torch/csrc`` with nvcc,
 holds each against its plain PyTorch version on the card, drives the main
@@ -28,11 +28,12 @@ Phases:
      the three prune levels); autotune.SWEEPS is then held still through
      phases 2-8, but for the 512^3 sphere's cold run (8c); prints the
      warm pass's sweep seconds by kind and each diameter winner beside
-     seqacc/256 at the same key
+     seqacc at the default block at the same key
   2. marching-cubes kernel vs plain (case 00001-1 and a sphere), rtol 1e-5,
      two runs bitwise equal; kernel, plain and bound times
   3. diameter kernel vs plain, bitwise (00001-1's unpruned vertex list and
-     random inputs with masked slots); times, bound, a cdist yardstick
+     random inputs with masked slots); times at the tuned block of
+     00001-1's bucket, bound, a cdist yardstick
   4. main path: 20 Table-2 cases on the card (prune on) plus 00001-1 with
      prune off, launch counts reset just before and read just after;
      features against the CPU path at rtol 1e-4, prune on == off bitwise;
@@ -45,6 +46,17 @@ Phases:
      also on five keep patterns x B in {1, 3, 16} x M in {512, 4096,
      131072}; times, device times, bounds and the library yardstick at the
      largest launch
+  5b. the main path's diameter sweep ('seqacc', 'nomask'): the -Xptxas -v
+     lines of the diameter kernels; the instructions a pair in the sweep
+     kernels' SASS hot loop (cuobjdump); with a parent checkout (--parent,
+     default build/ab_parent, unpacked there with git archive) the parent's
+     'seqacc' and 'nomask' kernels built from it against this tree's at
+     00001-1's unpruned list and the largest pass-2b stack, blocks 128, 256
+     and 512, in turns, same bits, CUDA events and trace device time, the
+     change's best below the parent's; nvidia-smi's SM clock and power over
+     the timed window; the instruction-rate ceiling (the SASS's non-FMA FP32
+     instructions a pair x valid pairs at 132 SMs x 128 lanes x that clock)
+     beside the FP32-peak bound
   6. batched main path: launch counts reset, BatchedExtractor().run over
      the 60 cases, counts read; rows == extract_one bitwise (seed 0), ==
      phase 4's CPU features at rtol 1e-4, device_compact off == on
@@ -74,9 +86,8 @@ Phases:
      in-core kernel bitwise and == plain (rtol 1e-5); launch counts reset,
      BatchedExtractor(families=(shape, firstorder), tiled=True,
      tile_mem_mb=8) runs 00001-1 out-of-core (10 tiles), counts read; the
-     tiled row == in-core extract_one bitwise for prune levels none and
-     occupancy, 'bounds' at rtol 1e-5 on the diameters and exact
-     elsewhere, == the CPU path at rtol 1e-4; the same run under CUDA sync
+     tiled row == in-core extract_one bitwise for prune levels none,
+     occupancy and bounds, == the CPU path at rtol 1e-4; the same run under CUDA sync
      debugging; every window, finalize and touched-chunk fold launch held
      against its plain version; walls against extract_one (two
      interleaved rounds); a 512^3 analytic sphere (FnSlabSource) under an
@@ -151,6 +162,9 @@ DIAM_OPS_PER_PAIR = 14
 # 'gram' variant's products
 PEAK_FP64_TC_PER_S = 67e12
 VARIANT_BLOCKS = (128, 256, 512)
+# a parent checkout unpacked with `git archive` for the diameter A/B (phase
+# 5b), unless --parent names another
+AB_PARENT = Path(__file__).resolve().parent / "build" / "ab_parent"
 # the reference's kernel body of each variant (src/repro/kernels/diameter.py)
 VARIANT_REPLACES = {"fused": 122, "tri": 122, "naive": 122, "tri_prefetch": 150,
                     "nomask": 174, "gram": 88}
@@ -217,6 +231,23 @@ def device_trace(fn, reps=1):
     return per_kernel, wall_ms
 
 
+def device_us_per_call(fn, reps=5):
+    """Device time (us) of one call of ``fn`` whose kernels each run once a
+    call: the mean duration of each traced kernel (its total over its
+    traced count, so a launch the profiler drops does not lower it),
+    summed over the call's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total / e.count for e in prof.key_averages()
+               if e.device_time_total > 0 and e.count)
+
+
 def kernel_us(per_kernel, names):
     total = sum(us for key, us in per_kernel.items() if any(n in key for n in names))
     return f"{total:.2f} us" if total > 0 else "not measured"
@@ -249,14 +280,16 @@ def check_no_sweep(sweeps, phase):
 
 
 def tuned_vs_default(key, rec):
-    """One cached diameter entry: its winner and seqacc/256 at the same key
+    """One cached diameter entry: its winner and seqacc at the default block
+    at the same key
     (another kind's entry: its winner)."""
     if "variant" not in rec:
         return f"{key}: block {rec['block']} {rec['us']:.2f} us"
     table = rec["table"]
     base = table.get(f"{dm.DEFAULT_VARIANT}/{dm.DEFAULT_BLOCK}")
     return (f"{key.split('/', 2)[2]}: {rec['variant']}/{rec['block']} {rec['us']:.2f} us, "
-            f"seqacc/256 " + (f"{base:.2f} us ({rec['us'] / base:.3f}x)" if base else "not swept"))
+            f"{dm.DEFAULT_VARIANT}/{dm.DEFAULT_BLOCK} "
+            + (f"{base:.2f} us ({rec['us'] / base:.3f}x)" if base else "not swept"))
 
 
 def sweep_seconds():
@@ -293,6 +326,200 @@ def diam_bound_ms(masks):
     pairs = int((valid * (valid + 1) / 2).sum())
     return {"bytes": (13 * masks.numel() + 16 * len(masks)) / PEAK_BYTES_PER_S * 1e3,
             "operations": DIAM_OPS_PER_PAIR * pairs / PEAK_FP32_PER_S * 1e3}, pairs
+
+
+def rate_ceiling_ms(pairs, per_pair, clock_mhz):
+    """Least time (ms) of ``pairs`` pair evaluations at ``per_pair`` dispatched
+    instructions each, one warp instruction per clock on each of an SM's 4
+    schedulers (128 lanes an SM) at ``clock_mhz``: the diameter sweep's
+    ceiling, since none of its per-pair operations can be an FMA."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return per_pair * pairs / (sms * 128 * clock_mhz * 1e6) * 1e3
+
+
+def smi_sampler(period_s=0.1):
+    """Samples nvidia-smi's SM clock, power draw and limit every
+    ``period_s`` on a thread until :func:`smi_summary` stops it."""
+    import threading
+    rows, stop = [], threading.Event()
+
+    def run():
+        while True:
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True).stdout
+            for line in out.splitlines()[:1]:
+                try:
+                    rows.append([float(x) for x in line.split(",")])
+                except ValueError:
+                    pass
+            if stop.wait(period_s):
+                return
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, stop, rows
+
+
+def smi_summary(sampler):
+    """Stops a :func:`smi_sampler` and returns (min, median, max) of its SM
+    clock (MHz) and power draw (W), the power limit and the sample count."""
+    thread, stop, rows = sampler
+    stop.set()
+    thread.join(timeout=30)
+    if not rows:
+        return None
+    stats = lambda xs: (min(xs), statistics.median(xs), max(xs))  # noqa: E731
+    return {"clocks_sm_mhz": stats([r[0] for r in rows]),
+            "power_draw_w": stats([r[1] for r in rows]), "power_limit_w": rows[0][2],
+            "samples": len(rows)}
+
+
+def ptxas_lines(log, name):
+    """The ``-Xptxas -v`` lines of the kernels whose mangled names hold
+    ``name``: each entry's name beside its registers, stack and spills."""
+    out, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and name in entry and ("registers" in line or "spill" in line):
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def sass_loop_counts(lib_path, name):
+    """Per kernel whose mangled name holds ``name``: the opcode counts of
+    its hot loop in the SASS (``cuobjdump -sass``), the backward-branch
+    region densest in FMNMX, and from them the instructions a pair (a pair
+    runs exactly 4 FMNMX).  None where cuobjdump is missing."""
+    import re
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if name in m.group(1) else None
+            if cur:
+                funcs[cur] = {"ins": [], "labels": {}}
+            continue
+        if cur is None:
+            continue
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            funcs[cur]["labels"][lab.group(1)] = len(funcs[cur]["ins"])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            text = m.group(2).strip()
+            op = text.split()[1] if text.startswith("@") else text.split()[0]
+            funcs[cur]["ins"].append((int(m.group(1), 16), op.split(".")[0], text))
+    result = {}
+    for fn, d in funcs.items():
+        ins, addr_at = d["ins"], {a: k for k, (a, _, _) in enumerate(d["ins"])}
+        best = None
+        for k, (_, op, text) in enumerate(ins):
+            if op != "BRA":
+                continue
+            m = re.search(r"\((\.L_x_\d+)\)|0x([0-9a-f]+)", text)
+            if not m:
+                continue
+            start = d["labels"].get(m.group(1)) if m.group(1) else addr_at.get(int(m.group(2), 16))
+            if start is None or start >= k:
+                continue
+            ops = collections.Counter(o for _, o, _ in ins[start:k + 1])
+            density = ops["FMNMX"] / (k + 1 - start)
+            if ops["FMNMX"] >= 16 and (best is None or density > best[0]):
+                best = (density, ops, k + 1 - start)
+        if best:
+            _, ops, n = best
+            pairs = ops["FMNMX"] / 4
+            result[fn] = {"loop_instructions": n, "pairs": pairs,
+                          "per_pair": n / pairs,
+                          "fp32_per_pair": (ops["FADD"] + ops["FMUL"] + ops["FMNMX"]) / pairs,
+                          "lds_per_pair": ops["LDS"] / pairs,
+                          "opcodes": dict(ops.most_common(8))}
+    return result
+
+
+def build_parent_diameter(parent):
+    """The parent checkout's ``csrc/diameter.cu`` built with this tree's
+    flags into its own library: ``(lib, build log)``."""
+    import ctypes
+    src = Path(parent) / "src" / "repro_torch" / "csrc" / "diameter.cu"
+    out = _build.BUILD_DIR / "ab_parent_diameter.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"the parent's diameter.cu did not build:\n{proc.stdout}"
+                                f"{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.max_diameters_sq_launch.argtypes = [P, I, I, I, P, P, P]
+    lib.diameter_sched_launch.argtypes = [P, P, P, I, I, I, I, I, P, P, P]
+    lib.max_diameters_sq_launch.restype = lib.diameter_sched_launch.restype = I
+    return lib, proc.stdout + proc.stderr
+
+
+def parent_launcher(lib, verts, masks, block, variant):
+    """A launch of the parent's 'seqacc' (one block a tile, all nb(nb+1)/2
+    tiles) or 'nomask' (the same over a row-major schedule) kernel on this
+    tree's prepared input, the input prepared once."""
+    v = ref.diameter_input_batch(verts, masks, block)
+    batch, _, mp = v.shape
+    nb = mp // block
+    ntiles = nb * (nb + 1) // 2
+    ij = torch.triu_indices(nb, nb, device=v.device).to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        partials = torch.empty(4 * ntiles * batch, dtype=torch.float32, device=v.device)
+        out = torch.empty((batch, 4), dtype=torch.float32, device=v.device)
+        if variant == "seqacc":
+            err = lib.max_diameters_sq_launch(v.data_ptr(), batch, mp, block,
+                                              partials.data_ptr(), out.data_ptr(), stream)
+        else:
+            err = lib.diameter_sched_launch(v.data_ptr(), 0, ij.data_ptr(), ntiles, batch, mp,
+                                            block, 1, partials.data_ptr(), out.data_ptr(), stream)
+        check(err == 0, f"the parent's {variant} launch failed: CUDA error {err}")
+        return out
+    return call
+
+
+def diameter_ab(parent, inputs, blocks, reps=10):
+    """The parent's 'seqacc' and 'nomask' kernels against this tree's, on the
+    same prepared inputs, in turns (parent, change, change, parent): ms per
+    call (CUDA events, median of ``reps``) and device time (a trace, both
+    kernels of the call).  Both must give the same bits.  Returns rows
+    ``(input, variant, block, parent ms, change ms, parent device us,
+    change device us)`` and the nvidia-smi summary of the timed window."""
+    lib, log = build_parent_diameter(parent)
+    for line in ptxas_lines(log, "diameter_"):
+        print(f"[diam-ab] parent ptxas: {line}")
+    rows = []
+    smi = smi_sampler()
+    try:
+        for label, x, m in inputs:
+            for variant in ("seqacc", "nomask"):
+                for block in blocks:
+                    old = parent_launcher(lib, x, m, block, variant)
+                    new = dm.batch_launcher(x, m, block=block, variant=variant)
+                    check(torch.equal(old(), new()),
+                          f"parent vs change {variant}/{block} on {label}: bits differ")
+                    ms = {"old": [], "new": []}
+                    us = {"old": [], "new": []}
+                    for which in ("old", "new", "new", "old"):
+                        fn = old if which == "old" else new
+                        ms[which].append(time_ms(fn, reps=reps, warmup=2))
+                        us[which].append(device_us_per_call(fn))
+                    rows.append((label, variant, block, ms["old"], ms["new"], us["old"],
+                                 us["new"]))
+    finally:
+        clocks = smi_summary(smi)
+    return rows, clocks
 
 
 def intensity_bounds_ms(masks, glcm_out):
@@ -438,6 +665,11 @@ def sphere_volume(n, r):
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
+    ap.add_argument("--parent", default=str(AB_PARENT),
+                    help="a parent checkout (git archive) for the diameter A/B of phase 5b")
+    parent = ap.parse_args().parent
     # -- 1. set-up ----------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port runs on the card")
@@ -457,9 +689,8 @@ def main():
     logs = _build.build()
     print(f"[setup] built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[setup] {name}: {line.strip()}")
+        for line in ptxas_lines(log, ""):
+            print(f"[setup] {name}: {line}")
 
     suite = table2_suite(seed=0)
     cases = {name: (img, msk, sp) for name, img, msk, sp in suite}
@@ -535,13 +766,15 @@ def main():
                                  f"{k.tolist()} vs {p.tolist()}")
         diam_err = max(diam_err, float((k - p).abs().max()))
         print(f"[diam] {label}: kernel == plain bitwise {k.tolist()}")
-    diam_ms = time_ms(lambda: dm.max_diameters_sq(verts, vmask))
-    diam_plain_ms = time_ms(lambda: ref.max_diameters_sq(verts, vmask, dm.DEFAULT_BLOCK),
+    # seqacc at the block the warm pass tuned for 00001-1's unpruned bucket
+    tuned = autotune.get_diameter_config(len(verts), dev).block
+    diam_ms = time_ms(lambda: dm.max_diameters_sq(verts, vmask, block=tuned))
+    diam_plain_ms = time_ms(lambda: ref.max_diameters_sq(verts, vmask, tuned),
                             reps=5, warmup=1)
     diam_bound, pairs = diam_bound_ms(vmask)
-    diam_dev, _ = device_trace(lambda: dm.max_diameters_sq(verts, vmask), reps=10)
-    print(f"[diam] 00001-1: kernel {diam_ms:.4f} ms/call (device kernels "
-          f"{kernel_us(diam_dev, ['diameter_tiles_kernel', 'diameter_finalize_kernel'])}), plain "
+    diam_dev, _ = device_trace(lambda: dm.max_diameters_sq(verts, vmask, block=tuned), reps=10)
+    print(f"[diam] 00001-1 at the tuned block {tuned}: kernel {diam_ms:.4f} ms/call (device kernels "
+          f"{kernel_us(diam_dev, ['diameter_sweep_kernel', 'diameter_finalize_kernel'])}), plain "
           f"{diam_plain_ms:.4f} ms, bound {max(diam_bound.values()):.5f} ms "
           f"({pairs} pairs x {DIAM_OPS_PER_PAIR} FP32 ops)")
     _, v4k, k4k = diam_inputs[-1]
@@ -564,10 +797,12 @@ def main():
         results[name] = (feats, times, ext.last_prune_info, wall_ms)
     wall_s = time.perf_counter() - t0
     img, msk, sp = cases["00001-1"]
-    unpruned = ShapeFeatureExtractor(prune=False).execute(img, msk, sp)
+    unpruned, unpruned_t = ShapeFeatureExtractor(prune=False).execute(img, msk, sp,
+                                                                      with_times=True)
     launches = read_counts()
     print(f"[main] {len(suite)} cases in {wall_s:.3f} s = {len(suite) / wall_s:.3f} cases/s; "
-          f"launches {launches}")
+          f"launches {launches}; 00001-1 with prune=False: diameter_ms "
+          f"{unpruned_t.diameter_ms:.3f}")
     # wall_ms: host clock around execute; it adds the untimed PCA and feature
     # assembly (and any first-use set-up) to the four stages' total_ms
     print("[main] case      shape            verts    kept  prep_ms  xfer_ms  mesh_ms  diam_ms"
@@ -704,10 +939,64 @@ def main():
     dmb_dev, _ = device_trace(lambda: dm.max_diameters_sq_batch(dv, dk), reps=10)
     print(f"[batch] batched diameter at the launch with most pairs {tuple(dv.shape)}: kernel "
           f"{dmb_ms:.4f} ms/call (device "
-          f"{kernel_us(dmb_dev, ['diameter_tiles_kernel', 'diameter_finalize_kernel'])}), "
+          f"{kernel_us(dmb_dev, ['diameter_sweep_kernel', 'diameter_finalize_kernel'])}), "
           f"plain {dmb_plain_ms:.4f} ms, bound {max(dmb_bound.values()):.5f} ms "
           f"({dmb_pairs} pairs x {DIAM_OPS_PER_PAIR} FP32 ops)")
     del rec_cp, rec_mc, rec_dm
+
+    # -- 5b. the main path's diameter sweep: SASS, instruction-rate ceiling, the parent's
+    diam_lib = _build.library_path("diameter")
+    for line in ptxas_lines(diam_lib.with_suffix(".log").read_text(), "diameter_"):
+        print(f"[diam-ab] ptxas: {line}")
+    sass = sass_loop_counts(diam_lib, "diameter_sweep_kernel") or {}
+    for fn, c in sorted(sass.items()):
+        print(f"[diam-ab] SASS hot loop of {fn}: {json.dumps(c)}")
+    ab_inputs = [("00001-1 unpruned", verts[None], vmask[None]),
+                 (f"pass-2b stack {tuple(dv.shape[:2])}", dv, dk)]
+    if (Path(parent) / "src" / "repro_torch" / "csrc" / "diameter.cu").exists():
+        ab_rows, clocks = diameter_ab(parent, ab_inputs, VARIANT_BLOCKS)
+        print("[diam-ab] input                     variant  block  parent ms (2 turns)  "
+              "change ms (2 turns)  parent device us  change device us  change/parent device")
+        for label, variant, block, ms_o, ms_n, us_o, us_n in ab_rows:
+            print(f"[diam-ab] {label:25s} {variant:7s} {block:5d}  "
+                  f"{'/'.join(f'{t:.4f}' for t in ms_o):19s}  "
+                  f"{'/'.join(f'{t:.4f}' for t in ms_n):19s}  "
+                  f"{'/'.join(f'{t:.2f}' for t in us_o):16s}  "
+                  f"{'/'.join(f'{t:.2f}' for t in us_n):16s}  "
+                  f"{statistics.median(us_n) / statistics.median(us_o):.3f}")
+        for label, _, _ in ab_inputs:
+            for variant in ("seqacc", "nomask"):
+                mine = [r for r in ab_rows if r[0] == label and r[1] == variant]
+                check(min(statistics.median(r[4]) for r in mine)
+                      < min(statistics.median(r[3]) for r in mine),
+                      f"{variant} on {label}: the change's best time is not below the parent's")
+        print(f"[diam-ab] parent {parent} vs this tree, same inputs, same bits; nvidia-smi over "
+              f"the timed window: {clocks}")
+    else:
+        print(f"[diam-ab] no parent checkout at {parent} (unpack one with git archive, or pass "
+              f"--parent): the A/B is not measured")
+        smi = smi_sampler()
+        time_ms(lambda: dm.max_diameters_sq(verts, vmask), reps=40)
+        clocks = smi_summary(smi)
+        print(f"[diam-ab] nvidia-smi over 40 timed calls at 00001-1: {clocks}")
+    clock = clocks["clocks_sm_mhz"][1] if clocks else None
+    diam_ceiling = {}
+    # each at the block its phase timed: the tuned one, the default
+    for label, n_pairs, block in (("00001-1 unpruned", pairs, tuned),
+                                  ("pass-2b stack", dmb_pairs, dm.DEFAULT_BLOCK)):
+        rows_r = dm.sweep_rows(block)
+        loop = next((c for fn, c in sass.items()
+                     if f"diameter_sweep_kernelILi{rows_r}ELb0E" in fn), None)
+        if loop is None or not clock:
+            print(f"[diam-ab] instruction-rate ceiling at {label}: not measured (SASS or clock missing)")
+            continue
+        diam_ceiling[label] = rate_ceiling_ms(n_pairs, loop["fp32_per_pair"], clock)
+        print(f"[diam-ab] instruction-rate ceiling at {label} ({n_pairs} valid pairs): "
+              f"{loop['fp32_per_pair']:.3f} non-FMA FP32 instructions a pair (SASS, block "
+              f"{block}, R={rows_r}) at {clock:.0f} MHz = {diam_ceiling[label]:.5f} ms; all "
+              f"{loop['per_pair']:.3f} loop instructions a pair = "
+              f"{rate_ceiling_ms(n_pairs, loop['per_pair'], clock):.5f} ms; the FP32 peak "
+              f"bound {DIAM_OPS_PER_PAIR * n_pairs / PEAK_FP32_PER_S * 1e3:.5f} ms")
 
     # -- 6. the batched main path -------------------------------------------
     ext = BatchedExtractor()  # default device: the card
@@ -1002,16 +1291,13 @@ def main():
     check(np.array_equal(res_none.row, oracle), "tile_prune='none' != extract_one")
     res_b = BatchedExtractor(families=TILED_FAMS, tile_mem_mb=8.0,
                              tile_prune="bounds").extract_tiled(case_t)
-    check(np.array_equal(res_b.row[:2], oracle[:2]) and np.array_equal(res_b.row[6:], oracle[6:]),
-          "tile_prune='bounds' moved a column other than the diameters")
-    np.testing.assert_allclose(res_b.row[2:6], oracle[2:6], rtol=1e-5,
-                               err_msg="tile_prune='bounds' diameters")
+    check(np.array_equal(res_b.row, oracle),
+          f"tile_prune='bounds' != extract_one: {res_b.row} vs {oracle}")
     with text.executor.strict_syncs():
         strict = text.extract_tiled(case_t)
     check(np.array_equal(strict.row, oracle), "tiled row under CUDA sync debugging differs")
-    print(f"[tmain] tiled == extract_one bitwise for prune none and occupancy; bounds "
-          f"diameters rtol 1e-5 (bitwise: {np.array_equal(res_b.row, oracle)}), other columns "
-          f"exact; == the CPU path (rtol 1e-4; count and exact first-order columns equal); "
+    print(f"[tmain] tiled == extract_one bitwise for prune none, occupancy and bounds; "
+          f"== the CPU path (rtol 1e-4; count and exact first-order columns equal); "
           f"no host sync outside the counted fetches {strict.stats['host_fetches']}; host "
           f"seconds {strict.stats['seconds']}; tiles "
           f"none {res_none.stats['tiles']}/{res_none.stats['tiles_skipped']} skipped, bounds "

@@ -19,9 +19,11 @@ call that ends in a synchronise.  Prints one JSON line: per path the
 cases/s of each round, and the microseconds of one warm ``diameter``
 configuration lookup (``dispatcher.diameter_config`` on a cached key,
 where the tree has it), with the card's ``nvidia-smi``
-name and power limit, and the ``seqacc`` diameter kernel's ms per call
+name and power limit, the ``seqacc`` diameter kernel's ms per call
 and device time at 00001-1's unpruned list (chip_smoke.py phase 3's
-launch).  Needs a CUDA card.
+launch, at the tree's default block), and the ``diameter_ms`` stage time
+of five single-case ``execute`` calls of 00001-1 with ``prune=False`` on
+``'auto'`` (``unpruned_diameter_ms``).  Needs a CUDA card.
 """
 import argparse
 import importlib.util
@@ -105,6 +107,10 @@ def main():
     per_kernel, _ = cs.device_trace(fn, reps=10)
     out["seqacc_00001_1"] = {"ms": cs.time_ms(fn), "device_us": sum(
         us for k, us in per_kernel.items() if "diameter_" in k)}
+    unpruned = cs.ShapeFeatureExtractor(prune=False)
+    unpruned.execute(img, msk, sp)  # warm: its bucket's lookup (a sweep on a cold cache)
+    out["unpruned_diameter_ms"] = [unpruned.execute(img, msk, sp, with_times=True)[1].diameter_ms
+                                   for _ in range(5)]
     if os.path.exists(cache_file):
         os.unlink(cache_file)
     print(json.dumps(out))

@@ -101,7 +101,7 @@ class ShapeFeatureExtractor:
     ``diameter_variant`` is ``'auto'`` (the default) or any of
     ``kernels.diameter.VARIANTS``: ``'auto'`` takes the measured-best
     (variant, block) of the case's vertex bucket at depth 1 from the
-    autotune cache on the card (``runtime/autotune``; ``'seqacc'`` at 256
+    autotune cache on the card (``runtime/autotune``; ``'seqacc'`` at the default block
     on the CPU), and ``diam_block`` overrides the block.  ``mc_block='auto'``
     is the marching-cubes kernel's fixed default block, which is not tuned.
     ``prune=True`` runs the exact candidate pruning stage before the pair

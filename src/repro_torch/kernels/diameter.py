@@ -7,22 +7,27 @@ default), ``fused``, ``tri`` and ``naive`` (``_kernel_partial``),
 ``tri_prefetch`` and ``gram`` (``_kernel_tri_prefetch`` with
 ``_pairwise_combos`` or ``_pairwise_combos_gram``) and ``nomask``
 (``_kernel_nomask``).  The paper's hot spot: 95.7-99.9% of shape time goes
-to this farthest-pair sweep.  The kernels (``csrc/diameter.cu``) walk
-tiles of the pair space, one tile per block; the source says what bounds
-them, how each variant's grid and streams differ, and why ``gram`` runs on
-the FP64 tensor cores.
+to this farthest-pair sweep.  The kernels are in ``csrc/diameter.cu``,
+which says what bounds them and how each variant's grid and streams
+differ.  The main path's two (``seqacc`` and ``nomask``, the ones
+``'auto'`` picks) sweep only each list's valid extent, on a persistent
+grid of register-tiled blocks; the others give each block one tile of
+the whole padded list.
 
 Every variant sweeps the same prepared input
 (:func:`repro_torch.kernels.ref.diameter_input_batch`): invalid slots
-filled with the first valid vertex, centred on the bounding-box midpoint,
-transposed to SoA and padded to the block.  The masked variants also read
-the padded mask (:func:`repro_torch.kernels.ref.diameter_mask_batch`).  On
-the same input each kernel's maxima equal its plain version's
-(:func:`repro_torch.kernels.ref.max_diameters_sq_batch`) bitwise, and the
-direct variants (all but ``gram``) equal each other's: a filled slot
-duplicates a valid vertex.  ``gram`` forms each squared difference from the
-Gram identity in float64 and rounds it once, so its bits may differ from
-the direct sweep's in the last place.  One launch sweeps a (B, M) stack
+filled with the first valid vertex, transposed to SoA and padded to the
+block.  The masked variants also read the padded mask
+(:func:`repro_torch.kernels.ref.diameter_mask_batch`), ``seqacc`` and
+``nomask`` each list's extent (:func:`repro_torch.kernels.ref.list_extent`,
+computed on the device: no host sync).  On the same input each kernel's
+maxima equal its plain version's
+(:func:`repro_torch.kernels.ref.max_diameters_sq_batch`, which sweeps the
+whole padded list) bitwise, and the direct variants (all but ``gram``)
+equal each other's: a filled slot duplicates a valid vertex.  ``gram``
+forms each squared difference from the Gram identity in float64 and
+rounds it once, so its bits may differ from the direct sweep's in the
+last place.  One launch sweeps a (B, M) stack
 (:func:`max_diameters_sq_batch`), pass 2b of the batched pipeline; the
 single-case :func:`max_diameters_sq` is its batch of one, and a case's row
 is the same bits alone or in a stack.  ``naive`` launches its kernel four
@@ -43,19 +48,28 @@ from repro_torch.kernels import ref as _ref
 
 VARIANTS = _ref.DIAMETER_VARIANTS
 DEFAULT_VARIANT = "seqacc"
-DEFAULT_BLOCK = 256  # tile width = threads per block
+# tile side, and the unit each list is padded to: without the autotuner,
+# the block with the smallest mean and worst loss against each key's best
+# over the card's sweep of buckets 512-131072 at depths 1-16 (PERF.md, section 6)
+DEFAULT_BLOCK = 128
+# The kernels' revision: an autotune record measured against another one
+# is swept again (runtime/autotune.py).  2: 'seqacc' and 'nomask' sweep
+# each list's extent on persistent register-tiled blocks.
+REVISION = 2
 # kernel launches on CUDA tensors per variant, single-case and batched
 # ('naive' counts its four launches)
 LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 _FULL_GRID = ("naive", "fused", "tri")  # csrc diameter_partial_launch
-_SCHED_KIND = {"tri_prefetch": 0, "nomask": 1, "gram": 2}  # diameter_sched_launch
+_SWEEP_KIND = {"seqacc": 0, "nomask": 1}  # diameter_sweep_launch
 _ALL_COMBOS = 0xF
 _SCHEDULES: dict = {}  # (nb, device) -> (2, T) int32 tile schedule on the card
+_RESIDENT: dict = {}  # (block, kind, device) -> sweep blocks the card holds at once
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "max_diameters_sq_launch": [_P, _I, _I, _I, _P, _P, _P],
+    "diameter_sweep_resident": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    "diameter_sweep_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "diameter_partial_launch": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "diameter_sched_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
@@ -82,13 +96,37 @@ def _tiles(variant: str, nb: int) -> int:
 
 
 def _schedule(nb: int, device: torch.device) -> torch.Tensor:
-    """The (2, T) upper-triangle schedule on ``device``, built once per
-    ``nb`` and device (pinned, ``non_blocking``: no host sync)."""
+    """The (2, T) colex upper-triangle schedule on ``device``, built once
+    per ``nb`` and device (pinned, ``non_blocking``: no host sync)."""
     key = (nb, device)
     ij = _SCHEDULES.get(key)
     if ij is None:
         ij = _SCHEDULES[key] = to_device(_ref.tile_schedule(nb), device)
     return ij
+
+
+def sweep_rows(block: int) -> int:
+    """Row vertices each thread of the ``seqacc``/``nomask`` sweep holds at
+    tile side ``block``: the largest of 8, 4, 2, 1 that leaves ``block / R``
+    a multiple of 32 (``csrc/diameter.cu`` ``sweep_shape``)."""
+    return next(r for r in (8, 4, 2, 1) if block % (32 * r) == 0)
+
+
+def sweep_grid(lib, block: int, variant: str, batch: int, ntiles: int,
+               device: torch.device) -> int:
+    """Persistent blocks per list of a ``seqacc``/``nomask`` launch: the
+    blocks the card holds at once, split over the ``batch`` lists, never
+    more than a list's ``ntiles`` tiles.  Depends on the padded shape
+    only, never on an extent (no host sync)."""
+    key = (block, variant, device)
+    resident = _RESIDENT.get(key)
+    if resident is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.diameter_sweep_resident(block, _SWEEP_KIND[variant], ctypes.byref(out))
+        _build.check(lib, err, f"diameter_sweep_resident[{variant}, {block}]")
+        resident = _RESIDENT[key] = max(1, out.value)
+    return max(1, min(ntiles, -(-resident // batch)))
 
 
 def max_diameters_sq(verts: torch.Tensor, mask: torch.Tensor, *,
@@ -142,10 +180,10 @@ def batch_launcher(verts: torch.Tensor, masks: torch.Tensor, *, block: int = DEF
         raise ValueError(f"{mp} vertices exceed the kernel's grid")
     lib = _build.load("diameter", _SIGNATURES)
     stream = torch.cuda.current_stream(v.device).cuda_stream
-    m = None if variant in ("seqacc", "nomask") else _ref.diameter_mask_batch(masks, block)
+    m = None if variant in _SWEEP_KIND else _ref.diameter_mask_batch(masks, block)
 
-    def launch(entry, *args):
-        partials = torch.empty(4 * ntiles * batch, dtype=torch.float32, device=v.device)
+    def launch(entry, nparts, *args):
+        partials = torch.empty(4 * nparts * batch, dtype=torch.float32, device=v.device)
         out = torch.empty((batch, 4), dtype=torch.float32, device=v.device)
         with torch.cuda.device(v.device):
             err = getattr(lib, entry)(*args, partials.data_ptr(), out.data_ptr(), stream)
@@ -153,22 +191,26 @@ def batch_launcher(verts: torch.Tensor, masks: torch.Tensor, *, block: int = DEF
         LAUNCHES[variant] += 1
         return out
 
-    if variant == "seqacc":
-        return lambda: launch("max_diameters_sq_launch", v.data_ptr(), batch, mp, block)
+    if variant in _SWEEP_KIND:
+        extent = _ref.list_extent(masks)
+        grid_x = sweep_grid(lib, block, variant, batch, ntiles, v.device)
+        ij = _schedule(nb, v.device) if variant == "nomask" else None
+        return lambda: launch("diameter_sweep_launch", grid_x, v.data_ptr(), extent.data_ptr(),
+                              0 if ij is None else ij.data_ptr(), batch, mp, block, grid_x,
+                              _SWEEP_KIND[variant])
     if variant in _FULL_GRID:
         combos = [1 << c for c in range(4)] if variant == "naive" else [_ALL_COMBOS]
 
         def full_grid():
-            outs = [launch("diameter_partial_launch", v.data_ptr(), m.data_ptr(), batch, mp,
-                           block, int(variant == "tri"), c) for c in combos]
+            outs = [launch("diameter_partial_launch", ntiles, v.data_ptr(), m.data_ptr(), batch,
+                           mp, block, int(variant == "tri"), c) for c in combos]
             # 'naive': launch c holds combo c, the reference's concatenation
             return outs[0] if len(outs) == 1 else torch.stack(
                 [o[:, c] for c, o in enumerate(outs)], dim=1)
         return full_grid
     ij = _schedule(nb, v.device)
-    return lambda: launch("diameter_sched_launch", v.data_ptr(),
-                          0 if m is None else m.data_ptr(), ij.data_ptr(), ntiles, batch, mp,
-                          block, _SCHED_KIND[variant])
+    return lambda: launch("diameter_sched_launch", ntiles, v.data_ptr(), m.data_ptr(),
+                          ij.data_ptr(), ntiles, batch, mp, block, int(variant == "gram"))
 
 
 def max_diameters_batch(verts, masks, *, block: int = DEFAULT_BLOCK,
@@ -191,18 +233,24 @@ _GRAM_OPS = 3 + 4 + 4 + _MASK_OPS
 _GRAM_TENSOR_FLOP = 3 * 2 * 4  # an m8n8k4 product per axis: 2 K FLOP a pair
 
 
-def _computed_tiles(M: int, block: int, variant: str) -> int:
-    """Tiles whose pairs a launch computes ('tri' skips the lower ones)."""
+def _computed_tiles(M: int, block: int, variant: str, extent: int | None = None) -> int:
+    """Tiles whose pairs a launch computes: the colex prefix of a list's
+    extent ('seqacc', 'nomask'; default the whole list), the upper
+    triangle ('tri' skips the lower tiles, 'tri_prefetch' and 'gram'
+    launch none) or the full grid."""
     nb = -(-M // block)
+    if variant in _SWEEP_KIND:
+        return _ref.extent_tiles(min(M if extent is None else int(extent), nb * block), block)
     return nb * nb if variant in ("naive", "fused") else nb * (nb + 1) // 2
 
 
-def flop_estimate(M: int, block: int, variant: str) -> float:
-    """FP32 operations on the CUDA cores for one list of ``M`` slots."""
+def flop_estimate(M: int, block: int, variant: str, extent: int | None = None) -> float:
+    """FP32 operations on the CUDA cores for one list of ``M`` slots whose
+    last valid slot is ``extent - 1`` (default: the whole list)."""
     check_variant(variant)
     per_pair = {"seqacc": _DIRECT_OPS, "nomask": _DIRECT_OPS, "naive": _NAIVE_OPS,
                 "gram": _GRAM_OPS}.get(variant, _DIRECT_OPS + _MASK_OPS)
-    return float(_computed_tiles(M, block, variant)) * block * block * per_pair
+    return float(_computed_tiles(M, block, variant, extent)) * block * block * per_pair
 
 
 def tensor_flop_estimate(M: int, block: int, variant: str) -> float:
@@ -214,16 +262,20 @@ def tensor_flop_estimate(M: int, block: int, variant: str) -> float:
     return float(_computed_tiles(M, block, variant)) * block * block * _GRAM_TENSOR_FLOP
 
 
-def bytes_estimate(M: int, block: int, variant: str) -> float:
+def bytes_estimate(M: int, block: int, variant: str, extent: int | None = None) -> float:
     """Device-memory bytes for one list: each computed tile reads its row
     and column tiles (12 bytes a slot, 13 with the mask stream, and 8 per
-    tile of schedule on the triangular schedules), and every launched tile
-    writes a (4,) partial that the finalize reads back."""
+    tile of schedule on the scheduled variants), and every block writes a
+    (4,) partial that the finalize reads back: one a launched tile, or for
+    'seqacc' and 'nomask' at most one a computed tile (their persistent
+    grid holds no more blocks than a list has tiles), which also read the
+    list's extent.  ``extent`` as in :func:`flop_estimate`."""
     check_variant(variant)
     nb = -(-M // block)
-    launched = _tiles(variant, nb)
-    slot = 12 if variant in ("seqacc", "nomask") else 13
-    sched = 8 if variant in _SCHED_KIND else 0
-    per_launch = (_computed_tiles(M, block, variant) * (2 * block * slot + sched)
-                  + 2 * 16 * launched + 16)
+    computed = _computed_tiles(M, block, variant, extent)
+    sweep = variant in _SWEEP_KIND
+    launched = computed if sweep else _tiles(variant, nb)
+    slot = 12 if sweep else 13
+    sched = 8 if variant in ("nomask", "tri_prefetch", "gram") else 0
+    per_launch = computed * (2 * block * slot + sched) + 2 * 16 * launched + 16 + 4 * sweep
     return float(per_launch) * (4 if variant == "naive" else 1)

@@ -22,9 +22,10 @@ Method (per combo c in {3D, xy, xz, yz}, restricted to c's axes):
 3. Discard p for combo c iff ub_c(p) < L_c.
 
 A vertex survives if ANY combo keeps it, so one 4-combo sweep over the
-survivors finds every maximum.  The extreme witnesses are force-kept (the
-axis directions are always sampled), so the candidate bounding box, and
-with it the sweep's centring, does not change: on the card the pruned
+survivors finds every maximum.  The extreme witnesses are force-kept, as
+the reference keeps them, so the two packages' keep masks agree.  The
+sweep's per-pair values do not depend on which other candidates survive
+(``ref.diameter_input_batch`` shifts nothing), so on the card the pruned
 diameters equal the unpruned ones bitwise.
 
 The ``pc @ d.T`` projection must run in full float32: TF32 would move the
@@ -172,8 +173,7 @@ def keep_mask_batch(verts, masks, k_dirs: int = 16):
         ub_centre2 = (r + r.amax(1, keepdim=True)) ** 2
         ub2 = torch.minimum(ub_corner2, ub_centre2)
         keep_any |= ub2 * float(_SLACK) >= l2[:, None]
-        # force-keep the extreme witnesses: dropping one would move the
-        # candidate bounding box and with it the sweep's centring
+        # force-keep the extreme witnesses, as the reference does
         keep_any.scatter_(1, ext, True)
         lower_sq.append(l2)
     return keep_any & m, torch.stack(lower_sq, dim=1)

@@ -244,14 +244,13 @@ def mc_volume_area(vol, iso=0.5, spacing=(1.0, 1.0, 1.0), chunk_z=MC_CHUNK_Z):
 
 
 def diameter_input(verts, mask, block: int) -> torch.Tensor:
-    """Pair-sweep input shared by the diameter kernel and its plain version.
+    """Pair-sweep input shared by the diameter kernels and their plain versions.
 
-    Fills invalid slots with the first valid vertex and centres on the
-    bounding-box midpoint, exactly as ``repro.kernels.ref.max_diameters_sq``
-    does; a duplicated point never raises a maximum, so the sweep needs no
-    mask.  Returns the (3, Mp) SoA transpose, padded to a multiple of
-    ``block`` with duplicates of the last vertex.  The batch of one of
-    :func:`diameter_input_batch`.
+    Fills invalid slots with the first valid vertex, as
+    ``repro.kernels.ref.max_diameters_sq`` does; a duplicated point never
+    raises a maximum, so the sweep needs no mask.  Returns the (3, Mp) SoA
+    transpose, padded to a multiple of ``block`` with duplicates of the
+    last vertex.  The batch of one of :func:`diameter_input_batch`.
     """
     verts = torch.as_tensor(verts, dtype=torch.float32)
     m = torch.as_tensor(mask, device=verts.device).bool()
@@ -263,8 +262,16 @@ def diameter_input(verts, mask, block: int) -> torch.Tensor:
 
 def diameter_input_batch(verts, masks, block: int) -> torch.Tensor:
     """:func:`diameter_input` over a (B, M, 3) stack: (B, 3, Mp), the batched
-    diameter kernel's input.  Every step is per case, elementwise or an
-    exact min/max, so a case's rows are the same bits alone or in a stack.
+    diameter kernels' input.  Every step is per case and elementwise, so a
+    case's rows are the same bits alone or in a stack.
+
+    The coordinates are not shifted: every path's vertices are already in
+    its case's ROI crop frame (``crop_to_roi``; the tiled path keeps the
+    same frame), a shift that no candidate set moves.  Centring on the
+    candidates' bounding box, as the reference's plain version does,
+    would let a tiled run whose bounds pruning dropped a box extreme (but
+    no endpoint) round its pairs apart from the in-core run.  Each pair's
+    difference is then rounded once, from the coordinates themselves.
     """
     verts = torch.as_tensor(verts, dtype=torch.float32)
     m = torch.as_tensor(masks, device=verts.device).bool()
@@ -276,11 +283,21 @@ def diameter_input_batch(verts, masks, block: int) -> torch.Tensor:
     b = torch.arange(verts.shape[0], device=verts.device)
     v0 = verts[b, m.to(torch.uint8).argmax(1)]  # (B, 3) first valid vertex
     vfill = torch.where(m[..., None], verts, v0[:, None, :])
-    vfill = vfill - 0.5 * (vfill.amin(1, keepdim=True) + vfill.amax(1, keepdim=True))
     pad = -vfill.shape[1] % block
     if pad:
         vfill = torch.cat([vfill, vfill[:, -1:].expand(-1, pad, 3)], dim=1)
     return vfill.transpose(1, 2).contiguous()
+
+
+def list_extent(masks) -> torch.Tensor:
+    """(B,) int32: 1 + the index of each list's last valid slot (0 for a
+    list with none), on ``masks``' device, no host sync.  Every slot of
+    :func:`diameter_input_batch`'s list at or past it holds a copy of a
+    valid vertex, so the pairs below it hold every maximum: the
+    ``seqacc`` and ``nomask`` kernels sweep only those."""
+    m = torch.as_tensor(masks).bool()
+    idx = torch.arange(1, m.shape[1] + 1, dtype=torch.int32, device=m.device)
+    return torch.where(m, idx, 0).amax(1).to(torch.int32)
 
 
 def diameter_mask_batch(masks, block: int, device=None) -> torch.Tensor:
@@ -293,11 +310,32 @@ def diameter_mask_batch(masks, block: int, device=None) -> torch.Tensor:
     return m.contiguous()
 
 
+def colex_tiles(t) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(i, j)`` of tiles ``t`` in the colex order over the upper triangle,
+    ``t = j(j+1)/2 + i`` with ``i <= j`` (int64 tensors): the plain mirror
+    of the ``seqacc`` kernel's decode (``csrc/diameter.cu`` ``colex_tile``,
+    a float square root and an integer correction).  The first ``k(k+1)/2``
+    tiles are the ``k x k`` corner, so a list's extent is a prefix."""
+    t = torch.as_tensor(t, dtype=torch.int64)
+    k = ((torch.sqrt(8.0 * t.to(torch.float32) + 1.0) - 1.0) * 0.5).to(torch.int64)
+    k = torch.where(k * (k + 1) // 2 > t, k - 1, k)
+    k = torch.where((k + 1) * (k + 2) // 2 <= t, k + 1, k)
+    return t - k * (k + 1) // 2, k
+
+
 def tile_schedule(nb: int) -> torch.Tensor:
     """(2, T) int32 ``(i, j)`` of the ``T = nb(nb+1)/2`` upper-triangle
-    tiles, row-major (``triu_indices``): the schedule the triangular
-    variants read, one tile per block."""
-    return torch.triu_indices(nb, nb).to(torch.int32)
+    tiles in the colex order of :func:`colex_tiles`: the schedule the
+    scheduled variants read, ``nomask`` a prefix of it."""
+    i, j = colex_tiles(torch.arange(nb * (nb + 1) // 2))
+    return torch.stack([i, j]).to(torch.int32)
+
+
+def extent_tiles(extent, block: int) -> int:
+    """Tiles of the colex prefix a list of ``extent`` sweeps at tile side
+    ``block``: ``k(k+1)/2``, ``k = ceil(extent / block)``."""
+    k = -(-int(extent) // block)
+    return k * (k + 1) // 2
 
 
 def _axis_squares(v, r0, rows, axes, gram):

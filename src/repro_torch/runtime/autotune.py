@@ -32,9 +32,12 @@ Cache schema (versioned, shared with the reference): one JSON object
 ``{"schema": 3, "entries": {...}}`` keyed ``"diameter/cuda/M<bucket>/B<depth>"``,
 ``"compact/cuda/M<bucket>/B<depth>"`` and ``"<family>/cuda/S<nx>x<ny>x<nz>/B<depth>"``;
 ``B<depth>`` is the power-of-two batch-depth bucket (:func:`batch_bucket`).
-Each record holds the winner and the measured table (microseconds).  The
-reference's files read back here and ours there (its keys carry
-``pallas`` or ``interpret`` where ours carry ``cuda``).  A v1 file (flat,
+Each record holds the winner and the measured table (microseconds); a
+diameter record also the kernels' ``revision``
+(``kernels/diameter.REVISION``), and one measured against another
+revision (or carrying none) is swept again.  The reference's files read
+back here and ours there (its keys carry ``pallas`` or ``interpret``
+where ours carry ``cuda``, which it never looks up).  A v1 file (flat,
 no schema) or v2 (depth-less keys) migrates on load (the keys gain
 ``/B1``); an unknown future schema reads as empty and is never
 overwritten; a malformed file reads as empty.  Writes are atomic (tmp +
@@ -78,9 +81,16 @@ SCHEMA_VERSION = 3
 # the last place, so an 'auto' that picked it at one bucket or depth and
 # not at another would break batched == single and tiled == in-core.  It
 # runs when asked for by name.  The other direct variants ('fused', 'tri',
-# 'naive') give the same bits but do strictly more work than these.
-DEFAULT_VARIANTS = ("seqacc", "tri_prefetch", "nomask")
-DEFAULT_BLOCKS = (128, 256, 512)
+# 'naive', 'tri_prefetch') give the same bits but sweep the whole padded
+# list, one tile a block, where these two sweep each list's extent on a
+# persistent grid: 'tri_prefetch', once a candidate here, ran 2.4x
+# seqacc at 00001-1 and won only launch-bound buckets, by ~1 us in ~10.
+DEFAULT_VARIANTS = ("seqacc", "nomask")
+# the card's sweep of the extent-sweep kernels (PERF.md, section 6): 64 wins
+# at buckets 512-2048, 128 up to 16384, 256 and 512 above; 1024 gains at
+# most 1.3% at the two largest keys and is left out (4 blocks at most, so
+# a sweep grows by no more than a third over three blocks)
+DEFAULT_BLOCKS = (64, 128, 256, 512)
 DEFAULT_COMPACT_BLOCKS = (256, 512, 1024)
 DEFAULT_FIRSTORDER_BLOCKS = (1024, 2048, 4096)
 DEFAULT_GLCM_BLOCKS = (512, 1024, 2048, 4096)
@@ -274,10 +284,10 @@ def _table(times: dict, name) -> tuple:
     return best, {name(c): t * 1e6 for c, t in times.items()}
 
 
-def _cached_or_swept(kind: str, key: str, default, parse, sweep, name):
+def _cached_or_swept(kind: str, key: str, default, parse, sweep, name, extra=None):
     """The config cached under ``key`` (``parse`` of its record, ``None`` when
-    unusable), else ``sweep()``'s winner, stored with its table; ``default``,
-    uncached, when sweeps are off."""
+    unusable), else ``sweep()``'s winner, stored with its table and the
+    fields of ``extra``; ``default``, uncached, when sweeps are off."""
     global SWEEPS
     cache = AutotuneCache()
     hit = cache.get(key)
@@ -295,7 +305,7 @@ def _cached_or_swept(kind: str, key: str, default, parse, sweep, name):
     best, table = sweep()
     SWEEP_SECONDS[kind] += time.perf_counter() - t0
     cache.put(key, {**dataclasses.asdict(best), "us": table[name(best)], "table": table,
-                    "swept_at": time.strftime("%Y-%m-%dT%H:%M:%S")})
+                    "swept_at": time.strftime("%Y-%m-%dT%H:%M:%S"), **(extra or {})})
     return best
 
 
@@ -319,12 +329,16 @@ def _diameter_name(cfg: DiameterConfig) -> str:
 
 
 def _diameter_probe(bucket: int, device, batch: int, seed: int = 0):
-    """A ``(batch, bucket)`` stack of valid, normally scattered vertices."""
+    """A ``(batch, bucket)`` stack of normally scattered vertices, each list
+    valid-first over 3/4 of its slots: a list of n vertices sits in the
+    bucket of the next power of two, so it fills between half and all of
+    it, and ``seqacc`` and ``nomask`` sweep only that extent."""
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
     verts = torch.from_numpy(
         (rng.normal(size=(max(1, batch), bucket, 3)) * 10.0).astype(np.float32)).to(dev)
-    return verts, torch.ones(verts.shape[:2], dtype=torch.bool, device=dev)
+    masks = torch.arange(bucket, device=dev) < max(1, 3 * bucket // 4)
+    return verts, masks.expand(verts.shape[:2]).contiguous()
 
 
 def measure_diameter_configs(bucket: int, device, configs, *, batch: int = 1) -> dict:
@@ -347,6 +361,8 @@ def sweep_diameter(bucket: int, device, *, batch: int = 1):
 
 
 def _parse_diameter(rec) -> DiameterConfig | None:
+    if rec.get("revision") != _diam.REVISION:
+        return None  # measured against other kernels (or before revisions)
     cfg = DiameterConfig(str(rec["variant"]), int(rec["block"]))
     return cfg if cfg.variant in AUTO_VARIANTS and _valid_block(cfg.block) else None
 
@@ -358,14 +374,16 @@ def get_diameter_config(bucket: int, device, *, batch: int = 1) -> DiameterConfi
     module docstring) at the batch-depth bucket of ``batch``, stores the
     winner and its table, and returns it; when sweeping is not allowed the
     default comes back uncached.  A cached entry that names ``gram``, an
-    unknown variant or a block the kernel refuses counts as a miss.
+    unknown variant or a block the kernel refuses, or that was measured
+    against another kernel revision, counts as a miss.
     """
     backend = torch.device(device).type
     if backend == "cpu":
         return DEFAULT_CONFIG
     return _cached_or_swept(
         "diameter", sweep_key(bucket, backend, batch), DEFAULT_CONFIG, _parse_diameter,
-        lambda: sweep_diameter(bucket, device, batch=batch_bucket(batch)), _diameter_name)
+        lambda: sweep_diameter(bucket, device, batch=batch_bucket(batch)), _diameter_name,
+        extra={"revision": _diam.REVISION})
 
 
 # ---------------------------------------------------------------------------

@@ -54,14 +54,16 @@ def measured(monkeypatch):
 
 def _v1_payload():
     return {"diameter/cuda/M256": {"variant": "tri_prefetch", "block": 128, "us": 11.0,
-                                   "table": {"tri_prefetch/128": 11.0}}}
+                                   "table": {"tri_prefetch/128": 11.0},
+                                   "revision": diameter.REVISION}}
 
 
 def _v2_payload():
     return {
         "schema": 2,
         "entries": {
-            "diameter/cuda/M256": {"variant": "nomask", "block": 128, "us": 11.0, "table": {}},
+            "diameter/cuda/M256": {"variant": "nomask", "block": 128, "us": 11.0, "table": {},
+                                   "revision": diameter.REVISION},
             "compact/cuda/M1024": {"block": 512, "us": 9.0, "table": {}},
             "bogus-non-dict": 17,
         },
@@ -216,7 +218,10 @@ def test_cold_lookup_caches_the_argmin_once(cache_path, measured):
 
 def test_small_bucket_sweeps_only_blocks_that_fit(cache_path, measured):
     autotune.get_diameter_config(128, "cuda")
-    assert {b for _, _, b, _ in measured} == {128}
+    assert {b for _, _, b, _ in measured} == {b for b in autotune.DEFAULT_BLOCKS if b <= 128}
+    measured.clear()
+    autotune.get_diameter_config(32, "cuda")  # every candidate larger: the smallest
+    assert {b for _, _, b, _ in measured} == {min(autotune.DEFAULT_BLOCKS)}
 
 
 def test_gram_never_wins_auto(cache_path, measured):
@@ -228,6 +233,27 @@ def test_gram_never_wins_auto(cache_path, measured):
     n = len(measured)
     assert autotune.get_diameter_config(8192, "cuda").variant == "nomask"
     assert len(measured) > n
+
+
+@pytest.mark.parametrize("revision", [None, diameter.REVISION - 1, str(diameter.REVISION)])
+def test_stale_diameter_record_resweeps(cache_path, measured, revision):
+    """A record measured against other diameter kernels (an earlier
+    revision, or one written before records carried it) is never read:
+    the lookup sweeps again and stores the current revision."""
+    rec = {"variant": "tri_prefetch", "block": 512, "us": 1.0,
+           "table": {"tri_prefetch/512": 1.0}, "swept_at": "2026-10-01T00:00:00"}
+    if revision is not None:
+        rec["revision"] = revision
+    autotune.AutotuneCache().put(autotune.sweep_key(4096, "cuda", batch=2), rec)
+    sweeps = autotune.SWEEPS
+    assert autotune.get_diameter_config(4096, "cuda", batch=2) == \
+        autotune.DiameterConfig("nomask", 256)
+    assert autotune.SWEEPS == sweeps + 1 and measured
+    stored = json.load(open(cache_path))["entries"]["diameter/cuda/M4096/B2"]
+    assert stored["revision"] == diameter.REVISION and stored["variant"] == "nomask"
+    n = len(measured)
+    assert autotune.get_diameter_config(4096, "cuda", batch=2).variant == "nomask"
+    assert len(measured) == n  # the fresh record is read
 
 
 @pytest.mark.parametrize("bad", [
@@ -314,7 +340,8 @@ def test_pinned_entries_reach_the_executor(cache_path, monkeypatch):
     cache.put(autotune.family_key("firstorder", (64, 32, 32), "cuda", batch=2), {"block": 4096})
     cache.put(autotune.family_key("glcm", (64, 32, 32), "cuda", batch=2), {"block": 512})
     cache.put(autotune.sweep_key(1024, "cuda", batch=5), {"variant": "tri_prefetch",
-                                                         "block": 128})
+                                                         "block": 128,
+                                                         "revision": diameter.REVISION})
     ex = PlanExecutor(device="cpu")
     ex.device = torch.device("cuda")
     assert ex._resolve_compact(4096, 3) == 256

@@ -97,13 +97,15 @@ def test_plain_diameter_matches_pallas_and_ref(m, seed):
 
 
 def test_diameter_input_fills_centres_and_pads():
+    # the sweep's input keeps the coordinates of the case's crop frame: no
+    # shift that a candidate set could move (the reference centres on the
+    # candidates' bounding box; tiled 'bounds' pruning can move that box)
     verts, mask = _vertex_cloud(300, 7)
     v = ref.diameter_input(torch.from_numpy(verts), torch.from_numpy(mask), 128)
     assert v.shape == (3, 384) and v.is_contiguous()
     first = verts[np.argmax(mask)]
     fill = np.where(mask[:, None], verts, first)
-    centre = np.float32(0.5) * (fill.min(0) + fill.max(0))
-    np.testing.assert_array_equal(v[:, :300].numpy(), (fill - centre).T)
+    np.testing.assert_array_equal(v[:, :300].numpy(), fill.T)
     np.testing.assert_array_equal(v[:, 300:].numpy(), np.repeat(v[:, 299:300].numpy(), 84, 1))
 
 

@@ -19,8 +19,10 @@ Against the reference, on the same numpy inputs:
 
 Within the port, case for case as ``tests/test_tiled_pipeline.py`` pins it
 for the reference: a tiled row equals the in-core ``extract_one`` row
-bitwise for every budget and for ``tile_prune`` in ``{'none',
-'occupancy'}``; ``'bounds'`` may move only the diameters, within rtol 1e-5.
+bitwise for every budget and every ``tile_prune`` level, ``'bounds'``
+too: the diameter sweep's input is not shifted by anything a candidate
+set could move (``ref.diameter_input_batch``), so a bounds-pruned tile
+that held a bounding-box extreme of the candidates changes no bit.
 """
 import warnings
 
@@ -39,6 +41,7 @@ from repro.data import tiles as jax_tiles  # noqa: E402
 from repro.kernels import firstorder as jax_fo  # noqa: E402
 from repro.kernels import marching_cubes as jax_mc  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro_torch.core import crop_to_roi  # noqa: E402
 from repro_torch.core.executor import PlanExecutor  # noqa: E402
 from repro_torch.core.pipeline import BatchedExtractor  # noqa: E402
 from repro_torch.core.tiled import TiledExtractor, tile_budget_bytes  # noqa: E402
@@ -288,17 +291,14 @@ def test_bitwise_across_tile_sizes(budget, prune):
 
 
 def test_bounds_allclose_and_exact_nonshape_columns():
-    # 'bounds' drops the vertex work of endpoint-free tiles, so the sweep's
-    # bounding-box centring (ref.diameter_input_batch) may see another
-    # candidate set and round the diameters differently; the MC columns,
-    # the count and the first-order columns do not depend on it
+    # 'bounds' drops the vertex work of endpoint-free tiles; the sweep's
+    # input does not depend on which candidates survive, so every column,
+    # the diameters included, is the in-core row's
     image, mask = _two_blob()
     ex = _cpu_executor(families=FAMS)
     oracle = ex.extract_one(image, mask, SP)
     res = _tiled_row(ex, image, mask, 400_000, "bounds")
-    np.testing.assert_allclose(oracle, res.row, rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(oracle[:2], res.row[:2])
-    np.testing.assert_array_equal(oracle[6:], res.row[6:])
+    np.testing.assert_array_equal(oracle, res.row)
 
 
 def test_bounds_prunes_interior_tile_keeps_count_exact():
@@ -311,9 +311,39 @@ def test_bounds_prunes_interior_tile_keeps_count_exact():
     res = _tiled_row(ex, None, mask, 300_000, "bounds")
     assert res.stats["tiles_bounds_pruned"] >= 1
     assert res.stats["emitted_vertices"] < res.meta.n_vertices
-    np.testing.assert_allclose(oracle, res.row, rtol=1e-5, atol=1e-5)
     assert res.row[6] == oracle[6]
-    np.testing.assert_array_equal(oracle[:2], res.row[:2])
+    np.testing.assert_array_equal(oracle, res.row)
+
+
+def _plates_and_side_dot():
+    """Two wide plates at the z ends, every combo's farthest-pair endpoints,
+    and a dot alone in a middle z-tile, past the plates in x: its tile is
+    provably endpoint-free, yet it holds the candidates' largest x."""
+    mask = np.zeros((84, 72, 170), np.float32)
+    mask[2:70, 2:70, 2:6] = 1.0
+    mask[2:70, 2:70, 160:164] = 1.0
+    mask[74:78, 34:37, 80:83] = 1.0
+    return mask
+
+
+def test_bounds_pruned_tile_holding_a_box_extreme_is_bitwise():
+    # at this spacing a sweep centred on the candidates' bounding box (the
+    # reference's plain version) rounds the 3D diameter of the pruned set
+    # (x max from the plates) apart from the in-core set's (x max from the
+    # dot); the port's sweep input takes no such shift
+    sp = np.asarray([0.858, 1.072, 0.822], np.float32)
+    mask = _plates_and_side_dot()
+    ex = _cpu_executor()
+    oracle = ex.extract_one(None, mask, sp)
+    res = _tiled_row(ex, None, mask, 400_000, "bounds", spacing=sp)
+    assert res.stats["tiles_bounds_pruned"] >= 1
+    assert res.stats["emitted_vertices"] < res.meta.n_vertices
+    _, roi, _ = crop_to_roi(mask, mask)
+    f = ref.vertex_fields(torch.from_numpy(roi), 0.5, sp)
+    pos = torch.cat([f.vx[f.ax], f.vy[f.ay], f.vz[f.az]])
+    in_plates = (pos[:, 2] < 40 * sp[2]) | (pos[:, 2] > 120 * sp[2])
+    assert float(pos[:, 0].max()) > float(pos[in_plates, 0].max())  # the dot's x
+    np.testing.assert_array_equal(oracle, res.row)
 
 
 def test_halo_straddling_mask_bitwise():

@@ -178,9 +178,14 @@ def test_unknown_variant_raises():
 
 
 def test_tile_schedule_is_triu_indices():
+    # the upper-triangle tiles of np.triu_indices, each once, in the colex
+    # order (column by column) that makes a list's extent a prefix
     for nb in (1, 2, 5, 16):
-        np.testing.assert_array_equal(ref.tile_schedule(nb).numpy(), np.triu_indices(nb))
+        ij = ref.tile_schedule(nb).numpy()
         assert ref.tile_schedule(nb).dtype == torch.int32
+        i, j = np.triu_indices(nb)
+        order = np.lexsort((i, j))  # by column, then row
+        np.testing.assert_array_equal(ij, np.stack([i[order], j[order]]))
 
 
 def test_mask_stream_pads_false():
@@ -194,6 +199,16 @@ def test_work_estimates_follow_the_grids():
     pairs_tri, pairs_full = 36 * block * block, 64 * block * block
     assert diameter.flop_estimate(m, block, "seqacc") == 14 * pairs_tri
     assert diameter.flop_estimate(m, block, "nomask") == 14 * pairs_tri
+    # 'seqacc' and 'nomask' compute the k(k+1)/2 tiles of a list's extent
+    # (k = ceil(extent / block)); the other variants sweep the whole list
+    for extent, k in ((1, 1), (128, 1), (129, 2), (700, 6), (1000, 8)):
+        for v in ("seqacc", "nomask"):
+            assert diameter.flop_estimate(m, block, v, extent=extent) == \
+                14 * k * (k + 1) // 2 * block * block
+            tiles = k * (k + 1) // 2
+            assert diameter.bytes_estimate(m, block, v, extent=extent) == \
+                tiles * (2 * block * 12 + 8 * (v == "nomask")) + 2 * 16 * tiles + 16 + 4
+        assert diameter.flop_estimate(m, block, "tri", extent=extent) == 20 * pairs_tri
     assert diameter.flop_estimate(m, block, "tri") == diameter.flop_estimate(
         m, block, "tri_prefetch") == 20 * pairs_tri
     assert diameter.flop_estimate(m, block, "fused") == 20 * pairs_full

@@ -97,6 +97,68 @@ def test_gram_kernel_at_paper_scale(dev, seed):
     assert np.max(np.abs(got - want) / want) < 1e-3
 
 
+def _extent_case(mp, extent, seed, batch=1):
+    """(batch, mp) lists, each with scattered valid slots below ``extent``
+    and its last valid slot at ``extent - 1``."""
+    rng = np.random.default_rng(seed)
+    verts = (rng.normal(size=(batch, mp, 3)) * [40.0, 70.0, 25.0] + 150.0).astype(np.float32)
+    masks = rng.random((batch, mp)) < 0.5
+    masks[:, extent:] = False
+    masks[:, extent - 1] = True
+    return torch.from_numpy(verts), torch.from_numpy(masks)
+
+
+@pytest.mark.parametrize("variant", ["seqacc", "nomask"])
+@pytest.mark.parametrize("block", sorted({64, 1024, *autotune.DEFAULT_BLOCKS}))
+def test_extent_sweep_matches_plain_at_tile_edges(dev, variant, block):
+    """The persistent sweep computes only the tiles of each list's extent;
+    at extents 1, tile - 1, tile, tile + 1 and the whole list, with
+    scattered masks, it equals the plain whole-list sweep bitwise."""
+    mp = 3 * block
+    for extent in (1, block - 1, block, block + 1, mp):
+        verts, masks = _extent_case(mp, extent, seed=block + extent)
+        verts, masks = verts.to(dev), masks.to(dev)
+        assert int(ref.list_extent(masks)[0]) == extent
+        before = diameter.LAUNCHES[variant]
+        got = diameter.max_diameters_sq_batch(verts, masks, block=block, variant=variant)
+        torch.cuda.synchronize()
+        assert diameter.LAUNCHES[variant] == before + 1
+        want = ref.max_diameters_sq_batch(verts, masks, block, variant)
+        assert torch.equal(got, want), (variant, block, extent, got, want)
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_extent_stack_rows_equal_their_batch_of_one(dev, block):
+    """Rows of one stack with different extents: each row is its batch of
+    one bitwise, and seqacc == nomask == the unchanged direct variants."""
+    mp = 8 * block
+    rows = [_extent_case(mp, e, seed=e) for e in (1, block - 1, 3 * block + 5, 6 * block, mp)]
+    verts = torch.cat([v for v, _ in rows]).to(dev)
+    masks = torch.cat([m for _, m in rows]).to(dev)
+    got = {v: diameter.max_diameters_sq_batch(verts, masks, block=block, variant=v)
+           for v in VARIANTS if v != "gram"}
+    assert torch.equal(got["seqacc"], ref.max_diameters_sq_batch(verts, masks, block))
+    for variant, out in got.items():
+        assert torch.equal(out, got["seqacc"]), variant
+    for variant in ("seqacc", "nomask"):
+        for b in range(len(verts)):
+            one = diameter.max_diameters_sq(verts[b], masks[b], block=block, variant=variant)
+            assert torch.equal(got[variant][b], one), (variant, b)
+
+
+def test_sweep_grid_is_fixed_by_the_padded_shape(dev):
+    """The persistent grid depends on the block, the depth and the padded
+    list only: never on an extent (which would need a host sync)."""
+    lib = diameter._build.load("diameter", diameter._SIGNATURES)
+    for variant in ("seqacc", "nomask"):
+        for block in (128, 256, 512):
+            g1 = diameter.sweep_grid(lib, block, variant, 1, 10 ** 6, dev)
+            g4 = diameter.sweep_grid(lib, block, variant, 4, 10 ** 6, dev)
+            assert g1 >= torch.cuda.get_device_properties(dev).multi_processor_count
+            assert g4 == -(-g1 // 4)
+            assert diameter.sweep_grid(lib, block, variant, 1, 3, dev) == 3
+
+
 def test_schedule_is_built_once_per_size(dev):
     v = torch.randn((1, 600, 3), device=dev)
     m = torch.ones((1, 600), dtype=torch.bool, device=dev)
