@@ -53,10 +53,25 @@ Phases:
      'seqacc' and 'nomask' kernels built from it against this tree's at
      00001-1's unpruned list and the largest pass-2b stack, blocks 128, 256
      and 512, in turns, same bits, CUDA events and trace device time, the
-     change's best below the parent's; nvidia-smi's SM clock and power over
-     the timed window; the instruction-rate ceiling (the SASS's non-FMA FP32
-     instructions a pair x valid pairs at 132 SMs x 128 lanes x that clock)
-     beside the FP32-peak bound
+     change's best below the parent's where the parent's diameter.cu
+     differs (else a control of the card's spread); nvidia-smi's SM clock
+     and power over the timed window; the instruction-rate ceiling (the
+     SASS's non-FMA FP32 instructions a pair x valid pairs at 132 SMs x 128
+     lanes x that clock) beside the FP32-peak bound
+  5c. (run after 8b, whose inputs it shares with phases 5 and 7) the
+     first-order and marching-cubes kernels against the parent's: the
+     -Xptxas -v lines of both trees' kernels (this tree's without spills);
+     with a parent checkout (as for 5b) the parent's firstorder.cu,
+     marching_cubes.cu and compact.cu built from it and called as its
+     wrappers called them, in turns with this tree's wrappers on the same
+     inputs (parent, change, change, parent): first-order at the largest
+     pass-2a stack (bitwise), the tiled run's touched-chunk fold (bitwise),
+     MC at 00001-1 and at the largest pass-2a stack (rtol 1e-5), the
+     tiled run's largest window (per granule, rtol 1e-5) and its
+     finalize (bitwise), compaction at its largest launch (the same
+     source in both trees); CUDA-event ms a call, the trace's device time
+     of the kernels and of the whole call, the bound, nvidia-smi's SM
+     clock and power over the timed window
   6. batched main path: launch counts reset, BatchedExtractor().run over
      the 60 cases, counts read; rows == extract_one bitwise (seed 0), ==
      phase 4's CPU features at rtol 1e-4, device_compact off == on
@@ -90,7 +105,8 @@ Phases:
      occupancy and bounds, == the CPU path at rtol 1e-4; the same run under CUDA sync
      debugging; every window, finalize and touched-chunk fold launch held
      against its plain version; walls against extract_one (two
-     interleaved rounds); a 512^3 analytic sphere (FnSlabSource) under an
+     interleaved rounds); the finalize beside torch.sum over the (2, n)
+     stack, ms a call and device time; a 512^3 analytic sphere (FnSlabSource) under an
      8 MiB budget == its in-core extract_one bitwise; a 1024^3 sphere
      (4 GiB, never materialised) under 64 MiB, 'bounds', against the
      analytic volume and diameter, traced for the device's idle share.  The
@@ -120,6 +136,7 @@ Phases:
   10. the kernels line; 11. the status line
 """
 import collections
+import ctypes
 import json
 import os
 import statistics
@@ -137,6 +154,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import BatchedExtractor, ShapeFeatureExtractor, crop_to_roi  # noqa: E402
 from repro_torch.core import TiledCase, mc_tables  # noqa: E402
 from repro_torch.core import plan as planlib  # noqa: E402
+from repro_torch.core.dispatcher import to_device  # noqa: E402
 from repro_torch.data.tiles import FnSlabSource  # noqa: E402
 from repro_torch.data.synthetic import table2_suite  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -162,8 +180,8 @@ DIAM_OPS_PER_PAIR = 14
 # 'gram' variant's products
 PEAK_FP64_TC_PER_S = 67e12
 VARIANT_BLOCKS = (128, 256, 512)
-# a parent checkout unpacked with `git archive` for the diameter A/B (phase
-# 5b), unless --parent names another
+# a parent checkout unpacked with `git archive` for the A/Bs (phases 5b and
+# 5c), unless --parent names another
 AB_PARENT = Path(__file__).resolve().parent / "build" / "ab_parent"
 # the reference's kernel body of each variant (src/repro/kernels/diameter.py)
 VARIANT_REPLACES = {"fused": 122, "tri": 122, "naive": 122, "tri_prefetch": 150,
@@ -233,19 +251,13 @@ def device_trace(fn, reps=1):
 
 def device_us_per_call(fn, reps=5):
     """Device time (us) of one call of ``fn`` whose kernels each run once a
-    call: the mean duration of each traced kernel (its total over its
-    traced count, so a launch the profiler drops does not lower it),
-    summed over the call's kernels."""
-    from torch.profiler import ProfilerActivity, profile
+    call: :func:`device_split` summed over the call's kernels."""
+    return sum(device_split(fn, reps).values())
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total / e.count for e in prof.key_averages()
-               if e.device_time_total > 0 and e.count)
+
+def ratio(num, den):
+    """``num / den`` as text, or "not measured" where a trace lost ``den``."""
+    return f"{num / den:.3f}" if den > 0 else "not measured"
 
 
 def kernel_us(per_kernel, names):
@@ -445,48 +457,48 @@ def sass_loop_counts(lib_path, name):
     return result
 
 
+def build_parent_libs(parent, signatures):
+    """The parent checkout's ``csrc/<name>.cu`` for each name of
+    ``signatures`` ({name: {entry: argtypes}}), built with this tree's flags
+    into a library of its own, one nvcc each, all started at once:
+    ``{name: (lib, build log)}``.  Every entry returns an ``int``."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in signatures:
+        src = Path(parent) / "src" / "repro_torch" / "csrc" / f"{name}.cu"
+        out = _build.BUILD_DIR / f"ab_parent_{name}.so"
+        procs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                                         str(src)], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), out)
+    libs = {}
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"the parent's {name}.cu did not build:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        for entry, argtypes in signatures[name].items():
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
+        libs[name] = (lib, log)
+    return libs
+
+
 def build_parent_diameter(parent):
     """The parent checkout's ``csrc/diameter.cu`` built with this tree's
-    flags into its own library: ``(lib, build log)``."""
-    import ctypes
-    src = Path(parent) / "src" / "repro_torch" / "csrc" / "diameter.cu"
-    out = _build.BUILD_DIR / "ab_parent_diameter.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
-                          capture_output=True, text=True)
-    check(proc.returncode == 0, f"the parent's diameter.cu did not build:\n{proc.stdout}"
-                                f"{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.max_diameters_sq_launch.argtypes = [P, I, I, I, P, P, P]
-    lib.diameter_sched_launch.argtypes = [P, P, P, I, I, I, I, I, P, P, P]
-    lib.max_diameters_sq_launch.restype = lib.diameter_sched_launch.restype = I
-    return lib, proc.stdout + proc.stderr
+    flags into its own library, with this tree's C entries
+    (``diameter._SIGNATURES``): ``(lib, build log)``."""
+    return build_parent_libs(parent, {"diameter": dm._SIGNATURES})["diameter"]
 
 
 def parent_launcher(lib, verts, masks, block, variant):
-    """A launch of the parent's 'seqacc' (one block a tile, all nb(nb+1)/2
-    tiles) or 'nomask' (the same over a row-major schedule) kernel on this
-    tree's prepared input, the input prepared once."""
-    v = ref.diameter_input_batch(verts, masks, block)
-    batch, _, mp = v.shape
-    nb = mp // block
-    ntiles = nb * (nb + 1) // 2
-    ij = torch.triu_indices(nb, nb, device=v.device).to(torch.int32).contiguous()
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def call():
-        partials = torch.empty(4 * ntiles * batch, dtype=torch.float32, device=v.device)
-        out = torch.empty((batch, 4), dtype=torch.float32, device=v.device)
-        if variant == "seqacc":
-            err = lib.max_diameters_sq_launch(v.data_ptr(), batch, mp, block,
-                                              partials.data_ptr(), out.data_ptr(), stream)
-        else:
-            err = lib.diameter_sched_launch(v.data_ptr(), 0, ij.data_ptr(), ntiles, batch, mp,
-                                            block, 1, partials.data_ptr(), out.data_ptr(), stream)
-        check(err == 0, f"the parent's {variant} launch failed: CUDA error {err}")
-        return out
-    return call
+    """A launch of the parent's 'seqacc' or 'nomask' kernel on this tree's
+    prepared input, the input prepared once: this tree's launch
+    (``diameter.batch_launcher``) bound to the parent's library."""
+    saved = _build._LIBS.get("diameter")
+    _build._LIBS["diameter"] = lib
+    try:
+        return dm.batch_launcher(verts, masks, block=block, variant=variant)
+    finally:
+        _build._LIBS["diameter"] = saved
 
 
 def diameter_ab(parent, inputs, blocks, reps=10):
@@ -517,6 +529,156 @@ def diameter_ab(parent, inputs, blocks, reps=10):
                         us[which].append(device_us_per_call(fn))
                     rows.append((label, variant, block, ms["old"], ms["new"], us["old"],
                                  us["new"]))
+    finally:
+        clocks = smi_summary(smi)
+    return rows, clocks
+
+
+# the parent's C entries that phase 5c launches (commit 2c0c3fe's
+# csrc/firstorder.cu, marching_cubes.cu and compact.cu)
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+PARENT_SIGNATURES = {
+    "firstorder": {"firstorder_packed_launch": [_P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P]},
+    "marching_cubes": {
+        "mc_volume_area_launch": [_P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _I, _P, _P, _P],
+        "mc_slab_partials_launch": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _I, _I, _P, _P],
+        "mc_finalize_launch": [_P, _I, _I, _P, _P]},
+    "compact": {"compact_batch_launch": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P]},
+}
+
+
+PARENT_MC_BLOCK = 256  # the parent's marching_cubes.DEFAULT_BLOCK
+
+
+def parent_mc_layout(shape, chunk_z, block):
+    """The parent's MC partial layout: (granules, blocks per granule), runs
+    of 8 granule cells a thread."""
+    cx, cy, cz = (max(int(n) - 1, 0) for n in shape)
+    return max(1, -(-cz // chunk_z)), max(1, -(-(cx * cy * chunk_z) // (8 * block)))
+
+
+def parent_launchers(libs, stream):
+    """Calls of the parent's kernels as the parent's wrappers made them
+    (scratch and outputs allocated per call, the MC geometry copied per
+    call, the finalize's inputs stacked per call), by kind."""
+    fo_lib, mc_lib, cp_lib = (libs[n][0] for n in ("firstorder", "marching_cubes", "compact"))
+
+    def ok(err, what):
+        check(err == 0, f"the parent's {what} launch failed: CUDA error {err}")
+
+    def firstorder(imgs, msks, lo, hi, n_bins=fo.N_BINS, block=fo.DEFAULT_BLOCK):
+        batch, voxels = imgs.shape[0], imgs[0].numel()
+        nc = -(-voxels // fo.CANON_CHUNK)
+
+        def call():
+            partials = torch.empty((batch, nc, fo.stats_width(n_bins)), device=imgs.device)
+            out = torch.empty((batch, fo.packed_width(n_bins)), device=imgs.device)
+            ok(fo_lib.firstorder_packed_launch(
+                imgs.data_ptr(), msks.data_ptr(), lo.data_ptr(), hi.data_ptr(), batch, voxels,
+                n_bins, block // fo.CANON_CHUNK, partials.data_ptr(), out.data_ptr(), stream),
+                "first-order")
+            return out
+        return call
+
+    def mc_volume(vols, spacings, chunk_z=mc.DEFAULT_CHUNK_Z, block=PARENT_MC_BLOCK):
+        batch, shape = vols.shape[0], tuple(vols.shape[1:])
+        ngran, bpg = parent_mc_layout(shape, chunk_z, block)
+
+        def call():
+            geo = to_device(mc._geometry(shape, spacings, batch), vols.device)
+            partials = torch.empty((batch, 2, ngran, bpg), device=vols.device)
+            out = torch.empty((batch, 2), device=vols.device)
+            ok(mc_lib.mc_volume_area_launch(vols.data_ptr(), batch, *shape, chunk_z, 0.5,
+                                            geo.data_ptr(), ngran, bpg, block,
+                                            partials.data_ptr(), out.data_ptr(), stream),
+               "MC")
+            return out
+        return call
+
+    def mc_slab(slab, iso, spacing, *, full_shape, k0, chunk_z, block=None):
+        block = PARENT_MC_BLOCK  # the parent's default, whatever this tree's
+        shape = tuple(slab.shape)
+        w = (shape[2] - 1) // chunk_z
+        _, bpg = parent_mc_layout(shape, chunk_z, block)
+
+        def call():
+            geo = to_device(mc._geometry(tuple(full_shape), np.asarray(spacing, np.float32), 1),
+                            slab.device)
+            partials = torch.empty((2, w, bpg), device=slab.device)
+            ok(mc_lib.mc_slab_partials_launch(
+                slab.data_ptr(), 1, *shape, chunk_z, int(k0) * chunk_z, int(full_shape[2]) - 1,
+                float(iso), geo.data_ptr(), w, bpg, block, partials.data_ptr(), stream),
+                "MC window")
+            return partials[0], partials[1]
+        return call
+
+    def mc_finalize(vol_p, area_p):
+        def call():
+            parts = torch.stack([vol_p.reshape(-1), area_p.reshape(-1)])
+            out = torch.empty(2, device=vol_p.device)
+            ok(mc_lib.mc_finalize_launch(parts.data_ptr(), 1, vol_p.numel(), out.data_ptr(),
+                                         stream), "MC finalize")
+            return out[0], out[1]
+        return call
+
+    def compact(verts, keep, cap, block=cp.DEFAULT_BLOCK):
+        batch, m = keep.shape
+
+        def call():
+            out = torch.empty((batch, cap, 3), device=verts.device)
+            mask = torch.empty((batch, cap), dtype=torch.bool, device=verts.device)
+            n = torch.empty(batch, dtype=torch.int32, device=verts.device)
+            ok(cp_lib.compact_batch_launch(verts.data_ptr(), keep.data_ptr(), batch, m, int(cap),
+                                           out.data_ptr(), mask.data_ptr(), n.data_ptr(), block,
+                                           stream), "compaction")
+            return out, mask, n
+        return call
+
+    return {"firstorder": firstorder, "mc_volume": mc_volume, "mc_slab": mc_slab,
+            "mc_finalize": mc_finalize, "compact": compact}
+
+
+def device_split(fn, reps=5, tries=3):
+    """Device time (us) of each kernel or copy one call of ``fn`` runs: its
+    traced total over its traced count, so a launch the profiler drops does
+    not lower it.  A trace that lost every event is taken again, up to
+    ``tries`` times; then the split is empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split = {e.key: e.device_time_total / e.count for e in prof.key_averages()
+                 if e.device_time_total > 0 and e.count}
+        if split:
+            return split
+    return {}
+
+
+def kernel_ab(entries, reps=20):
+    """Phase 5c's A/B: per entry ``(label, parent call, change call, same,
+    kernel names)``, ``same(parent out, change out)`` checks the results,
+    then parent, change, change, parent in turns: ms per call (CUDA events,
+    median of ``reps``), the device time of the named kernels and of the
+    whole call (:func:`device_split`).  Returns the rows and the
+    nvidia-smi summary of the timed window."""
+    rows = []
+    smi = smi_sampler()
+    try:
+        for label, old, new, same, names in entries:
+            same(old(), new())
+            turns = {"old": [], "new": []}
+            for which in ("old", "new", "new", "old"):
+                fn = old if which == "old" else new
+                ms = time_ms(fn, reps=reps, warmup=2)
+                split = device_split(fn)
+                kern = {k: us for k, us in split.items() if any(n in k for n in names)}
+                turns[which].append((ms, sum(kern.values()), sum(split.values()), kern))
+            rows.append((label, turns))
     finally:
         clocks = smi_summary(smi)
     return rows, clocks
@@ -668,7 +830,7 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
     ap.add_argument("--parent", default=str(AB_PARENT),
-                    help="a parent checkout (git archive) for the diameter A/B of phase 5b")
+                    help="a parent checkout (git archive) for the A/Bs of phases 5b and 5c")
     parent = ap.parse_args().parent
     # -- 1. set-up ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -937,11 +1099,14 @@ def main():
                            reps=5, warmup=1)
     dmb_bound, dmb_pairs = diam_bound_ms(dk)
     dmb_dev, _ = device_trace(lambda: dm.max_diameters_sq_batch(dv, dk), reps=10)
+    dmb_valid = [dv[b][dk[b]] for b in range(len(dv))]
+    dmb_lib_ms = time_ms(lambda: [torch.cdist(v, v).amax() for v in dmb_valid], reps=5)
     print(f"[batch] batched diameter at the launch with most pairs {tuple(dv.shape)}: kernel "
           f"{dmb_ms:.4f} ms/call (device "
           f"{kernel_us(dmb_dev, ['diameter_sweep_kernel', 'diameter_finalize_kernel'])}), "
           f"plain {dmb_plain_ms:.4f} ms, bound {max(dmb_bound.values()):.5f} ms "
-          f"({dmb_pairs} pairs x {DIAM_OPS_PER_PAIR} FP32 ops)")
+          f"({dmb_pairs} pairs x {DIAM_OPS_PER_PAIR} FP32 ops); library (torch.cdist(v, v)"
+          f".amax() per case, 3D combo only) {dmb_lib_ms:.4f} ms")
     del rec_cp, rec_mc, rec_dm
 
     # -- 5b. the main path's diameter sweep: SASS, instruction-rate ceiling, the parent's
@@ -963,21 +1128,27 @@ def main():
                   f"{'/'.join(f'{t:.4f}' for t in ms_n):19s}  "
                   f"{'/'.join(f'{t:.2f}' for t in us_o):16s}  "
                   f"{'/'.join(f'{t:.2f}' for t in us_n):16s}  "
-                  f"{statistics.median(us_n) / statistics.median(us_o):.3f}")
+                  f"{ratio(statistics.median(us_n), statistics.median(us_o))}")
+        same_source = ((Path(parent) / "src/repro_torch/csrc/diameter.cu").read_bytes()
+                       == (_build.CSRC / "diameter.cu").read_bytes())
         for label, _, _ in ab_inputs:
             for variant in ("seqacc", "nomask"):
                 mine = [r for r in ab_rows if r[0] == label and r[1] == variant]
-                check(min(statistics.median(r[4]) for r in mine)
-                      < min(statistics.median(r[3]) for r in mine),
-                      f"{variant} on {label}: the change's best time is not below the parent's")
+                best = [min(statistics.median(r[i]) for r in mine) for i in (4, 3)]
+                if same_source:  # a control: the card's spread between two equal builds
+                    print(f"[diam-ab] {variant} on {label}: the same diameter.cu in both trees; "
+                          f"best ms a call change {best[0]:.4f}, parent {best[1]:.4f}")
+                else:
+                    check(best[0] < best[1], f"{variant} on {label}: the change's best time is "
+                                             f"not below the parent's")
         print(f"[diam-ab] parent {parent} vs this tree, same inputs, same bits; nvidia-smi over "
               f"the timed window: {clocks}")
     else:
         print(f"[diam-ab] no parent checkout at {parent} (unpack one with git archive, or pass "
               f"--parent): the A/B is not measured")
-        smi = smi_sampler()
+        sampler = smi_sampler()  # not `smi`: that is the card line the script ends on
         time_ms(lambda: dm.max_diameters_sq(verts, vmask), reps=40)
-        clocks = smi_summary(smi)
+        clocks = smi_summary(sampler)
         print(f"[diam-ab] nvidia-smi over 40 timed calls at 00001-1: {clocks}")
     clock = clocks["clocks_sm_mhz"][1] if clocks else None
     diam_ceiling = {}
@@ -1119,6 +1290,7 @@ def main():
     # the largest launch, with the masked range its pool took for both families
     big = max(range(len(rec_fo.calls)), key=lambda j: rec_fo.calls[j][0].numel())
     (fi, fm), fkw = rec_fo.calls[big], rec_fo.kwargs[big]
+    fo_ab_in = (fi, fm, fkw)  # phase 5c's first-order input
     rng_args = (fi.reshape(len(fi), -1), fm.reshape(len(fi), -1))
     rng_dev, _ = device_trace(lambda: ref.intensity_range(*rng_args, dim=1), reps=10)
     fo_ms = time_ms(lambda: fo.firstorder_packed_batch(fi, fm, **fkw))
@@ -1223,7 +1395,7 @@ def main():
     frame = np.pad(m_roi, [(0, b - s) for b, s in zip(bshape, m_roi.shape)])
     frame_dev = torch.from_numpy(frame).to(dev)
     cz = mc.DEFAULT_CHUNK_Z
-    ngran, bpg = mc.layout(bshape, cz)
+    ngran, ppg = mc.layout(bshape, cz)
     zpad = np.pad(frame, ((0, 0), (0, 0), (0, ngran * cz + 1 - bshape[2])))
     bounds = np.linspace(0, ngran, 5).round().astype(int)
     parts, slab_err = [], 0.0
@@ -1254,7 +1426,7 @@ def main():
     fin_err = float(max(abs(tv.item() - fv.item()), abs(ta.item() - fa.item())))
     np.testing.assert_allclose([tv.item(), ta.item()], [fv.item(), fa.item()], rtol=1e-5,
                                err_msg="finalize kernel vs plain fold")
-    print(f"[tiled] 00001-1 frame {bshape}: {ngran} granules x {bpg} blocks; windows at "
+    print(f"[tiled] 00001-1 frame {bshape}: {ngran} granules x {ppg} parts; windows at "
           f"granules {bounds.tolist()}: each granule == plain (rtol 1e-5; max |diff| "
           f"{slab_err:.3e}), repeat bitwise; assembled finalize == in-core kernel bitwise "
           f"{[tv.item(), ta.item()]}, == plain (rtol 1e-5)")
@@ -1355,13 +1527,15 @@ def main():
     fin_plain_ms = time_ms(lambda: ref.mc_partials_fold(*fin_args))
     fin_stack = torch.stack([fin_args[0].reshape(-1), fin_args[1].reshape(-1)])
     fin_lib_ms = time_ms(lambda: torch.sum(fin_stack, dim=1))
+    fin_lib_dev = sum(device_split(lambda: torch.sum(fin_stack, dim=1)).values())
     fin_dev, _ = device_trace(lambda: mc.mc_partials_finalize(*fin_args), reps=10)
     fin_bound = {"bytes": (8 * nparts + 8) / PEAK_BYTES_PER_S * 1e3,
                  "operations": 2 * nparts / PEAK_FP32_PER_S * 1e3}
     print(f"[tiled] finalize over {nparts} x 2 partials: {fin_ms:.4f} ms/call (device "
           f"{kernel_us(fin_dev, ['mc_finalize_kernel'])}; the whole call "
           f"{sum(fin_dev.values()):.2f} us), plain {fin_plain_ms:.4f} ms, library "
-          f"(torch.sum over the (2, n) stack) {fin_lib_ms:.4f} ms, bound "
+          f"(torch.sum over the (2, n) stack) {fin_lib_ms:.4f} ms (device "
+          f"{fin_lib_dev:.2f} us), bound "
           f"{max(fin_bound.values()):.6f} ms; launches {tiled_launches['mc_partials_finalize']}")
     (fx, fm, flo, fhi), fkw = rec_fold.calls[0], rec_fold.kwargs[0]
     fstack = (1, fx.shape[0], 1, fo.CANON_CHUNK)
@@ -1381,6 +1555,97 @@ def main():
           f"{fold_plain_ms:.4f} ms, bound {max(fold_bound.values()):.6f} ms (bytes); launches "
           f"{tiled_launches['fold_packed_chunks']}")
     del rec_sl, rec_fin, rec_fold
+
+    # -- 5c. first-order and marching cubes against the parent's kernels ------
+    # (run here, after 8b: it reuses the inputs of phases 5, 7 and 8b)
+    for name, tag in (("firstorder", "fo_"), ("marching_cubes", "mc_")):
+        lines = ptxas_lines(_build.library_path(name).with_suffix(".log").read_text(), tag)
+        for line in lines:
+            print(f"[ab5c] ptxas: {line}")
+        check(lines and all("0 bytes spill stores, 0 bytes spill loads" in line
+                            for line in lines if "spill" in line),
+              f"{name}.cu: a kernel spills or printed no ptxas line: {lines}")
+    if (Path(parent) / "src" / "repro_torch" / "csrc" / "firstorder.cu").exists():
+        libs = build_parent_libs(parent, PARENT_SIGNATURES)
+        for name, tag in (("firstorder", "fo_"), ("marching_cubes", "mc_")):
+            for line in ptxas_lines(libs[name][1], tag):
+                print(f"[ab5c] parent ptxas: {line}")
+        par = parent_launchers(libs, torch.cuda.current_stream().cuda_stream)
+        afi, afm, afkw = fo_ab_in
+        alo, ahi = afkw["value_range"]
+        _, _, sp1 = cases["00001-1"]
+        fstack1 = (1, fx.shape[0], 1, fo.CANON_CHUNK)
+
+        def bits(label):
+            def same(old, new):
+                pairs = zip(old, new) if isinstance(old, tuple) else [(old, new)]
+                check(all(torch.equal(a, b) for a, b in pairs),
+                      f"{label}: the change's bits != the parent's")
+            return same
+
+        def close(label, per_granule=False):
+            def same(old, new):
+                if per_granule:  # (vol_p, area_p) of either layout: per-granule sums
+                    old, new = (torch.stack([x[0].sum(1), x[1].sum(1)]) for x in (old, new))
+                else:
+                    new = torch.stack(list(new)).reshape(old.shape) if isinstance(new, tuple) \
+                        else new
+                np.testing.assert_allclose(new.cpu().numpy(), old.cpu().numpy(), rtol=1e-5,
+                                           atol=1e-3 if per_granule else 0.0,
+                                           err_msg=f"{label}: change vs parent")
+            return same
+
+        ab_entries = [
+            ("first-order (2,160,96,160)",
+             par["firstorder"](afi, afm, alo, ahi, afkw["n_bins"], afkw["block"]),
+             lambda: fo.firstorder_packed_batch(afi, afm, **afkw), bits("first-order"),
+             ["fo_partials_kernel", "fo_fold_kernel"]),
+            (f"fold {fx.shape[0]} chunks",
+             lambda f=par["firstorder"](fx.reshape(fstack1), fm.reshape(fstack1),
+                                        flo.reshape(1), fhi.reshape(1)): f()[0],
+             lambda: fo.fold_packed_chunks(fx, fm, flo, fhi, **fkw), bits("fold"),
+             ["fo_partials_kernel", "fo_fold_kernel"]),
+            (f"MC 00001-1 {tuple(big_dev.shape)}", par["mc_volume"](big_dev[None], sp1),
+             lambda: mc.mc_volume_area(big_dev, 0.5, sp1), close("MC 00001-1"),
+             ["mc_partials_kernel", "mc_finalize_kernel"]),
+            (f"MC stack {tuple(mv.shape)}", par["mc_volume"](mv, msps),
+             lambda: mc.mc_volume_area_batch(mv, miso, msps), close("MC stack"),
+             ["mc_partials_kernel", "mc_finalize_kernel"]),
+            (f"MC window {tuple(sv.shape)}", par["mc_slab"](*sargs, **skw),
+             lambda: mc.mc_slab_partials(*sargs, **skw), close("MC window", per_granule=True),
+             ["mc_partials_kernel"]),
+            (f"MC finalize {nparts} x 2", par["mc_finalize"](*fin_args),
+             lambda: mc.mc_partials_finalize(*fin_args), bits("MC finalize"),
+             ["mc_finalize_kernel"]),
+            (f"compaction B={cb} M={cm_} cap={ccap} (same source)",
+             par["compact"](cv, ck, ccap), lambda: cp.compact_batch(cv, ck, ccap),
+             bits("compaction"), ["compact_kernel"]),
+        ]
+        ab_bounds = [max(b.values()) for b in (fo_bound, fold_bound, mc_bound, mcb_bound,
+                                                 slab_bound, fin_bound, cp_bound)]
+        ab5c, ab_clocks = kernel_ab(ab_entries)
+        print("[ab5c] input                              parent ms (2 turns)  change ms (2 "
+              "turns)  parent kernels us  change kernels us  parent call us  change call us"
+              "  bound us  change/parent kernels")
+        for (label, turns), bound in zip(ab5c, ab_bounds):
+            old, new = turns["old"], turns["new"]
+            dn, do = (statistics.median(t[1] for t in turns_) for turns_ in (new, old))
+            print(f"[ab5c] {label:36s} {'/'.join(f'{t[0]:.4f}' for t in old):19s}  "
+                  f"{'/'.join(f'{t[0]:.4f}' for t in new):19s}  "
+                  f"{'/'.join(f'{t[1]:.2f}' for t in old):17s}  "
+                  f"{'/'.join(f'{t[1]:.2f}' for t in new):17s}  "
+                  f"{'/'.join(f'{t[2]:.2f}' for t in old):14s}  "
+                  f"{'/'.join(f'{t[2]:.2f}' for t in new):14s}  {bound * 1e3:8.3f}  "
+                  + (f"{ratio(dn, do)} ({'below' if dn < do else 'NOT below'} the parent's)"
+                     if dn > 0 and do > 0 else "not measured (a trace lost its kernels)"))
+            per = [json.dumps({k[:40]: round(us, 2) for k, us in t[0][3].items()})
+                   for t in (old, new)]
+            print(f"[ab5c]   per kernel, parent {per[0]}; change {per[1]}")
+        print(f"[ab5c] parent {parent} vs this tree, same inputs: first-order, fold, finalize and "
+              f"compaction bitwise, MC rtol 1e-5; nvidia-smi over the timed window: {ab_clocks}")
+    else:
+        print(f"[ab5c] no parent checkout at {parent} (unpack one with git archive, or pass "
+              f"--parent): the A/B is not measured")
 
     incore_s = []
     for which in ("incore", "tiled", "tiled", "incore"):
@@ -1687,7 +1952,7 @@ def main():
               mcb_err, mcb_ms, mcb_plain_ms, mcb_bound, None),
         entry("max_diameters_sq_batch", "diameter.cu", "src/repro/kernels/diameter.py:137",
               var_batch["seqacc"]["diameter[seqacc]"], dmb_err, dmb_ms, dmb_plain_ms, dmb_bound,
-              None),
+              dmb_lib_ms),
         entry("firstorder_packed_batch", "firstorder.cu", "src/repro/kernels/firstorder.py:227",
               fam_launches["firstorder"], fo_err, fo_ms, fo_plain_ms, fo_bound, None),
         entry("glcm_matrix_batch", "glcm.cu", "src/repro/kernels/glcm.py:146",

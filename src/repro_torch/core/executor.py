@@ -70,8 +70,8 @@ once on a miss) and on the CPU gives the defaults.  ``variant`` is
 ``'auto'`` or any of ``kernels.diameter.VARIANTS``; ``'auto'`` chooses
 only among the direct variants, which give the same bits, so batched rows
 equal ``extract_one``'s whatever each depth's winner.  The marching-cubes
-block and ``mc_chunk`` stay fixed (``_resolve_mc``): they set the order
-of its partial sums.
+block and ``mc_chunk`` stay fixed (``_resolve_mc``): ``mc_chunk`` sets the
+order of its partial sums, the block no bit.
 
 The out-of-core engine (``core/tiled``) runs on an executor: its device,
 its kernel choices (``_resolve_mc``, ``_resolve_diameter``), its family row

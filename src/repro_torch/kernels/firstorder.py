@@ -12,11 +12,16 @@ The addition order is part of the contract, as in the reference: the
 flattened, zero-padded volume is cut into canonical chunks of
 :data:`CANON_CHUNK` voxels, each chunk's sums are a fixed pairwise tree
 (halve the chunk ten times: ``y[:h] + y[h:]``), and the chunk rows are
-left-folded in chunk order from zeros.  Count and histogram are integer
-counts, exact in any order.  The kernel (``csrc/firstorder.cu``) and the
-plain version (:func:`firstorder_packed_batch_ref`) both do exactly that,
-so they agree bitwise, and the result depends on no block size: a zero
-chunk adds exact zeros.  Against the reference, whose chunk sums are
+left-folded in chunk order from zeros.  A chunk's count and histogram
+are integer counts, exact in any order; the fold over chunks is not:
+float32 holds every integer only up to 2^24, so above 2^24 masked voxels
+the float left fold of the counts rounds, and the kernel keeps the
+float fold in chunk order for every column, counts included, to round
+where the plain version and the reference do.  The kernel
+(``csrc/firstorder.cu``) and the plain version
+(:func:`firstorder_packed_batch_ref`) both do exactly that, so they agree
+bitwise, and the result depends on no block size: a zero chunk adds
+exact zeros.  Against the reference, whose chunk sums are
 ``jnp.sum`` in an order XLA picks, count, histogram and range are exact
 and the two sums agree to float32 rounding.
 
@@ -38,7 +43,11 @@ from repro_torch.kernels import ref as _ref
 
 N_BINS = 32          # default fixed-bin-count discretisation
 CANON_CHUNK = 1024   # canonical accumulation granule (see module docstring)
-DEFAULT_BLOCK = 2048  # voxels per CUDA block: canonical chunks it folds in turn
+DEFAULT_BLOCK = 2048  # voxels per CUDA block: canonical chunks, one warp each
+# The kernel's revision: an autotune record measured against another one
+# is swept again (runtime/autotune.py).  1: one warp a chunk and a staged
+# fold.
+REVISION = 1
 LAUNCHES = 0  # kernel launches by firstorder_packed_batch on CUDA tensors
 FOLD_LAUNCHES = 0  # kernel launches by fold_packed_chunks on CUDA tensors
 
@@ -163,7 +172,7 @@ def _launch(images: torch.Tensor, masks: torch.Tensor, n_bins: int, block: int,
     voxels = images[0].numel()
     lo, hi = (value_range if value_range is not None else
               _ref.intensity_range(images.reshape(batch, -1), masks.reshape(batch, -1), dim=1))
-    nc = -(-voxels // CANON_CHUNK)
+    nc = _padded_len(-(-voxels // CANON_CHUNK), 4)  # the kernel's rows: 16-byte tiles
     partials = torch.empty((batch, nc, stats_width(n_bins)), dtype=torch.float32,
                            device=images.device)
     out = torch.empty((batch, packed_width(n_bins)), dtype=torch.float32,
@@ -187,7 +196,8 @@ def firstorder_packed_batch(images: torch.Tensor, masks: torch.Tensor, *,
     ``images``/``masks``: (B, X, Y, Z) float32, one shape bucket.  A CUDA
     tensor launches the kernel (or raises); only a CPU tensor takes the
     plain version.  ``block`` (a multiple of :data:`CANON_CHUNK`) is the
-    voxels one CUDA block folds; it never changes a bit of the result.
+    voxels one CUDA block owns, one warp a chunk (at most 8 warps a
+    block); it never changes a bit of the result.
     ``value_range`` is the masked ``(lo, hi)`` of ``ref.intensity_range``
     over each case, two ``(B,)`` tensors, where the caller has it (the
     executor takes it once for both families); else it is taken here.

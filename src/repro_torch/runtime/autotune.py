@@ -20,24 +20,25 @@ None of these changes a bit of a result: the direct diameter variants
 agree bitwise at every block, compaction copies bits, and the family
 kernels' sums are fixed by their canonical chunks, whatever the block.
 
-Marching cubes is not tuned.  Its ``block`` and ``mc_chunk`` set the order
-of the partial sums (``kernels/marching_cubes.py``), and the tiled path
-equals the in-core path bitwise only because both use the same granule;
-a tuned MC block could break that.  ``mc_block='auto'`` resolves to the
-defaults and the ``mc/cuda`` namespace is not read.  A later change
-either makes the MC order independent of the block or keys the config to
-the frame.
+Marching cubes is not tuned.  Its partial order is fixed by the shape,
+``mc_chunk`` and the kernel's tile constants, not by its ``block``
+(``kernels/marching_cubes.py``), so a tuned block would keep tiled ==
+in-core; ``mc_chunk`` still sets the order, and the tiled path equals the
+in-core path bitwise only because both use the same granule.
+``mc_block='auto'`` resolves to the defaults and the ``mc/cuda``
+namespace is not read.
 
 Cache schema (versioned, shared with the reference): one JSON object
 ``{"schema": 3, "entries": {...}}`` keyed ``"diameter/cuda/M<bucket>/B<depth>"``,
 ``"compact/cuda/M<bucket>/B<depth>"`` and ``"<family>/cuda/S<nx>x<ny>x<nz>/B<depth>"``;
 ``B<depth>`` is the power-of-two batch-depth bucket (:func:`batch_bucket`).
 Each record holds the winner and the measured table (microseconds); a
-diameter record also the kernels' ``revision``
-(``kernels/diameter.REVISION``), and one measured against another
-revision (or carrying none) is swept again.  The reference's files read
-back here and ours there (its keys carry ``pallas`` or ``interpret``
-where ours carry ``cuda``, which it never looks up).  A v1 file (flat,
+diameter or first-order record also its kernels' ``revision``
+(``kernels/diameter.REVISION``, ``kernels/firstorder.REVISION``), and one
+measured against another revision (or carrying none) is swept again.
+The reference's files read back here and ours there (its keys carry
+``pallas`` or ``interpret`` where ours carry ``cuda``, which it never
+looks up).  A v1 file (flat,
 no schema) or v2 (depth-less keys) migrates on load (the keys gain
 ``/B1``); an unknown future schema reads as empty and is never
 overwritten; a malformed file reads as empty.  Writes are atomic (tmp +
@@ -443,9 +444,11 @@ def get_compact_config(bucket: int, device, *, batch: int = 1) -> CompactConfig:
 # intensity-family (firstorder / glcm) blocks
 # ---------------------------------------------------------------------------
 
+# blocks, default, granule and the kernel's revision (None: not versioned)
 _FAMILIES = {
-    "firstorder": (DEFAULT_FIRSTORDER_BLOCKS, DEFAULT_FIRSTORDER_CONFIG, _fo.CANON_CHUNK),
-    "glcm": (DEFAULT_GLCM_BLOCKS, DEFAULT_GLCM_CONFIG, _glcm.THREADS),
+    "firstorder": (DEFAULT_FIRSTORDER_BLOCKS, DEFAULT_FIRSTORDER_CONFIG, _fo.CANON_CHUNK,
+                   _fo.REVISION),
+    "glcm": (DEFAULT_GLCM_BLOCKS, DEFAULT_GLCM_CONFIG, _glcm.THREADS, None),
 }
 
 
@@ -494,7 +497,7 @@ def measure_family_configs(family: str, shape, device, configs, *, batch: int = 
 def sweep_family(family: str, shape, device, *, batch: int = 4):
     """Measure every block of a family; returns ``(best, table)`` keyed
     ``str(block)`` in microseconds."""
-    blocks, _, _ = _family(family)
+    blocks = _family(family)[0]
     configs = [FamilyConfig(b) for b in blocks]
     return _table(measure_family_configs(family, shape, device, configs, batch=batch),
                   _block_name)
@@ -504,17 +507,21 @@ def get_family_config(family: str, shape, device, *, batch: int = 1) -> FamilyCo
     """Cached-or-swept family block per (volume bucket, depth); the
     contract of :func:`get_diameter_config`.  ``shape`` should already be
     a bucket (:func:`mc_shape_bucket`).  A cached block that is not a
-    multiple of the kernel's granule counts as a miss."""
-    _, default, granule = _family(family)
+    multiple of the kernel's granule, or a first-order record measured
+    against another kernel revision, counts as a miss."""
+    _, default, granule, revision = _family(family)
     backend = torch.device(device).type
     if backend == "cpu":
         return default
     shape = tuple(int(s) for s in shape)
 
     def parse(rec):
+        if revision is not None and rec.get("revision") != revision:
+            return None
         cfg = FamilyConfig(int(rec["block"]))
         return cfg if cfg.block > 0 and cfg.block % granule == 0 else None
 
     return _cached_or_swept(
         family, family_key(family, shape, backend, batch), default, parse,
-        lambda: sweep_family(family, shape, device, batch=batch_bucket(batch)), _block_name)
+        lambda: sweep_family(family, shape, device, batch=batch_bucket(batch)), _block_name,
+        extra=None if revision is None else {"revision": revision})

@@ -330,6 +330,25 @@ def test_family_sweep_drops_blocks_the_kernel_refuses(cache_path, monkeypatch):
     assert seen == list(autotune.DEFAULT_FIRSTORDER_BLOCKS)
 
 
+@pytest.mark.parametrize("record", [{"block": 4096}, {"block": 4096, "revision": 0}])
+def test_firstorder_record_of_another_revision_is_swept_again(cache_path, monkeypatch, record):
+    """A first-order block measured against another kernel (or before
+    revisions) is a miss; the sweep's record carries the revision."""
+    seen = []
+    monkeypatch.setattr(autotune, "measure_family_configs",
+                        lambda family, shape, device, configs, *, batch:
+                        seen.extend(c.block for c in configs)
+                        or {c: 1.0 + (c.block != 1024) for c in configs})
+    key = autotune.family_key("firstorder", (32, 32, 32), "cuda")
+    autotune.AutotuneCache().put(key, record)
+    assert autotune.get_family_config("firstorder", (32, 32, 32), "cuda").block == 1024
+    assert seen == list(autotune.DEFAULT_FIRSTORDER_BLOCKS)
+    assert autotune.AutotuneCache().get(key)["revision"] == firstorder.REVISION
+    seen.clear()
+    assert autotune.get_family_config("firstorder", (32, 32, 32), "cuda").block == 1024
+    assert not seen  # the new record is a hit
+
+
 def test_pinned_entries_reach_the_executor(cache_path, monkeypatch):
     """Entries pinned in the cache are what the executor's resolution
     hands its launches on the card (no kernel runs: the resolution only
@@ -337,7 +356,8 @@ def test_pinned_entries_reach_the_executor(cache_path, monkeypatch):
     monkeypatch.setenv("REPRO_AUTOTUNE", "0")  # a miss must not sweep here
     cache = autotune.AutotuneCache()
     cache.put(autotune.compact_key(4096, "cuda", batch=3), {"block": 256})
-    cache.put(autotune.family_key("firstorder", (64, 32, 32), "cuda", batch=2), {"block": 4096})
+    cache.put(autotune.family_key("firstorder", (64, 32, 32), "cuda", batch=2),
+              {"block": 4096, "revision": firstorder.REVISION})
     cache.put(autotune.family_key("glcm", (64, 32, 32), "cuda", batch=2), {"block": 512})
     cache.put(autotune.sweep_key(1024, "cuda", batch=5), {"variant": "tri_prefetch",
                                                          "block": 128,

@@ -150,3 +150,66 @@ def test_three_family_run_on_card(dev):
     assert not strict_stats["errors"]  # a sync in prep would quarantine its case
     np.testing.assert_array_equal(np.stack(strict), rows)
     assert strict_stats["host_fetches"] == stats["host_fetches"]
+
+
+def _stack(dev, batch, voxels, density, seed=1):
+    rng = np.random.default_rng(seed)
+    imgs = rng.normal(-300.0, 400.0, (batch, 1, 1, voxels)).astype(np.float32)
+    msks = (rng.random((batch, 1, 1, voxels)) < density).astype(np.float32)
+    return torch.from_numpy(imgs).to(dev), torch.from_numpy(msks).to(dev)
+
+
+def _fo_both(imgs, msks, **kw):
+    got = firstorder.firstorder_packed_batch(imgs, msks, **kw)
+    plain = firstorder.firstorder_packed_batch_ref(imgs, msks, kw.get("n_bins", firstorder.N_BINS))
+    return got, plain
+
+
+@pytest.mark.parametrize("voxels", [1024, 2048, 33 * 1024, 1000, 2 * 1024 + 3, 5 * 1024 + 517])
+def test_firstorder_chunk_counts_and_ragged_ends_bitwise(dev, voxels):
+    """1, 2 and 33 whole chunks, and volumes whose last chunk is cut short
+    (an odd voxel count also puts every other case off 16-byte alignment,
+    the kernel's scalar loads)."""
+    got, plain = _fo_both(*_stack(dev, 3, voxels, 0.7))
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("density", [0.0, 1.0])
+def test_firstorder_no_voxel_or_every_voxel_masked_bitwise(dev, density):
+    got, plain = _fo_both(*_stack(dev, 2, 9 * 1024 + 5, density))
+    assert torch.equal(got, plain)
+    assert float(got[0, 0]) == (0.0 if density == 0.0 else 9 * 1024 + 5)
+
+
+@pytest.mark.parametrize("n_bins", [1, 32, 64])
+def test_firstorder_bin_counts_bitwise(dev, n_bins):
+    got, plain = _fo_both(*_stack(dev, 2, 40 * 1024 + 7, 0.5), n_bins=n_bins)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("block", [1024, 2048, 3072, 4096, 5120, 8192])
+def test_firstorder_every_block_bitwise(dev, block):
+    imgs, msks = _case_00001_1(dev)
+    assert torch.equal(firstorder.firstorder_packed_batch(imgs, msks, block=block),
+                       firstorder.firstorder_packed_batch_ref(imgs, msks))
+
+
+def test_fold_past_2_24_masked_voxels_bitwise(dev):
+    """16,400 chunks with 1,023 or 1,024 masked voxels each: the count
+    passes 2^24, where a float fold of the counts rounds; the kernel keeps
+    the plain version's (and the reference's) float order there."""
+    rng = np.random.default_rng(7)
+    n, C = 16_400, firstorder.CANON_CHUNK
+    m = np.ones((n, C), np.float32)
+    m[np.arange(n), rng.integers(0, C, n)] = rng.random(n) < 0.5
+    x = np.where(m > 0, rng.normal(50.0, 20.0, (n, C)), 0.0).astype(np.float32)
+    xt, mt = torch.from_numpy(x).to(dev), torch.from_numpy(m).to(dev)
+    lo, hi = xt[mt > 0].min(), xt[mt > 0].max()
+    got = firstorder.fold_packed_chunks(xt, mt, lo, hi)
+    stack = (1, n, 1, C)
+    plain = firstorder.firstorder_packed_batch_ref(xt.reshape(stack), mt.reshape(stack),
+                                                   firstorder.N_BINS,
+                                                   (lo.reshape(1), hi.reshape(1)))[0]
+    assert torch.equal(got, plain)
+    exact = int(m.sum())
+    assert exact > 2 ** 24 and float(got[0]) != exact  # the float fold rounded

@@ -103,3 +103,55 @@ def test_extractor_on_card_matches_cpu(dev):
     for k, v in cpu.items():
         np.testing.assert_allclose(gpu[k], v, rtol=1e-4, err_msg=k)
     assert gpu["_n_mesh_vertices"] == cpu["_n_mesh_vertices"]
+
+
+def _checkerboard(shape):
+    i, j, k = np.indices(shape)
+    return ((i + j + k) % 2).astype(np.float32)
+
+
+def _ragged_volumes():
+    """Shapes at the edges of the kernel's items (8 x 8 x 8 cells): x-y
+    extents off the tile, two planes, a short last granule, no surface,
+    and a checkerboard whose every cell is active (the fullest work list)."""
+    rng = np.random.default_rng(3)
+    return {
+        "xy_off_tile": rng.random((20, 13, 30)).astype(np.float32),
+        "nz_2": rng.random((17, 19, 2)).astype(np.float32),
+        "short_last_granule": np.pad(sphere_mask(26, 11.0), 1)[:, :, :28],
+        "one_cell_column": rng.random((2, 2, 40)).astype(np.float32),
+        "empty": np.zeros((16, 16, 16), np.float32),
+        "full": np.ones((16, 16, 16), np.float32),
+        "checkerboard": _checkerboard((18, 17, 19)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_ragged_volumes()))
+def test_mc_kernel_matches_plain_on_ragged_shapes(dev, name):
+    vol = _ragged_volumes()[name]
+    t = torch.from_numpy(vol).to(dev)
+    kv, ka = marching_cubes.mc_volume_area(t, 0.5, (1.0, 0.8, 1.3))
+    pv, pa = ref.mc_volume_area(t, 0.5, (1.0, 0.8, 1.3))
+    if name in ("empty", "full"):
+        assert (float(kv), float(ka)) == (0.0, 0.0) == (float(pv), float(pa))
+    else:
+        assert float(ka) > 0
+        np.testing.assert_allclose(float(kv), float(pv), rtol=1e-5)
+        np.testing.assert_allclose(float(ka), float(pa), rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["checkerboard", "xy_off_tile", "short_last_granule"])
+def test_mc_results_do_not_depend_on_block(dev, name):
+    """The partial order is fixed by the item's cells: every thread count
+    gives the same partials, and the same stack rows, bitwise."""
+    vol = torch.from_numpy(_ragged_volumes()[name]).to(dev)
+    stack = torch.stack([vol, 1.0 - vol])
+    rows = [marching_cubes.mc_volume_area_batch(stack, 0.5, block=b)
+            for b in (32, 96, 128, 256, 512, 1024)]
+    assert all(torch.equal(r, rows[0]) for r in rows[1:])
+    nz = vol.shape[2]
+    win = torch.nn.functional.pad(vol, (0, (-(nz - 1)) % 8))
+    parts = [marching_cubes.mc_slab_partials(win, 0.5, full_shape=vol.shape, block=b)
+             for b in (32, 128, 1024)]
+    assert all(torch.equal(p[0], parts[0][0]) and torch.equal(p[1], parts[0][1])
+               for p in parts[1:])

@@ -90,7 +90,7 @@ def test_window_kernel_equals_plain_per_granule(dev, chunk_z):
         assert torch.equal(kv, kv2) and torch.equal(ka, ka2)
 
 
-@pytest.mark.parametrize("chunk_z", [8, 3])
+@pytest.mark.parametrize("chunk_z", [8, 3, 1, 4, 11])
 def test_in_core_equals_finalize_of_assembled_windows(dev, chunk_z):
     vol = _volume(1)
     ngran, _ = marching_cubes.layout(vol.shape, chunk_z)
@@ -183,3 +183,22 @@ def test_cuda_tensors_never_reach_a_plain_version(dev, monkeypatch):
     moved = [marching_cubes.SLAB_LAUNCHES - counts[0],
              marching_cubes.FINALIZE_LAUNCHES - counts[1], firstorder.FOLD_LAUNCHES - counts[2]]
     assert moved[0] == res.stats["tiles"] - res.stats["tiles_skipped"] and moved[1:] == [1, 1]
+
+
+@pytest.mark.parametrize("chunk_z", [33, 40])
+def test_deep_granules_tile_bitwise(dev, chunk_z):
+    """Granules deeper than an item's 32 planes: partials per sub-slab,
+    windows == in-core bitwise, == plain at rtol 1e-5."""
+    vol = _volume(2, shape=(21, 19, 128))
+    ngran, _ = marching_cubes.layout(vol.shape, chunk_z)
+    _, wins = _windows(vol, chunk_z, [0, 1, ngran])
+    parts = [marching_cubes.mc_slab_partials(torch.from_numpy(w).to(dev), 0.5, SP,
+                                             full_shape=vol.shape, k0=k0, chunk_z=chunk_z)
+             for k0, w in wins]
+    full = [torch.cat([p[i] for p in parts]) for i in range(2)]
+    tv, ta = marching_cubes.mc_partials_finalize(*full)
+    t = torch.from_numpy(vol).to(dev)
+    v, a = marching_cubes.mc_volume_area(t, 0.5, SP, chunk_z=chunk_z)
+    assert torch.equal(torch.stack([tv, ta]), torch.stack([v, a]))
+    pv, pa = ref.mc_volume_area(t, 0.5, SP, chunk_z=chunk_z)
+    np.testing.assert_allclose([float(v), float(a)], [float(pv), float(pa)], rtol=1e-5)
