@@ -40,12 +40,12 @@ Phases:
      then one traced case for the device's busy and idle share
   5. batched kernels: one uncounted run of the batched path over the cohort
      (table2_suite seeds 0, 1, 2: 60 cases) records every launch's inputs;
-     each launch is held against its plain version (compaction and
-     diameter bitwise, MC rtol 1e-5) and each case against a launch of its
-     own, a batch of one (MC and diameter bitwise); the compaction kernel
-     also on five keep patterns x B in {1, 3, 16} x M in {512, 4096,
-     131072}; times, device times, bounds and the library yardstick at the
-     largest launch
+     each launch is held against its plain version (compaction bitwise at
+     every tile, diameter bitwise, MC rtol 1e-5) and each case against a
+     launch of its own, a batch of one (MC and diameter bitwise); the
+     compaction kernel also on five keep patterns x B in {1, 3, 16} x M in
+     {512, 4096, 131072}; times, device times, bounds and the library
+     yardstick at the largest launch
   5b. the main path's diameter sweep ('seqacc', 'nomask'): the -Xptxas -v
      lines of the diameter kernels; the instructions a pair in the sweep
      kernels' SASS hot loop (cuobjdump); with a parent checkout (--parent,
@@ -58,20 +58,23 @@ Phases:
      and power over the timed window; the instruction-rate ceiling (the
      SASS's non-FMA FP32 instructions a pair x valid pairs at 132 SMs x 128
      lanes x that clock) beside the FP32-peak bound
-  5c. (run after 8b, whose inputs it shares with phases 5 and 7) the
-     first-order and marching-cubes kernels against the parent's: the
-     -Xptxas -v lines of both trees' kernels (this tree's without spills);
-     with a parent checkout (as for 5b) the parent's firstorder.cu,
-     marching_cubes.cu and compact.cu built from it and called as its
-     wrappers called them, in turns with this tree's wrappers on the same
-     inputs (parent, change, change, parent): first-order at the largest
-     pass-2a stack (bitwise), the tiled run's touched-chunk fold (bitwise),
-     MC at 00001-1 and at the largest pass-2a stack (rtol 1e-5), the
-     tiled run's largest window (per granule, rtol 1e-5) and its
-     finalize (bitwise), compaction at its largest launch (the same
-     source in both trees); CUDA-event ms a call, the trace's device time
-     of the kernels and of the whole call, the bound, nvidia-smi's SM
-     clock and power over the timed window
+  5c. (run after 8b, whose inputs it shares with phases 5, 7 and 8b) the
+     compaction and GLCM kernels against the parent's: the -Xptxas -v
+     lines of this tree's compaction, GLCM, first-order and MC kernels
+     (without spills) and the parent's; with a parent checkout (as for 5b)
+     the parent's compact.cu, glcm.cu, firstorder.cu and marching_cubes.cu
+     built from it, compaction and GLCM called as the parent's wrappers
+     called them, first-order and MC (the same sources, a control of the
+     card's spread) through this tree's wrappers, in turns with this tree's
+     on the same inputs (parent, change, change, parent), every pair
+     bitwise: compaction at the run's largest launch and GLCM at the
+     largest three-family stack, each below the parent's; first-order at
+     that stack and the tiled run's touched-chunk fold; MC at 00001-1, the
+     largest pass-2a stack, the tiled run's largest window and its
+     finalize; CUDA-event ms a call, the trace's device time of the
+     kernels and of the whole call, the bound, the compaction's launch
+     floor (an empty kernel on its grid, twice), nvidia-smi's SM clock and
+     power over the timed window
   6. batched main path: launch counts reset, BatchedExtractor().run over
      the 60 cases, counts read; rows == extract_one bitwise (seed 0), ==
      phase 4's CPU features at rtol 1e-4, device_compact off == on
@@ -86,7 +89,8 @@ Phases:
      against its plain version on the same inputs and range (first-order
      bitwise, GLCM exactly), each case against
      a batch of one, the first-order kernel at block 1024, 2048 and 8192
-     bitwise, the largest GLCM count below 2^24; then launch counts reset,
+     bitwise, the GLCM kernel at blocks 1 to 64 exactly, the largest GLCM
+     count below 2^24; then launch counts reset,
      BatchedExtractor(families=(shape, firstorder, glcm)).run over the 60
      cases, counts read; rows == extract_one bitwise (seed 0), the family
      columns of all 60 == the port's CPU path (GLCM and first-order min, max,
@@ -154,7 +158,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import BatchedExtractor, ShapeFeatureExtractor, crop_to_roi  # noqa: E402
 from repro_torch.core import TiledCase, mc_tables  # noqa: E402
 from repro_torch.core import plan as planlib  # noqa: E402
-from repro_torch.core.dispatcher import to_device  # noqa: E402
 from repro_torch.data.tiles import FnSlabSource  # noqa: E402
 from repro_torch.data.synthetic import table2_suite  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -212,6 +215,8 @@ DIAM_KEYS = KEYS[8:12]
 ROW_KEYS = ["MeshVolume", "SurfaceArea", "Maximum3DDiameter", "Maximum2DDiameterSlice",
             "Maximum2DDiameterRow", "Maximum2DDiameterColumn", "_n_mesh_vertices"]
 PATTERNS = ["random", "zero-survivor", "all-survivor", "cap-boundary", "overflow"]
+CP_TILES = (512, 1024, 2048, 4096, 8192, 16384)  # every compaction tile the kernel takes
+GL_BLOCKS = (1, 2, 4, 8, 16, 64)  # GLCM blocks an SM, 1 to glcm.MAX_BLOCK
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -534,94 +539,43 @@ def diameter_ab(parent, inputs, blocks, reps=10):
     return rows, clocks
 
 
-# the parent's C entries that phase 5c launches (commit 2c0c3fe's
-# csrc/firstorder.cu, marching_cubes.cu and compact.cu)
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# the parent's C entries that phase 5c launches (commit 1d81a29's
+# csrc/firstorder.cu and marching_cubes.cu, the same sources as this tree's,
+# and its compact.cu and glcm.cu, one block a case and one thread a voxel)
+_P, _I = ctypes.c_void_p, ctypes.c_int
 PARENT_SIGNATURES = {
-    "firstorder": {"firstorder_packed_launch": [_P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P]},
-    "marching_cubes": {
-        "mc_volume_area_launch": [_P, _I, _I, _I, _I, _I, _F, _P, _I, _I, _I, _P, _P, _P],
-        "mc_slab_partials_launch": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _I, _I, _P, _P],
-        "mc_finalize_launch": [_P, _I, _I, _P, _P]},
+    "firstorder": fo._SIGNATURES,
+    "marching_cubes": mc._SIGNATURES,
     "compact": {"compact_batch_launch": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P]},
+    "glcm": {"glcm_matrix_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]},
 }
+PARENT_COMPACT_THREADS = 1024  # the parent's compact.DEFAULT_BLOCK
+PARENT_GLCM_TILE = 2048  # the parent's glcm.DEFAULT_BLOCK: voxels a CUDA block
 
 
-PARENT_MC_BLOCK = 256  # the parent's marching_cubes.DEFAULT_BLOCK
-
-
-def parent_mc_layout(shape, chunk_z, block):
-    """The parent's MC partial layout: (granules, blocks per granule), runs
-    of 8 granule cells a thread."""
-    cx, cy, cz = (max(int(n) - 1, 0) for n in shape)
-    return max(1, -(-cz // chunk_z)), max(1, -(-(cx * cy * chunk_z) // (8 * block)))
+def with_lib(name, lib, fn):
+    """``fn`` run with the library ``name`` bound to ``lib`` (a parent's
+    build of a source whose C entries are this tree's)."""
+    def call():
+        saved = _build._LIBS.get(name)
+        _build._LIBS[name] = lib
+        try:
+            return fn()
+        finally:
+            _build._LIBS[name] = saved
+    return call
 
 
 def parent_launchers(libs, stream):
-    """Calls of the parent's kernels as the parent's wrappers made them
-    (scratch and outputs allocated per call, the MC geometry copied per
-    call, the finalize's inputs stacked per call), by kind."""
-    fo_lib, mc_lib, cp_lib = (libs[n][0] for n in ("firstorder", "marching_cubes", "compact"))
+    """Calls of the parent's compaction and GLCM kernels as the parent's
+    wrappers made them (outputs allocated per call, the GLCM counts zeroed
+    by a memset per call), by kind."""
+    cp_lib, gl_lib = libs["compact"][0], libs["glcm"][0]
 
     def ok(err, what):
         check(err == 0, f"the parent's {what} launch failed: CUDA error {err}")
 
-    def firstorder(imgs, msks, lo, hi, n_bins=fo.N_BINS, block=fo.DEFAULT_BLOCK):
-        batch, voxels = imgs.shape[0], imgs[0].numel()
-        nc = -(-voxels // fo.CANON_CHUNK)
-
-        def call():
-            partials = torch.empty((batch, nc, fo.stats_width(n_bins)), device=imgs.device)
-            out = torch.empty((batch, fo.packed_width(n_bins)), device=imgs.device)
-            ok(fo_lib.firstorder_packed_launch(
-                imgs.data_ptr(), msks.data_ptr(), lo.data_ptr(), hi.data_ptr(), batch, voxels,
-                n_bins, block // fo.CANON_CHUNK, partials.data_ptr(), out.data_ptr(), stream),
-                "first-order")
-            return out
-        return call
-
-    def mc_volume(vols, spacings, chunk_z=mc.DEFAULT_CHUNK_Z, block=PARENT_MC_BLOCK):
-        batch, shape = vols.shape[0], tuple(vols.shape[1:])
-        ngran, bpg = parent_mc_layout(shape, chunk_z, block)
-
-        def call():
-            geo = to_device(mc._geometry(shape, spacings, batch), vols.device)
-            partials = torch.empty((batch, 2, ngran, bpg), device=vols.device)
-            out = torch.empty((batch, 2), device=vols.device)
-            ok(mc_lib.mc_volume_area_launch(vols.data_ptr(), batch, *shape, chunk_z, 0.5,
-                                            geo.data_ptr(), ngran, bpg, block,
-                                            partials.data_ptr(), out.data_ptr(), stream),
-               "MC")
-            return out
-        return call
-
-    def mc_slab(slab, iso, spacing, *, full_shape, k0, chunk_z, block=None):
-        block = PARENT_MC_BLOCK  # the parent's default, whatever this tree's
-        shape = tuple(slab.shape)
-        w = (shape[2] - 1) // chunk_z
-        _, bpg = parent_mc_layout(shape, chunk_z, block)
-
-        def call():
-            geo = to_device(mc._geometry(tuple(full_shape), np.asarray(spacing, np.float32), 1),
-                            slab.device)
-            partials = torch.empty((2, w, bpg), device=slab.device)
-            ok(mc_lib.mc_slab_partials_launch(
-                slab.data_ptr(), 1, *shape, chunk_z, int(k0) * chunk_z, int(full_shape[2]) - 1,
-                float(iso), geo.data_ptr(), w, bpg, block, partials.data_ptr(), stream),
-                "MC window")
-            return partials[0], partials[1]
-        return call
-
-    def mc_finalize(vol_p, area_p):
-        def call():
-            parts = torch.stack([vol_p.reshape(-1), area_p.reshape(-1)])
-            out = torch.empty(2, device=vol_p.device)
-            ok(mc_lib.mc_finalize_launch(parts.data_ptr(), 1, vol_p.numel(), out.data_ptr(),
-                                         stream), "MC finalize")
-            return out[0], out[1]
-        return call
-
-    def compact(verts, keep, cap, block=cp.DEFAULT_BLOCK):
+    def compact(verts, keep, cap):
         batch, m = keep.shape
 
         def call():
@@ -629,13 +583,26 @@ def parent_launchers(libs, stream):
             mask = torch.empty((batch, cap), dtype=torch.bool, device=verts.device)
             n = torch.empty(batch, dtype=torch.int32, device=verts.device)
             ok(cp_lib.compact_batch_launch(verts.data_ptr(), keep.data_ptr(), batch, m, int(cap),
-                                           out.data_ptr(), mask.data_ptr(), n.data_ptr(), block,
-                                           stream), "compaction")
+                                           out.data_ptr(), mask.data_ptr(), n.data_ptr(),
+                                           PARENT_COMPACT_THREADS, stream), "compaction")
             return out, mask, n
         return call
 
-    return {"firstorder": firstorder, "mc_volume": mc_volume, "mc_slab": mc_slab,
-            "mc_finalize": mc_finalize, "compact": compact}
+    def glcm(images, masks, lo, hi, n_bins):
+        batch, nx, ny, nz = images.shape
+
+        def call():
+            counts = torch.zeros((batch, n_bins, n_bins), dtype=torch.int32,
+                                 device=images.device)
+            out = torch.empty((batch, n_bins, n_bins), device=images.device)
+            ok(gl_lib.glcm_matrix_launch(images.data_ptr(), masks.data_ptr(), lo.data_ptr(),
+                                         hi.data_ptr(), batch, nx, ny, nz, n_bins,
+                                         PARENT_GLCM_TILE, counts.data_ptr(), out.data_ptr(),
+                                         stream), "GLCM")
+            return out
+        return call
+
+    return {"compact": compact, "glcm": glcm}
 
 
 def device_split(fn, reps=5, tries=3):
@@ -1032,12 +999,16 @@ def main():
     print(f"[batch] compaction == plain bitwise: 5 patterns x B in (1, 3, 16) x "
           f"M in (512, 4096, 131072)")
     for v, k, cap in rec_cp.calls:
-        got, want = cp.compact_batch(v, k, cap), ref.compact_batch(v, k, cap)
-        check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"compaction kernel vs plain on the main path's launch B={len(v)} cap={cap}")
-        cp_err = max(cp_err, float((got[0] - want[0]).abs().max()))
+        want = ref.compact_batch(v, k, cap)
+        for tile in CP_TILES:
+            got = cp.compact_batch(v, k, cap, block=tile)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"compaction kernel vs plain on the main path's launch B={len(v)} cap={cap} "
+                  f"at tile {tile}")
+            cp_err = max(cp_err, float((got[0] - want[0]).abs().max()))
     print(f"[batch] compaction == plain bitwise on all {len(rec_cp.calls)} launches of the "
-          f"run: " + ", ".join(f"{tuple(v.shape[:2])}->{cap}" for v, _, cap in rec_cp.calls))
+          f"run at tiles {CP_TILES}: "
+          + ", ".join(f"{tuple(v.shape[:2])}->{cap}" for v, _, cap in rec_cp.calls))
     cv, ck, ccap = max(rec_cp.calls, key=lambda c: c[0].numel())
     cp_ms = time_ms(lambda: cp.compact_batch(cv, ck, ccap))
     cp_plain_ms = time_ms(lambda: ref.compact_batch(cv, ck, ccap))
@@ -1050,7 +1021,10 @@ def main():
                 / PEAK_BYTES_PER_S * 1e3}
     cp_dev, _ = device_trace(lambda: cp.compact_batch(cv, ck, ccap), reps=10)
     print(f"[batch] compaction at the largest launch (B={cb}, M={cm_}, cap={ccap}): kernel "
-          f"{cp_ms:.4f} ms/call (device {kernel_us(cp_dev, ['compact_kernel'])}), plain "
+          f"{cp_ms:.4f} ms/call (device {kernel_us(cp_dev, ['compact_'])}: "
+          + ", ".join(f"{n} {kernel_us(cp_dev, [n])}"
+                      for n in ("compact_count_kernel", "compact_scatter_kernel"))
+          + f"), tiles {cp.tiles(cm_, cp.DEFAULT_BLOCK)} a case, plain "
           f"{cp_plain_ms:.4f} ms, library (per-case boolean gather) {cp_lib_ms:.4f} ms, "
           f"bound {cp_bound['bytes']:.6f} ms (bytes; {c_read} survivors read)")
 
@@ -1279,18 +1253,24 @@ def main():
         got = gl.glcm_matrix_batch(imgs, msks, **kw)
         plain = gl.glcm_matrix_batch_ref(imgs, msks, kw["n_bins"], kw["value_range"])
         check(torch.equal(got, plain), f"GLCM kernel vs plain, bucket {tuple(imgs.shape)}")
+        for blk in GL_BLOCKS:
+            check(torch.equal(gl.glcm_matrix_batch(imgs, msks, **{**kw, "block": blk}), got),
+                  f"GLCM block {blk} vs {kw['block']}, bucket {tuple(imgs.shape)}")
         gl_err = max(gl_err, float((got - plain).abs().max()))
         gl_max = max(gl_max, int(got.max()))
         for b in range(len(imgs)):
             check(torch.equal(gl.glcm_matrix_batch(imgs[b:b + 1], msks[b:b + 1])[0], got[b]),
                   f"GLCM batched vs batch of one, bucket {tuple(imgs.shape)} case {b}")
     check(gl_max < 2 ** 24, f"a GLCM count of {gl_max} is not exact in float32")
-    print(f"[fam] GLCM kernel == plain == batch of one exactly on all {len(rec_gl.calls)} "
-          f"launches; largest count {gl_max} < 2^24")
+    print(f"[fam] GLCM kernel == plain == batch of one exactly, and at blocks {GL_BLOCKS}, on "
+          f"all {len(rec_gl.calls)} launches; largest count {gl_max} < 2^24")
     # the largest launch, with the masked range its pool took for both families
     big = max(range(len(rec_fo.calls)), key=lambda j: rec_fo.calls[j][0].numel())
     (fi, fm), fkw = rec_fo.calls[big], rec_fo.kwargs[big]
-    fo_ab_in = (fi, fm, fkw)  # phase 5c's first-order input
+    # the GLCM launch of the same pool, at the block its own lookup gave
+    gkw = next(kw for (gi, _), kw in zip(rec_gl.calls, rec_gl.kwargs)
+               if gi.shape == fi.shape and torch.equal(gi, fi))
+    fo_ab_in = (fi, fm, fkw, gkw)  # phase 5c's first-order and GLCM input
     rng_args = (fi.reshape(len(fi), -1), fm.reshape(len(fi), -1))
     rng_dev, _ = device_trace(lambda: ref.intensity_range(*rng_args, dim=1), reps=10)
     fo_ms = time_ms(lambda: fo.firstorder_packed_batch(fi, fm, **fkw))
@@ -1298,13 +1278,13 @@ def main():
                                                                  fkw["value_range"]),
                           reps=5, warmup=1)
     fo_dev, _ = device_trace(lambda: fo.firstorder_packed_batch(fi, fm, **fkw), reps=10)
-    gl_ms = time_ms(lambda: gl.glcm_matrix_batch(fi, fm, **fkw))
-    gl_plain_ms = time_ms(lambda: gl.glcm_matrix_batch_ref(fi, fm, fkw["n_bins"],
-                                                           fkw["value_range"]),
+    gl_ms = time_ms(lambda: gl.glcm_matrix_batch(fi, fm, **gkw))
+    gl_plain_ms = time_ms(lambda: gl.glcm_matrix_batch_ref(fi, fm, gkw["n_bins"],
+                                                           gkw["value_range"]),
                           reps=5, warmup=1)
-    gl_dev, _ = device_trace(lambda: gl.glcm_matrix_batch(fi, fm, **fkw), reps=10)
+    gl_dev, _ = device_trace(lambda: gl.glcm_matrix_batch(fi, fm, **gkw), reps=10)
     fo_bound, gl_bound, masked, pairs = intensity_bounds_ms(fm, gl.glcm_matrix_batch(fi, fm,
-                                                                                     **fkw))
+                                                                                     **gkw))
     print(f"[fam] the pool's masked range at the largest launch {tuple(fi.shape)}, taken once "
           f"for both families: device {sum(rng_dev.values()):.2f} us over {len(rng_dev)} "
           "kernel names")
@@ -1312,7 +1292,7 @@ def main():
             ("first-order", fo_ms, fo_plain_ms, fo_dev,
              ["fo_partials_kernel", "fo_fold_kernel"], fo_bound),
             ("GLCM", gl_ms, gl_plain_ms, gl_dev,
-             ["glcm_counts_kernel", "glcm_symmetrise_kernel"], gl_bound)]:
+             ["glcm_tile_kernel", "glcm_sum_kernel"], gl_bound)]:
         print(f"[fam] {label} at the largest launch {tuple(fi.shape)} ({masked} masked "
               f"voxels, {pairs} pairs): kernel {ms:.4f} ms/call (device kernels "
               f"{kernel_us(per_kernel, names)}: "
@@ -1556,25 +1536,27 @@ def main():
           f"{tiled_launches['fold_packed_chunks']}")
     del rec_sl, rec_fin, rec_fold
 
-    # -- 5c. first-order and marching cubes against the parent's kernels ------
+    # -- 5c. compaction and GLCM against the parent's kernels -----------------
     # (run here, after 8b: it reuses the inputs of phases 5, 7 and 8b)
-    for name, tag in (("firstorder", "fo_"), ("marching_cubes", "mc_")):
+    ab_kernels = (("compact", "compact_"), ("glcm", "glcm_"), ("firstorder", "fo_"),
+                  ("marching_cubes", "mc_"))
+    for name, tag in ab_kernels:
         lines = ptxas_lines(_build.library_path(name).with_suffix(".log").read_text(), tag)
         for line in lines:
             print(f"[ab5c] ptxas: {line}")
         check(lines and all("0 bytes spill stores, 0 bytes spill loads" in line
                             for line in lines if "spill" in line),
               f"{name}.cu: a kernel spills or printed no ptxas line: {lines}")
-    if (Path(parent) / "src" / "repro_torch" / "csrc" / "firstorder.cu").exists():
+    if (Path(parent) / "src" / "repro_torch" / "csrc" / "glcm.cu").exists():
         libs = build_parent_libs(parent, PARENT_SIGNATURES)
-        for name, tag in (("firstorder", "fo_"), ("marching_cubes", "mc_")):
+        for name, tag in ab_kernels:
             for line in ptxas_lines(libs[name][1], tag):
                 print(f"[ab5c] parent ptxas: {line}")
         par = parent_launchers(libs, torch.cuda.current_stream().cuda_stream)
-        afi, afm, afkw = fo_ab_in
+        afi, afm, afkw, agkw = fo_ab_in
         alo, ahi = afkw["value_range"]
         _, _, sp1 = cases["00001-1"]
-        fstack1 = (1, fx.shape[0], 1, fo.CANON_CHUNK)
+        fo_lib, mc_lib = libs["firstorder"][0], libs["marching_cubes"][0]
 
         def bits(label):
             def same(old, new):
@@ -1583,66 +1565,76 @@ def main():
                       f"{label}: the change's bits != the parent's")
             return same
 
-        def close(label, per_granule=False):
-            def same(old, new):
-                if per_granule:  # (vol_p, area_p) of either layout: per-granule sums
-                    old, new = (torch.stack([x[0].sum(1), x[1].sum(1)]) for x in (old, new))
-                else:
-                    new = torch.stack(list(new)).reshape(old.shape) if isinstance(new, tuple) \
-                        else new
-                np.testing.assert_allclose(new.cpu().numpy(), old.cpu().numpy(), rtol=1e-5,
-                                           atol=1e-3 if per_granule else 0.0,
-                                           err_msg=f"{label}: change vs parent")
-            return same
-
+        # (label, parent call, change call, check, kernel names, bound, new source)
+        fo_call = lambda: fo.firstorder_packed_batch(afi, afm, **afkw)  # noqa: E731
+        fold_call = lambda: fo.fold_packed_chunks(fx, fm, flo, fhi, **fkw)  # noqa: E731
+        mc1_call = lambda: mc.mc_volume_area(big_dev, 0.5, sp1)  # noqa: E731
+        mcb_call = lambda: mc.mc_volume_area_batch(mv, miso, msps)  # noqa: E731
+        slab_call = lambda: mc.mc_slab_partials(*sargs, **skw)  # noqa: E731
+        fin_call = lambda: mc.mc_partials_finalize(*fin_args)  # noqa: E731
         ab_entries = [
-            ("first-order (2,160,96,160)",
-             par["firstorder"](afi, afm, alo, ahi, afkw["n_bins"], afkw["block"]),
-             lambda: fo.firstorder_packed_batch(afi, afm, **afkw), bits("first-order"),
-             ["fo_partials_kernel", "fo_fold_kernel"]),
-            (f"fold {fx.shape[0]} chunks",
-             lambda f=par["firstorder"](fx.reshape(fstack1), fm.reshape(fstack1),
-                                        flo.reshape(1), fhi.reshape(1)): f()[0],
-             lambda: fo.fold_packed_chunks(fx, fm, flo, fhi, **fkw), bits("fold"),
-             ["fo_partials_kernel", "fo_fold_kernel"]),
-            (f"MC 00001-1 {tuple(big_dev.shape)}", par["mc_volume"](big_dev[None], sp1),
-             lambda: mc.mc_volume_area(big_dev, 0.5, sp1), close("MC 00001-1"),
-             ["mc_partials_kernel", "mc_finalize_kernel"]),
-            (f"MC stack {tuple(mv.shape)}", par["mc_volume"](mv, msps),
-             lambda: mc.mc_volume_area_batch(mv, miso, msps), close("MC stack"),
-             ["mc_partials_kernel", "mc_finalize_kernel"]),
-            (f"MC window {tuple(sv.shape)}", par["mc_slab"](*sargs, **skw),
-             lambda: mc.mc_slab_partials(*sargs, **skw), close("MC window", per_granule=True),
-             ["mc_partials_kernel"]),
-            (f"MC finalize {nparts} x 2", par["mc_finalize"](*fin_args),
-             lambda: mc.mc_partials_finalize(*fin_args), bits("MC finalize"),
-             ["mc_finalize_kernel"]),
-            (f"compaction B={cb} M={cm_} cap={ccap} (same source)",
-             par["compact"](cv, ck, ccap), lambda: cp.compact_batch(cv, ck, ccap),
-             bits("compaction"), ["compact_kernel"]),
+            (f"compaction B={cb} M={cm_} cap={ccap}", par["compact"](cv, ck, ccap),
+             lambda: cp.compact_batch(cv, ck, ccap), bits("compaction"), ["compact_"],
+             cp_bound, "compact"),
+            (f"GLCM {tuple(afi.shape)}", par["glcm"](afi, afm, alo, ahi, agkw["n_bins"]),
+             lambda: gl.glcm_matrix_batch(afi, afm, **agkw),
+             bits("GLCM"), ["glcm_"], gl_bound, "glcm"),
+            (f"first-order {tuple(afi.shape)} (same source)",
+             with_lib("firstorder", fo_lib, fo_call), fo_call, bits("first-order"),
+             ["fo_partials_kernel", "fo_fold_kernel"], fo_bound, None),
+            (f"fold {fx.shape[0]} chunks (same source)", with_lib("firstorder", fo_lib, fold_call),
+             fold_call, bits("fold"), ["fo_partials_kernel", "fo_fold_kernel"], fold_bound, None),
+            (f"MC 00001-1 {tuple(big_dev.shape)} (same source)",
+             with_lib("marching_cubes", mc_lib, mc1_call), mc1_call, bits("MC 00001-1"),
+             ["mc_partials_kernel", "mc_finalize_kernel"], mc_bound, None),
+            (f"MC stack {tuple(mv.shape)} (same source)",
+             with_lib("marching_cubes", mc_lib, mcb_call), mcb_call, bits("MC stack"),
+             ["mc_partials_kernel", "mc_finalize_kernel"], mcb_bound, None),
+            (f"MC window {tuple(sv.shape)} (same source)",
+             with_lib("marching_cubes", mc_lib, slab_call), slab_call, bits("MC window"),
+             ["mc_partials_kernel"], slab_bound, None),
+            (f"MC finalize {nparts} x 2 (same source)",
+             with_lib("marching_cubes", mc_lib, fin_call), fin_call, bits("MC finalize"),
+             ["mc_finalize_kernel"], fin_bound, None),
         ]
-        ab_bounds = [max(b.values()) for b in (fo_bound, fold_bound, mc_bound, mcb_bound,
-                                                 slab_bound, fin_bound, cp_bound)]
-        ab5c, ab_clocks = kernel_ab(ab_entries)
+        # row 9's launch floor: an empty kernel on the compaction's grid, twice
+        floor = cp.launch_floor(cb, cm_)
+        ab5c, ab_clocks = kernel_ab([e[:5] for e in ab_entries]
+                                    + [("compaction launch floor", floor, floor,
+                                        lambda old, new: None, ["compact_empty_kernel"])])
         print("[ab5c] input                              parent ms (2 turns)  change ms (2 "
               "turns)  parent kernels us  change kernels us  parent call us  change call us"
               "  bound us  change/parent kernels")
-        for (label, turns), bound in zip(ab5c, ab_bounds):
+        for (label, turns), entry in zip(ab5c, ab_entries + [None]):
             old, new = turns["old"], turns["new"]
             dn, do = (statistics.median(t[1] for t in turns_) for turns_ in (new, old))
+            bound = max(entry[5].values()) * 1e3 if entry else 0.0
             print(f"[ab5c] {label:36s} {'/'.join(f'{t[0]:.4f}' for t in old):19s}  "
                   f"{'/'.join(f'{t[0]:.4f}' for t in new):19s}  "
                   f"{'/'.join(f'{t[1]:.2f}' for t in old):17s}  "
                   f"{'/'.join(f'{t[1]:.2f}' for t in new):17s}  "
                   f"{'/'.join(f'{t[2]:.2f}' for t in old):14s}  "
-                  f"{'/'.join(f'{t[2]:.2f}' for t in new):14s}  {bound * 1e3:8.3f}  "
+                  f"{'/'.join(f'{t[2]:.2f}' for t in new):14s}  {bound:8.3f}  "
                   + (f"{ratio(dn, do)} ({'below' if dn < do else 'NOT below'} the parent's)"
                      if dn > 0 and do > 0 else "not measured (a trace lost its kernels)"))
             per = [json.dumps({k[:40]: round(us, 2) for k, us in t[0][3].items()})
                    for t in (old, new)]
             print(f"[ab5c]   per kernel, parent {per[0]}; change {per[1]}")
-        print(f"[ab5c] parent {parent} vs this tree, same inputs: first-order, fold, finalize and "
-              f"compaction bitwise, MC rtol 1e-5; nvidia-smi over the timed window: {ab_clocks}")
+            source = entry and entry[6]
+            if source and (Path(parent) / "src/repro_torch/csrc" / f"{source}.cu").read_bytes() \
+                    != (_build.CSRC / f"{source}.cu").read_bytes():
+                # the device times where both traces kept the kernels, else the events' ms
+                got, was = ((dn, do) if dn > 0 and do > 0 else
+                            (statistics.median(t[0] for t in new),
+                             statistics.median(t[0] for t in old)))
+                check(got < was, f"{label}: the change ({got:.4f}) is not below the parent "
+                                 f"({was:.4f})")
+        floor_us = statistics.median(t[1] for t in ab5c[-1][1]["new"])
+        print(f"[ab5c] compaction launch floor (an empty kernel on the grid of B={cb} M={cm_} at "
+              f"tile {cp.DEFAULT_BLOCK}): device {floor_us:.2f} us a launch, "
+              f"{2 * floor_us:.2f} us for the kernel's two")
+        print(f"[ab5c] parent {parent} vs this tree, same inputs, same bits; nvidia-smi over the "
+              f"timed window: {ab_clocks}")
     else:
         print(f"[ab5c] no parent checkout at {parent} (unpack one with git archive, or pass "
               f"--parent): the A/B is not measured")

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times this checkout's first-order and marching-cubes kernels at each block.
+"""Times this checkout's MC, first-order, GLCM and compaction kernels by block.
 
     python3 experiments/torch_kernel_blocks.py [--reps 20]
 
@@ -7,11 +7,14 @@ On the inputs of ``chip_smoke.py`` phase 5c: marching cubes at case
 00001-1 of ``table2_suite(seed=0)`` cropped to its ROI (228 x 84 x 141)
 and at the largest pass-2a stack of the 60-case cohort (seeds 0-2),
 threads a block 32-1024 (its bits the same at each: checked); first-order
-at that stack's images and masks, blocks of 1024-16384 voxels (bitwise the
-same: checked).  Per launch the median ms per call (CUDA events) and the
-device time of each kernel from a ``torch.profiler`` trace, beside the
-card's ``nvidia-smi`` name and power limit; one JSON line.  Needs a CUDA
-card.
+at that stack's images and masks, blocks of 1024-16384 voxels, and GLCM
+there at 1-64 blocks an SM (each bitwise the same: checked); compaction at
+the largest launch of a batched run over the cohort, tiles of 512-16384
+keep flags (bitwise the same: checked), beside its launch floor (an empty
+kernel on the same grid; the kernel's two passes pay it twice).  Per
+launch the median ms per call (CUDA events) and the device time of each
+kernel from a ``torch.profiler`` trace, beside the card's ``nvidia-smi``
+name and power limit; one JSON line.  Needs a CUDA card.
 """
 import argparse
 import importlib.util
@@ -25,6 +28,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 MC_BLOCKS = (32, 64, 96, 128, 192, 256, 512, 1024)
 FO_BLOCKS = (1024, 2048, 4096, 8192, 16384)
+GLCM_BLOCKS = (1, 2, 4, 8, 16, 64)
+COMPACT_TILES = (512, 1024, 2048, 4096, 8192, 16384)
 
 
 def load_smoke():
@@ -90,6 +95,24 @@ def main():
         fn = lambda: cs.fo.firstorder_packed_batch(imgs, msks, block=b, value_range=rng)  # noqa: E731
         cs.check(torch.equal(fn(), base), f"first-order: block {b} changed a bit")
         out["firstorder"][b] = measure(fn, fo_names)
+    out["glcm"] = {"shape": list(imgs.shape)}
+    base = cs.gl.glcm_matrix_batch(imgs, msks, value_range=rng)
+    for b in GLCM_BLOCKS:
+        fn = lambda: cs.gl.glcm_matrix_batch(imgs, msks, block=b, value_range=rng)  # noqa: E731
+        cs.check(torch.equal(fn(), base), f"GLCM: block {b} changed a bit")
+        out["glcm"][b] = measure(fn, ("glcm_tile_kernel", "glcm_sum_kernel"))
+    with cs.Recorder(cs.cp, "compact_batch") as rec:
+        cs.BatchedExtractor().run([c[1:] for c in cohort])
+    verts, keep, cap = max(rec.calls, key=lambda c: c[0].numel())
+    out["compact"] = {"shape": list(keep.shape), "cap": cap}
+    base = cs.ref.compact_batch(verts, keep, cap)
+    for b in COMPACT_TILES:
+        fn = lambda: cs.cp.compact_batch(verts, keep, cap, block=b)  # noqa: E731
+        cs.check(all(torch.equal(x, y) for x, y in zip(fn(), base)),
+                 f"compaction: tile {b} changed a bit")
+        out["compact"][b] = measure(fn, ("compact_count_kernel", "compact_scatter_kernel"))
+        out["compact"][b]["floor"] = measure(cs.cp.launch_floor(*keep.shape, block=b),
+                                             ("compact_empty_kernel",))
     print(json.dumps(out))
 
 

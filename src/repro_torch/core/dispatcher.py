@@ -70,8 +70,8 @@ def diameter_config(device, bucket: int, variant: str = "auto", block: int | Non
 
 
 def compact_config(device, bucket: int, block="auto", batch: int = 1) -> int:
-    """Threads of the compaction kernel for an input vertex bucket: the
-    tuned value for ``block='auto'``, else ``block``."""
+    """Keep flags a block of the compaction kernel takes for an input
+    vertex bucket: the tuned value for ``block='auto'``, else ``block``."""
     from repro_torch.runtime import autotune
 
     if block is not None and block != "auto":
@@ -92,7 +92,7 @@ def firstorder_config(device, shape, block="auto", batch: int = 1) -> int:
 
 
 def glcm_config(device, shape, block="auto", batch: int = 1) -> int:
-    """Voxels per block of the GLCM kernel; the contract of
+    """CUDA blocks an SM the GLCM launch aims at; the contract of
     :func:`firstorder_config` against the ``glcm`` namespace."""
     from repro_torch.runtime import autotune
 

@@ -271,7 +271,7 @@ class PlanExecutor:
         return dispatcher.diameter_config(self.device, cap, self.variant, batch=depth)
 
     def _resolve_compact(self, cap_in, depth: int = 1) -> int:
-        """Threads of a compaction launch over ``depth`` lists of ``cap_in``
+        """The tile of a compaction launch over ``depth`` lists of ``cap_in``
         slots."""
         return dispatcher.compact_config(self.device, cap_in, self.compact_block, batch=depth)
 

@@ -6,8 +6,10 @@ ordered pairs ``(q(v), q(v + offset))`` of quantised intensities at the
 three distance-1 axial offsets (:data:`OFFSETS`), over pairs whose voxels
 are both in the mask, and is symmetrised to ``g + g^T``.  The TPU kernel
 scattered with one-hot matrix products over concatenated pair arrays;
-the card's kernel (``csrc/glcm.cu``) reads each voxel's neighbours in
-place and counts with integer atomics.  Every count is an integer, exact
+the card's kernel (``csrc/glcm.cu``) quantises each tile of a case once
+into shared memory (:func:`tiling`), counts its pairs there with integer
+atomics into replicated histograms, writes one partial row a tile, and
+sums the rows in a second launch.  Every count is an integer, exact
 in any order and, below 2^24, in float32 (see :func:`glcm_matrix_batch`
 for when that holds), so kernel, plain version
 (:func:`glcm_matrix_batch_ref`) and reference agree exactly, and so do
@@ -17,6 +19,8 @@ the Haralick rows derived from them on the host
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import numpy as np
 import torch
@@ -25,9 +29,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 N_BINS = 32
-DEFAULT_BLOCK = 2048  # voxels per CUDA block
-THREADS = 256  # threads per CUDA block; ``block`` is a multiple of it
-LAUNCHES = 0  # kernel launches by glcm_matrix_batch on CUDA tensors
+DEFAULT_BLOCK = 4  # CUDA blocks an SM the launch aims at (:func:`tiling`)
+MAX_BLOCK = 64
+TILE_BYTES = 16384  # shared int8 bins of a tile, halo included (csrc/glcm.cu)
+MIN_TILE_VOXELS = 4096  # the fewest voxels a tile aims at
+# The kernel's revision: an autotune record measured against another one
+# is swept again (runtime/autotune.py).  2: quantise-once tiles in shared
+# memory, private histograms, a partial row a tile and a summing launch.
+REVISION = 2
+LAUNCHES = 0  # glcm_matrix_batch calls that launched the kernel (its two passes)
 #: distance-1 axial co-occurrence offsets along (X, Y, Z) of a (B, X, Y, Z)
 #: stack (symmetrised afterwards, so the opposite directions are covered)
 OFFSETS = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
@@ -36,7 +46,49 @@ FEATURES = ("Contrast", "Correlation", "Idm", "JointEnergy")
 N_FEATURES = len(FEATURES)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"glcm_matrix_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]}
+_SIGNATURES = {"glcm_matrix_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                      _P]}
+
+
+def valid_block(block) -> bool:
+    """Whether the kernel takes ``block`` (CUDA blocks an SM) as its knob."""
+    return block == int(block) and 1 <= block <= MAX_BLOCK
+
+
+def tiling(shape, batch: int, block: int, sms: int) -> tuple[int, int, int]:
+    """The kernel's tile ``(d, ry, rz)``: x-planes, y-rows and z-columns a
+    CUDA block owns in one case of ``shape`` (its halo aside).
+
+    The launch aims at ``block`` CUDA blocks on each of ``sms`` SMs over
+    ``batch`` cases, tiles of at least :data:`MIN_TILE_VOXELS`, as near
+    square in (x, y) as the volume allows, with whole z-rows unless a
+    row's halo tile would pass :data:`TILE_BYTES`; then the tile shrinks
+    until ``(d + 1)(ry + 1)(rz + 1)``, clipped to the volume, fits in it.
+    Every tiling counts the same pairs (``tests/test_torch_tile_models.py``).
+    """
+    nx, ny, nz = (int(s) for s in shape)
+    rz = min(nz, TILE_BYTES // 4 - 1)  # a z-split only past 4095 columns
+    target = max(1, -(-int(block) * int(sms) // int(batch)))  # tiles a case
+    area = max(1, max(MIN_TILE_VOXELS, -(-nx * ny * nz // target)) // rz)  # d x ry
+    ry = max(1, min(ny, math.isqrt(area)))
+    d = max(1, min(nx, area // ry))
+    while min(d + 1, nx) * min(ry + 1, ny) * min(rz + 1, nz) > TILE_BYTES:
+        if d >= ry:
+            d -= 1
+        else:
+            ry -= 1
+    return d, ry, rz
+
+
+def tile_count(shape, d: int, ry: int, rz: int) -> int:
+    """Tiles (CUDA blocks) of one case under the tiling ``(d, ry, rz)``."""
+    nx, ny, nz = (int(s) for s in shape)
+    return -(-nx // d) * -(-ny // ry) * -(-nz // rz)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pair_arrays(q, m):
@@ -122,8 +174,9 @@ def glcm_matrix_batch(images: torch.Tensor, masks: torch.Tensor, *,
 
     ``images``/``masks``: (B, X, Y, Z) float32, one shape bucket.  A CUDA
     tensor launches the kernel (or raises); only a CPU tensor takes the
-    plain version.  ``block`` (a multiple of :data:`THREADS`) is the
-    voxels one CUDA block counts; it never changes the result.
+    plain version.  ``block`` (1 to :data:`MAX_BLOCK`) is the CUDA blocks
+    an SM the launch aims at, which sizes the tiles (:func:`tiling`); it
+    never changes the result.
     ``value_range`` is the masked ``(lo, hi)`` of ``ref.intensity_range``
     over each case where the caller has it; else it is taken here.
 
@@ -136,25 +189,30 @@ def glcm_matrix_batch(images: torch.Tensor, masks: torch.Tensor, *,
     then differ.
     """
     global LAUNCHES
-    if block % THREADS or block <= 0:
-        raise ValueError(f"glcm block must be a positive multiple of {THREADS}, got {block}")
+    if not valid_block(block):
+        raise ValueError(f"glcm block must be an integer in [1, {MAX_BLOCK}], got {block}")
     _ref.check_bins(n_bins)
     if images.device.type == "cpu":
         return glcm_matrix_batch_ref(images, masks, n_bins, value_range)
     _ref.check_volumes(images, masks)
     batch, nx, ny, nz = images.shape
-    if nx * ny * nz + block >= 2 ** 31 or 6 * nx * ny * nz >= 2 ** 31:
-        raise ValueError(f"volumes of {nx * ny * nz} voxels and block {block} are outside "
-                         f"the kernel's 32-bit indices and counts")
+    if 6 * nx * ny * nz >= 2 ** 31:
+        raise ValueError(f"volumes of {nx * ny * nz} voxels are outside the kernel's 32-bit "
+                         f"counts")
+    d, ry, rz = tiling((nx, ny, nz), batch, int(block), _sm_count(images.device.index))
+    tiles = tile_count((nx, ny, nz), d, ry, rz)
+    if batch * tiles >= 2 ** 31:
+        raise ValueError(f"{batch} x {tiles} tiles are outside the kernel's grid")
     lo, hi = (value_range if value_range is not None else
               _ref.intensity_range(images.reshape(batch, -1), masks.reshape(batch, -1), dim=1))
-    counts = torch.zeros((batch, n_bins, n_bins), dtype=torch.int32, device=images.device)
+    partials = torch.empty((batch, tiles, n_bins * n_bins), dtype=torch.int32,
+                           device=images.device)
     out = torch.empty((batch, n_bins, n_bins), dtype=torch.float32, device=images.device)
     lib = _build.load("glcm", _SIGNATURES)
     with torch.cuda.device(images.device):
         err = lib.glcm_matrix_launch(
             images.data_ptr(), masks.data_ptr(), lo.data_ptr(), hi.data_ptr(), batch,
-            nx, ny, nz, n_bins, block, counts.data_ptr(), out.data_ptr(),
+            nx, ny, nz, n_bins, d, ry, rz, partials.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "glcm_matrix_batch")

@@ -106,7 +106,7 @@ def compact_survivors_batch(verts, keep, cap: int, *, device=None, block="auto")
     ``verts``: (B, M, 3), ``keep``: (B, M) -> ``(out, mask, n)`` device
     tensors: ``out`` (B, cap, 3), ``mask`` (B, cap) bool, ``n`` (B,) int32
     total survivor counts.  Bitwise the host path's ``np.nonzero`` gather
-    and zero pad.  ``block='auto'`` takes the tuned threads of this input
+    and zero pad.  ``block='auto'`` takes the tuned tile of this input
     bucket at depth B.
     """
     dev = resolve_device(device)

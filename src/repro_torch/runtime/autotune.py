@@ -12,9 +12,11 @@ every later call.  The tuned axes:
   :data:`DEFAULT_BLOCKS`, timed as the kernel launch of
   ``max_diameters_sq_batch`` on a ``(depth, bucket)`` stack, the launch
   pass 2b issues;
-* **compaction**: the kernel's threads (a multiple of 32 up to 1024);
+* **compaction**: ``block``, the keep flags a CUDA block takes (a
+  multiple of ``compact.TILE_GRAIN``, 512, up to 16384);
 * **first-order**: ``block`` (a multiple of ``firstorder.CANON_CHUNK``);
-* **GLCM**: ``block`` (a multiple of ``glcm.THREADS``, 256).
+* **GLCM**: ``block``, the CUDA blocks an SM its launch aims at, which
+  sizes its tiles (1 to ``glcm.MAX_BLOCK``).
 
 None of these changes a bit of a result: the direct diameter variants
 agree bitwise at every block, compaction copies bits, and the family
@@ -32,10 +34,10 @@ Cache schema (versioned, shared with the reference): one JSON object
 ``{"schema": 3, "entries": {...}}`` keyed ``"diameter/cuda/M<bucket>/B<depth>"``,
 ``"compact/cuda/M<bucket>/B<depth>"`` and ``"<family>/cuda/S<nx>x<ny>x<nz>/B<depth>"``;
 ``B<depth>`` is the power-of-two batch-depth bucket (:func:`batch_bucket`).
-Each record holds the winner and the measured table (microseconds); a
-diameter or first-order record also its kernels' ``revision``
-(``kernels/diameter.REVISION``, ``kernels/firstorder.REVISION``), and one
-measured against another revision (or carrying none) is swept again.
+Each record holds the winner and the measured table (microseconds) and
+its kernels' ``revision`` (``REVISION`` of ``kernels/diameter.py``,
+``compact.py``, ``firstorder.py`` and ``glcm.py``); one measured against
+another revision (or carrying none) is swept again.
 The reference's files read back here and ours there (its keys carry
 ``pallas`` or ``interpret`` where ours carry ``cuda``, which it never
 looks up).  A v1 file (flat,
@@ -92,9 +94,9 @@ DEFAULT_VARIANTS = ("seqacc", "nomask")
 # most 1.3% at the two largest keys and is left out (4 blocks at most, so
 # a sweep grows by no more than a third over three blocks)
 DEFAULT_BLOCKS = (64, 128, 256, 512)
-DEFAULT_COMPACT_BLOCKS = (256, 512, 1024)
+DEFAULT_COMPACT_BLOCKS = (1024, 2048, 4096, 8192)  # keep flags a CUDA block
 DEFAULT_FIRSTORDER_BLOCKS = (1024, 2048, 4096)
-DEFAULT_GLCM_BLOCKS = (512, 1024, 2048, 4096)
+DEFAULT_GLCM_BLOCKS = (2, 4, 8)  # CUDA blocks an SM
 # variants a cached diameter entry may name for 'auto': the direct ones
 AUTO_VARIANTS = tuple(v for v in _diam.VARIANTS if v != "gram")
 
@@ -388,7 +390,7 @@ def get_diameter_config(bucket: int, device, *, batch: int = 1) -> DiameterConfi
 
 
 # ---------------------------------------------------------------------------
-# compaction threads
+# compaction tile
 # ---------------------------------------------------------------------------
 
 
@@ -410,7 +412,7 @@ def _compact_probe(bucket: int, device, batch: int, seed: int = 0):
 
 def measure_compact_configs(bucket: int, device, configs, *, batch: int = 4) -> dict:
     """Median device seconds of the compaction kernel at each
-    :class:`CompactConfig`'s threads on one probe."""
+    :class:`CompactConfig`'s tile on one probe."""
     verts, keep, cap = _compact_probe(bucket, device, batch)
     with torch.cuda.device(verts.device):
         return _time_launches({c: functools.partial(_compact.compact_batch, verts, keep, cap,
@@ -418,37 +420,40 @@ def measure_compact_configs(bucket: int, device, configs, *, batch: int = 4) -> 
 
 
 def sweep_compact(bucket: int, device, *, batch: int = 4):
-    """Measure every thread count; returns ``(best, table)`` keyed
+    """Measure every tile; returns ``(best, table)`` keyed
     ``str(block)`` in microseconds."""
     configs = [CompactConfig(b) for b in DEFAULT_COMPACT_BLOCKS]
     return _table(measure_compact_configs(bucket, device, configs, batch=batch), _block_name)
 
 
 def _parse_compact(rec) -> CompactConfig | None:
+    if rec.get("revision") != _compact.REVISION:
+        return None  # measured against another kernel (or before revisions)
     cfg = CompactConfig(int(rec["block"]))
-    return cfg if _valid_block(cfg.block) else None
+    return cfg if _compact.valid_block(cfg.block) else None
 
 
 def get_compact_config(bucket: int, device, *, batch: int = 1) -> CompactConfig:
-    """Cached-or-swept compaction threads per (input bucket, depth); the
+    """Cached-or-swept compaction tile per (input bucket, depth); the
     contract of :func:`get_diameter_config`."""
     backend = torch.device(device).type
     if backend == "cpu":
         return DEFAULT_COMPACT_CONFIG
     return _cached_or_swept(
         "compact", compact_key(bucket, backend, batch), DEFAULT_COMPACT_CONFIG, _parse_compact,
-        lambda: sweep_compact(bucket, device, batch=batch_bucket(batch)), _block_name)
+        lambda: sweep_compact(bucket, device, batch=batch_bucket(batch)), _block_name,
+        extra={"revision": _compact.REVISION})
 
 
 # ---------------------------------------------------------------------------
 # intensity-family (firstorder / glcm) blocks
 # ---------------------------------------------------------------------------
 
-# blocks, default, granule and the kernel's revision (None: not versioned)
+# blocks, default, the blocks the kernel takes, and the kernel's revision
 _FAMILIES = {
-    "firstorder": (DEFAULT_FIRSTORDER_BLOCKS, DEFAULT_FIRSTORDER_CONFIG, _fo.CANON_CHUNK,
-                   _fo.REVISION),
-    "glcm": (DEFAULT_GLCM_BLOCKS, DEFAULT_GLCM_CONFIG, _glcm.THREADS, None),
+    "firstorder": (DEFAULT_FIRSTORDER_BLOCKS, DEFAULT_FIRSTORDER_CONFIG,
+                   lambda b: b > 0 and b % _fo.CANON_CHUNK == 0, _fo.REVISION),
+    "glcm": (DEFAULT_GLCM_BLOCKS, DEFAULT_GLCM_CONFIG, _glcm.valid_block, _glcm.REVISION),
 }
 
 
@@ -506,22 +511,22 @@ def sweep_family(family: str, shape, device, *, batch: int = 4):
 def get_family_config(family: str, shape, device, *, batch: int = 1) -> FamilyConfig:
     """Cached-or-swept family block per (volume bucket, depth); the
     contract of :func:`get_diameter_config`.  ``shape`` should already be
-    a bucket (:func:`mc_shape_bucket`).  A cached block that is not a
-    multiple of the kernel's granule, or a first-order record measured
-    against another kernel revision, counts as a miss."""
-    _, default, granule, revision = _family(family)
+    a bucket (:func:`mc_shape_bucket`).  A cached block the kernel does
+    not take, or a record measured against another kernel revision,
+    counts as a miss."""
+    _, default, valid, revision = _family(family)
     backend = torch.device(device).type
     if backend == "cpu":
         return default
     shape = tuple(int(s) for s in shape)
 
     def parse(rec):
-        if revision is not None and rec.get("revision") != revision:
+        if rec.get("revision") != revision:
             return None
         cfg = FamilyConfig(int(rec["block"]))
-        return cfg if cfg.block > 0 and cfg.block % granule == 0 else None
+        return cfg if valid(cfg.block) else None
 
     return _cached_or_swept(
         family, family_key(family, shape, backend, batch), default, parse,
         lambda: sweep_family(family, shape, device, batch=batch_bucket(batch)), _block_name,
-        extra=None if revision is None else {"revision": revision})
+        extra={"revision": revision})

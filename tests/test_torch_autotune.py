@@ -64,7 +64,8 @@ def _v2_payload():
         "entries": {
             "diameter/cuda/M256": {"variant": "nomask", "block": 128, "us": 11.0, "table": {},
                                    "revision": diameter.REVISION},
-            "compact/cuda/M1024": {"block": 512, "us": 9.0, "table": {}},
+            "compact/cuda/M1024": {"block": 2048, "us": 9.0, "table": {},
+                                   "revision": compact.REVISION},
             "bogus-non-dict": 17,
         },
     }
@@ -80,8 +81,8 @@ def test_defaults_are_the_kernels():
     assert "gram" not in autotune.DEFAULT_VARIANTS
     assert set(autotune.DEFAULT_VARIANTS) <= set(diameter.VARIANTS)
     assert all(b % firstorder.CANON_CHUNK == 0 for b in autotune.DEFAULT_FIRSTORDER_BLOCKS)
-    assert all(b % glcm.THREADS == 0 for b in autotune.DEFAULT_GLCM_BLOCKS)
-    assert all(b % 32 == 0 and b <= 1024 for b in autotune.DEFAULT_COMPACT_BLOCKS)
+    assert all(glcm.valid_block(b) for b in autotune.DEFAULT_GLCM_BLOCKS)
+    assert all(compact.valid_block(b) for b in autotune.DEFAULT_COMPACT_BLOCKS)
 
 
 def test_cache_path_default_and_env(monkeypatch, tmp_path):
@@ -143,7 +144,7 @@ def test_v2_file_migrates_on_load(cache_path, monkeypatch, measured):
         monkeypatch.setattr(autotune, name,
                             lambda *a, **k: pytest.fail("migrated v2 entry ignored: re-swept"))
     assert autotune.get_diameter_config(256, "cuda") == autotune.DiameterConfig("nomask", 128)
-    assert autotune.get_compact_config(1024, "cuda") == autotune.CompactConfig(512)
+    assert autotune.get_compact_config(1024, "cuda") == autotune.CompactConfig(2048)
     # an unmeasured depth is a miss: the B4 slot sweeps
     monkeypatch.setattr(autotune, "sweep_diameter", sweep)
     autotune.get_diameter_config(256, "cuda", batch=4)
@@ -294,17 +295,17 @@ def test_compact_and_family_sweeps_cache_their_argmin(cache_path, monkeypatch):
 
     def compact_time(bucket, device, configs, *, batch):
         seen.extend(("compact", c.block, batch) for c in configs)
-        return {c: abs(c.block - 512) + 1.0 for c in configs}
+        return {c: abs(c.block - 2048) + 1.0 for c in configs}
 
     def family_time(family, shape, device, configs, *, batch):
         seen.extend((family, c.block, batch) for c in configs)
-        return {c: abs(c.block - 4096) + 1.0 for c in configs}
+        return {c: abs(c.block - (4096 if family == "firstorder" else 4)) + 1.0 for c in configs}
 
     monkeypatch.setattr(autotune, "measure_compact_configs", compact_time)
     monkeypatch.setattr(autotune, "measure_family_configs", family_time)
-    assert autotune.get_compact_config(8192, "cuda", batch=5).block == 512
+    assert autotune.get_compact_config(8192, "cuda", batch=5).block == 2048
     assert autotune.get_family_config("firstorder", (64, 32, 32), "cuda", batch=2).block == 4096
-    assert autotune.get_family_config("glcm", (64, 32, 32), "cuda").block == 4096
+    assert autotune.get_family_config("glcm", (64, 32, 32), "cuda").block == 4
     entries = json.load(open(cache_path))["entries"]
     assert set(entries) == {"compact/cuda/M8192/B8", "firstorder/cuda/S64x32x32/B2",
                             "glcm/cuda/S64x32x32/B1"}
@@ -349,31 +350,69 @@ def test_firstorder_record_of_another_revision_is_swept_again(cache_path, monkey
     assert not seen  # the new record is a hit
 
 
+@pytest.mark.parametrize("kind", ["compact", "glcm"])
+@pytest.mark.parametrize("revision", [None, 1])
+def test_compact_and_glcm_records_of_another_revision_are_swept_again(cache_path, monkeypatch,
+                                                                      kind, revision):
+    """A compaction or GLCM record measured against the kernels before
+    their redesign (revision 1, or no revision) is a miss; the sweep's
+    record carries the kernel's revision and is then a hit."""
+    seen = []
+    fast = {"compact": 2048, "glcm": 8}[kind]
+    timed = lambda configs: seen.extend(c.block for c in configs) or \
+        {c: 1.0 + (c.block != fast) for c in configs}  # noqa: E731
+    monkeypatch.setattr(autotune, "measure_compact_configs",
+                        lambda bucket, device, configs, *, batch: timed(configs))
+    monkeypatch.setattr(autotune, "measure_family_configs",
+                        lambda family, shape, device, configs, *, batch: timed(configs))
+    if kind == "compact":
+        key, module, blocks = (autotune.compact_key(4096, "cuda"), compact,
+                               autotune.DEFAULT_COMPACT_BLOCKS)
+        lookup = lambda: autotune.get_compact_config(4096, "cuda")  # noqa: E731
+    else:
+        key, module, blocks = (autotune.family_key("glcm", (32, 32, 32), "cuda"), glcm,
+                               autotune.DEFAULT_GLCM_BLOCKS)
+        lookup = lambda: autotune.get_family_config("glcm", (32, 32, 32), "cuda")  # noqa: E731
+    assert module.REVISION == 2
+    record = {"block": fast}  # the block the sweep picks: only its revision is stale
+    if revision is not None:
+        record["revision"] = revision
+    autotune.AutotuneCache().put(key, record)
+    sweeps = autotune.SWEEPS
+    assert lookup().block == fast
+    assert autotune.SWEEPS == sweeps + 1 and seen == list(blocks)
+    assert autotune.AutotuneCache().get(key)["revision"] == module.REVISION
+    seen.clear()
+    assert lookup().block == fast and not seen  # the new record is a hit
+
+
 def test_pinned_entries_reach_the_executor(cache_path, monkeypatch):
     """Entries pinned in the cache are what the executor's resolution
     hands its launches on the card (no kernel runs: the resolution only
     reads the device's type)."""
     monkeypatch.setenv("REPRO_AUTOTUNE", "0")  # a miss must not sweep here
     cache = autotune.AutotuneCache()
-    cache.put(autotune.compact_key(4096, "cuda", batch=3), {"block": 256})
+    cache.put(autotune.compact_key(4096, "cuda", batch=3),
+              {"block": 1024, "revision": compact.REVISION})
     cache.put(autotune.family_key("firstorder", (64, 32, 32), "cuda", batch=2),
               {"block": 4096, "revision": firstorder.REVISION})
-    cache.put(autotune.family_key("glcm", (64, 32, 32), "cuda", batch=2), {"block": 512})
+    cache.put(autotune.family_key("glcm", (64, 32, 32), "cuda", batch=2),
+              {"block": 8, "revision": glcm.REVISION})
     cache.put(autotune.sweep_key(1024, "cuda", batch=5), {"variant": "tri_prefetch",
                                                          "block": 128,
                                                          "revision": diameter.REVISION})
     ex = PlanExecutor(device="cpu")
     ex.device = torch.device("cuda")
-    assert ex._resolve_compact(4096, 3) == 256
+    assert ex._resolve_compact(4096, 3) == 1024
     assert ex._resolve_family_block("firstorder", (50, 30, 20), 2) == 4096
-    assert ex._resolve_family_block("glcm", (64, 32, 32), 2) == 512
+    assert ex._resolve_family_block("glcm", (64, 32, 32), 2) == 8
     assert ex._resolve_diameter(1024, 5) == ("tri_prefetch", 128)
     assert ex._resolve_diameter(1024, 1) == ("seqacc", diameter.DEFAULT_BLOCK)  # a miss
     assert ex._resolve_mc((64, 32, 32)) == (ex.mc_block, ex.mc_chunk)  # MC is not tuned
-    pinned = PlanExecutor(device="cpu", variant="gram", compact_block=128)
+    pinned = PlanExecutor(device="cpu", variant="gram", compact_block=512)
     pinned.device = torch.device("cuda")
     assert pinned._resolve_diameter(1024, 5) == ("gram", diameter.DEFAULT_BLOCK)
-    assert pinned._resolve_compact(4096, 3) == 128
+    assert pinned._resolve_compact(4096, 3) == 512
 
 
 def test_explicit_values_pass_through_the_dispatcher(cache_path, measured):
@@ -396,11 +435,13 @@ def test_a_rewritten_file_is_read_again(cache_path):
     """The parsed file is reused only while the file is unchanged: another
     process's write is seen by the next lookup."""
     cache = autotune.AutotuneCache()
-    cache.put(autotune.compact_key(2048, "cuda"), {"block": 256})
-    assert autotune.get_compact_config(2048, "cuda").block == 256
+    rev = {"revision": compact.REVISION}
+    cache.put(autotune.compact_key(2048, "cuda"), {"block": 2048, **rev})
+    assert autotune.get_compact_config(2048, "cuda").block == 2048
     with open(cache_path, "w") as f:  # another writer, another size
-        json.dump({"schema": 3, "entries": {"compact/cuda/M2048/B1": {"block": 1024},
-                                            "compact/cuda/M4096/B1": {"block": 512}}}, f)
+        json.dump({"schema": 3, "entries": {"compact/cuda/M2048/B1": {"block": 1024, **rev},
+                                            "compact/cuda/M4096/B1": {"block": 512, **rev}}},
+                  f)
     assert autotune.get_compact_config(2048, "cuda").block == 1024
     assert autotune.get_compact_config(4096, "cuda").block == 512
 

@@ -73,6 +73,56 @@ def test_compact_kernel_bitwise_equals_plain(dev, pattern, batch, m):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+TILES = [512, 1024, 2048, 4096, 8192, 16384]  # every tile a multiple of 512 up to 1024 threads
+
+
+def _compact_cases(dev):
+    """Stacks the tile decomposition must handle: (label, verts, keep, cap)."""
+    rng = np.random.default_rng(11)
+
+    def stack(batch, m, frac):
+        verts = torch.from_numpy((rng.normal(size=(batch, m, 3)) * 20.0)
+                                 .astype(np.float32)).to(dev)
+        return verts, torch.from_numpy(rng.random((batch, m)) < frac).to(dev)
+
+    v, k = stack(16, 131072, 0.3)
+    yield "B=16 M=131072", v, k, 8192
+    v, k = stack(64, 37, 0.5)  # small lists, rows not 16-byte aligned
+    yield "B=64 M=37", v, k, 16
+    v, k = stack(3, 4099, 0.4)
+    yield "n=0", v, torch.zeros_like(k), 512
+    yield "n > cap", v, k, 100
+    yield "cap > M", v, k, 5000
+    v, k = stack(5, 65536, 0.06)  # the cohort's largest launch
+    yield "B=5 M=65536", v, k, 1024
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_compact_kernel_bitwise_at_every_tile(dev, tile):
+    """Bitwise the plain version at every tile, and each case alone."""
+    for label, verts, keep, cap in _compact_cases(dev):
+        got = compact.compact_batch(verts, keep, cap, block=tile)
+        want = ref.compact_batch(verts, keep, cap)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), (label, tile)
+        for b in (0, len(verts) - 1):
+            one = compact.compact_batch(verts[b:b + 1], keep[b:b + 1], cap, block=tile)
+            assert all(torch.equal(o[0], g[b]) for o, g in zip(one, got)), (label, tile, b)
+
+
+def test_compact_launch_floor_and_refusals(dev):
+    floor = compact.launch_floor(5, 65536)
+    before = compact.LAUNCHES
+    floor()
+    torch.cuda.synchronize()
+    assert compact.LAUNCHES == before  # the floor is no launch of the kernel
+    verts = torch.zeros((2, 64, 3), device=dev)
+    keep = torch.ones((2, 64), dtype=torch.bool, device=dev)
+    for bad in (256, 1000, 32768):
+        with pytest.raises(ValueError, match="block"):
+            compact.compact_batch(verts, keep, 8, block=bad)
+
+
 def _volumes(dev):
     rng = np.random.default_rng(1)
     vols = [np.pad(sphere_mask(30, 12.0), 1),

@@ -86,12 +86,58 @@ def test_kernel_equals_plain_other_bin_counts(dev, family, n_bins):
 
 
 @pytest.mark.parametrize("family,blocks", [("firstorder", (1024, 2048, 8192)),
-                                           ("glcm", (256, 2048, 8192))])
+                                           ("glcm", (1, 2, 4, 8, 16, 64))])
 def test_block_never_changes_a_bit(dev, family, blocks):
     _, kernel, _ = KERNELS[family]
     imgs, msks = _case_00001_1(dev)
     outs = [kernel(imgs, msks, block=b) for b in blocks]
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+GLCM_BLOCKS = (1, 2, 4, 8, 16, 64)
+
+
+def _glcm_case(dev, kind):
+    """(images, masks) of the GLCM tile kernel's hard cases."""
+    rng = np.random.default_rng(5)
+    shape = {"y-split": (2, 3, 700, 700), "z-split": (2, 2, 3, 5000),
+             "unaligned": (3, 9, 13, 37)}.get(kind, (2, 40, 33, 48))
+    imgs = rng.normal(40.0, 15.0, shape).astype(np.float32)
+    msks = (rng.random(shape) < 0.6).astype(np.float32)
+    if kind == "one-level":  # every masked voxel in one bin: the worst collisions
+        imgs[:] = 11.0
+    elif kind == "empty":
+        msks[:] = 0.0
+    elif kind == "full":
+        msks[:] = 1.0
+    return torch.from_numpy(imgs).to(dev), torch.from_numpy(msks).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["one-level", "empty", "full", "y-split", "z-split",
+                                  "unaligned"])
+def test_glcm_exact_at_every_block(dev, kind):
+    """The tile kernel == the plain version exactly at every block, and a
+    case alone == its row of the stack (a y-split: a 700 x 700 plane is
+    larger than a block's shared memory; a z-split: 5,000-voxel rows)."""
+    imgs, msks = _glcm_case(dev, kind)
+    want = glcm.glcm_matrix_batch_ref(imgs, msks)
+    for block in GLCM_BLOCKS:
+        got = glcm.glcm_matrix_batch(imgs, msks, block=block)
+        assert torch.equal(got, want), (kind, block)
+        one = glcm.glcm_matrix_batch(imgs[1:2], msks[1:2], block=block)
+        assert torch.equal(one[0], got[1]), (kind, block)
+    if kind == "empty":
+        assert not want.any()
+    elif kind == "one-level":
+        assert int((want > 0).sum()) == len(imgs)
+
+
+@pytest.mark.parametrize("n_bins", [1, 2, 5, 16, 31, 32, 33, 45, 63, 64])
+def test_glcm_exact_at_every_bin_count(dev, n_bins):
+    imgs, msks = _glcm_case(dev, "random")
+    want = glcm.glcm_matrix_batch_ref(imgs, msks, n_bins)
+    for block in (1, glcm.DEFAULT_BLOCK, 64):
+        assert torch.equal(glcm.glcm_matrix_batch(imgs, msks, n_bins=n_bins, block=block), want)
 
 
 @pytest.mark.parametrize("family", sorted(KERNELS))
