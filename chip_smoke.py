@@ -46,35 +46,39 @@ Phases:
      compaction kernel also on five keep patterns x B in {1, 3, 16} x M in
      {512, 4096, 131072}; times, device times, bounds and the library
      yardstick at the largest launch
-  5b. the main path's diameter sweep ('seqacc', 'nomask'): the -Xptxas -v
-     lines of the diameter kernels; the instructions a pair in the sweep
-     kernels' SASS hot loop (cuobjdump); with a parent checkout (--parent,
-     default build/ab_parent, unpacked there with git archive) the parent's
-     'seqacc' and 'nomask' kernels built from it against this tree's at
-     00001-1's unpruned list and the largest pass-2b stack, blocks 128, 256
-     and 512, in turns, same bits, CUDA events and trace device time, the
-     change's best below the parent's where the parent's diameter.cu
-     differs (else a control of the card's spread); nvidia-smi's SM clock
-     and power over the timed window; the instruction-rate ceiling (the
-     SASS's non-FMA FP32 instructions a pair x valid pairs at 132 SMs x 128
-     lanes x that clock) beside the FP32-peak bound
-  5c. (run after 8b, whose inputs it shares with phases 5, 7 and 8b) the
-     compaction and GLCM kernels against the parent's: the -Xptxas -v
-     lines of this tree's compaction, GLCM, first-order and MC kernels
-     (without spills) and the parent's; with a parent checkout (as for 5b)
-     the parent's compact.cu, glcm.cu, firstorder.cu and marching_cubes.cu
-     built from it, compaction and GLCM called as the parent's wrappers
-     called them, first-order and MC (the same sources, a control of the
-     card's spread) through this tree's wrappers, in turns with this tree's
-     on the same inputs (parent, change, change, parent), every pair
-     bitwise: compaction at the run's largest launch and GLCM at the
-     largest three-family stack, each below the parent's; first-order at
-     that stack and the tiled run's touched-chunk fold; MC at 00001-1, the
-     largest pass-2a stack, the tiled run's largest window and its
-     finalize; CUDA-event ms a call, the trace's device time of the
-     kernels and of the whole call, the bound, the compaction's launch
-     floor (an empty kernel on its grid, twice), nvidia-smi's SM clock and
+  5b. the diameter kernels: their -Xptxas -v lines (no spills); per
+     kernel the counts of its SASS hot loop (cuobjdump) a pair -- all
+     instructions, FP32, LDS, F2F and DMMA, each kernel over its own
+     FMNMX a pair (1 for a 'naive' launch's, else 4) -- and from them the
+     instruction-rate ceiling (instructions a pair x the pairs the kernel
+     computes at 132 SMs x 128 lanes x the SM clock) beside the FP32-peak
+     bound, and gram's conversion ceiling (F2F at 16 a clock an SM); with
+     a parent checkout (--parent, default build/ab_parent, unpacked there
+     with git archive) the parent's diameter.cu built from it and called
+     through its own C entries, every variant at block 256 against this
+     tree's on 00001-1's unpruned list and the largest pass-2b stack, in
+     turns (parent, change, change, parent), same bits (gram rtol 1e-6),
+     CUDA events and trace device time; the redesigned kernels ('fused',
+     'tri', 'naive', 'gram') each below the parent's device time, the
+     others printed as controls of the card's spread (all of them where
+     the parent's diameter.cu is this tree's); nvidia-smi's SM clock and
      power over the timed window
+  5c. (run after 8b, whose inputs it shares with phases 5, 7 and 8b) the
+     compaction, GLCM, first-order and MC kernels against the parent's:
+     the -Xptxas -v lines of this tree's kernels (without spills) and the
+     parent's; with a parent checkout (as for 5b) the parent's
+     compact.cu, glcm.cu, firstorder.cu and marching_cubes.cu built from
+     it and called through this tree's wrappers (the parent's C entries
+     are this tree's), in turns with this tree's on the same inputs
+     (parent, change, change, parent), every pair bitwise: compaction at
+     the run's largest launch and GLCM at the largest three-family stack;
+     first-order at that stack and the tiled run's touched-chunk fold; MC
+     at 00001-1, the largest pass-2a stack, the tiled run's largest window
+     and its finalize; each below the parent's where its source differs;
+     CUDA-event ms a call, the trace's device time of the kernels and of
+     the whole call, the bound, the compaction's launch floor (an empty
+     kernel on its grid, twice), nvidia-smi's SM clock and power over the
+     timed window
   6. batched main path: launch counts reset, BatchedExtractor().run over
      the 60 cases, counts read; rows == extract_one bitwise (seed 0), ==
      phase 4's CPU features at rtol 1e-4, device_compact off == on
@@ -137,7 +141,7 @@ Phases:
      cases and 00001-1 unpruned and BatchedExtractor(variant=v) over the
      60, counts read, == seqacc bitwise (gram rtol 1e-6); a torch.cdist
      yardstick at 00001-1's list
-  10. the kernels line; 11. the status line
+  10. the kernels line (each variant at block 256, as phase 5b); 11. the status line
 """
 import collections
 import ctypes
@@ -404,11 +408,21 @@ def ptxas_lines(log, name):
     return out
 
 
+def fmnmx_per_pair(fn):
+    """FMNMX a pair in the kernel whose mangled name is ``fn``: 1 in a
+    'naive' launch's (diameter_tile_kernel<R, c>, c < 4: one combo),
+    else 4 (every combo)."""
+    import re
+    m = re.search(r"diameter_tile_kernelILi\d+ELi(\d+)E", fn)
+    return 1 if m and int(m.group(1)) < 4 else 4
+
+
 def sass_loop_counts(lib_path, name):
     """Per kernel whose mangled name holds ``name``: the opcode counts of
     its hot loop in the SASS (``cuobjdump -sass``), the backward-branch
     region densest in FMNMX, and from them the instructions a pair (a pair
-    runs exactly 4 FMNMX).  None where cuobjdump is missing."""
+    runs :func:`fmnmx_per_pair` FMNMX in that kernel).  None where
+    cuobjdump is missing."""
     import re
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     if not tool.exists():
@@ -453,11 +467,13 @@ def sass_loop_counts(lib_path, name):
                 best = (density, ops, k + 1 - start)
         if best:
             _, ops, n = best
-            pairs = ops["FMNMX"] / 4
+            pairs = ops["FMNMX"] / fmnmx_per_pair(fn)
             result[fn] = {"loop_instructions": n, "pairs": pairs,
                           "per_pair": n / pairs,
                           "fp32_per_pair": (ops["FADD"] + ops["FMUL"] + ops["FMNMX"]) / pairs,
                           "lds_per_pair": ops["LDS"] / pairs,
+                          "f2f_per_pair": ops["F2F"] / pairs,
+                          "dmma_per_pair": ops["DMMA"] / pairs,
                           "opcodes": dict(ops.most_common(8))}
     return result
 
@@ -487,70 +503,31 @@ def build_parent_libs(parent, signatures):
     return libs
 
 
-def build_parent_diameter(parent):
-    """The parent checkout's ``csrc/diameter.cu`` built with this tree's
-    flags into its own library, with this tree's C entries
-    (``diameter._SIGNATURES``): ``(lib, build log)``."""
-    return build_parent_libs(parent, {"diameter": dm._SIGNATURES})["diameter"]
-
-
-def parent_launcher(lib, verts, masks, block, variant):
-    """A launch of the parent's 'seqacc' or 'nomask' kernel on this tree's
-    prepared input, the input prepared once: this tree's launch
-    (``diameter.batch_launcher``) bound to the parent's library."""
-    saved = _build._LIBS.get("diameter")
-    _build._LIBS["diameter"] = lib
-    try:
-        return dm.batch_launcher(verts, masks, block=block, variant=variant)
-    finally:
-        _build._LIBS["diameter"] = saved
-
-
-def diameter_ab(parent, inputs, blocks, reps=10):
-    """The parent's 'seqacc' and 'nomask' kernels against this tree's, on the
-    same prepared inputs, in turns (parent, change, change, parent): ms per
-    call (CUDA events, median of ``reps``) and device time (a trace, both
-    kernels of the call).  Both must give the same bits.  Returns rows
-    ``(input, variant, block, parent ms, change ms, parent device us,
-    change device us)`` and the nvidia-smi summary of the timed window."""
-    lib, log = build_parent_diameter(parent)
-    for line in ptxas_lines(log, "diameter_"):
-        print(f"[diam-ab] parent ptxas: {line}")
-    rows = []
-    smi = smi_sampler()
-    try:
-        for label, x, m in inputs:
-            for variant in ("seqacc", "nomask"):
-                for block in blocks:
-                    old = parent_launcher(lib, x, m, block, variant)
-                    new = dm.batch_launcher(x, m, block=block, variant=variant)
-                    check(torch.equal(old(), new()),
-                          f"parent vs change {variant}/{block} on {label}: bits differ")
-                    ms = {"old": [], "new": []}
-                    us = {"old": [], "new": []}
-                    for which in ("old", "new", "new", "old"):
-                        fn = old if which == "old" else new
-                        ms[which].append(time_ms(fn, reps=reps, warmup=2))
-                        us[which].append(device_us_per_call(fn))
-                    rows.append((label, variant, block, ms["old"], ms["new"], us["old"],
-                                 us["new"]))
-    finally:
-        clocks = smi_summary(smi)
-    return rows, clocks
-
-
-# the parent's C entries that phase 5c launches (commit 1d81a29's
-# csrc/firstorder.cu and marching_cubes.cu, the same sources as this tree's,
-# and its compact.cu and glcm.cu, one block a case and one thread a voxel)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# The variants whose kernels this tree redesigned against the parent
+# (c6c7d60): phase 5b holds each below the parent's device time; the other
+# variants' kernels are the parent's, controls of the card's spread.
+AB_CHANGED = ("fused", "tri", "naive", "gram")
+AB_BLOCK = 256
+# sass_loop_counts' counts a pair, by the name phase 5b prints
+SASS_LABELS = {"per_pair": "instructions", "fp32_per_pair": "FP32", "lds_per_pair": "LDS",
+               "f2f_per_pair": "F2F", "dmma_per_pair": "DMMA"}
+# The parent's C entries that phases 5b and 5c call: c6c7d60's are this
+# tree's, the same names and argument lists, so its libraries are bound to
+# this tree's wrappers, which pass those arguments.
 PARENT_SIGNATURES = {
+    "diameter": dm._SIGNATURES,
     "firstorder": fo._SIGNATURES,
     "marching_cubes": mc._SIGNATURES,
-    "compact": {"compact_batch_launch": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P]},
-    "glcm": {"glcm_matrix_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]},
+    "compact": cp._SIGNATURES,
+    "glcm": gl._SIGNATURES,
 }
-PARENT_COMPACT_THREADS = 1024  # the parent's compact.DEFAULT_BLOCK
-PARENT_GLCM_TILE = 2048  # the parent's glcm.DEFAULT_BLOCK: voxels a CUDA block
+
+
+def build_parent_diameter(parent):
+    """The parent checkout's ``csrc/diameter.cu`` built with this tree's
+    flags into its own library, with the parent's C entries: ``(lib, build
+    log)``."""
+    return build_parent_libs(parent, {"diameter": PARENT_SIGNATURES["diameter"]})["diameter"]
 
 
 def with_lib(name, lib, fn):
@@ -566,43 +543,51 @@ def with_lib(name, lib, fn):
     return call
 
 
-def parent_launchers(libs, stream):
-    """Calls of the parent's compaction and GLCM kernels as the parent's
-    wrappers made them (outputs allocated per call, the GLCM counts zeroed
-    by a memset per call), by kind."""
-    cp_lib, gl_lib = libs["compact"][0], libs["glcm"][0]
+def parent_launcher(lib, verts, masks, block, variant):
+    """A launch of the parent's ``variant`` kernel on this tree's prepared
+    input, the input prepared once: this tree's launch
+    (``diameter.batch_launcher``) bound to the parent's library."""
+    return with_lib("diameter", lib, lambda: dm.batch_launcher(verts, masks, block=block,
+                                                               variant=variant))()
 
-    def ok(err, what):
-        check(err == 0, f"the parent's {what} launch failed: CUDA error {err}")
 
-    def compact(verts, keep, cap):
-        batch, m = keep.shape
-
-        def call():
-            out = torch.empty((batch, cap, 3), device=verts.device)
-            mask = torch.empty((batch, cap), dtype=torch.bool, device=verts.device)
-            n = torch.empty(batch, dtype=torch.int32, device=verts.device)
-            ok(cp_lib.compact_batch_launch(verts.data_ptr(), keep.data_ptr(), batch, m, int(cap),
-                                           out.data_ptr(), mask.data_ptr(), n.data_ptr(),
-                                           PARENT_COMPACT_THREADS, stream), "compaction")
-            return out, mask, n
-        return call
-
-    def glcm(images, masks, lo, hi, n_bins):
-        batch, nx, ny, nz = images.shape
-
-        def call():
-            counts = torch.zeros((batch, n_bins, n_bins), dtype=torch.int32,
-                                 device=images.device)
-            out = torch.empty((batch, n_bins, n_bins), device=images.device)
-            ok(gl_lib.glcm_matrix_launch(images.data_ptr(), masks.data_ptr(), lo.data_ptr(),
-                                         hi.data_ptr(), batch, nx, ny, nz, n_bins,
-                                         PARENT_GLCM_TILE, counts.data_ptr(), out.data_ptr(),
-                                         stream), "GLCM")
-            return out
-        return call
-
-    return {"compact": compact, "glcm": glcm}
+def diameter_ab(parent, inputs, blocks, reps=10, variants=("seqacc", "nomask")):
+    """The parent's ``variants`` kernels against this tree's, on the same
+    prepared inputs, in turns (parent, change, change, parent): ms per
+    call (CUDA events, median of ``reps``) and device time (a trace, every
+    kernel of the call).  Both must give the same bits ('gram': rtol
+    1e-6, its float64 products may round apart).  Returns rows ``(input,
+    variant, block, parent ms, change ms, parent device us, change device
+    us)`` and the nvidia-smi summary of the timed window."""
+    lib, log = build_parent_diameter(parent)
+    for line in ptxas_lines(log, "diameter_"):
+        print(f"[diam-ab] parent ptxas: {line}")
+    rows = []
+    smi = smi_sampler()
+    try:
+        for label, x, m in inputs:
+            for variant in variants:
+                for block in blocks:
+                    old = parent_launcher(lib, x, m, block, variant)
+                    new = dm.batch_launcher(x, m, block=block, variant=variant)
+                    a, b = old(), new()
+                    what = f"parent vs change {variant}/{block} on {label}"
+                    if variant == "gram":
+                        np.testing.assert_allclose(b.cpu().numpy(), a.cpu().numpy(), rtol=1e-6,
+                                                   err_msg=what)
+                    else:
+                        check(torch.equal(a, b), f"{what}: bits differ")
+                    ms = {"old": [], "new": []}
+                    us = {"old": [], "new": []}
+                    for which in ("old", "new", "new", "old"):
+                        fn = old if which == "old" else new
+                        ms[which].append(time_ms(fn, reps=reps, warmup=2))
+                        us[which].append(device_us_per_call(fn))
+                    rows.append((label, variant, block, ms["old"], ms["new"], us["old"],
+                                 us["new"]))
+    finally:
+        clocks = smi_summary(smi)
+    return rows, clocks
 
 
 def device_split(fn, reps=5, tries=3):
@@ -1083,21 +1068,25 @@ def main():
           f".amax() per case, 3D combo only) {dmb_lib_ms:.4f} ms")
     del rec_cp, rec_mc, rec_dm
 
-    # -- 5b. the main path's diameter sweep: SASS, instruction-rate ceiling, the parent's
+    # -- 5b. the diameter kernels: SASS, ceilings, the parent's ---------------
     diam_lib = _build.library_path("diameter")
-    for line in ptxas_lines(diam_lib.with_suffix(".log").read_text(), "diameter_"):
+    lines = ptxas_lines(diam_lib.with_suffix(".log").read_text(), "diameter_")
+    for line in lines:
         print(f"[diam-ab] ptxas: {line}")
-    sass = sass_loop_counts(diam_lib, "diameter_sweep_kernel") or {}
+    check(lines and all("0 bytes spill stores, 0 bytes spill loads" in line
+                        for line in lines if "spill" in line),
+          f"diameter.cu: a kernel spills or printed no ptxas line: {lines}")
+    sass = sass_loop_counts(diam_lib, "diameter_") or {}
     for fn, c in sorted(sass.items()):
         print(f"[diam-ab] SASS hot loop of {fn}: {json.dumps(c)}")
     ab_inputs = [("00001-1 unpruned", verts[None], vmask[None]),
                  (f"pass-2b stack {tuple(dv.shape[:2])}", dv, dk)]
     if (Path(parent) / "src" / "repro_torch" / "csrc" / "diameter.cu").exists():
-        ab_rows, clocks = diameter_ab(parent, ab_inputs, VARIANT_BLOCKS)
-        print("[diam-ab] input                     variant  block  parent ms (2 turns)  "
+        ab_rows, clocks = diameter_ab(parent, ab_inputs, (AB_BLOCK,), variants=dm.VARIANTS)
+        print("[diam-ab] input                     variant       block  parent ms (2 turns)  "
               "change ms (2 turns)  parent device us  change device us  change/parent device")
         for label, variant, block, ms_o, ms_n, us_o, us_n in ab_rows:
-            print(f"[diam-ab] {label:25s} {variant:7s} {block:5d}  "
+            print(f"[diam-ab] {label:25s} {variant:12s} {block:5d}  "
                   f"{'/'.join(f'{t:.4f}' for t in ms_o):19s}  "
                   f"{'/'.join(f'{t:.4f}' for t in ms_n):19s}  "
                   f"{'/'.join(f'{t:.2f}' for t in us_o):16s}  "
@@ -1105,18 +1094,21 @@ def main():
                   f"{ratio(statistics.median(us_n), statistics.median(us_o))}")
         same_source = ((Path(parent) / "src/repro_torch/csrc/diameter.cu").read_bytes()
                        == (_build.CSRC / "diameter.cu").read_bytes())
-        for label, _, _ in ab_inputs:
-            for variant in ("seqacc", "nomask"):
-                mine = [r for r in ab_rows if r[0] == label and r[1] == variant]
-                best = [min(statistics.median(r[i]) for r in mine) for i in (4, 3)]
-                if same_source:  # a control: the card's spread between two equal builds
-                    print(f"[diam-ab] {variant} on {label}: the same diameter.cu in both trees; "
-                          f"best ms a call change {best[0]:.4f}, parent {best[1]:.4f}")
-                else:
-                    check(best[0] < best[1], f"{variant} on {label}: the change's best time is "
-                                             f"not below the parent's")
-        print(f"[diam-ab] parent {parent} vs this tree, same inputs, same bits; nvidia-smi over "
-              f"the timed window: {clocks}")
+        changed = () if same_source else AB_CHANGED
+        for label, variant, _, ms_o, ms_n, us_o, us_n in ab_rows:
+            # device time where both traces kept the kernels, else the events' ms
+            got, was = ((statistics.median(us_n), statistics.median(us_o))
+                        if min(us_n + us_o) > 0 else (statistics.median(ms_n),
+                                                      statistics.median(ms_o)))
+            if variant in changed:
+                check(got < was, f"{variant} on {label}: the change ({got:.4f}) is not below "
+                                 f"the parent ({was:.4f})")
+            else:  # a control: the parent's kernel in both trees
+                print(f"[diam-ab] {variant} on {label}: a control (the parent's kernel); change "
+                      f"{got:.4f}, parent {was:.4f} ({ratio(got, was)})")
+        print(f"[diam-ab] parent {parent} vs this tree, same inputs, same bits (gram rtol 1e-6); "
+              f"redesigned {changed} each below the parent's; nvidia-smi over the timed window: "
+              f"{clocks}")
     else:
         print(f"[diam-ab] no parent checkout at {parent} (unpack one with git archive, or pass "
               f"--parent): the A/B is not measured")
@@ -1125,8 +1117,7 @@ def main():
         clocks = smi_summary(sampler)
         print(f"[diam-ab] nvidia-smi over 40 timed calls at 00001-1: {clocks}")
     clock = clocks["clocks_sm_mhz"][1] if clocks else None
-    diam_ceiling = {}
-    # each at the block its phase timed: the tuned one, the default
+    # the main path's sweep, each at the block its phase timed: the tuned one, the default
     for label, n_pairs, block in (("00001-1 unpruned", pairs, tuned),
                                   ("pass-2b stack", dmb_pairs, dm.DEFAULT_BLOCK)):
         rows_r = dm.sweep_rows(block)
@@ -1135,13 +1126,44 @@ def main():
         if loop is None or not clock:
             print(f"[diam-ab] instruction-rate ceiling at {label}: not measured (SASS or clock missing)")
             continue
-        diam_ceiling[label] = rate_ceiling_ms(n_pairs, loop["fp32_per_pair"], clock)
-        print(f"[diam-ab] instruction-rate ceiling at {label} ({n_pairs} valid pairs): "
+        print(f"[diam-ab] seqacc instruction-rate ceiling at {label} ({n_pairs} valid pairs): "
               f"{loop['fp32_per_pair']:.3f} non-FMA FP32 instructions a pair (SASS, block "
-              f"{block}, R={rows_r}) at {clock:.0f} MHz = {diam_ceiling[label]:.5f} ms; all "
+              f"{block}, R={rows_r}) at {clock:.0f} MHz = "
+              f"{rate_ceiling_ms(n_pairs, loop['fp32_per_pair'], clock):.5f} ms; all "
               f"{loop['per_pair']:.3f} loop instructions a pair = "
               f"{rate_ceiling_ms(n_pairs, loop['per_pair'], clock):.5f} ms; the FP32 peak "
               f"bound {DIAM_OPS_PER_PAIR * n_pairs / PEAK_FP32_PER_S * 1e3:.5f} ms")
+    # the redesigned kernels at block AB_BLOCK: their own SASS counts over the
+    # pairs each computes (the mask's skips counted, computed_pairs)
+    rows_r = dm.sweep_rows(AB_BLOCK)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kernels_of = {"fused": [f"diameter_tile_kernelILi{rows_r}ELi4E"],
+                  "tri": [f"diameter_tile_kernelILi{rows_r}ELi4E"],
+                  "naive": [f"diameter_tile_kernelILi{rows_r}ELi{c}E" for c in range(4)],
+                  "gram": ["diameter_gram_kernel"]}
+    for label, x, m in ab_inputs:
+        for variant in AB_CHANGED:
+            loops = [next((c for fn, c in sass.items() if k in fn), None)
+                     for k in kernels_of[variant]]
+            n = sum(dm.computed_pairs(x.shape[1], AB_BLOCK, variant, mask=m[b])
+                    for b in range(len(x)))
+            fp32_bound = sum(dm.flop_estimate(x.shape[1], AB_BLOCK, variant, mask=m[b])
+                             for b in range(len(x))) / PEAK_FP32_PER_S * 1e3
+            if None in loops or not clock:
+                print(f"[diam-ab] {variant} at {label}: ceilings not measured (SASS or clock "
+                      f"missing)")
+                continue
+            per = {k: sum(c[k] for c in loops) for k in SASS_LABELS}
+            conv = (f"; F2F ceiling (16 a clock an SM) "
+                    f"{per['f2f_per_pair'] * n / (16 * sms * clock * 1e6) * 1e3:.5f} ms"
+                    if per["f2f_per_pair"] else "")
+            print(f"[diam-ab] {variant} at {label}, block {AB_BLOCK}: {n} pairs computed"
+                  f"{' a launch (4 launches)' if variant == 'naive' else ''}; SASS a pair "
+                  + ("(summed over the 4 launches) " if variant == "naive" else "")
+                  + ", ".join(f"{SASS_LABELS[k]} {v:.3f}" for k, v in per.items())
+                  + f"; instruction-rate ceiling at {clock:.0f} MHz "
+                  f"{rate_ceiling_ms(n, per['per_pair'], clock):.5f} ms, FP32 bound (counted "
+                  f"work) {fp32_bound:.5f} ms{conv}")
 
     # -- 6. the batched main path -------------------------------------------
     ext = BatchedExtractor()  # default device: the card
@@ -1536,7 +1558,7 @@ def main():
           f"{tiled_launches['fold_packed_chunks']}")
     del rec_sl, rec_fin, rec_fold
 
-    # -- 5c. compaction and GLCM against the parent's kernels -----------------
+    # -- 5c. compaction, GLCM, first-order and MC against the parent's -------
     # (run here, after 8b: it reuses the inputs of phases 5, 7 and 8b)
     ab_kernels = (("compact", "compact_"), ("glcm", "glcm_"), ("firstorder", "fo_"),
                   ("marching_cubes", "mc_"))
@@ -1548,14 +1570,13 @@ def main():
                             for line in lines if "spill" in line),
               f"{name}.cu: a kernel spills or printed no ptxas line: {lines}")
     if (Path(parent) / "src" / "repro_torch" / "csrc" / "glcm.cu").exists():
-        libs = build_parent_libs(parent, PARENT_SIGNATURES)
+        libs = build_parent_libs(parent, {name: PARENT_SIGNATURES[name] for name, _ in ab_kernels})
         for name, tag in ab_kernels:
             for line in ptxas_lines(libs[name][1], tag):
                 print(f"[ab5c] parent ptxas: {line}")
-        par = parent_launchers(libs, torch.cuda.current_stream().cuda_stream)
         afi, afm, afkw, agkw = fo_ab_in
-        alo, ahi = afkw["value_range"]
         _, _, sp1 = cases["00001-1"]
+        cp_lib, gl_lib = libs["compact"][0], libs["glcm"][0]
         fo_lib, mc_lib = libs["firstorder"][0], libs["marching_cubes"][0]
 
         def bits(label):
@@ -1565,7 +1586,9 @@ def main():
                       f"{label}: the change's bits != the parent's")
             return same
 
-        # (label, parent call, change call, check, kernel names, bound, new source)
+        # (label, parent call, change call, check, kernel names, bound, source)
+        cp_call = lambda: cp.compact_batch(cv, ck, ccap)  # noqa: E731
+        gl_call = lambda: gl.glcm_matrix_batch(afi, afm, **agkw)  # noqa: E731
         fo_call = lambda: fo.firstorder_packed_batch(afi, afm, **afkw)  # noqa: E731
         fold_call = lambda: fo.fold_packed_chunks(fx, fm, flo, fhi, **fkw)  # noqa: E731
         mc1_call = lambda: mc.mc_volume_area(big_dev, 0.5, sp1)  # noqa: E731
@@ -1573,29 +1596,26 @@ def main():
         slab_call = lambda: mc.mc_slab_partials(*sargs, **skw)  # noqa: E731
         fin_call = lambda: mc.mc_partials_finalize(*fin_args)  # noqa: E731
         ab_entries = [
-            (f"compaction B={cb} M={cm_} cap={ccap}", par["compact"](cv, ck, ccap),
-             lambda: cp.compact_batch(cv, ck, ccap), bits("compaction"), ["compact_"],
-             cp_bound, "compact"),
-            (f"GLCM {tuple(afi.shape)}", par["glcm"](afi, afm, alo, ahi, agkw["n_bins"]),
-             lambda: gl.glcm_matrix_batch(afi, afm, **agkw),
+            (f"compaction B={cb} M={cm_} cap={ccap}", with_lib("compact", cp_lib, cp_call),
+             cp_call, bits("compaction"), ["compact_"], cp_bound, "compact"),
+            (f"GLCM {tuple(afi.shape)}", with_lib("glcm", gl_lib, gl_call), gl_call,
              bits("GLCM"), ["glcm_"], gl_bound, "glcm"),
-            (f"first-order {tuple(afi.shape)} (same source)",
-             with_lib("firstorder", fo_lib, fo_call), fo_call, bits("first-order"),
-             ["fo_partials_kernel", "fo_fold_kernel"], fo_bound, None),
-            (f"fold {fx.shape[0]} chunks (same source)", with_lib("firstorder", fo_lib, fold_call),
-             fold_call, bits("fold"), ["fo_partials_kernel", "fo_fold_kernel"], fold_bound, None),
-            (f"MC 00001-1 {tuple(big_dev.shape)} (same source)",
-             with_lib("marching_cubes", mc_lib, mc1_call), mc1_call, bits("MC 00001-1"),
-             ["mc_partials_kernel", "mc_finalize_kernel"], mc_bound, None),
-            (f"MC stack {tuple(mv.shape)} (same source)",
-             with_lib("marching_cubes", mc_lib, mcb_call), mcb_call, bits("MC stack"),
-             ["mc_partials_kernel", "mc_finalize_kernel"], mcb_bound, None),
-            (f"MC window {tuple(sv.shape)} (same source)",
-             with_lib("marching_cubes", mc_lib, slab_call), slab_call, bits("MC window"),
-             ["mc_partials_kernel"], slab_bound, None),
-            (f"MC finalize {nparts} x 2 (same source)",
-             with_lib("marching_cubes", mc_lib, fin_call), fin_call, bits("MC finalize"),
-             ["mc_finalize_kernel"], fin_bound, None),
+            (f"first-order {tuple(afi.shape)}", with_lib("firstorder", fo_lib, fo_call), fo_call,
+             bits("first-order"), ["fo_partials_kernel", "fo_fold_kernel"], fo_bound,
+             "firstorder"),
+            (f"fold {fx.shape[0]} chunks", with_lib("firstorder", fo_lib, fold_call), fold_call,
+             bits("fold"), ["fo_partials_kernel", "fo_fold_kernel"], fold_bound, "firstorder"),
+            (f"MC 00001-1 {tuple(big_dev.shape)}", with_lib("marching_cubes", mc_lib, mc1_call),
+             mc1_call, bits("MC 00001-1"), ["mc_partials_kernel", "mc_finalize_kernel"],
+             mc_bound, "marching_cubes"),
+            (f"MC stack {tuple(mv.shape)}", with_lib("marching_cubes", mc_lib, mcb_call),
+             mcb_call, bits("MC stack"), ["mc_partials_kernel", "mc_finalize_kernel"],
+             mcb_bound, "marching_cubes"),
+            (f"MC window {tuple(sv.shape)}", with_lib("marching_cubes", mc_lib, slab_call),
+             slab_call, bits("MC window"), ["mc_partials_kernel"], slab_bound,
+             "marching_cubes"),
+            (f"MC finalize {nparts} x 2", with_lib("marching_cubes", mc_lib, fin_call), fin_call,
+             bits("MC finalize"), ["mc_finalize_kernel"], fin_bound, "marching_cubes"),
         ]
         # row 9's launch floor: an empty kernel on the compaction's grid, twice
         floor = cp.launch_floor(cb, cm_)
@@ -1622,7 +1642,9 @@ def main():
             print(f"[ab5c]   per kernel, parent {per[0]}; change {per[1]}")
             source = entry and entry[6]
             if source and (Path(parent) / "src/repro_torch/csrc" / f"{source}.cu").read_bytes() \
-                    != (_build.CSRC / f"{source}.cu").read_bytes():
+                    == (_build.CSRC / f"{source}.cu").read_bytes():
+                print(f"[ab5c]   the same {source}.cu in both trees: a control")
+            elif source:
                 # the device times where both traces kept the kernels, else the events' ms
                 got, was = ((dn, do) if dn > 0 and do > 0 else
                             (statistics.median(t[0] for t in new),
@@ -1784,11 +1806,16 @@ def main():
             var_err[variant] = max(var_err[variant],
                                    agree(k, p, variant, f"{variant} kernel vs plain, {label}"))
             agree(k, base, variant, f"{variant} kernel vs seqacc's kernel, {label}")
+            for block in VARIANT_BLOCKS:  # the plain version's bits do not depend on the block
+                kb = dm.max_diameters_sq_batch(x, m, block=block, variant=variant)
+                agree(kb, p, variant, f"{variant} kernel vs plain, {label}, block {block}")
+                agree(kb, base, variant, f"{variant} kernel vs seqacc's, {label}, block {block}")
             for b in range(len(x)):
                 check(torch.equal(k[b], dm.max_diameters_sq(x[b], m[b], variant=variant)),
                       f"{variant}: stack row {b} != its batch of one, {label}")
-        print(f"[var] {label}: every variant's kernel vs its plain version and seqacc's kernel "
-              f"(direct bitwise, gram rtol 1e-6), each row == its batch of one bitwise; plain "
+        print(f"[var] {label}: every variant's kernel at blocks {VARIANT_BLOCKS} vs its plain "
+              f"version and seqacc's kernel (direct bitwise, gram rtol 1e-6), each row == its "
+              f"batch of one bitwise; plain "
               f"ms (one call) " + ", ".join(f"{v} {var_plain_ms[label, v]:.1f}" for v in variants))
     gram_rel = 0.0
     for seed in range(6):
@@ -1815,13 +1842,18 @@ def main():
                 ms = time_ms(call, reps=10, warmup=2)
                 per_kernel, _ = device_trace(call, reps=3)
                 dev_us = sum(us for key, us in per_kernel.items() if "diameter_" in key)
-                fp32 = len(x) * dm.flop_estimate(x.shape[1], block, variant)
-                fp64 = len(x) * dm.tensor_flop_estimate(x.shape[1], block, variant)
+                # the work this input's lists need of the variant (mask skips counted)
+                fp32 = sum(dm.flop_estimate(x.shape[1], block, variant, mask=m[b])
+                           for b in range(len(x)))
+                fp64 = sum(dm.tensor_flop_estimate(x.shape[1], block, variant, mask=m[b])
+                           for b in range(len(x)))
+                n_pairs = sum(dm.computed_pairs(x.shape[1], block, variant, mask=m[b])
+                              for b in range(len(x)))
                 work_ms = max(fp32 / PEAK_FP32_PER_S, fp64 / PEAK_FP64_TC_PER_S) * 1e3
                 fig1[label, variant, block] = ms
                 print(f"[fig1] {label:25s} {variant:12s} {block:5d} {ms:9.4f} {dev_us:10.2f} "
-                      f"{max(bound.values()):9.5f} {work_ms:10.5f} ({fp32:.4g} FP32"
-                      f"{f', {fp64:.4g} FP64 TC' if fp64 else ''})  "
+                      f"{max(bound.values()):9.5f} {work_ms:10.5f} ({n_pairs} pairs a launch, "
+                      f"{fp32:.4g} FP32{f', {fp64:.4g} FP64 TC' if fp64 else ''})  "
                       f"{var_plain_ms[label, variant]:.1f}")
         print(f"[fig1] {label}: bound {max(bound.values()):.5f} ms = {pairs} valid pairs x "
               f"{DIAM_OPS_PER_PAIR} FP32 ops / 67 TFLOP/s; fastest "
@@ -1962,7 +1994,7 @@ def main():
         entry(f"max_diameters_sq[{v}]", "diameter.cu",
               f"src/repro/kernels/diameter.py:{VARIANT_REPLACES[v]}",
               var_single[v][f"diameter[{v}]"], var_err[v],
-              fig1["00001-1 unpruned", v, dm.DEFAULT_BLOCK], var_plain_ms["00001-1 unpruned", v],
+              fig1["00001-1 unpruned", v, AB_BLOCK], var_plain_ms["00001-1 unpruned", v],
               diam_bound, lib_ms)
         for v in variants if v != "seqacc"
     ]

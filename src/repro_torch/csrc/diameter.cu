@@ -44,21 +44,24 @@
 //   tile's (i, j) from the (2, T) colex schedule in device memory (the
 //   TPU's scalar prefetch): the Fig. 1 difference between the two.
 //
-// The other variants give each block one (row tile, column tile) pair:
-//   fused         the full nb x nb grid with the mask stream: both triangles
+// The other variants give each block one (row tile, column tile) pair
+// and read the mask stream:
+//   fused         the full nb x nb grid: both triangles
 //   tri           the full grid; a block below the diagonal writes an empty
 //                 partial and returns (the TPU still ran its DMA there)
-//   naive         'fused' once per combo, four launches (combo_mask)
+//   naive         'fused' once per combo, four launches (combo_mask), each
+//                 computing only its combo's axes
 //   tri_prefetch  the upper-triangle tiles read from the (2, T) schedule in
-//                 device memory, with the mask
-//   gram          that schedule and mask, each tile's per-axis squared
-//                 differences on the tensor cores (see gram_tile_maxima)
-// A masked pair with an invalid end counts kNeg, as the plain version's
-// where(valid, s, NEG).  Each per-pair operation is an explicitly rounded
-// intrinsic in the plain version's order (kernels/ref.py pair_sweep),
-// never contracted to an FMA, so the direct variants' maxima equal the
-// plain version's bitwise; a filled slot duplicates a valid vertex, so
-// they also equal each other's.
+//                 device memory, a select on every pair (tile_maxima)
+//   gram          that schedule, each tile's per-axis squared differences
+//                 on the FP64 tensor cores (diameter_gram_kernel)
+// A pair with an invalid end counts kNeg, as the plain version's
+// where(valid, s, NEG).  'fused', 'tri', 'naive' and 'gram' apply the mask
+// outside the pair loop (plan_tile).  Each per-pair operation is an
+// explicitly rounded intrinsic in the plain version's order
+// (kernels/ref.py pair_sweep), never contracted to an FMA, so the direct
+// variants' maxima equal the plain version's bitwise; a filled slot
+// duplicates a valid vertex, so they also equal each other's.
 
 #include <cuda_runtime.h>
 
@@ -105,72 +108,6 @@ __device__ __forceinline__ void tile_maxima(const float* __restrict__ v,
   block_reduce<4>(m, MaxOp{}, kNeg);
 }
 
-// One m8n8k4 FP64 product on the tensor cores: d = a * b for this lane's
-// fragments (A row-major 8x4: lane holds A[lane/4][lane%4]; B column-major
-// 4x8: B[lane%4][lane/4]; D 8x8: D[lane/4][2*(lane%4) + e], e = 0, 1).
-__device__ __forceinline__ void dmma_8x8x4(double a, double b, double& d0, double& d1) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%4, %5};\n"
-      : "=d"(d0), "=d"(d1)
-      : "d"(a), "d"(b), "d"(0.0), "d"(0.0));
-}
-
-// 'gram': tile (i, j) through the augmented Gram identity.  Per axis the
-// tile's squared differences are one K = 3 product,
-//   [r^2, 1, -2r] @ [1, c^2, c]^T = r^2 + c^2 - 2rc = (r - c)^2,
-// padded to the m8n8k4 shape's K = 4 with a zero.  The FP64 tensor cores
-// (mma.sync .f64, which Hopper has) take it: float32 coordinates square
-// and multiply exactly in float64, so each entry is (r - c)^2 to float64
-// rounding, and __double2float_rn rounds it once to float32.  Plain TF32
-// would keep about 3 decimal digits, too few for the 1e-3 the reference
-// allows at paper-scale coordinates (tests/test_gram_precision.py); FP64
-// needs no split-precision (3xTF32) correction.  The combos then add in
-// float32 as in every variant.  Each warp takes four 8-row groups of the
-// tile and walks the tile's 8-column groups: three products (x, y, z) per
-// 8 x 8 sub-tile, two pairs a lane.  24 tensor-core FLOP a pair against
-// the direct sweep's 14 FP32 operations: 'gram' is slower on this card.
-__device__ __forceinline__ void gram_tile_maxima(const float* __restrict__ v,
-                                                 const unsigned char* __restrict__ mask,
-                                                 int mp, int i, int j, float4* col,
-                                                 float (&m)[4]) {
-  const int nblk = blockDim.x, c = j * nblk + threadIdx.x;
-  col[threadIdx.x] = make_float4(v[c], v[mp + c], v[2 * mp + c], mask[c] ? 1.0f : 0.0f);
-  __syncthreads();
-
-#pragma unroll
-  for (int q = 0; q < 4; ++q) m[q] = kNeg;
-  const int lane = threadIdx.x & 31, g = lane >> 2, k = lane & 3;
-  const int groups = nblk / 8, nwarps = nblk / 32;
-  for (int rg = threadIdx.x >> 5; rg < groups; rg += nwarps) {
-    const int r = i * nblk + rg * 8 + g;  // this lane's A row and D row
-    double a[3];
-#pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      const double x = v[ax * mp + r];
-      a[ax] = k == 0 ? x * x : k == 1 ? 1.0 : k == 2 ? -2.0 * x : 0.0;
-    }
-    const bool rv = mask[r];
-    for (int cg = 0; cg < groups; ++cg) {
-      const float4 p = col[cg * 8 + g];  // this lane's B column
-      const float pc[3] = {p.x, p.y, p.z};
-      double d[3][2];
-#pragma unroll
-      for (int ax = 0; ax < 3; ++ax) {
-        const double x = pc[ax];
-        const double b = k == 0 ? 1.0 : k == 1 ? x * x : k == 2 ? x : 0.0;
-        dmma_8x8x4(a[ax], b, d[ax][0], d[ax][1]);
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool cv = col[cg * 8 + 2 * k + e].w != 0.0f;
-        fold_pair<kAll>(__double2float_rn(d[0][e]), __double2float_rn(d[1][e]),
-                        __double2float_rn(d[2][e]), rv && cv, m);
-      }
-    }
-  }
-  block_reduce<4>(m, MaxOp{}, kNeg);
-}
-
 __device__ __forceinline__ void write_partial(float* __restrict__ p, const float (&m)[4]) {
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -178,27 +115,7 @@ __device__ __forceinline__ void write_partial(float* __restrict__ p, const float
   }
 }
 
-// 'fused', 'tri', 'naive': the full nb x nb grid, tile (x / nb, x % nb).
-template <int kCombo>
-__global__ void __launch_bounds__(1024)
-    diameter_partial_kernel(const float* __restrict__ v, const unsigned char* __restrict__ mask,
-                            int mp, int nb, int triangular, float* __restrict__ partials) {
-  extern __shared__ float4 col[];
-  const size_t b = blockIdx.y;
-  const int i = blockIdx.x / nb, j = blockIdx.x % nb;
-  float m[4] = {kNeg, kNeg, kNeg, kNeg};
-  float* p = partials + 4 * ((size_t)gridDim.x * b + blockIdx.x);
-  if (triangular && j < i) {  // the whole block leaves together
-    write_partial(p, m);
-    return;
-  }
-  tile_maxima<kCombo>(v + 3 * (size_t)mp * b, mask + (size_t)mp * b, mp, i, j, col, m);
-  write_partial(p, m);
-}
-
-// 'tri_prefetch', 'gram' (kGram): tile t's (i, j) read from the (2, T)
-// schedule ij.
-template <bool kGram>
+// 'tri_prefetch': tile t's (i, j) read from the (2, T) schedule ij.
 __global__ void __launch_bounds__(1024)
     diameter_sched_kernel(const float* __restrict__ v, const unsigned char* __restrict__ mask,
                           const int* __restrict__ ij, int mp, float* __restrict__ partials) {
@@ -208,11 +125,7 @@ __global__ void __launch_bounds__(1024)
   const float* vb = v + 3 * (size_t)mp * b;
   const unsigned char* mb = mask + (size_t)mp * b;
   float m[4];
-  if constexpr (kGram) {
-    gram_tile_maxima(vb, mb, mp, i, j, col, m);
-  } else {
-    tile_maxima<kAll>(vb, mb, mp, i, j, col, m);
-  }
+  tile_maxima<kAll>(vb, mb, mp, i, j, col, m);
   write_partial(partials + 4 * ((size_t)gridDim.x * b + blockIdx.x), m);
 }
 
@@ -402,6 +315,337 @@ void sweep(const SweepShape& sh, dim3 grid, cudaStream_t s, const float* v, cons
       <<<grid, sh.threads, sh.smem, s>>>(v, extent, ij, ij_len, mp, tile, partials);
 }
 
+// ---- the Fig. 1 variants' tiles: 'fused', 'tri', 'naive' and 'gram' -----
+//
+// One block a (row tile i, column tile j) pair and one (4,) partial a
+// tile, as the reference's grid; the mask stream is read, but outside the
+// pair loop.  A pair with an invalid end counts kNeg, and a maximum does
+// not depend on the order of its terms or on a term repeated, so these
+// rules give the maxima of a select on every pair, bit for bit:
+//   * a tile with no valid row or no valid column writes the empty
+//     partial and returns, the whole block together (__syncthreads_or over
+//     its mask bytes): padding tiles cost the load of their mask, and for
+//     'tri' and 'gram' every tile past the list's valid region returns
+//     at once, with no extent argument and no host sync;
+//   * only the tile's valid columns are staged, in order, into a dense
+//     list in shared memory, padded to the loop's unit with copies of its
+//     first valid column (a repeated pair cannot raise a maximum): an
+//     invalid column is skipped by every lane of the block alike, and the
+//     pair loop reads no mask;
+//   * a thread's maxima of an invalid row are reset to kNeg once, after
+//     the loop: every pair of that row is then kNeg, as the select makes it.
+// tests/test_torch_variant_tiles.py holds a model of these rules bitwise
+// to the plain version's select on every pair.
+
+// The column tile's valid columns: the bit c % 32 of words[c / 32] is
+// column c's; before[w] counts the valid columns of the words before w
+// (before[32] all of them), first is the first valid column.
+struct TileColumns {
+  unsigned words[32];
+  int before[33];
+  int first;
+};
+
+// Reads the mask bytes of row tile rmask and column tile cmask (tile <= 1024
+// slots; blockDim.x a multiple of 32) into tc.  False, for the whole block,
+// where either tile has no valid slot.
+__device__ __forceinline__ bool plan_tile(const unsigned char* __restrict__ rmask,
+                                          const unsigned char* __restrict__ cmask, int tile,
+                                          TileColumns& tc) {
+  bool row_any = false;
+  for (int c = threadIdx.x; c < tile; c += blockDim.x) {  // a warp covers 32 columns
+    row_any |= rmask[c] != 0;
+    const unsigned w = __ballot_sync(0xffffffffu, cmask[c] != 0);
+    if ((threadIdx.x & 31) == 0) tc.words[c >> 5] = w;
+  }
+  if (!__syncthreads_or(row_any)) return false;
+  if (threadIdx.x < 32) {  // an exclusive scan of the words' counts
+    const int lane = threadIdx.x;
+    const unsigned w = lane < (tile >> 5) ? tc.words[lane] : 0u;
+    int n = __popc(w);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, n, off);
+      if (lane >= off) n += up;
+    }
+    tc.before[lane] = n - __popc(w);
+    if (lane == 31) tc.before[32] = n;
+    const unsigned nonzero = __ballot_sync(0xffffffffu, w != 0u);
+    if (nonzero) {
+      const int f = __ffs(nonzero) - 1;
+      const unsigned wf = __shfl_sync(0xffffffffu, w, f);
+      if (lane == 0) tc.first = 32 * f + __ffs(wf) - 1;
+    }
+  }
+  __syncthreads();
+  return tc.before[32] > 0;
+}
+
+// Stages column tile j of one (3, mp) SoA list: its valid columns, dense
+// and in order, then copies of the first valid column up to n_pad slots.
+// Each 4-column chunk with a valid column is one 16-byte load an axis;
+// put(slot, axis, value) stores one coordinate.
+template <typename Put>
+__device__ __forceinline__ void stage_columns(const float* __restrict__ v, int mp, int tile,
+                                              int j, const TileColumns& tc, int n_pad, Put put) {
+  const float* base = v + (size_t)j * tile;
+  for (int t = threadIdx.x; t < tile / 4; t += blockDim.x) {
+    const int c = 4 * t, sh = c & 31;
+    const unsigned w = tc.words[c >> 5], nib = (w >> sh) & 0xFu;
+    if (!nib) continue;
+    int slot = tc.before[c >> 5] + __popc(w & ((1u << sh) - 1u));
+    float q[3][4];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const float4 x = *reinterpret_cast<const float4*>(base + (size_t)ax * mp + c);
+      q[ax][0] = x.x;
+      q[ax][1] = x.y;
+      q[ax][2] = x.z;
+      q[ax][3] = x.w;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (nib >> k & 1u) {
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) put(slot, ax, q[ax][k]);
+        ++slot;
+      }
+    }
+  }
+  for (int slot = tc.before[32] + threadIdx.x; slot < n_pad; slot += blockDim.x) {
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) put(slot, ax, base[(size_t)ax * mp + tc.first]);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int round_up(int n, int unit) { return (n + unit - 1) / unit * unit; }
+
+// One column point against this thread's R rows, combo kCombo of [3D, xy,
+// xz, yz] (kAll: every combo, sweep_column's arithmetic): only the
+// combo's axes, in the plain version's order (3D: 3 sub, 3 mul, 2 add and
+// a max; a plane 2, 2, 1 and a max).
+template <int R, int kCombo>
+__device__ __forceinline__ void tile_column(const float (&rx)[R], const float (&ry)[R],
+                                            const float (&rz)[R], float px, float py, float pz,
+                                            float (&m)[R][4]) {
+  if constexpr (kCombo == kAll) {
+    sweep_column<R>(rx, ry, rz, px, py, pz, m);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float s;
+      if constexpr (kCombo == 0) {
+        const float dx = __fsub_rn(rx[r], px), dy = __fsub_rn(ry[r], py),
+                    dz = __fsub_rn(rz[r], pz);
+        s = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      } else if constexpr (kCombo == 1) {
+        const float dx = __fsub_rn(rx[r], px), dy = __fsub_rn(ry[r], py);
+        s = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+      } else if constexpr (kCombo == 2) {
+        const float dx = __fsub_rn(rx[r], px), dz = __fsub_rn(rz[r], pz);
+        s = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dz, dz));
+      } else {
+        const float dy = __fsub_rn(ry[r], py), dz = __fsub_rn(rz[r], pz);
+        s = __fadd_rn(__fmul_rn(dy, dy), __fmul_rn(dz, dz));
+      }
+      m[r][kCombo] = fmaxf(m[r][kCombo], s);
+    }
+  }
+}
+
+// 'fused' and 'tri' (kCombo kAll) and one launch of 'naive' (kCombo 0..3):
+// tile (x / nb, x % nb) of list blockIdx.y.  The block is sweep_shape's:
+// `tile / R` row threads (a multiple of 32) times S column groups; thread
+// (s, u) holds rows u + r tile / R (r < R) in registers and sweeps the
+// s-th of S equal runs of the staged columns, all lanes of a warp on the
+// same column (a broadcast), 3 LDS.128 for 4 columns x R rows.
+template <int R, int kCombo>
+__global__ void __launch_bounds__(1024 / R)
+    diameter_tile_kernel(const float* __restrict__ v, const unsigned char* __restrict__ mask,
+                         int mp, int nb, int tile, int triangular, float* __restrict__ partials) {
+  extern __shared__ float4 smem4[];
+  float* const cols = reinterpret_cast<float*>(smem4);  // [x, y, z] x tile floats
+  __shared__ TileColumns tc;
+  const size_t b = blockIdx.y;
+  const int i = blockIdx.x / nb, j = blockIdx.x % nb;
+  const float* vb = v + 3 * (size_t)mp * b;
+  const unsigned char* mb = mask + (size_t)mp * b;
+  float* const p = partials + 4 * ((size_t)gridDim.x * b + blockIdx.x);
+  float out[4] = {kNeg, kNeg, kNeg, kNeg};
+  if ((triangular && j < i) || !plan_tile(mb + (size_t)i * tile, mb + (size_t)j * tile, tile, tc)) {
+    write_partial(p, out);  // the whole block leaves together
+    return;
+  }
+  const int row_threads = tile / R, groups = blockDim.x / row_threads;
+  const int s = threadIdx.x / row_threads, u = threadIdx.x - s * row_threads;
+  const int n_pad = round_up(tc.before[32], 4 * groups), per = n_pad / groups;
+  stage_columns(vb, mp, tile, j, tc, n_pad,
+                [cols, tile](int slot, int ax, float x) { cols[ax * tile + slot] = x; });
+
+  float rx[R], ry[R], rz[R], m[R][4];
+  bool rv[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = i * tile + u + r * row_threads;
+    rx[r] = vb[row];
+    ry[r] = vb[mp + row];
+    rz[r] = vb[2 * mp + row];
+    rv[r] = mb[row] != 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) m[r][q] = kNeg;
+  }
+  const float4* cx = reinterpret_cast<const float4*>(cols + s * per);
+  const float4* cy = reinterpret_cast<const float4*>(cols + tile + s * per);
+  const float4* cz = reinterpret_cast<const float4*>(cols + 2 * tile + s * per);
+#pragma unroll 2
+  for (int q = 0; q < per / 4; ++q) {
+    const float4 x = cx[q], y = cy[q], z = cz[q];
+    tile_column<R, kCombo>(rx, ry, rz, x.x, y.x, z.x, m);
+    tile_column<R, kCombo>(rx, ry, rz, x.y, y.y, z.y, m);
+    tile_column<R, kCombo>(rx, ry, rz, x.z, y.z, z.z, m);
+    tile_column<R, kCombo>(rx, ry, rz, x.w, y.w, z.w, m);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[q] = fmaxf(out[q], rv[r] ? m[r][q] : kNeg);  // the row reset
+  }
+  block_reduce<4>(out, MaxOp{}, kNeg);
+  write_partial(p, out);
+}
+
+template <int R>
+int tile_launch(int combo_mask, dim3 grid, int threads, cudaStream_t s, const float* v,
+                const unsigned char* mask, int mp, int nb, int tile, int triangular,
+                float* partials) {
+  const size_t smem = 3 * (size_t)tile * sizeof(float);
+  switch (combo_mask) {
+    case 0xF: diameter_tile_kernel<R, kAll><<<grid, threads, smem, s>>>(v, mask, mp, nb, tile, triangular, partials); break;
+    case 0x1: diameter_tile_kernel<R, 0><<<grid, threads, smem, s>>>(v, mask, mp, nb, tile, triangular, partials); break;
+    case 0x2: diameter_tile_kernel<R, 1><<<grid, threads, smem, s>>>(v, mask, mp, nb, tile, triangular, partials); break;
+    case 0x4: diameter_tile_kernel<R, 2><<<grid, threads, smem, s>>>(v, mask, mp, nb, tile, triangular, partials); break;
+    case 0x8: diameter_tile_kernel<R, 3><<<grid, threads, smem, s>>>(v, mask, mp, nb, tile, triangular, partials); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+// 'gram': per axis, the tile's squared differences are one K = 3 product
+// on the augmented Gram identity,
+//   [r^2, 1, -2r] @ [1, c^2, c]^T = r^2 + c^2 - 2rc = (r - c)^2,
+// padded to K = 4 with a zero term, on the FP64 tensor cores with sm_90's
+// mma.sync m16n8k4 .f64 shape.  float32 coordinates square and multiply
+// exactly in float64, so each entry is (r - c)^2 to float64 rounding, and
+// __double2float_rn rounds it once to float32 (the plain version's
+// arithmetic, kernels/ref.py _axis_squares); the combos then add in
+// float32 as in every variant.  Plain TF32 would keep about 3 decimal
+// digits, too few for the 1e-3 the reference allows at paper-scale
+// coordinates (tests/test_gram_precision.py); FP64 needs no
+// split-precision correction.
+//
+// The tile's staged columns hold [1, c^2, c, 0] per axis in float64, formed
+// once a tile; each warp holds the A fragments of kGramGroups 16-row groups in
+// registers and reuses each column group's B fragments for all of them.
+// A pair costs 3 float64 -> float32 conversions (F2F, 16 a clock an SM on
+// compute capability 9.0: the kernel's ceiling), 4 adds and 4 max; the
+// products are 24 tensor-core FLOP a pair (8 an axis, the zero term
+// included).
+constexpr int kGramWarps = 4;
+constexpr int kGramGroups = 2;
+
+// d = a * b for this lane's fragments of one m16n8k4 FP64 product: A
+// row-major 16 x 4, the lane holds A[g][k] (a0) and A[g + 8][k] (a1); B
+// column-major 4 x 8, B[k][g]; D 16 x 8, D[g][2k + e] (d[e]) and
+// D[g + 8][2k + e] (d[2 + e]), e = 0, 1; g = lane / 4, k = lane % 4.
+__device__ __forceinline__ void dmma_16x8x4(double a0, double a1, double b, double (&d)[4]) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%7, %8, %9, %10};\n"
+      : "=d"(d[0]), "=d"(d[1]), "=d"(d[2]), "=d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b), "d"(0.0), "d"(0.0), "d"(0.0), "d"(0.0));
+}
+
+// The augmented Gram factor of row coordinate x at K index k: [x^2, 1, -2x, 0].
+__device__ __forceinline__ double gram_row(double x, int k) {
+  return k == 0 ? x * x : k == 1 ? 1.0 : k == 2 ? -2.0 * x : 0.0;
+}
+
+// 'gram': scheduled tile t = blockIdx.x of list blockIdx.y, (i, j) read
+// from the (2, T) schedule ij; kGramWarps warps.  At least 4 blocks an SM
+// caps a thread at 128 registers: left to itself ptxas settles at 96 and
+// spills.
+__global__ void __launch_bounds__(32 * kGramWarps, 4)
+    diameter_gram_kernel(const float* __restrict__ v, const unsigned char* __restrict__ mask,
+                         const int* __restrict__ ij, int mp, int tile,
+                         float* __restrict__ partials) {
+  extern __shared__ double2 gcols[];  // [x, y, z] x tile of [1, c^2, c, 0]: 2 double2 each
+  __shared__ TileColumns tc;
+  const size_t b = blockIdx.y;
+  const int i = ij[blockIdx.x], j = ij[gridDim.x + blockIdx.x];
+  const float* vb = v + 3 * (size_t)mp * b;
+  const unsigned char* mb = mask + (size_t)mp * b;
+  float* const p = partials + 4 * ((size_t)gridDim.x * b + blockIdx.x);
+  float out[4] = {kNeg, kNeg, kNeg, kNeg};
+  if (!plan_tile(mb + (size_t)i * tile, mb + (size_t)j * tile, tile, tc)) {
+    write_partial(p, out);  // the whole block leaves together
+    return;
+  }
+  const int n_pad = round_up(tc.before[32], 8);
+  stage_columns(vb, mp, tile, j, tc, n_pad, [tile](int slot, int ax, float x) {
+    const double c = x;
+    gcols[2 * (ax * tile + slot)] = make_double2(1.0, c * c);
+    gcols[2 * (ax * tile + slot) + 1] = make_double2(c, 0.0);
+  });
+  const double* const bcols = reinterpret_cast<const double*>(gcols);
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, k = lane & 3;
+  for (int set = threadIdx.x >> 5; set < tile / (16 * kGramGroups); set += kGramWarps) {
+    double a[kGramGroups][3][2];
+    bool rv[kGramGroups][2];
+    float m[kGramGroups][2][4];
+#pragma unroll
+    for (int gg = 0; gg < kGramGroups; ++gg) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = i * tile + (set * kGramGroups + gg) * 16 + g + 8 * h;
+        rv[gg][h] = mb[row] != 0;
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) a[gg][ax][h] = gram_row(vb[(size_t)ax * mp + row], k);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) m[gg][h][q] = kNeg;
+      }
+    }
+    for (int cg = 0; cg < n_pad / 8; ++cg) {
+      double bf[3];  // B[k][g] of each axis: one conflict-free LDS.64
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) bf[ax] = bcols[4 * (ax * tile + cg * 8 + g) + k];
+#pragma unroll
+      for (int gg = 0; gg < kGramGroups; ++gg) {
+        float q[3][4];  // each product rounded once to float32 as it lands
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) {
+          double d[4];
+          dmma_16x8x4(a[gg][ax][0], a[gg][ax][1], bf[ax], d);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) q[ax][e] = __double2float_rn(d[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fold_pair<kAll>(q[0][e], q[1][e], q[2][e], true, m[gg][e >> 1]);
+      }
+    }
+#pragma unroll
+    for (int gg = 0; gg < kGramGroups; ++gg) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) out[q] = fmaxf(out[q], rv[gg][h] ? m[gg][h][q] : kNeg);
+      }
+    }
+  }
+  block_reduce<4>(out, MaxOp{}, kNeg);
+  write_partial(p, out);
+}
+
 // The max over one list's per-tile partials, clamped at 0.
 __global__ void diameter_finalize_kernel(const float* __restrict__ partials, long long ntiles,
                                          float* __restrict__ out) {
@@ -495,18 +739,20 @@ int diameter_sweep_launch(const float* v, const int* extent, const int* ij, int 
 int diameter_partial_launch(const float* v, const unsigned char* mask, int batch, int mp,
                             int block, int triangular, int combo_mask, float* partials,
                             float* out, void* stream) {
+  if (block % 32 || block < 32 || block > 1024 || mp % block) return cudaErrorInvalidValue;
   const long long nb = mp / block, ntiles = nb * nb;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)ntiles, batch);
-  const size_t smem = block * sizeof(float4);
-  switch (combo_mask) {
-    case 0xF: diameter_partial_kernel<kAll><<<grid, block, smem, s>>>(v, mask, mp, (int)nb, triangular, partials); break;
-    case 0x1: diameter_partial_kernel<0><<<grid, block, smem, s>>>(v, mask, mp, (int)nb, triangular, partials); break;
-    case 0x2: diameter_partial_kernel<1><<<grid, block, smem, s>>>(v, mask, mp, (int)nb, triangular, partials); break;
-    case 0x4: diameter_partial_kernel<2><<<grid, block, smem, s>>>(v, mask, mp, (int)nb, triangular, partials); break;
-    case 0x8: diameter_partial_kernel<3><<<grid, block, smem, s>>>(v, mask, mp, (int)nb, triangular, partials); break;
-    default: return cudaErrorInvalidValue;
+  const SweepShape sh = sweep_shape(block);
+  int err;
+  switch (sh.rows) {
+    case 1: err = tile_launch<1>(combo_mask, grid, sh.threads, s, v, mask, mp, (int)nb, block, triangular, partials); break;
+    case 2: err = tile_launch<2>(combo_mask, grid, sh.threads, s, v, mask, mp, (int)nb, block, triangular, partials); break;
+    case 4: err = tile_launch<4>(combo_mask, grid, sh.threads, s, v, mask, mp, (int)nb, block, triangular, partials); break;
+    case 8: err = tile_launch<8>(combo_mask, grid, sh.threads, s, v, mask, mp, (int)nb, block, triangular, partials); break;
+    default: err = cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return err;
   return finalize(partials, ntiles, batch, out, s);
 }
 
@@ -515,13 +761,19 @@ int diameter_partial_launch(const float* v, const unsigned char* mask, int batch
 int diameter_sched_launch(const float* v, const unsigned char* mask, const int* ij, int ntiles,
                           int batch, int mp, int block, int gram, float* partials, float* out,
                           void* stream) {
+  if (block % 32 || block < 32 || block > 1024 || mp % block) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)ntiles, batch);
-  const size_t smem = block * sizeof(float4);
   if (gram) {
-    diameter_sched_kernel<true><<<grid, block, smem, s>>>(v, mask, ij, mp, partials);
+    const size_t smem = 3 * (size_t)block * 2 * sizeof(double2);  // 96 KB at block 1024
+    if (smem > 40 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          diameter_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    diameter_gram_kernel<<<grid, 32 * kGramWarps, smem, s>>>(v, mask, ij, mp, block, partials);
   } else {
-    diameter_sched_kernel<false><<<grid, block, smem, s>>>(v, mask, ij, mp, partials);
+    diameter_sched_kernel<<<grid, block, block * sizeof(float4), s>>>(v, mask, ij, mp, partials);
   }
   return finalize(partials, ntiles, batch, out, s);
 }

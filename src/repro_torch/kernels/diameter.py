@@ -12,7 +12,12 @@ which says what bounds them and how each variant's grid and streams
 differ.  The main path's two (``seqacc`` and ``nomask``, the ones
 ``'auto'`` picks) sweep only each list's valid extent, on a persistent
 grid of register-tiled blocks; the others give each block one tile of
-the whole padded list.
+the whole padded list.  ``fused``, ``tri``, ``naive`` (register-tiled
+rows, as the sweep) and ``gram`` (FP64 ``mma.sync`` m16n8k4) apply the
+mask outside their pair loop: a tile with no valid row or no valid
+column writes an empty partial, only a tile's valid columns are staged,
+and an invalid row's maxima are reset once (``csrc/diameter.cu``
+``plan_tile``); ``tri_prefetch`` selects on every pair.
 
 Every variant sweeps the same prepared input
 (:func:`repro_torch.kernels.ref.diameter_input_batch`): invalid slots
@@ -33,8 +38,9 @@ single-case :func:`max_diameters_sq` is its batch of one, and a case's row
 is the same bits alone or in a stack.  ``naive`` launches its kernel four
 times, one combo each.
 
-:func:`flop_estimate`, :func:`tensor_flop_estimate` and
-:func:`bytes_estimate` count each variant's work from the CUDA source.
+:func:`computed_pairs`, :func:`flop_estimate`, :func:`tensor_flop_estimate`
+and :func:`bytes_estimate` count each variant's work from the CUDA source,
+from a list's mask where the kernel skips by it.
 """
 from __future__ import annotations
 
@@ -222,60 +228,126 @@ def max_diameters_batch(verts, masks, *, block: int = DEFAULT_BLOCK,
 # -- work counted from csrc/diameter.cu, per launch of one list -------------
 
 # FP32 operations a pair costs on the CUDA cores: 3 sub, 3 mul, 4 add and
-# 4 max; the mask adds a compare, an and and 4 selects.  'naive' computes
-# one combo a launch (3D: 3 sub, 3 mul, 2 add; a plane: 2, 2, 1; each a
-# max and a select, plus the mask's compare and and).  'gram' converts 3
-# products to float32 and forms the combos (4 add, 4 max, 4 select, 2).
+# 4 max.  'tri_prefetch' selects on every pair: the mask's compare, an and
+# and 4 selects.  The other masked variants apply the mask outside the
+# pair loop: 'naive' computes one combo a launch (3D: 3 sub, 3 mul, 2 add
+# and a max; a plane 2, 2, 1 and a max), 'gram' converts 3 products to
+# float32 and forms the combos (4 add, 4 max).
 _DIRECT_OPS = 14
 _MASK_OPS = 6
-_NAIVE_OPS = (3 + 3 + 2 + 2 + 2) + 3 * (2 + 2 + 1 + 2 + 2)
-_GRAM_OPS = 3 + 4 + 4 + _MASK_OPS
-_GRAM_TENSOR_FLOP = 3 * 2 * 4  # an m8n8k4 product per axis: 2 K FLOP a pair
+_NAIVE_OPS = (3 + 3 + 2 + 1) + 3 * (2 + 2 + 1 + 1)
+_GRAM_OPS = 3 + 4 + 4
+# an m16n8k4 FP64 product per axis: 2 x 16 x 8 x 4 FLOP for 128 pairs,
+# the zero K term included
+_GRAM_TENSOR_FLOP = 3 * 2 * 4
+# csrc diameter_tile_kernel and diameter_gram_kernel: the mask applied
+# outside the pair loop (plan_tile)
+_TILE_VARIANTS = ("naive", "fused", "tri", "gram")
 
 
-def _computed_tiles(M: int, block: int, variant: str, extent: int | None = None) -> int:
+def column_unit(block: int, variant: str) -> int:
+    """The unit a masked tile kernel pads a tile's staged valid columns
+    to: 8 for 'gram' (the m16n8k4 product's columns), else 4 columns (a
+    16-byte load) times the block's column groups (``csrc/diameter.cu``
+    ``sweep_shape``)."""
+    if variant == "gram":
+        return 8
+    row_threads = block // sweep_rows(block)
+    groups = 128 // row_threads if row_threads < 128 and 128 % row_threads == 0 else 1
+    return 4 * groups
+
+
+def _list_mask(M: int, block: int, mask) -> torch.Tensor:
+    """One list's padded (Mp,) mask stream: ``mask`` ((M,) bool) or, by
+    default, every one of the ``M`` slots valid."""
+    m = (torch.ones(M, dtype=torch.bool) if mask is None
+         else torch.as_tensor(mask).bool().reshape(-1).cpu())
+    if m.numel() != M:
+        raise ValueError(f"need a mask of {M} slots, got {m.numel()}")
+    return _ref.diameter_mask_batch(m[None], block)[0]
+
+
+def _computed_tiles(M: int, block: int, variant: str, extent: int | None = None,
+                    mask=None) -> int:
     """Tiles whose pairs a launch computes: the colex prefix of a list's
-    extent ('seqacc', 'nomask'; default the whole list), the upper
-    triangle ('tri' skips the lower tiles, 'tri_prefetch' and 'gram'
-    launch none) or the full grid."""
+    extent ('seqacc', 'nomask'; ``extent``, else the one of ``mask``,
+    else the whole list), the upper triangle ('tri_prefetch'), or the
+    tiles with a valid row and a valid column of ``mask`` (default: all
+    ``M`` slots valid) in the full grid ('fused', 'naive') or its upper
+    triangle ('tri', 'gram')."""
     nb = -(-M // block)
     if variant in _SWEEP_KIND:
+        if extent is None and mask is not None:
+            extent = int(_ref.list_extent(_list_mask(M, block, mask)[None])[0])
         return _ref.extent_tiles(min(M if extent is None else int(extent), nb * block), block)
-    return nb * nb if variant in ("naive", "fused") else nb * (nb + 1) // 2
+    if variant == "tri_prefetch":
+        return nb * (nb + 1) // 2
+    return int(_ref.computed_tiles(_list_mask(M, block, mask), block,
+                                   variant in ("tri", "gram")).sum())
 
 
-def flop_estimate(M: int, block: int, variant: str, extent: int | None = None) -> float:
-    """FP32 operations on the CUDA cores for one list of ``M`` slots whose
-    last valid slot is ``extent - 1`` (default: the whole list)."""
+def computed_pairs(M: int, block: int, variant: str, extent: int | None = None,
+                   mask=None) -> int:
+    """Pairs one launch computes for a list: ``block`` squared a computed
+    tile (:func:`_computed_tiles`), but for the masked tile
+    kernels ``block`` rows times the tile's staged columns (its valid
+    columns padded to :func:`column_unit`).  ``extent`` and ``mask`` as
+    in :func:`_computed_tiles`."""
     check_variant(variant)
-    per_pair = {"seqacc": _DIRECT_OPS, "nomask": _DIRECT_OPS, "naive": _NAIVE_OPS,
-                "gram": _GRAM_OPS}.get(variant, _DIRECT_OPS + _MASK_OPS)
-    return float(_computed_tiles(M, block, variant, extent)) * block * block * per_pair
+    if variant not in _TILE_VARIANTS:
+        return _computed_tiles(M, block, variant, extent, mask) * block * block
+    m = _list_mask(M, block, mask)
+    unit = column_unit(block, variant)
+    cols = (_ref.tile_valid_counts(m, block) + unit - 1) // unit * unit
+    tiles = _ref.computed_tiles(m, block, variant in ("tri", "gram"))
+    return int((tiles * cols[None, :]).sum()) * block
 
 
-def tensor_flop_estimate(M: int, block: int, variant: str) -> float:
-    """FP64 tensor-core FLOP ('gram' only): three m8n8k4 products per 8 x 8
-    sub-tile, the zero fourth K term included."""
+def flop_estimate(M: int, block: int, variant: str, extent: int | None = None,
+                  mask=None) -> float:
+    """FP32 operations on the CUDA cores for one list of ``M`` slots
+    (all launches of the variant): :func:`computed_pairs` times the
+    operations a pair, selects included only where the kernel selects
+    ('tri_prefetch')."""
+    per_pair = {"seqacc": _DIRECT_OPS, "nomask": _DIRECT_OPS, "fused": _DIRECT_OPS,
+                "tri": _DIRECT_OPS, "naive": _NAIVE_OPS, "gram": _GRAM_OPS,
+                "tri_prefetch": _DIRECT_OPS + _MASK_OPS}
+    return float(computed_pairs(M, block, variant, extent, mask)) * per_pair[variant]
+
+
+def tensor_flop_estimate(M: int, block: int, variant: str, mask=None) -> float:
+    """FP64 tensor-core FLOP ('gram' only): three m16n8k4 products per
+    16 x 8 sub-tile of the computed pairs, the zero fourth K term
+    included."""
     check_variant(variant)
     if variant != "gram":
         return 0.0
-    return float(_computed_tiles(M, block, variant)) * block * block * _GRAM_TENSOR_FLOP
+    return float(computed_pairs(M, block, variant, mask=mask)) * _GRAM_TENSOR_FLOP
 
 
-def bytes_estimate(M: int, block: int, variant: str, extent: int | None = None) -> float:
+def bytes_estimate(M: int, block: int, variant: str, extent: int | None = None,
+                   mask=None) -> float:
     """Device-memory bytes for one list: each computed tile reads its row
-    and column tiles (12 bytes a slot, 13 with the mask stream, and 8 per
-    tile of schedule on the scheduled variants), and every block writes a
-    (4,) partial that the finalize reads back: one a launched tile, or for
-    'seqacc' and 'nomask' at most one a computed tile (their persistent
-    grid holds no more blocks than a list has tiles), which also read the
-    list's extent.  ``extent`` as in :func:`flop_estimate`."""
+    and column tiles (12 bytes a slot; 13 with the mask stream for
+    'tri_prefetch', and 8 per tile of schedule on the scheduled variants),
+    and every block writes a (4,) partial that the finalize reads back: one
+    a launched tile, or for 'seqacc' and 'nomask' at most one a computed
+    tile (their persistent grid holds no more blocks than a list has
+    tiles), which also read the list's extent.  The masked tile kernels
+    read the mask of the row and the column tile in every block but
+    'tri''s below the diagonal.  ``extent`` and ``mask`` as in
+    :func:`flop_estimate`."""
     check_variant(variant)
     nb = -(-M // block)
-    computed = _computed_tiles(M, block, variant, extent)
+    computed = _computed_tiles(M, block, variant, extent, mask)
     sweep = variant in _SWEEP_KIND
     launched = computed if sweep else _tiles(variant, nb)
-    slot = 12 if sweep else 13
     sched = 8 if variant in ("nomask", "tri_prefetch", "gram") else 0
-    per_launch = computed * (2 * block * slot + sched) + 2 * 16 * launched + 16 + 4 * sweep
+    if variant in _TILE_VARIANTS:
+        visited = nb * (nb + 1) // 2 if variant == "tri" else launched
+        per_launch = (visited * (2 * block + sched) + computed * 2 * block * 12
+                      + 2 * 16 * launched + 16)
+    else:
+        slot = 12 if sweep else 13
+        per_launch = computed * (2 * block * slot + sched) + 2 * 16 * launched + 16 + 4 * sweep
     return float(per_launch) * (4 if variant == "naive" else 1)

@@ -338,6 +338,25 @@ def extent_tiles(extent, block: int) -> int:
     return k * (k + 1) // 2
 
 
+def tile_valid_counts(mask, block: int) -> torch.Tensor:
+    """(nb,) int64: the valid slots of each ``block``-slot tile of one
+    list's padded (Mp,) mask stream (:func:`diameter_mask_batch`)."""
+    m = torch.as_tensor(mask).bool().reshape(-1)
+    if m.numel() % block:
+        raise ValueError(f"a mask stream of {m.numel()} slots is not a multiple of {block}")
+    return m.reshape(-1, block).sum(1)
+
+
+def computed_tiles(mask, block: int, triangular: bool) -> torch.Tensor:
+    """(nb, nb) bool: the tiles ``(i, j)`` whose pairs the masked tile
+    kernels ('fused', 'tri', 'naive', 'gram') compute, those with a valid
+    row and a valid column (and ``i <= j`` where ``triangular``): the
+    plain mirror of ``csrc/diameter.cu`` ``plan_tile``'s skip."""
+    any_ = tile_valid_counts(mask, block) > 0
+    tiles = any_[:, None] & any_[None, :]
+    return torch.triu(tiles) if triangular else tiles
+
+
 def _axis_squares(v, r0, rows, axes, gram):
     """Per-axis squared differences of rows ``r0:r0+rows`` against every
     slot of ``v``: ``(r - c)^2`` in float32, or with ``gram`` the augmented

@@ -196,11 +196,11 @@ def test_mask_stream_pads_false():
 
 def test_work_estimates_follow_the_grids():
     m, block = 1000, 128  # nb = 8: 64 tiles, 36 in the triangle
-    pairs_tri, pairs_full = 36 * block * block, 64 * block * block
+    pairs_tri = 36 * block * block
     assert diameter.flop_estimate(m, block, "seqacc") == 14 * pairs_tri
     assert diameter.flop_estimate(m, block, "nomask") == 14 * pairs_tri
     # 'seqacc' and 'nomask' compute the k(k+1)/2 tiles of a list's extent
-    # (k = ceil(extent / block)); the other variants sweep the whole list
+    # (k = ceil(extent / block)); 'tri_prefetch' sweeps the whole list
     for extent, k in ((1, 1), (128, 1), (129, 2), (700, 6), (1000, 8)):
         for v in ("seqacc", "nomask"):
             assert diameter.flop_estimate(m, block, v, extent=extent) == \
@@ -208,12 +208,21 @@ def test_work_estimates_follow_the_grids():
             tiles = k * (k + 1) // 2
             assert diameter.bytes_estimate(m, block, v, extent=extent) == \
                 tiles * (2 * block * 12 + 8 * (v == "nomask")) + 2 * 16 * tiles + 16 + 4
-        assert diameter.flop_estimate(m, block, "tri", extent=extent) == 20 * pairs_tri
-    assert diameter.flop_estimate(m, block, "tri") == diameter.flop_estimate(
-        m, block, "tri_prefetch") == 20 * pairs_tri
-    assert diameter.flop_estimate(m, block, "fused") == 20 * pairs_full
-    assert diameter.flop_estimate(m, block, "naive") == 39 * pairs_full
-    assert diameter.tensor_flop_estimate(m, block, "gram") == 24 * pairs_tri
+        assert diameter.flop_estimate(m, block, "tri_prefetch", extent=extent) == 20 * pairs_tri
+    assert diameter.flop_estimate(m, block, "tri_prefetch") == 20 * pairs_tri
+    # the masked tile kernels stage a tile's valid columns padded to their
+    # unit: the last tile's 104 valid slots (the 24 padding slots are not)
+    # as 112 (16 at block 128) or, for 'gram', 104 (8)
+    staged = [block] * 7 + [112]
+    full = block * sum(staged) * 8
+    tri = block * sum((j + 1) * c for j, c in enumerate(staged))
+    gram = block * sum((j + 1) * c for j, c in enumerate(staged[:7] + [104]))
+    assert diameter.computed_pairs(m, block, "fused") == full
+    assert diameter.flop_estimate(m, block, "fused") == 14 * full
+    assert diameter.flop_estimate(m, block, "tri") == 14 * tri
+    assert diameter.flop_estimate(m, block, "naive") == 27 * full
+    assert diameter.flop_estimate(m, block, "gram") == 11 * gram
+    assert diameter.tensor_flop_estimate(m, block, "gram") == 24 * gram
     assert all(diameter.tensor_flop_estimate(m, block, v) == 0 for v in DIRECT)
     # the schedule, the mask stream and the full grid move more bytes; 'tri'
     # launches the whole grid but reads only its triangle

@@ -66,6 +66,104 @@ def test_variant_kernel_matches_plain(dev, variant, m, block):
     _agree(k, diameter.max_diameters_sq(verts, mask, block=block), variant)  # seqacc's kernel
 
 
+TILE_VARIANTS = ("fused", "tri", "naive", "gram")
+
+
+def _tile_masks(m, block, rng):
+    """The masked tile kernels' skip cases on a list of ``m`` slots."""
+    s = np.arange(m)
+    hole = np.ones(m, bool)
+    hole[block:2 * block] = False
+    one = np.zeros(m, bool)
+    one[m // 2] = True
+    return {"random": rng.random(m) < 0.6, "row_tile_hole": hole, "one_valid": one,
+            "none_valid": np.zeros(m, bool), "past_diagonal": s >= block + 3,
+            "tile_borders": (s // block) % 2 == 0,
+            "tile_borders_off_by_one": ((s + 1) // block) % 2 == 0,
+            "prefix": s < 2 * block + 5}
+
+
+def _raw_launch(v, m, block, variant):
+    """The variant's C entry on a prepared (B, 3, Mp) input and (B, Mp)
+    mask as given (no fill): (B, 4) maxima, 'naive' one launch a combo."""
+    lib = diameter._build.load("diameter", diameter._SIGNATURES)
+    batch, _, mp = v.shape
+    nb = mp // block
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    outs = []
+    combos = [1 << c for c in range(4)] if variant == "naive" else [0xF]
+    for combo in combos:
+        ntiles = nb * (nb + 1) // 2 if variant == "gram" else nb * nb
+        partials = torch.empty(4 * ntiles * batch, device=v.device)
+        out = torch.empty((batch, 4), device=v.device)
+        if variant == "gram":
+            ij = diameter._schedule(nb, v.device)
+            err = lib.diameter_sched_launch(v.data_ptr(), m.data_ptr(), ij.data_ptr(), ntiles,
+                                            batch, mp, block, 1, partials.data_ptr(),
+                                            out.data_ptr(), stream)
+        else:
+            err = lib.diameter_partial_launch(v.data_ptr(), m.data_ptr(), batch, mp, block,
+                                              int(variant == "tri"), combo, partials.data_ptr(),
+                                              out.data_ptr(), stream)
+        assert err == 0, err
+        outs.append(out)
+    if variant == "naive":
+        return torch.stack([o[:, c] for c, o in enumerate(outs)], dim=1)
+    return outs[0]
+
+
+@pytest.mark.parametrize("variant", TILE_VARIANTS)
+@pytest.mark.parametrize("block", range(32, 1025, 32))
+def test_tile_variants_at_every_block(dev, variant, block):
+    """The hoisted mask's skip cases at every block the kernels take: the
+    prepared input == the plain version and seqacc's kernel (gram rtol
+    1e-6); an unfilled input (invalid slots far out, where only the mask
+    keeps them out of the maxima) == the plain select on every pair."""
+    rng = np.random.default_rng(block)
+    m = 3 * block + 11
+    verts = torch.from_numpy((rng.normal(size=(m, 3)) * [40, 70, 25] + 150).astype(np.float32))
+    for name, mask in _tile_masks(m, block, rng).items():
+        v, k = verts.to(dev), torch.from_numpy(mask).to(dev)
+        got = diameter.max_diameters_sq(v, k, block=block, variant=variant)
+        _agree(got, ref.max_diameters_sq(v, k, block, variant), variant)
+        _agree(got, diameter.max_diameters_sq(v, k, block=block), variant)
+        raw = ref.diameter_input_batch(v[None], torch.ones_like(k)[None], block).clone()
+        mk = ref.diameter_mask_batch(k[None], block)
+        raw[:, :, ~mk[0]] += 1e4
+        got = _raw_launch(raw, mk, block, variant)[0]
+        if variant == "naive":
+            want = torch.cat([ref.pair_sweep(raw[0], mk[0], (c,)) for c in range(4)])
+        else:
+            want = ref.pair_sweep(raw[0], mk[0], gram=variant == "gram")
+        _agree(got, want, variant)
+        assert not mask.any() or bool((got < 1e7).all()), (name, got)  # no far slot counted
+
+
+@pytest.mark.parametrize("variant", TILE_VARIANTS)
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("block", [128, 256])
+def test_tile_variant_stacks_with_differing_valid_regions(dev, variant, batch, block):
+    """Stacks whose lists hold their valid slots in different tiles: the
+    stack == the plain version and seqacc's kernel (gram rtol 1e-6), and
+    each row == its batch of one bitwise."""
+    rng = np.random.default_rng(batch * block)
+    m = 5 * block - 9
+    verts = (rng.normal(size=(batch, m, 3)) * [40, 70, 25] + 150).astype(np.float32)
+    masks = np.zeros((batch, m), bool)
+    for b in range(batch):
+        lo = int(rng.integers(0, m - 1))
+        hi = int(rng.integers(lo + 1, m + 1))
+        masks[b, lo:hi] = rng.random(hi - lo) < (0.3 + 0.7 * (b % 2))
+        masks[b, lo] = True
+    v, k = torch.from_numpy(verts).to(dev), torch.from_numpy(masks).to(dev)
+    got = diameter.max_diameters_sq_batch(v, k, block=block, variant=variant)
+    _agree(got, ref.max_diameters_sq_batch(v, k, block, variant), variant)
+    _agree(got, diameter.max_diameters_sq_batch(v, k, block=block), variant)
+    for b in range(batch):
+        assert torch.equal(got[b], diameter.max_diameters_sq(v[b], k[b], block=block,
+                                                             variant=variant)), (variant, b)
+
+
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_variant_batch_equals_single(dev, variant):
     rng = np.random.default_rng(4)
