@@ -58,11 +58,13 @@ Phases:
      through its own C entries, every variant at block 256 against this
      tree's on 00001-1's unpruned list and the largest pass-2b stack, in
      turns (parent, change, change, parent), same bits (gram rtol 1e-6),
-     CUDA events and trace device time; the redesigned kernels ('fused',
-     'tri', 'naive', 'gram') each below the parent's device time, the
-     others printed as controls of the card's spread (all of them where
-     the parent's diameter.cu is this tree's); nvidia-smi's SM clock and
-     power over the timed window
+     CUDA events and trace device time; the redesigned kernel
+     ('tri_prefetch', AB_CHANGED) below the parent's device time, the
+     others printed as controls of the card's spread with their ratio
+     against the 0.97-1.03 band (all of them where the parent's
+     diameter.cu is this tree's); the masked tile kernels' SASS counts and
+     instruction-rate ceilings; nvidia-smi's SM clock and power over the
+     timed window
   5c. (run after 8b, whose inputs it shares with phases 5, 7 and 8b) the
      compaction, GLCM, first-order and MC kernels against the parent's:
      the -Xptxas -v lines of this tree's kernels (without spills) and the
@@ -88,15 +90,18 @@ Phases:
      path under CUDA sync debugging, no host sync outside the counted
      fetches
   7. intensity families: one uncounted three-family run over the cohort
-     records every first-order and GLCM launch (and the masked range its
-     pool took once for both, held equal to intensity_range); each is held
+     records every first-order and GLCM launch and the masked range kernel
+     (csrc/masked_range.cu) of each pool, taken once for both families and
+     held equal to intensity_range by value; the range kernel timed
+     against intensity_range at the largest pool (ms a call, device us,
+     bound, its two-launch floor); each family launch is held
      against its plain version on the same inputs and range (first-order
      bitwise, GLCM exactly), each case against
      a batch of one, the first-order kernel at block 1024, 2048 and 8192
      bitwise, the GLCM kernel at blocks 1 to 64 exactly, the largest GLCM
      count below 2^24; then launch counts reset,
      BatchedExtractor(families=(shape, firstorder, glcm)).run over the 60
-     cases, counts read; rows == extract_one bitwise (seed 0), the family
+     cases, counts read (one range launch a shape pool); rows == extract_one bitwise (seed 0), the family
      columns of all 60 == the port's CPU path (GLCM and first-order min, max,
      percentiles and entropy exactly, the rest rtol 1e-4), the shape
      columns == phase 6's shape-only rows bitwise; the host-fetch census
@@ -130,7 +135,8 @@ Phases:
      seqacc's kernel), gram at rtol 1e-6 and under 1e-3 of an f64 oracle
      at paper scale; each stack row == its batch of one; the Fig. 1 table
      (variant x block at both inputs: ms/call, device time, the function's
-     bound, the variant's counted work, one timed plain call); a cold
+     bound, the variant's counted work, one timed plain call) and
+     tri_prefetch's device time against tri's at each; a cold
      sweep at two fresh (bucket, depth) keys stores the argmin of its own
      table, a second lookup launches nothing; three uncached sweeps each
      at 00001-1's unpruned list and the largest pass-2b stack show whether
@@ -170,6 +176,7 @@ from repro_torch.kernels import diameter as dm  # noqa: E402
 from repro_torch.kernels import firstorder as fo  # noqa: E402
 from repro_torch.kernels import glcm as gl  # noqa: E402
 from repro_torch.kernels import marching_cubes as mc  # noqa: E402
+from repro_torch.kernels import masked_range as mr  # noqa: E402
 from repro_torch.runtime import autotune  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM bandwidth
@@ -276,7 +283,7 @@ def kernel_us(per_kernel, names):
 
 def zero_counts():
     """Sets every kernel's launch count to 0."""
-    mc.LAUNCHES = cp.LAUNCHES = fo.LAUNCHES = gl.LAUNCHES = 0
+    mc.LAUNCHES = cp.LAUNCHES = fo.LAUNCHES = gl.LAUNCHES = mr.LAUNCHES = 0
     mc.SLAB_LAUNCHES = mc.FINALIZE_LAUNCHES = fo.FOLD_LAUNCHES = 0
     dm.LAUNCHES.update(dict.fromkeys(dm.VARIANTS, 0))
 
@@ -288,6 +295,7 @@ def read_counts():
     is counted in a run of its own."""
     return {"marching_cubes": mc.LAUNCHES, "diameter": sum(dm.LAUNCHES.values()),
             "compact": cp.LAUNCHES, "firstorder": fo.LAUNCHES, "glcm": gl.LAUNCHES,
+            "masked_range": mr.LAUNCHES,
             "mc_slab_partials": mc.SLAB_LAUNCHES, "mc_partials_finalize": mc.FINALIZE_LAUNCHES,
             "fold_packed_chunks": fo.FOLD_LAUNCHES,
             **{f"diameter[{v}]": n for v, n in dm.LAUNCHES.items()}}
@@ -504,16 +512,31 @@ def build_parent_libs(parent, signatures):
 
 
 # The variants whose kernels this tree redesigned against the parent
-# (c6c7d60): phase 5b holds each below the parent's device time; the other
-# variants' kernels are the parent's, controls of the card's spread.
-AB_CHANGED = ("fused", "tri", "naive", "gram")
+# (c12df81): phase 5b holds each below the parent's device time; the other
+# variants' kernels are the parent's, controls of the card's spread, each
+# printed beside the band AB_BAND.
+AB_CHANGED = ("tri_prefetch",)
+AB_BAND = (0.97, 1.03)
 AB_BLOCK = 256
+
+
+def tile_kernels(rows):
+    """Each masked tile variant's kernels at ``rows`` rows a thread (the
+    mangled-name fragments of csrc/diameter.cu), for its SASS counts."""
+    return {"fused": [f"diameter_tile_kernelILi{rows}ELi4ELb0E"],
+            "tri": [f"diameter_tile_kernelILi{rows}ELi4ELb0E"],
+            "naive": [f"diameter_tile_kernelILi{rows}ELi{c}ELb0E" for c in range(4)],
+            "tri_prefetch": [f"diameter_tile_kernelILi{rows}ELi4ELb1E"],
+            "gram": ["diameter_gram_kernel"]}
+
+
 # sass_loop_counts' counts a pair, by the name phase 5b prints
 SASS_LABELS = {"per_pair": "instructions", "fp32_per_pair": "FP32", "lds_per_pair": "LDS",
                "f2f_per_pair": "F2F", "dmma_per_pair": "DMMA"}
-# The parent's C entries that phases 5b and 5c call: c6c7d60's are this
+# The parent's C entries that phases 5b and 5c call: c12df81's are this
 # tree's, the same names and argument lists, so its libraries are bound to
-# this tree's wrappers, which pass those arguments.
+# this tree's wrappers, which pass those arguments (the parent has no
+# masked_range.cu).
 PARENT_SIGNATURES = {
     "diameter": dm._SIGNATURES,
     "firstorder": fo._SIGNATURES,
@@ -1104,8 +1127,10 @@ def main():
                 check(got < was, f"{variant} on {label}: the change ({got:.4f}) is not below "
                                  f"the parent ({was:.4f})")
             else:  # a control: the parent's kernel in both trees
+                band = "within" if AB_BAND[0] <= got / was <= AB_BAND[1] else "OUTSIDE"
                 print(f"[diam-ab] {variant} on {label}: a control (the parent's kernel); change "
-                      f"{got:.4f}, parent {was:.4f} ({ratio(got, was)})")
+                      f"{got:.4f}, parent {was:.4f} ({ratio(got, was)}, {band} the band "
+                      f"{AB_BAND})")
         print(f"[diam-ab] parent {parent} vs this tree, same inputs, same bits (gram rtol 1e-6); "
               f"redesigned {changed} each below the parent's; nvidia-smi over the timed window: "
               f"{clocks}")
@@ -1133,16 +1158,13 @@ def main():
               f"{loop['per_pair']:.3f} loop instructions a pair = "
               f"{rate_ceiling_ms(n_pairs, loop['per_pair'], clock):.5f} ms; the FP32 peak "
               f"bound {DIAM_OPS_PER_PAIR * n_pairs / PEAK_FP32_PER_S * 1e3:.5f} ms")
-    # the redesigned kernels at block AB_BLOCK: their own SASS counts over the
-    # pairs each computes (the mask's skips counted, computed_pairs)
+    # the masked tile kernels at block AB_BLOCK: their own SASS counts over
+    # the pairs each computes (the mask's skips counted, computed_pairs)
     rows_r = dm.sweep_rows(AB_BLOCK)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    kernels_of = {"fused": [f"diameter_tile_kernelILi{rows_r}ELi4E"],
-                  "tri": [f"diameter_tile_kernelILi{rows_r}ELi4E"],
-                  "naive": [f"diameter_tile_kernelILi{rows_r}ELi{c}E" for c in range(4)],
-                  "gram": ["diameter_gram_kernel"]}
+    kernels_of = tile_kernels(rows_r)
     for label, x, m in ab_inputs:
-        for variant in AB_CHANGED:
+        for variant in kernels_of:
             loops = [next((c for fn, c in sass.items() if k in fn), None)
                      for k in kernels_of[variant]]
             n = sum(dm.computed_pairs(x.shape[1], AB_BLOCK, variant, mask=m[b])
@@ -1242,12 +1264,28 @@ def main():
     # -- 7. the intensity families ------------------------------------------
     t0 = time.perf_counter()
     with Recorder(fo, "firstorder_packed_batch") as rec_fo, \
-            Recorder(gl, "glcm_matrix_batch") as rec_gl:
+            Recorder(gl, "glcm_matrix_batch") as rec_gl, \
+            Recorder(mr, "masked_range_batch") as rec_mr:
         BatchedExtractor(families=FAMS).run(cohort_cases)
     torch.cuda.synchronize()
     print(f"[fam] uncounted recording run over {len(cohort)} cases: "
           f"{time.perf_counter() - t0:.3f} s; launches recorded: first-order "
-          f"{len(rec_fo.calls)}, GLCM {len(rec_gl.calls)}")
+          f"{len(rec_fo.calls)}, GLCM {len(rec_gl.calls)}, masked range {len(rec_mr.calls)}")
+    # the masked range kernel of every pool == intensity_range by value
+    mr_err = 0.0
+    for imgs, msks in rec_mr.calls:
+        flat = (len(imgs), -1)
+        got = mr.masked_range_batch(imgs, msks)
+        want = ref.intensity_range(imgs.reshape(flat), msks.reshape(flat), dim=1)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"the masked range kernel != intensity_range, bucket {tuple(imgs.shape)}")
+        mr_err = max(mr_err, *(float((a - b).abs().max()) for a, b in zip(got, want)))
+        for b in range(len(imgs)):
+            one = mr.masked_range_batch(imgs[b:b + 1], msks[b:b + 1])
+            check(all(torch.equal(o[0], g[b]) for o, g in zip(one, got)),
+                  f"masked range batched vs batch of one, bucket {tuple(imgs.shape)} case {b}")
+    print(f"[fam] masked range kernel == intensity_range (by value) == batch of one on all "
+          f"{len(rec_mr.calls)} pools ({sum(len(c[0]) for c in rec_mr.calls)} cases)")
     fo_err = gl_err = 0.0
     for (imgs, msks), kw in zip(rec_fo.calls, rec_fo.kwargs):
         flat = (len(imgs), -1)
@@ -1293,8 +1331,17 @@ def main():
     gkw = next(kw for (gi, _), kw in zip(rec_gl.calls, rec_gl.kwargs)
                if gi.shape == fi.shape and torch.equal(gi, fi))
     fo_ab_in = (fi, fm, fkw, gkw)  # phase 5c's first-order and GLCM input
+    # the masked range at the same pool: the kernel against its plain version
     rng_args = (fi.reshape(len(fi), -1), fm.reshape(len(fi), -1))
-    rng_dev, _ = device_trace(lambda: ref.intensity_range(*rng_args, dim=1), reps=10)
+    mr_ms = time_ms(lambda: mr.masked_range_batch(fi, fm))
+    mr_plain_ms = time_ms(lambda: ref.intensity_range(*rng_args, dim=1))
+    mr_split = device_split(lambda: mr.masked_range_batch(fi, fm))
+    mr_plain_dev, _ = device_trace(lambda: ref.intensity_range(*rng_args, dim=1), reps=10)
+    mr_floor = device_split(mr.launch_floor(len(fi), fi[0].numel()))
+    mr_masked = int((fm > 0).sum())
+    # bytes: every mask value, the image at the masked voxels, the (2, B) output
+    mr_bound = {"bytes": (4 * fm.numel() + 4 * mr_masked + 8 * len(fi)) / PEAK_BYTES_PER_S * 1e3,
+                "operations": (fm.numel() + 2 * mr_masked) / PEAK_FP32_PER_S * 1e3}
     fo_ms = time_ms(lambda: fo.firstorder_packed_batch(fi, fm, **fkw))
     fo_plain_ms = time_ms(lambda: fo.firstorder_packed_batch_ref(fi, fm, fkw["n_bins"],
                                                                  fkw["value_range"]),
@@ -1307,9 +1354,17 @@ def main():
     gl_dev, _ = device_trace(lambda: gl.glcm_matrix_batch(fi, fm, **gkw), reps=10)
     fo_bound, gl_bound, masked, pairs = intensity_bounds_ms(fm, gl.glcm_matrix_batch(fi, fm,
                                                                                      **gkw))
-    print(f"[fam] the pool's masked range at the largest launch {tuple(fi.shape)}, taken once "
-          f"for both families: device {sum(rng_dev.values()):.2f} us over {len(rng_dev)} "
-          "kernel names")
+    print(f"[fam] the pool's masked range at the largest launch {tuple(fi.shape)} ({mr_masked} "
+          f"masked voxels), taken once for both families: kernel {mr_ms:.4f} ms/call (device "
+          f"{kernel_us(mr_split, ['range_partials_kernel', 'range_fold_kernel'])}: "
+          + ", ".join(f"{n} {kernel_us(mr_split, [n])}"
+                      for n in ('range_partials_kernel', 'range_fold_kernel'))
+          + f"; the whole call {sum(mr_split.values()):.2f} us), launch floor "
+          f"{sum(mr_floor.values()):.2f} us (an empty kernel on both grids), plain "
+          f"(intensity_range) {mr_plain_ms:.4f} ms/call, device "
+          f"{sum(mr_plain_dev.values()):.2f} us over {len(mr_plain_dev)} kernel names; bound "
+          f"{max(mr_bound.values()):.5f} ms (bytes {mr_bound['bytes']:.5f}, ops "
+          f"{mr_bound['operations']:.5f})")
     for label, ms, plain_ms, per_kernel, names, bound in [
             ("first-order", fo_ms, fo_plain_ms, fo_dev,
              ["fo_partials_kernel", "fo_fold_kernel"], fo_bound),
@@ -1323,7 +1378,7 @@ def main():
               f"{plain_ms:.4f} ms, bound {max(bound.values()):.5f} ms (bytes "
               f"{bound['bytes']:.5f}, ops {bound['operations']:.5f}); kernel / bound "
               f"{ms / max(bound.values()):.1f}x")
-    del rec_fo, rec_gl
+    del rec_fo, rec_gl, rec_mr
 
     fext = BatchedExtractor(families=FAMS)  # default device: the card
     zero_counts()
@@ -1335,10 +1390,11 @@ def main():
           f"{len(cohort) / fam_s[0]:.3f} cases/s; launches {fam_launches}")
     print(f"[fmain] host_fetches {fstats['host_fetches']}")
     check(all(fam_launches[k] > 0 for k in ("marching_cubes", "diameter", "compact",
-                                            "firstorder", "glcm")),
+                                            "firstorder", "glcm", "masked_range")),
           f"a kernel of the three-family path never ran: {fam_launches}")
-    check(fam_launches["firstorder"] == fam_launches["glcm"] == fstats["plan"]["shape_buckets"],
-          f"one launch per family and shape bucket: {fam_launches}")
+    check(fam_launches["firstorder"] == fam_launches["glcm"] == fam_launches["masked_range"]
+          == fstats["plan"]["shape_buckets"],
+          f"one launch per family, and one masked range, per shape bucket: {fam_launches}")
     check(fstats["host_fetches"] == FAMILY_FETCHES,
           f"host fetches {fstats['host_fetches']} != the reference's {FAMILY_FETCHES}")
     frows = np.stack(frows)
@@ -1447,7 +1503,8 @@ def main():
           f"launches {tiled_launches}")
     check(tiles["cases"] == 1 and tiles["tiles"] >= 8, f"00001-1 not tiled into >= 8: {tiles}")
     check(all(tiled_launches[k] > 0 for k in ("mc_slab_partials", "mc_partials_finalize",
-                                              "fold_packed_chunks", "diameter")),
+                                              "fold_packed_chunks", "diameter",
+                                              "masked_range")),
           f"a kernel of the tiled path never ran: {tiled_launches}")
     incore = BatchedExtractor(families=TILED_FAMS)
     oracle = incore.extract_one(img, msk, sp)
@@ -1830,7 +1887,7 @@ def main():
           f"x 512^3): largest relative error {gram_rel:.3e} (< 1e-3)")
 
     # 9b. the Fig. 1 table on the card
-    fig1 = {}
+    fig1, fig1_dev = {}, {}
     print("[fig1] input                     variant       block   ms/call  device_us  "
           "bound_ms  work_ms(flop_estimate)  plain_ms")
     for label, x, m in big_inputs:
@@ -1851,6 +1908,7 @@ def main():
                               for b in range(len(x)))
                 work_ms = max(fp32 / PEAK_FP32_PER_S, fp64 / PEAK_FP64_TC_PER_S) * 1e3
                 fig1[label, variant, block] = ms
+                fig1_dev[label, variant, block] = dev_us
                 print(f"[fig1] {label:25s} {variant:12s} {block:5d} {ms:9.4f} {dev_us:10.2f} "
                       f"{max(bound.values()):9.5f} {work_ms:10.5f} ({n_pairs} pairs a launch, "
                       f"{fp32:.4g} FP32{f', {fp64:.4g} FP64 TC' if fp64 else ''})  "
@@ -1858,6 +1916,13 @@ def main():
         print(f"[fig1] {label}: bound {max(bound.values()):.5f} ms = {pairs} valid pairs x "
               f"{DIAM_OPS_PER_PAIR} FP32 ops / 67 TFLOP/s; fastest "
               f"{min((k for k in fig1 if k[0] == label), key=fig1.get)[1:]}")
+        # the Fig. 1 order: the scheduled walk at or below 'tri''s full grid
+        print(f"[fig1] {label}: tri_prefetch / tri device time at blocks {VARIANT_BLOCKS}: "
+              + ", ".join(
+                  f"{ratio(fig1_dev[label, 'tri_prefetch', b], fig1_dev[label, 'tri', b])} "
+                  + ("(at or below)" if fig1_dev[label, "tri_prefetch", b]
+                     <= fig1_dev[label, "tri", b] else "(above)")
+                  for b in VARIANT_BLOCKS))
 
     # 9c. the autotuner on the card: cold sweeps at two fresh keys, then hits
     cache = autotune.AutotuneCache()
@@ -1981,6 +2046,9 @@ def main():
               fam_launches["firstorder"], fo_err, fo_ms, fo_plain_ms, fo_bound, None),
         entry("glcm_matrix_batch", "glcm.cu", "src/repro/kernels/glcm.py:146",
               fam_launches["glcm"], gl_err, gl_ms, gl_plain_ms, gl_bound, None),
+        # the port's own kernel: the reference takes the range outside any Pallas kernel
+        entry("masked_range_batch", "masked_range.cu", "src/repro/kernels/ref.py:337",
+              fam_launches["masked_range"], mr_err, mr_ms, mr_plain_ms, mr_bound, None),
         entry("mc_slab_partials", "marching_cubes.cu", "src/repro/kernels/marching_cubes.py:98",
               tiled_launches["mc_slab_partials"], slab_err, slab_ms, slab_plain_ms, slab_bound,
               None),

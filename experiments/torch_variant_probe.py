@@ -10,16 +10,17 @@ each, all at once) and times the kernels each edit touches on case
 stack (``chip_smoke.py`` phase 5b's inputs), at each block of
 ``--blocks``:
 
-* ``kernel``: the source as it is ('fused', 'tri', 'naive', 'gram');
+* ``kernel``: the source as it is ('fused', 'tri', 'naive', 'tri_prefetch',
+  'gram');
 * ``gram-groups-1`` / ``gram-groups-4``: 'gram' with 1 or 4 16-row
   groups a warp holding their A fragments (the source holds 2);
 * ``gram-no-min-blocks``: 'gram' without its 4-blocks-an-SM launch bound,
   at the registers ptxas picks itself;
-* ``tile-rows-before-columns``: 'fused' and 'tri' loading their row
-  vertices before the columns are staged, in flight with the columns'
-  loads;
-* ``tile-min-5-blocks``: 'fused' and 'tri' with R = 8 bounded to 5
-  blocks an SM.
+* ``tile-rows-before-columns``: 'fused', 'tri' and 'tri_prefetch'
+  loading their row vertices before the columns are staged, in flight
+  with the columns' loads;
+* ``tile-min-5-blocks``: 'fused', 'tri' and 'tri_prefetch' with R = 8
+  bounded to 5 blocks an SM.
 
 Every variant's results are held to this tree's kernels (the direct
 variants bitwise, 'gram' at rtol 1e-6).  Prints one JSON line: per
@@ -69,9 +70,10 @@ VARIANTS = {
     "tile-min-5-blocks": [(TILE_BOUND, TILE_BOUND.replace("(1024 / R)",
                                                           "(1024 / R, R == 8 ? 5 : 1)"))],
 }
-TIMED = {"kernel": ("fused", "tri", "naive", "gram"), "gram-groups-1": ("gram",),
-         "gram-groups-4": ("gram",), "gram-no-min-blocks": ("gram",),
-         "tile-rows-before-columns": ("fused", "tri"), "tile-min-5-blocks": ("fused", "tri")}
+TIMED = {"kernel": ("fused", "tri", "naive", "tri_prefetch", "gram"),
+         "gram-groups-1": ("gram",), "gram-groups-4": ("gram",), "gram-no-min-blocks": ("gram",),
+         "tile-rows-before-columns": ("fused", "tri", "tri_prefetch"),
+         "tile-min-5-blocks": ("fused", "tri", "tri_prefetch")}
 
 
 def load_smoke():
@@ -84,7 +86,7 @@ def load_smoke():
 def kernel_name(mangled):
     """The probed kernel a mangled name holds: the gram kernel or a tile
     kernel at R = 8, else None."""
-    m = re.search(r"diameter_gram_kernel|diameter_tile_kernelILi8ELi\d+E", mangled)
+    m = re.search(r"diameter_gram_kernel|diameter_tile_kernelILi8ELi\d+ELb\dE", mangled)
     return m and m.group(0)
 
 

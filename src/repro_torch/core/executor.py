@@ -102,6 +102,7 @@ from repro_torch.kernels import firstorder as _fo
 from repro_torch.kernels import glcm as _glcm
 from repro_torch.kernels import marching_cubes as _mc
 from repro_torch.kernels import ops
+from repro_torch.kernels import masked_range as _range
 from repro_torch.kernels import prune as prune_kernels
 from repro_torch.kernels import ref as _ref
 
@@ -377,10 +378,9 @@ class PlanExecutor:
     @staticmethod
     def _ipool(images, masks):
         """Intensity pool of one shape group: ``(images, masks, lo, hi)``,
-        the stacks and each case's masked range, taken once and shared by
-        every intensity family."""
-        flat = (len(images), -1)
-        lo, hi = _ref.intensity_range(images.reshape(flat), masks.reshape(flat), dim=1)
+        the stacks and each case's masked range (``csrc/masked_range.cu``
+        on the card), taken once and shared by every intensity family."""
+        lo, hi = _range.masked_range_batch(images, masks)
         return images, masks, lo, hi
 
     def _submit_families(self, plan, prepped, pools, batch_size=None) -> dict:

@@ -73,6 +73,7 @@ import torch
 from repro_torch.core import plan as planlib
 from repro_torch.core.dispatcher import to_device
 from repro_torch.kernels import firstorder as _fo
+from repro_torch.kernels import masked_range as _range
 from repro_torch.kernels import ops
 from repro_torch.kernels import prune as _prune
 
@@ -276,9 +277,11 @@ class TiledExtractor:
                     img_np = np.asarray(case.image_slab(z0, z1), np.float32)
                     staged += img_np.nbytes
                     img = to_device(img_np, dev)
-                    pos = sl > 0
-                    int_lo = torch.minimum(int_lo, img.masked_fill(~pos, np.inf).amin())
-                    int_hi = torch.maximum(int_hi, img.masked_fill(~pos, -np.inf).amax())
+                    # the piece's range, a batch of one (it holds a masked voxel)
+                    plo, phi = _range.masked_range_batch(img[None],
+                                                         (sl > 0).to(torch.float32)[None])
+                    int_lo = torch.minimum(int_lo, plo[0])
+                    int_hi = torch.maximum(int_hi, phi[0])
                 peak = max(peak, staged)
             if need_wit:  # across chunks a tie keeps the earlier chunk's
                 up, down = ctop > pmax, cbot < pmin

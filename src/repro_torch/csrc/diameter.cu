@@ -51,13 +51,15 @@
 //                 partial and returns (the TPU still ran its DMA there)
 //   naive         'fused' once per combo, four launches (combo_mask), each
 //                 computing only its combo's axes
-//   tri_prefetch  the upper-triangle tiles read from the (2, T) schedule in
-//                 device memory, a select on every pair (tile_maxima)
+//   tri_prefetch  'tri''s tile body, one block a tile of the upper triangle
+//                 only, its (i, j) read from the (2, T) schedule in device
+//                 memory (the TPU's scalar prefetch): no block is launched
+//                 below the diagonal
 //   gram          that schedule, each tile's per-axis squared differences
 //                 on the FP64 tensor cores (diameter_gram_kernel)
 // A pair with an invalid end counts kNeg, as the plain version's
-// where(valid, s, NEG).  'fused', 'tri', 'naive' and 'gram' apply the mask
-// outside the pair loop (plan_tile).  Each per-pair operation is an
+// where(valid, s, NEG).  Every masked variant applies the mask outside the
+// pair loop (plan_tile).  Each per-pair operation is an
 // explicitly rounded intrinsic in the plain version's order
 // (kernels/ref.py pair_sweep), never contracted to an FMA, so the direct
 // variants' maxima equal the plain version's bitwise; a filled slot
@@ -73,39 +75,13 @@ constexpr float kNeg = -1e30f;
 constexpr int kAll = 4;  // every combo; 0..3 picks one of [3D, xy, xz, yz]
 
 // Folds one pair's squared axis differences into the running maxima:
-// [3D, xy, xz, yz] in the plain version's order, kNeg where !ok.
-template <int kCombo>
-__device__ __forceinline__ void fold_pair(float qx, float qy, float qz, bool ok,
-                                          float (&m)[4]) {
+// [3D, xy, xz, yz] in the plain version's order.
+__device__ __forceinline__ void fold_pair(float qx, float qy, float qz, float (&m)[4]) {
   const float qxy = __fadd_rn(qx, qy);
-  if (kCombo == kAll || kCombo == 0) m[0] = fmaxf(m[0], ok ? __fadd_rn(qxy, qz) : kNeg);
-  if (kCombo == kAll || kCombo == 1) m[1] = fmaxf(m[1], ok ? qxy : kNeg);
-  if (kCombo == kAll || kCombo == 2) m[2] = fmaxf(m[2], ok ? __fadd_rn(qx, qz) : kNeg);
-  if (kCombo == kAll || kCombo == 3) m[3] = fmaxf(m[3], ok ? __fadd_rn(qy, qz) : kNeg);
-}
-
-// This block's (4,) maxima over tile (i, j) of one (3, mp) SoA list and
-// its (mp,) mask stream, one thread a row; the result is valid in thread 0.
-template <int kCombo>
-__device__ __forceinline__ void tile_maxima(const float* __restrict__ v,
-                                            const unsigned char* __restrict__ mask, int mp,
-                                            int i, int j, float4* col, float (&m)[4]) {
-  const int r = i * blockDim.x + threadIdx.x, c = j * blockDim.x + threadIdx.x;
-  col[threadIdx.x] = make_float4(v[c], v[mp + c], v[2 * mp + c], mask[c] ? 1.0f : 0.0f);
-  const float rx = v[r], ry = v[mp + r], rz = v[2 * mp + r];
-  const bool rv = mask[r];
-  __syncthreads();
-
-#pragma unroll
-  for (int q = 0; q < 4; ++q) m[q] = kNeg;
-#pragma unroll 8
-  for (int q = 0; q < (int)blockDim.x; ++q) {
-    const float4 p = col[q];
-    const float dx = __fsub_rn(rx, p.x), dy = __fsub_rn(ry, p.y), dz = __fsub_rn(rz, p.z);
-    const float qx = __fmul_rn(dx, dx), qy = __fmul_rn(dy, dy), qz = __fmul_rn(dz, dz);
-    fold_pair<kCombo>(qx, qy, qz, rv && p.w != 0.0f, m);
-  }
-  block_reduce<4>(m, MaxOp{}, kNeg);
+  m[0] = fmaxf(m[0], __fadd_rn(qxy, qz));
+  m[1] = fmaxf(m[1], qxy);
+  m[2] = fmaxf(m[2], __fadd_rn(qx, qz));
+  m[3] = fmaxf(m[3], __fadd_rn(qy, qz));
 }
 
 __device__ __forceinline__ void write_partial(float* __restrict__ p, const float (&m)[4]) {
@@ -113,20 +89,6 @@ __device__ __forceinline__ void write_partial(float* __restrict__ p, const float
 #pragma unroll
     for (int q = 0; q < 4; ++q) p[q] = m[q];
   }
-}
-
-// 'tri_prefetch': tile t's (i, j) read from the (2, T) schedule ij.
-__global__ void __launch_bounds__(1024)
-    diameter_sched_kernel(const float* __restrict__ v, const unsigned char* __restrict__ mask,
-                          const int* __restrict__ ij, int mp, float* __restrict__ partials) {
-  extern __shared__ float4 col[];
-  const size_t b = blockIdx.y;
-  const int i = ij[blockIdx.x], j = ij[gridDim.x + blockIdx.x];
-  const float* vb = v + 3 * (size_t)mp * b;
-  const unsigned char* mb = mask + (size_t)mp * b;
-  float m[4];
-  tile_maxima<kAll>(vb, mb, mp, i, j, col, m);
-  write_partial(partials + 4 * ((size_t)gridDim.x * b + blockIdx.x), m);
 }
 
 // ---- the main path's sweep: 'seqacc' and 'nomask' -----------------------
@@ -315,7 +277,8 @@ void sweep(const SweepShape& sh, dim3 grid, cudaStream_t s, const float* v, cons
       <<<grid, sh.threads, sh.smem, s>>>(v, extent, ij, ij_len, mp, tile, partials);
 }
 
-// ---- the Fig. 1 variants' tiles: 'fused', 'tri', 'naive' and 'gram' -----
+// ---- the Fig. 1 variants' tiles: 'fused', 'tri', 'naive', 'tri_prefetch'
+// and 'gram' -----------------------------------------------------------------
 //
 // One block a (row tile i, column tile j) pair and one (4,) partial a
 // tile, as the reference's grid; the mask stream is read, but outside the
@@ -325,7 +288,8 @@ void sweep(const SweepShape& sh, dim3 grid, cudaStream_t s, const float* v, cons
 //   * a tile with no valid row or no valid column writes the empty
 //     partial and returns, the whole block together (__syncthreads_or over
 //     its mask bytes): padding tiles cost the load of their mask, and for
-//     'tri' and 'gram' every tile past the list's valid region returns
+//     'tri', 'tri_prefetch' and 'gram' every tile past the list's valid
+//     region returns
 //     at once, with no extent argument and no host sync;
 //   * only the tile's valid columns are staged, in order, into a dense
 //     list in shared memory, padded to the loop's unit with copies of its
@@ -455,20 +419,26 @@ __device__ __forceinline__ void tile_column(const float (&rx)[R], const float (&
 }
 
 // 'fused' and 'tri' (kCombo kAll) and one launch of 'naive' (kCombo 0..3):
-// tile (x / nb, x % nb) of list blockIdx.y.  The block is sweep_shape's:
+// tile (x / nb, x % nb) of list blockIdx.y, x = blockIdx.x; 'tri_prefetch'
+// (kSched, kCombo kAll): scheduled tile x, its (i, j) read from the (2, T)
+// schedule ij, so only the upper triangle is launched (the TPU kernel's
+// scalar-prefetched walk; 'tri' steps the full grid and returns below the
+// diagonal).  The block is sweep_shape's:
 // `tile / R` row threads (a multiple of 32) times S column groups; thread
 // (s, u) holds rows u + r tile / R (r < R) in registers and sweeps the
 // s-th of S equal runs of the staged columns, all lanes of a warp on the
 // same column (a broadcast), 3 LDS.128 for 4 columns x R rows.
-template <int R, int kCombo>
+template <int R, int kCombo, bool kSched>
 __global__ void __launch_bounds__(1024 / R)
     diameter_tile_kernel(const float* __restrict__ v, const unsigned char* __restrict__ mask,
-                         int mp, int nb, int tile, int triangular, float* __restrict__ partials) {
+                         const int* __restrict__ ij, int mp, int nb, int tile, int triangular,
+                         float* __restrict__ partials) {
   extern __shared__ float4 smem4[];
   float* const cols = reinterpret_cast<float*>(smem4);  // [x, y, z] x tile floats
   __shared__ TileColumns tc;
   const size_t b = blockIdx.y;
-  const int i = blockIdx.x / nb, j = blockIdx.x % nb;
+  const int i = kSched ? ij[blockIdx.x] : blockIdx.x / nb;
+  const int j = kSched ? ij[gridDim.x + blockIdx.x] : blockIdx.x % nb;
   const float* vb = v + 3 * (size_t)mp * b;
   const unsigned char* mb = mask + (size_t)mp * b;
   float* const p = partials + 4 * ((size_t)gridDim.x * b + blockIdx.x);
@@ -515,20 +485,41 @@ __global__ void __launch_bounds__(1024 / R)
   write_partial(p, out);
 }
 
+// A tile kernel launch: 'tri_prefetch' where ij is given (every combo),
+// else the full grid of combo_mask's combo(s).
 template <int R>
 int tile_launch(int combo_mask, dim3 grid, int threads, cudaStream_t s, const float* v,
-                const unsigned char* mask, int mp, int nb, int tile, int triangular,
-                float* partials) {
+                const unsigned char* mask, const int* ij, int mp, int nb, int tile,
+                int triangular, float* partials) {
   const size_t smem = 3 * (size_t)tile * sizeof(float);
+  if (ij) {
+    if (combo_mask != 0xF) return cudaErrorInvalidValue;
+    diameter_tile_kernel<R, kAll, true><<<grid, threads, smem, s>>>(v, mask, ij, mp, nb, tile, 0, partials);
+    return cudaSuccess;
+  }
   switch (combo_mask) {
-    case 0xF: diameter_tile_kernel<R, kAll><<<grid, threads, smem, s>>>(v, mask, mp, nb, tile, triangular, partials); break;
-    case 0x1: diameter_tile_kernel<R, 0><<<grid, threads, smem, s>>>(v, mask, mp, nb, tile, triangular, partials); break;
-    case 0x2: diameter_tile_kernel<R, 1><<<grid, threads, smem, s>>>(v, mask, mp, nb, tile, triangular, partials); break;
-    case 0x4: diameter_tile_kernel<R, 2><<<grid, threads, smem, s>>>(v, mask, mp, nb, tile, triangular, partials); break;
-    case 0x8: diameter_tile_kernel<R, 3><<<grid, threads, smem, s>>>(v, mask, mp, nb, tile, triangular, partials); break;
+    case 0xF: diameter_tile_kernel<R, kAll, false><<<grid, threads, smem, s>>>(v, mask, ij, mp, nb, tile, triangular, partials); break;
+    case 0x1: diameter_tile_kernel<R, 0, false><<<grid, threads, smem, s>>>(v, mask, ij, mp, nb, tile, triangular, partials); break;
+    case 0x2: diameter_tile_kernel<R, 1, false><<<grid, threads, smem, s>>>(v, mask, ij, mp, nb, tile, triangular, partials); break;
+    case 0x4: diameter_tile_kernel<R, 2, false><<<grid, threads, smem, s>>>(v, mask, ij, mp, nb, tile, triangular, partials); break;
+    case 0x8: diameter_tile_kernel<R, 3, false><<<grid, threads, smem, s>>>(v, mask, ij, mp, nb, tile, triangular, partials); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaSuccess;
+}
+
+// tile_launch at sweep_shape(tile)'s rows and threads.
+int tile_dispatch(int combo_mask, dim3 grid, cudaStream_t s, const float* v,
+                  const unsigned char* mask, const int* ij, int mp, int nb, int tile,
+                  int triangular, float* partials) {
+  const SweepShape sh = sweep_shape(tile);
+  switch (sh.rows) {
+    case 1: return tile_launch<1>(combo_mask, grid, sh.threads, s, v, mask, ij, mp, nb, tile, triangular, partials);
+    case 2: return tile_launch<2>(combo_mask, grid, sh.threads, s, v, mask, ij, mp, nb, tile, triangular, partials);
+    case 4: return tile_launch<4>(combo_mask, grid, sh.threads, s, v, mask, ij, mp, nb, tile, triangular, partials);
+    case 8: return tile_launch<8>(combo_mask, grid, sh.threads, s, v, mask, ij, mp, nb, tile, triangular, partials);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // 'gram': per axis, the tile's squared differences are one K = 3 product
@@ -630,7 +621,7 @@ __global__ void __launch_bounds__(32 * kGramWarps, 4)
           for (int e = 0; e < 4; ++e) q[ax][e] = __double2float_rn(d[e]);
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) fold_pair<kAll>(q[0][e], q[1][e], q[2][e], true, m[gg][e >> 1]);
+        for (int e = 0; e < 4; ++e) fold_pair(q[0][e], q[1][e], q[2][e], m[gg][e >> 1]);
       }
     }
 #pragma unroll
@@ -743,21 +734,15 @@ int diameter_partial_launch(const float* v, const unsigned char* mask, int batch
   const long long nb = mp / block, ntiles = nb * nb;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)ntiles, batch);
-  const SweepShape sh = sweep_shape(block);
-  int err;
-  switch (sh.rows) {
-    case 1: err = tile_launch<1>(combo_mask, grid, sh.threads, s, v, mask, mp, (int)nb, block, triangular, partials); break;
-    case 2: err = tile_launch<2>(combo_mask, grid, sh.threads, s, v, mask, mp, (int)nb, block, triangular, partials); break;
-    case 4: err = tile_launch<4>(combo_mask, grid, sh.threads, s, v, mask, mp, (int)nb, block, triangular, partials); break;
-    case 8: err = tile_launch<8>(combo_mask, grid, sh.threads, s, v, mask, mp, (int)nb, block, triangular, partials); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  const int err = tile_dispatch(combo_mask, grid, s, v, mask, nullptr, mp, (int)nb, block,
+                                triangular, partials);
   if (err != cudaSuccess) return err;
   return finalize(partials, ntiles, batch, out, s);
 }
 
-// 'tri_prefetch' (gram 0) and 'gram' (gram 1): ij the (2, ntiles) int32
-// upper-triangle schedule on the device; partials for ntiles tiles.
+// 'tri_prefetch' (gram 0: diameter_tile_kernel<R, kAll, true>) and 'gram'
+// (gram 1): ij the (2, ntiles) int32 upper-triangle schedule on the device;
+// mask (batch, mp) bool, padding false; partials for ntiles tiles.
 int diameter_sched_launch(const float* v, const unsigned char* mask, const int* ij, int ntiles,
                           int batch, int mp, int block, int gram, float* partials, float* out,
                           void* stream) {
@@ -773,7 +758,8 @@ int diameter_sched_launch(const float* v, const unsigned char* mask, const int* 
     }
     diameter_gram_kernel<<<grid, 32 * kGramWarps, smem, s>>>(v, mask, ij, mp, block, partials);
   } else {
-    diameter_sched_kernel<<<grid, block, block * sizeof(float4), s>>>(v, mask, ij, mp, partials);
+    const int err = tile_dispatch(0xF, grid, s, v, mask, ij, mp, mp / block, block, 0, partials);
+    if (err != cudaSuccess) return err;
   }
   return finalize(partials, ntiles, batch, out, s);
 }

@@ -6,6 +6,7 @@ plain PyTorch beside.
     compact        -- csrc/compact.cu wrapper (segmented survivor compaction)
     firstorder     -- csrc/firstorder.cu wrapper (packed first-order stats)
     glcm           -- csrc/glcm.cu wrapper (symmetric co-occurrence counts)
+    masked_range   -- csrc/masked_range.cu wrapper (each case's masked intensity range)
     prune          -- exact candidate pruning (plain PyTorch on the device)
     ref            -- the plain PyTorch versions and the path's plain ops
     ops            -- device-resolved entry points

@@ -12,12 +12,16 @@ which says what bounds them and how each variant's grid and streams
 differ.  The main path's two (``seqacc`` and ``nomask``, the ones
 ``'auto'`` picks) sweep only each list's valid extent, on a persistent
 grid of register-tiled blocks; the others give each block one tile of
-the whole padded list.  ``fused``, ``tri``, ``naive`` (register-tiled
-rows, as the sweep) and ``gram`` (FP64 ``mma.sync`` m16n8k4) apply the
-mask outside their pair loop: a tile with no valid row or no valid
-column writes an empty partial, only a tile's valid columns are staged,
-and an invalid row's maxima are reset once (``csrc/diameter.cu``
-``plan_tile``); ``tri_prefetch`` selects on every pair.
+the whole padded list.  ``fused``, ``tri``, ``naive``, ``tri_prefetch``
+(register-tiled rows, as the sweep) and ``gram`` (FP64 ``mma.sync``
+m16n8k4) apply the mask outside their pair loop: a tile with no valid row
+or no valid column writes an empty partial, only a tile's valid columns
+are staged, and an invalid row's maxima are reset once
+(``csrc/diameter.cu`` ``plan_tile``).  ``tri_prefetch`` runs ``tri``'s
+tile body on the upper-triangle tiles only, each block reading its tile
+from the (2, T) schedule in device memory (the reference's scalar
+prefetch), where ``tri`` launches the full grid and returns below the
+diagonal.
 
 Every variant sweeps the same prepared input
 (:func:`repro_torch.kernels.ref.diameter_input_batch`): invalid slots
@@ -228,13 +232,11 @@ def max_diameters_batch(verts, masks, *, block: int = DEFAULT_BLOCK,
 # -- work counted from csrc/diameter.cu, per launch of one list -------------
 
 # FP32 operations a pair costs on the CUDA cores: 3 sub, 3 mul, 4 add and
-# 4 max.  'tri_prefetch' selects on every pair: the mask's compare, an and
-# and 4 selects.  The other masked variants apply the mask outside the
-# pair loop: 'naive' computes one combo a launch (3D: 3 sub, 3 mul, 2 add
-# and a max; a plane 2, 2, 1 and a max), 'gram' converts 3 products to
-# float32 and forms the combos (4 add, 4 max).
+# 4 max.  The masked variants apply the mask outside the pair loop, so
+# they select on no pair: 'naive' computes one combo a launch (3D: 3 sub,
+# 3 mul, 2 add and a max; a plane 2, 2, 1 and a max), 'gram' converts 3
+# products to float32 and forms the combos (4 add, 4 max).
 _DIRECT_OPS = 14
-_MASK_OPS = 6
 _NAIVE_OPS = (3 + 3 + 2 + 1) + 3 * (2 + 2 + 1 + 1)
 _GRAM_OPS = 3 + 4 + 4
 # an m16n8k4 FP64 product per axis: 2 x 16 x 8 x 4 FLOP for 128 pairs,
@@ -242,7 +244,9 @@ _GRAM_OPS = 3 + 4 + 4
 _GRAM_TENSOR_FLOP = 3 * 2 * 4
 # csrc diameter_tile_kernel and diameter_gram_kernel: the mask applied
 # outside the pair loop (plan_tile)
-_TILE_VARIANTS = ("naive", "fused", "tri", "gram")
+_TILE_VARIANTS = ("naive", "fused", "tri", "tri_prefetch", "gram")
+# the tile kernels that compute the upper triangle only
+_TRIANGULAR = ("tri", "tri_prefetch", "gram")
 
 
 def column_unit(block: int, variant: str) -> int:
@@ -271,19 +275,17 @@ def _computed_tiles(M: int, block: int, variant: str, extent: int | None = None,
                     mask=None) -> int:
     """Tiles whose pairs a launch computes: the colex prefix of a list's
     extent ('seqacc', 'nomask'; ``extent``, else the one of ``mask``,
-    else the whole list), the upper triangle ('tri_prefetch'), or the
-    tiles with a valid row and a valid column of ``mask`` (default: all
-    ``M`` slots valid) in the full grid ('fused', 'naive') or its upper
-    triangle ('tri', 'gram')."""
+    else the whole list), or the tiles with a valid row and a valid
+    column of ``mask`` (default: all ``M`` slots valid) in the full grid
+    ('fused', 'naive') or its upper triangle ('tri', 'tri_prefetch',
+    'gram')."""
     nb = -(-M // block)
     if variant in _SWEEP_KIND:
         if extent is None and mask is not None:
             extent = int(_ref.list_extent(_list_mask(M, block, mask)[None])[0])
         return _ref.extent_tiles(min(M if extent is None else int(extent), nb * block), block)
-    if variant == "tri_prefetch":
-        return nb * (nb + 1) // 2
     return int(_ref.computed_tiles(_list_mask(M, block, mask), block,
-                                   variant in ("tri", "gram")).sum())
+                                   variant in _TRIANGULAR).sum())
 
 
 def computed_pairs(M: int, block: int, variant: str, extent: int | None = None,
@@ -299,7 +301,7 @@ def computed_pairs(M: int, block: int, variant: str, extent: int | None = None,
     m = _list_mask(M, block, mask)
     unit = column_unit(block, variant)
     cols = (_ref.tile_valid_counts(m, block) + unit - 1) // unit * unit
-    tiles = _ref.computed_tiles(m, block, variant in ("tri", "gram"))
+    tiles = _ref.computed_tiles(m, block, variant in _TRIANGULAR)
     return int((tiles * cols[None, :]).sum()) * block
 
 
@@ -307,12 +309,9 @@ def flop_estimate(M: int, block: int, variant: str, extent: int | None = None,
                   mask=None) -> float:
     """FP32 operations on the CUDA cores for one list of ``M`` slots
     (all launches of the variant): :func:`computed_pairs` times the
-    operations a pair, selects included only where the kernel selects
-    ('tri_prefetch')."""
-    per_pair = {"seqacc": _DIRECT_OPS, "nomask": _DIRECT_OPS, "fused": _DIRECT_OPS,
-                "tri": _DIRECT_OPS, "naive": _NAIVE_OPS, "gram": _GRAM_OPS,
-                "tri_prefetch": _DIRECT_OPS + _MASK_OPS}
-    return float(computed_pairs(M, block, variant, extent, mask)) * per_pair[variant]
+    operations a pair."""
+    per_pair = {"naive": _NAIVE_OPS, "gram": _GRAM_OPS}.get(variant, _DIRECT_OPS)
+    return float(computed_pairs(M, block, variant, extent, mask)) * per_pair
 
 
 def tensor_flop_estimate(M: int, block: int, variant: str, mask=None) -> float:
@@ -328,26 +327,23 @@ def tensor_flop_estimate(M: int, block: int, variant: str, mask=None) -> float:
 def bytes_estimate(M: int, block: int, variant: str, extent: int | None = None,
                    mask=None) -> float:
     """Device-memory bytes for one list: each computed tile reads its row
-    and column tiles (12 bytes a slot; 13 with the mask stream for
-    'tri_prefetch', and 8 per tile of schedule on the scheduled variants),
-    and every block writes a (4,) partial that the finalize reads back: one
-    a launched tile, or for 'seqacc' and 'nomask' at most one a computed
-    tile (their persistent grid holds no more blocks than a list has
-    tiles), which also read the list's extent.  The masked tile kernels
-    read the mask of the row and the column tile in every block but
-    'tri''s below the diagonal.  ``extent`` and ``mask`` as in
-    :func:`flop_estimate`."""
+    and column tiles (12 bytes a slot, and 8 per tile of schedule on the
+    scheduled variants), and every block writes a (4,) partial that the
+    finalize reads back: one a launched tile, or for 'seqacc' and 'nomask'
+    at most one a computed tile (their persistent grid holds no more
+    blocks than a list has tiles), which also read the list's extent.  The
+    masked tile kernels read the mask of the row and the column tile in
+    every block but 'tri''s below the diagonal, and the scheduled ones
+    ('tri_prefetch', 'gram') 8 bytes of schedule a launched tile.
+    ``extent`` and ``mask`` as in :func:`flop_estimate`."""
     check_variant(variant)
     nb = -(-M // block)
     computed = _computed_tiles(M, block, variant, extent, mask)
-    sweep = variant in _SWEEP_KIND
-    launched = computed if sweep else _tiles(variant, nb)
     sched = 8 if variant in ("nomask", "tri_prefetch", "gram") else 0
-    if variant in _TILE_VARIANTS:
-        visited = nb * (nb + 1) // 2 if variant == "tri" else launched
-        per_launch = (visited * (2 * block + sched) + computed * 2 * block * 12
-                      + 2 * 16 * launched + 16)
-    else:
-        slot = 12 if sweep else 13
-        per_launch = computed * (2 * block * slot + sched) + 2 * 16 * launched + 16 + 4 * sweep
+    if variant in _SWEEP_KIND:
+        return float(computed * (2 * block * 12 + sched) + 2 * 16 * computed + 16 + 4)
+    launched = _tiles(variant, nb)
+    visited = nb * (nb + 1) // 2 if variant == "tri" else launched
+    per_launch = (visited * (2 * block + sched) + computed * 2 * block * 12
+                  + 2 * 16 * launched + 16)
     return float(per_launch) * (4 if variant == "naive" else 1)

@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import masked_range as _range
 
 N_BINS = 32          # default fixed-bin-count discretisation
 CANON_CHUNK = 1024   # canonical accumulation granule (see module docstring)
@@ -170,8 +171,7 @@ def _launch(images: torch.Tensor, masks: torch.Tensor, n_bins: int, block: int,
     _ref.check_volumes(images, masks)
     batch = images.shape[0]
     voxels = images[0].numel()
-    lo, hi = (value_range if value_range is not None else
-              _ref.intensity_range(images.reshape(batch, -1), masks.reshape(batch, -1), dim=1))
+    lo, hi = value_range if value_range is not None else _range.masked_range_batch(images, masks)
     nc = _padded_len(-(-voxels // CANON_CHUNK), 4)  # the kernel's rows: 16-byte tiles
     partials = torch.empty((batch, nc, stats_width(n_bins)), dtype=torch.float32,
                            device=images.device)
@@ -200,7 +200,8 @@ def firstorder_packed_batch(images: torch.Tensor, masks: torch.Tensor, *,
     block); it never changes a bit of the result.
     ``value_range`` is the masked ``(lo, hi)`` of ``ref.intensity_range``
     over each case, two ``(B,)`` tensors, where the caller has it (the
-    executor takes it once for both families); else it is taken here.
+    executor takes it once for both families); else it is taken here
+    (``masked_range.masked_range_batch``).
     """
     global LAUNCHES
     if block % CANON_CHUNK or block <= 0:

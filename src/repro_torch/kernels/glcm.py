@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import masked_range as _range
 
 N_BINS = 32
 DEFAULT_BLOCK = 4  # CUDA blocks an SM the launch aims at (:func:`tiling`)
@@ -178,7 +179,8 @@ def glcm_matrix_batch(images: torch.Tensor, masks: torch.Tensor, *,
     an SM the launch aims at, which sizes the tiles (:func:`tiling`); it
     never changes the result.
     ``value_range`` is the masked ``(lo, hi)`` of ``ref.intensity_range``
-    over each case where the caller has it; else it is taken here.
+    over each case where the caller has it; else it is taken here
+    (``masked_range.masked_range_batch``).
 
     The float32 counts are exact while each is below 2^24, as in the
     reference; a symmetrised count is at most twice the case's pairs,
@@ -203,8 +205,7 @@ def glcm_matrix_batch(images: torch.Tensor, masks: torch.Tensor, *,
     tiles = tile_count((nx, ny, nz), d, ry, rz)
     if batch * tiles >= 2 ** 31:
         raise ValueError(f"{batch} x {tiles} tiles are outside the kernel's grid")
-    lo, hi = (value_range if value_range is not None else
-              _ref.intensity_range(images.reshape(batch, -1), masks.reshape(batch, -1), dim=1))
+    lo, hi = value_range if value_range is not None else _range.masked_range_batch(images, masks)
     partials = torch.empty((batch, tiles, n_bins * n_bins), dtype=torch.int32,
                            device=images.device)
     out = torch.empty((batch, n_bins, n_bins), dtype=torch.float32, device=images.device)

@@ -349,9 +349,10 @@ def tile_valid_counts(mask, block: int) -> torch.Tensor:
 
 def computed_tiles(mask, block: int, triangular: bool) -> torch.Tensor:
     """(nb, nb) bool: the tiles ``(i, j)`` whose pairs the masked tile
-    kernels ('fused', 'tri', 'naive', 'gram') compute, those with a valid
-    row and a valid column (and ``i <= j`` where ``triangular``): the
-    plain mirror of ``csrc/diameter.cu`` ``plan_tile``'s skip."""
+    kernels ('fused', 'tri', 'naive', 'tri_prefetch', 'gram') compute,
+    those with a valid row and a valid column (and ``i <= j`` where
+    ``triangular``): the plain mirror of ``csrc/diameter.cu``
+    ``plan_tile``'s skip."""
     any_ = tile_valid_counts(mask, block) > 0
     tiles = any_[:, None] & any_[None, :]
     return torch.triu(tiles) if triangular else tiles

@@ -76,7 +76,7 @@ from repro_torch.kernels import compact as _compact
 from repro_torch.kernels import diameter as _diam
 from repro_torch.kernels import firstorder as _fo
 from repro_torch.kernels import glcm as _glcm
-from repro_torch.kernels import ref as _kref
+from repro_torch.kernels import masked_range as _range
 
 SCHEMA_VERSION = 3
 
@@ -493,8 +493,7 @@ def measure_family_configs(family: str, shape, device, configs, *, batch: int = 
     images, masks = _family_probe(shape, device, batch)
     op = _fo.firstorder_packed_batch if family == "firstorder" else _glcm.glcm_matrix_batch
     with torch.cuda.device(images.device):
-        rng = _kref.intensity_range(images.reshape(len(images), -1),
-                                    masks.reshape(len(masks), -1), dim=1)
+        rng = _range.masked_range_batch(images, masks)
         return _time_launches({c: functools.partial(op, images, masks, block=c.block,
                                                     value_range=rng) for c in configs})
 

@@ -6,7 +6,9 @@ H100 with ``PYTHONPATH=src python -m pytest -q tests/test_torch_families_cuda.py
 The first-order kernel does the plain version's arithmetic in its order
 (a fixed pairwise tree per 1024-voxel chunk, a left fold over chunks), so
 the two agree bitwise, at every ``block`` and batch depth; the GLCM
-kernel's integer counts equal the plain version's exactly.
+kernel's integer counts equal the plain version's exactly.  The masked
+range kernel's ``(lo, hi)`` equal ``ref.intensity_range``'s by value (a
+min and a max are exact in any order).
 """
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import crop_to_roi  # noqa: E402
 from repro_torch.core.pipeline import BatchedExtractor  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
-from repro_torch.kernels import firstorder, glcm, ref  # noqa: E402
+from repro_torch.kernels import firstorder, glcm, masked_range, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -259,3 +261,102 @@ def test_fold_past_2_24_masked_voxels_bitwise(dev):
     assert torch.equal(got, plain)
     exact = int(m.sum())
     assert exact > 2 ** 24 and float(got[0]) != exact  # the float fold rounded
+
+
+# -- the masked range (csrc/masked_range.cu) ---------------------------------
+
+
+def _range_stack(dev, batch, shape, kind, seed=0):
+    """(batch, *shape) float32 images and masks; the last case of a stack
+    of more than one is empty.  ``kind``: 'random'; 'nan' (a masked NaN in
+    case 0, unmasked NaNs everywhere); 'zero_tie' (-0.0 and +0.0 the
+    smallest masked values); 'inf' (a masked +inf and -inf)."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.normal(40.0, 15.0, (batch, *shape)).astype(np.float32)
+    msks = (rng.random((batch, *shape)) < 0.3).astype(np.float32)
+    flat_i, flat_m = imgs.reshape(batch, -1), msks.reshape(batch, -1)
+    if kind == "nan":
+        flat_i[flat_m == 0] = np.nan
+        flat_m[0, 2] = 1.0
+        flat_i[0, 2] = np.nan
+    elif kind == "zero_tie":
+        flat_i[:] = np.abs(flat_i) + 1.0
+        flat_m[:, [3, -2]] = 1.0
+        flat_i[:, 3], flat_i[:, -2] = -0.0, 0.0
+    elif kind == "inf":
+        flat_m[:, [1, -1]] = 1.0
+        flat_i[:, 1], flat_i[:, -1] = np.inf, -np.inf
+    if batch > 1:
+        msks[-1] = 0.0
+    return torch.from_numpy(imgs).to(dev), torch.from_numpy(msks).to(dev)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _range_agrees(got, imgs, msks):
+    """Kernel (lo, hi) == the plain version's by value (NaN == NaN), and
+    bitwise where that is neither a zero nor a NaN."""
+    flat = (len(imgs), -1)
+    want = ref.intensity_range(imgs.reshape(flat), msks.reshape(flat), dim=1)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0.0, atol=0.0, equal_nan=True)
+        other = (w != 0) & ~torch.isnan(w)
+        assert torch.equal(_bits(g)[other], _bits(w)[other])
+
+
+@pytest.mark.parametrize("kind", ["random", "nan", "zero_tie", "inf"])
+@pytest.mark.parametrize("shape", [(37, 21, 13), (40, 30, 20), (2, 2, 1)])
+@pytest.mark.parametrize("batch", [1, 3, 16])
+def test_masked_range_kernel_equals_plain(dev, batch, shape, kind):
+    """Odd voxel counts misalign every other row by 4 to 12 bytes (the
+    head and tail voxels); (40, 30, 20) spans three blocks; (2, 2, 1) is
+    one 16-byte group.  Each stack row == its batch of one, bitwise."""
+    imgs, msks = _range_stack(dev, batch, shape, kind)
+    before = masked_range.LAUNCHES
+    got = masked_range.masked_range_batch(imgs, msks)
+    assert masked_range.LAUNCHES == before + 1  # the kernel ran, not the plain version
+    assert got[0].shape == got[1].shape == (batch,) and got[0].device.type == "cuda"
+    _range_agrees(got, imgs, msks)
+    if batch > 1:
+        assert float(got[0][-1]) == float(got[1][-1]) == 0.0  # the empty case
+    for b in range(batch):
+        one = masked_range.masked_range_batch(imgs[b:b + 1], msks[b:b + 1])
+        assert torch.equal(_bits(one[0]), _bits(got[0][b:b + 1]))
+        assert torch.equal(_bits(one[1]), _bits(got[1][b:b + 1]))
+
+
+def test_masked_range_rows_aligned_apart(dev):
+    """Image and mask rows at different offsets from a 16-byte boundary:
+    the voxel-by-voxel read gives the same range."""
+    imgs, msks = _range_stack(dev, 3, (40, 30, 20), "random", seed=3)
+    store = torch.empty(imgs.numel() + 1, device=dev)
+    shifted = store[1:].view(imgs.shape)  # 4 bytes past the mask's alignment
+    shifted.copy_(imgs)
+    assert shifted.is_contiguous() and (shifted.data_ptr() - msks.data_ptr()) % 16
+    got = masked_range.masked_range_batch(shifted, msks)
+    _range_agrees(got, imgs, msks)
+    assert all(torch.equal(g, w) for g, w in zip(got, masked_range.masked_range_batch(imgs, msks)))
+
+
+def test_masked_range_refuses_what_the_kernel_does_not_take(dev):
+    imgs, msks = _range_stack(dev, 2, (8, 8, 8), "random")
+    with pytest.raises(ValueError):
+        masked_range.masked_range_batch(imgs, msks.cpu())
+    with pytest.raises(ValueError):
+        masked_range.masked_range_batch(imgs, msks.bool())
+    with pytest.raises(ValueError):
+        masked_range.masked_range_batch(imgs[:, :, :, 1:], msks[:, :, :, 1:])
+
+
+def test_executor_pools_launch_the_range_kernel(dev):
+    """One range launch per shape pool of a three-family window; the
+    families read it and take no range of their own."""
+    cases = [synthetic.make_case(s, seed=seed) for s, seed in
+             [((24, 20, 16), 1), ((28, 22, 18), 2), ((50, 24, 20), 2), ((52, 28, 22), 4)]]
+    ext = BatchedExtractor(families=FAMS)
+    ext.run(cases)  # first use: the autotune sweeps of the family blocks
+    before = masked_range.LAUNCHES
+    _, stats = ext.run(cases)
+    assert masked_range.LAUNCHES - before == stats["plan"]["shape_buckets"]

@@ -1,7 +1,7 @@
 """The masked tile kernels' rules, modelled in torch, against the plain version.
 
-``csrc/diameter.cu`` applies the mask of 'fused', 'tri', 'naive' and
-'gram' outside the pair loop (``plan_tile``): a tile with no valid row or
+``csrc/diameter.cu`` applies the mask of 'fused', 'tri', 'naive',
+'tri_prefetch' and 'gram' outside the pair loop (``plan_tile``): a tile with no valid row or
 no valid column is skipped, only a tile's valid columns are staged (in
 order, padded to the kernel's unit with copies of the first valid one),
 and an invalid row's maxima are reset once after the loop.  The model
@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.kernels import diameter, ref
 
-TILE_VARIANTS = ("fused", "tri", "naive", "gram")
+TILE_VARIANTS = ("fused", "tri", "naive", "tri_prefetch", "gram")
+TRIANGULAR = ("tri", "tri_prefetch", "gram")  # the upper triangle only
 BLOCKS = (32, 64, 96)
 NTILES = 5  # tiles a side of every list
 
@@ -104,7 +105,7 @@ def _model(verts, mask, block, variant, filled=True):
          else unfilled_input(verts, mask, block))
     m = ref.diameter_mask_batch(mask[None], block)[0]
     unit = diameter.column_unit(block, variant)
-    tri = variant in ("tri", "gram")
+    tri = variant in TRIANGULAR
     if variant == "naive":  # one launch a combo
         return torch.cat([hoisted_sweep(v, m, block, (c,), False, False, unit)
                           for c in range(len(ref.COMBOS))])
@@ -151,7 +152,7 @@ def _brute_force(mask, block, variant):
     for i in range(nb):
         for j in range(nb):
             rows, cols = m[i * block:(i + 1) * block], m[j * block:(j + 1) * block]
-            if variant in ("tri", "gram") and j < i:
+            if variant in TRIANGULAR and j < i:
                 continue
             if rows.any() and cols.any():
                 tiles += 1
@@ -168,14 +169,16 @@ def test_counted_work_matches_the_computed_tiles(variant, block, name):
     tiles, pairs = _brute_force(mask, block, variant)
     assert diameter._computed_tiles(m, block, variant, mask=mask) == tiles
     assert diameter.computed_pairs(m, block, variant, mask=mask) == pairs
-    per_pair = {"fused": 14, "tri": 14, "naive": 9 + 3 * 6, "gram": 3 + 4 + 4}[variant]
+    per_pair = {"fused": 14, "tri": 14, "tri_prefetch": 14, "naive": 9 + 3 * 6,
+                "gram": 3 + 4 + 4}[variant]
     assert diameter.flop_estimate(m, block, variant, mask=mask) == per_pair * pairs
     assert diameter.tensor_flop_estimate(m, block, variant, mask=mask) == (
         24 * pairs if variant == "gram" else 0)
     nb = NTILES
-    launched = nb * (nb + 1) // 2 if variant == "gram" else nb * nb
-    visited = nb * (nb + 1) // 2 if variant in ("tri", "gram") else nb * nb
-    sched = 8 if variant == "gram" else 0
+    scheduled = variant in ("tri_prefetch", "gram")  # the upper triangle's tiles only
+    launched = nb * (nb + 1) // 2 if scheduled else nb * nb
+    visited = nb * (nb + 1) // 2 if variant in TRIANGULAR else nb * nb
+    sched = 8 if scheduled else 0
     per_launch = visited * (2 * block + sched) + tiles * 24 * block + 32 * launched + 16
     assert diameter.bytes_estimate(m, block, variant, mask=mask) == per_launch * (
         4 if variant == "naive" else 1)

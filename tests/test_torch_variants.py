@@ -200,7 +200,8 @@ def test_work_estimates_follow_the_grids():
     assert diameter.flop_estimate(m, block, "seqacc") == 14 * pairs_tri
     assert diameter.flop_estimate(m, block, "nomask") == 14 * pairs_tri
     # 'seqacc' and 'nomask' compute the k(k+1)/2 tiles of a list's extent
-    # (k = ceil(extent / block)); 'tri_prefetch' sweeps the whole list
+    # (k = ceil(extent / block)); 'tri_prefetch' the triangle's tiles of its
+    # mask, as 'tri', whatever the extent
     for extent, k in ((1, 1), (128, 1), (129, 2), (700, 6), (1000, 8)):
         for v in ("seqacc", "nomask"):
             assert diameter.flop_estimate(m, block, v, extent=extent) == \
@@ -208,8 +209,8 @@ def test_work_estimates_follow_the_grids():
             tiles = k * (k + 1) // 2
             assert diameter.bytes_estimate(m, block, v, extent=extent) == \
                 tiles * (2 * block * 12 + 8 * (v == "nomask")) + 2 * 16 * tiles + 16 + 4
-        assert diameter.flop_estimate(m, block, "tri_prefetch", extent=extent) == 20 * pairs_tri
-    assert diameter.flop_estimate(m, block, "tri_prefetch") == 20 * pairs_tri
+        assert diameter.flop_estimate(m, block, "tri_prefetch", extent=extent) == \
+            diameter.flop_estimate(m, block, "tri_prefetch")
     # the masked tile kernels stage a tile's valid columns padded to their
     # unit: the last tile's 104 valid slots (the 24 padding slots are not)
     # as 112 (16 at block 128) or, for 'gram', 104 (8)
@@ -220,6 +221,7 @@ def test_work_estimates_follow_the_grids():
     assert diameter.computed_pairs(m, block, "fused") == full
     assert diameter.flop_estimate(m, block, "fused") == 14 * full
     assert diameter.flop_estimate(m, block, "tri") == 14 * tri
+    assert diameter.flop_estimate(m, block, "tri_prefetch") == 14 * tri
     assert diameter.flop_estimate(m, block, "naive") == 27 * full
     assert diameter.flop_estimate(m, block, "gram") == 11 * gram
     assert diameter.tensor_flop_estimate(m, block, "gram") == 24 * gram

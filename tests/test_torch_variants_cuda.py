@@ -66,7 +66,8 @@ def test_variant_kernel_matches_plain(dev, variant, m, block):
     _agree(k, diameter.max_diameters_sq(verts, mask, block=block), variant)  # seqacc's kernel
 
 
-TILE_VARIANTS = ("fused", "tri", "naive", "gram")
+TILE_VARIANTS = ("fused", "tri", "naive", "tri_prefetch", "gram")
+SCHEDULED = ("tri_prefetch", "gram")  # diameter_sched_launch
 
 
 def _tile_masks(m, block, rng):
@@ -93,14 +94,14 @@ def _raw_launch(v, m, block, variant):
     outs = []
     combos = [1 << c for c in range(4)] if variant == "naive" else [0xF]
     for combo in combos:
-        ntiles = nb * (nb + 1) // 2 if variant == "gram" else nb * nb
+        ntiles = nb * (nb + 1) // 2 if variant in SCHEDULED else nb * nb
         partials = torch.empty(4 * ntiles * batch, device=v.device)
         out = torch.empty((batch, 4), device=v.device)
-        if variant == "gram":
+        if variant in SCHEDULED:
             ij = diameter._schedule(nb, v.device)
             err = lib.diameter_sched_launch(v.data_ptr(), m.data_ptr(), ij.data_ptr(), ntiles,
-                                            batch, mp, block, 1, partials.data_ptr(),
-                                            out.data_ptr(), stream)
+                                            batch, mp, block, int(variant == "gram"),
+                                            partials.data_ptr(), out.data_ptr(), stream)
         else:
             err = lib.diameter_partial_launch(v.data_ptr(), m.data_ptr(), batch, mp, block,
                                               int(variant == "tri"), combo, partials.data_ptr(),
