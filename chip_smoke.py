@@ -10,7 +10,8 @@ holds each against its plain PyTorch version on the card, drives the main
 paths -- single-case shape extraction (``ShapeFeatureExtractor``) over
 the 20 synthetic Table-2 cases, the batched two-pass extractor
 (``BatchedExtractor``) over a 60-case cohort of them, the same cohort
-with the intensity families (shape, first-order, GLCM), the
+with the intensity families (shape, first-order, GLCM), the same cohort
+streamed on the sync-free window path (``extract_stream``), the
 out-of-core tiled path (``BatchedExtractor(tiled=True)``, ``TiledCase``)
 and the diameter variant axis with its autotuner -- checks the features
 against the port's CPU path or the in-core path, and prints the kernels
@@ -28,7 +29,10 @@ Phases:
      the three prune levels); autotune.SWEEPS is then held still through
      phases 2-8, but for the 512^3 sphere's cold run (8c); prints the
      warm pass's sweep seconds by kind and each diameter winner beside
-     seqacc at the default block at the same key
+     seqacc at the default block at the same key; then, uncached, the
+     diameter sweep at every warm key with the tuner's old candidates
+     (seqacc, nomask: 8 a key) and its current ones (with tri_prefetch:
+     12), each key's two winners and the two sets' seconds
   2. marching-cubes kernel vs plain (case 00001-1 and a sphere), rtol 1e-5,
      two runs bitwise equal; kernel, plain and bound times
   3. diameter kernel vs plain, bitwise (00001-1's unpruned vertex list and
@@ -59,7 +63,7 @@ Phases:
      tree's on 00001-1's unpruned list and the largest pass-2b stack, in
      turns (parent, change, change, parent), same bits (gram rtol 1e-6),
      CUDA events and trace device time; the redesigned kernel
-     ('tri_prefetch', AB_CHANGED) below the parent's device time, the
+     (AB_CHANGED, none against 038b638) below the parent's device time, the
      others printed as controls of the card's spread with their ratio
      against the 0.97-1.03 band (all of them where the parent's
      diameter.cu is this tree's); the masked tile kernels' SASS counts and
@@ -108,6 +112,27 @@ Phases:
      and no other sync under CUDA sync debugging; times, device times and
      bounds at the largest launch; cases/s against the shape-only run (two
      interleaved rounds) and one traced run's idle share
+  7b. the sync-free window path: launch counts reset,
+     BatchedExtractor(families=(shape, firstorder, glcm), prep='hint',
+     schedule='static').extract_stream over the 60 cases in windows of 20,
+     counts read; rows == phase 7's counted/count run, == the same
+     extractor's run and == extract_one (seed 0) bitwise; the reference's
+     fetch census (prep 0, pass1 0, pass2b_counts one per static-chain
+     group, collect_counts one per case, the pass2b_retry and hint_retry
+     counts printed); every submit_window under CUDA sync debugging with
+     no fetch; the drain's isolation on two windows of one case (seed-1
+     cases 0 and 1, whose launches fit the card's launch queue): a spin
+     (torch.cuda._sleep) longer than a submit, queued ahead of window
+     k+1's launches, is still running when window k's collect returns;
+     the launch queue's depth (launches a busy card takes before a launch
+     blocks the host); pass 2b's padded and extent-swept
+     pairs against the counted run's (and plan.work_census); cases/s of
+     the stream against phase 7's run and the same extractor's run (two
+     interleaved rounds); one traced stream for the busy and idle share
+     and the longest idle gaps, each placed in a submit, a collect or
+     elsewhere; then launch counts reset, a stream of 9 cases with 00001-1
+     as a TiledCase (8 MiB) between two in-core segments, counts read, the
+     tiled row == in-core extract_one bitwise
   8. the tiled path: the marching-cubes window kernel (row 2) on case
      00001-1's bucket frame cut into 4 z-windows, each granule against the
      plain version (rtol 1e-5), the assembled partials' finalize == the
@@ -211,6 +236,9 @@ GLCM_OPS_PER_PAIR = 1 + QUANT_OPS
 FAMS = ("shape", "firstorder", "glcm")
 TILED_FAMS = ("shape", "firstorder")
 TILED_BIG_N = 1024  # the out-of-core sphere's edge (4 GiB materialised)
+STREAM_WINDOW = 20  # phase 7b's fixed window: the 60 cases in 3 windows
+# the tuner's diameter candidates before 'tri_prefetch' rejoined them
+OLD_DIAMETER_VARIANTS = ("seqacc", "nomask")
 # the reference's census for the cohort: one family fetch per shape bucket
 FAMILY_FETCHES = {"prep": 60, "pass1": 8, "pass2a": 26, "pass2b": 18,
                   "firstorder": 26, "glcm": 26}
@@ -512,10 +540,11 @@ def build_parent_libs(parent, signatures):
 
 
 # The variants whose kernels this tree redesigned against the parent
-# (c12df81): phase 5b holds each below the parent's device time; the other
-# variants' kernels are the parent's, controls of the card's spread, each
-# printed beside the band AB_BAND.
-AB_CHANGED = ("tri_prefetch",)
+# (038b638, whose csrc is 48a9a1d's): phase 5b holds each below the
+# parent's device time; the other variants' kernels are the parent's,
+# controls of the card's spread, each printed beside the band AB_BAND.
+# This tree changes no kernel source, so every pair is a control.
+AB_CHANGED = ()
 AB_BAND = (0.97, 1.03)
 AB_BLOCK = 256
 
@@ -533,10 +562,10 @@ def tile_kernels(rows):
 # sass_loop_counts' counts a pair, by the name phase 5b prints
 SASS_LABELS = {"per_pair": "instructions", "fp32_per_pair": "FP32", "lds_per_pair": "LDS",
                "f2f_per_pair": "F2F", "dmma_per_pair": "DMMA"}
-# The parent's C entries that phases 5b and 5c call: c12df81's are this
+# The parent's C entries that phases 5b and 5c call: 038b638's are this
 # tree's, the same names and argument lists, so its libraries are bound to
-# this tree's wrappers, which pass those arguments (the parent has no
-# masked_range.cu).
+# this tree's wrappers, which pass those arguments (phase 7 times the
+# masked range kernel against its plain version, not against the parent's).
 PARENT_SIGNATURES = {
     "diameter": dm._SIGNATURES,
     "firstorder": fo._SIGNATURES,
@@ -776,8 +805,138 @@ def warm_autotune(suite, cases, cohort_cases):
     for level in ("occupancy", "none", "bounds"):
         BatchedExtractor(families=TILED_FAMS, tiled=True, tile_mem_mb=8.0,
                          tile_prune=level).extract_tiled((img, msk, sp))
+    # phase 7b: hint caps and static targets are keys of their own
+    sext = stream_extractor(FAMS)
+    sext.run(cohort_cases)
+    list(sext.extract_stream(cohort_cases, window=STREAM_WINDOW))
+    for window in iso_windows(cohort_cases):
+        sext.run(window)
+    list(stream_extractor(TILED_FAMS).extract_stream(tiled_stream(cohort_cases, cases),
+                                                     window=4))
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def stream_extractor(families):
+    """Phase 7b's extractor: the sync-free window path (hint caps, static
+    targets), with the tiled engine at phase 8's 8 MiB budget."""
+    return BatchedExtractor(families=families, prep="hint", schedule="static",
+                            tile_mem_mb=8.0)
+
+
+def tiled_stream(cohort_cases, cases):
+    """Phase 7b's stream with a tiled segment: 00001-1 as a TiledCase
+    between two in-core segments of seed-1 cases."""
+    img, msk, sp = cases["00001-1"]
+    return cohort_cases[20:24] + [TiledCase(msk, image=img, spacing=sp)] + cohort_cases[24:28]
+
+
+def cycles_per_ms():
+    """Clock cycles of ``torch.cuda._sleep`` a millisecond, measured."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(50_000_000)
+    end.record()
+    end.synchronize()
+    return 50_000_000 / start.elapsed_time(end)
+
+
+def iso_windows(cohort_cases):
+    """Phase 7b's isolation windows, one case each (seed-1 cases 0 and 1):
+    a window's launches must fit the card's launch queue behind a spin,
+    and a 4-case window's do not."""
+    return cohort_cases[20:21], cohort_cases[21:22]
+
+
+def queued_launches(fn):
+    """``(kernels and copies one call of fn queues, its result)``, from a
+    trace of the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA), out
+
+
+def launch_queue_depth(limit=4096):
+    """Kernel launches the card's queue takes behind a spin before a launch
+    blocks the host (a launch over 20 ms), or ``limit``."""
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(500 * cycles_per_ms()))
+    n = limit
+    for i in range(limit):
+        t0 = time.perf_counter()
+        x.add_(1.0)
+        if time.perf_counter() - t0 > 0.02:
+            n = i
+            break
+    torch.cuda.synchronize()
+    return n
+
+
+def fetch_delta(log, before):
+    return {k: v - before.get(k, 0) for k, v in log.items() if v - before.get(k, 0)}
+
+
+def labelled(fn, label):
+    """``fn`` inside a ``torch.profiler.record_function`` span ``label``."""
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+    return run
+
+
+def idle_gaps(prof):
+    """Busy time, the idle gaps between the card's merged kernel and copy
+    intervals, and the device time by kernel name, of a trace: ``(busy_us,
+    gaps, per_kernel_us)``, each gap ``(us, the host span its midpoint
+    falls in)`` ('submit', 'collect' or 'other', from the ``stream.*``
+    spans), longest first.  The spans' own device-side annotations are not
+    device work."""
+    dev_iv, spans = [], []
+    per_kernel = collections.Counter()
+    for e in prof.events():
+        if e.name.startswith("stream."):
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                spans.append((e.time_range.start, e.time_range.end, e.name[7:]))
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_iv.append((e.time_range.start, e.time_range.end))
+            per_kernel[e.name] += e.time_range.end - e.time_range.start
+    if not dev_iv:
+        return 0.0, [], per_kernel
+    dev_iv.sort()
+    merged = [list(dev_iv[0])]
+    for a, b in dev_iv[1:]:
+        if a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    gaps = []
+    for (_, a), (b, _) in zip(merged, merged[1:]):
+        mid = (a + b) / 2
+        where = next((name for s0, s1, name in spans if s0 <= mid <= s1), "other")
+        gaps.append((b - a, where))
+    return busy, sorted(gaps, reverse=True), per_kernel
+
+
+def census_pairs(items):
+    """Padded pairs of a plan's diameter work items (``plan.work_census``)."""
+    return sum(it.depth * it.m * (it.m - 1) // 2 for it in items if it.kind == "diameter")
+
+
+def pairs_of(calls):
+    """Padded and extent pairs of recorded diameter launches: sum of B x
+    M(M-1)/2 and of each list's extent(extent-1)/2 (``ref.list_extent``)."""
+    padded = swept = 0
+    for verts, masks, *_ in calls:
+        b, m = masks.shape[:2]
+        padded += b * m * (m - 1) // 2
+        ext = ref.list_extent(masks).long()
+        swept += int((ext * (ext - 1) // 2).sum())
+    return padded, swept
 
 
 def paper_scale_cloud(seed, m=384):
@@ -851,6 +1010,28 @@ def main():
           f"{dict(sorted(collections.Counter(e['variant'] + '/' + str(e['block']) for k, e in entries.items() if k.startswith('diameter/')).items()))}")
     for key in sorted(k for k in entries if k.startswith("diameter/")):
         print(f"[setup] warm {tuned_vs_default(key, entries[key])}")
+    # the tuner's diameter sweep at every warm key with its old candidates
+    # (seqacc, nomask: 8 a key) and its new ones (12), in turns, uncached
+    cand_s = {"old": 0.0, "new": 0.0}
+    for key in sorted(k for k in entries if k.startswith("diameter/")):
+        bucket, depth = (int(x[1:]) for x in key.split("/")[2:4])
+        wins = {}
+        for which in ("old", "new"):
+            variants = OLD_DIAMETER_VARIANTS if which == "old" else autotune.DEFAULT_VARIANTS
+            saved, autotune.DEFAULT_VARIANTS = autotune.DEFAULT_VARIANTS, variants
+            try:
+                t0 = time.perf_counter()
+                best, table = autotune.sweep_diameter(bucket, dev, batch=depth)
+                cand_s[which] += time.perf_counter() - t0
+            finally:
+                autotune.DEFAULT_VARIANTS = saved
+            wins[which] = f"{best.variant}/{best.block} {table[f'{best.variant}/{best.block}']:.1f} us"
+        print(f"[setup] sweep M{bucket}/B{depth}: {len(OLD_DIAMETER_VARIANTS)} variants -> "
+              f"{wins['old']}; {len(autotune.DEFAULT_VARIANTS)} variants -> {wins['new']}")
+    print(f"[setup] diameter sweeps over the warm keys: {len(OLD_DIAMETER_VARIANTS)} variants "
+          f"{cand_s['old']:.3f} s, {len(autotune.DEFAULT_VARIANTS)} variants {cand_s['new']:.3f} s "
+          f"({ratio(cand_s['new'], cand_s['old'])}x); the warm pass's own diameter sweeps "
+          f"{autotune.SWEEP_SECONDS['diameter']:.3f} s")
     img, msk, sp = cases["00001-1"]
     _, big, _ = crop_to_roi(img, msk)
     big_dev = torch.from_numpy(big).to(dev)
@@ -1444,6 +1625,209 @@ def main():
           f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, {len(per_kernel)} "
           "kernel names; top: " + "; ".join(f"{k[:48]} {us:.1f} us" for k, us in top))
     check_no_sweep(sweeps_warm, "fmain")
+
+    # -- 7b. the sync-free window path: hint caps, static targets, the stream --
+    sext = stream_extractor(FAMS)
+    sex = sext.executor
+    fetches0 = dict(sex.transfer_log)
+    seen_plans = []
+    zero_counts()
+    with Recorder(dm, "max_diameters_batch") as rec_sd:
+        t0 = time.perf_counter()
+        srows = list(sext.extract_stream(iter(cohort_cases), window=STREAM_WINDOW,
+                                         stats_callback=lambda i, st: seen_plans.append(st)))
+        stream_s = [time.perf_counter() - t0]
+    stream_launches = read_counts()
+    stream_fetches = fetch_delta(sex.transfer_log, fetches0)
+    print(f"[stream] extract_stream(window={STREAM_WINDOW}) over {len(cohort)} cases, "
+          f"prep='hint', schedule='static', families {FAMS}: {stream_s[0]:.3f} s = "
+          f"{len(cohort) / stream_s[0]:.3f} cases/s; launches {stream_launches}")
+    check(all(stream_launches[k] > 0 for k in ("marching_cubes", "diameter", "compact",
+                                               "firstorder", "glcm", "masked_range")),
+          f"a kernel of the stream's path never ran: {stream_launches}")
+    srows = np.stack(srows)
+    check(srows.shape == frows.shape and np.array_equal(srows, frows),
+          "stream rows != phase 7's counted/count three-family run")
+    s_run, s_run_stats = sext.run(cohort_cases)
+    check(np.array_equal(np.stack(s_run), srows), "stream rows != the same extractor's run")
+    for i, (name, img, msk, sp) in enumerate(cohort[:len(suite)]):
+        check(np.array_equal(sext.extract_one(img, msk, sp), srows[i]),
+              f"{name}: stream row != extract_one")
+    print(f"[stream] rows == phase 7's counted/count run, == the same extractor's run (one "
+          f"window) and == extract_one (seed 0), bitwise; windows' plans "
+          + "; ".join(f"{st['cases']} cases {st['shape_buckets']} shape/{st['cap_buckets']} cap "
+                      f"buckets" for st in seen_plans))
+    # every submit under CUDA sync debugging, windows driven as the stream does
+    windows = [cohort_cases[s0:s0 + STREAM_WINDOW]
+               for s0 in range(0, len(cohort_cases), STREAM_WINDOW)]
+    pending, per_window, loop_rows, chains, shapes = None, [], [], 0, 0
+    for chunk in windows + [None]:
+        state = None
+        if chunk is not None:
+            f0 = dict(sex.transfer_log)
+            t0 = time.perf_counter()
+            with sex.strict_syncs():
+                state = sex.submit_window(chunk)
+            sub_s = time.perf_counter() - t0
+            check(dict(sex.transfer_log) == f0, "a hint + static submit fetched")
+            chains += sum(t is not None for t in state.plan.static_targets.values())
+            shapes += len(state.plan.shape_groups)
+        if pending is not None:
+            f0 = dict(sex.transfer_log)
+            t0 = time.perf_counter()
+            rows_k, _ = sex.collect_window(pending[0])
+            per_window.append({"submit_s": pending[1], "collect_s": time.perf_counter() - t0,
+                               "fetches": fetch_delta(sex.transfer_log, f0),
+                               "census": pending[0].plan.work_census()})
+            loop_rows += rows_k
+        pending = None if state is None else (state, sub_s)
+    check(np.array_equal(np.stack(loop_rows), srows), "the strict-sync loop's rows differ")
+    want_fetches = {"pass2a": shapes, "firstorder": shapes, "glcm": shapes,
+                    "pass2b_counts": chains, "collect_counts": len(cohort)}
+    check(all(stream_fetches.get(k) == v for k, v in want_fetches.items())
+          and "prep" not in stream_fetches and "pass1" not in stream_fetches,
+          f"stream fetches {stream_fetches}: not the reference's census {want_fetches}, "
+          "prep 0, pass1 0")
+    print(f"[stream] host_fetches {stream_fetches}: prep 0, pass1 0, pass2b_counts one per "
+          f"static-chain group ({chains}), collect_counts one per case; pass2b_retry "
+          f"{stream_fetches.get('pass2b_retry', 0)}, hint_retry "
+          f"{stream_fetches.get('hint_retry', 0)}")
+    print("[stream] every submit_window under CUDA sync debugging ('error'): no host sync, "
+          "no fetch; per window (submit s, collect s, fetches) "
+          + "; ".join(f"{w['submit_s']:.3f}/{w['collect_s']:.3f} {w['fetches']}"
+                      for w in per_window))
+    # the drain of window k does not wait for window k+1's launches: a spin
+    # queued ahead of window k+1 (a window small enough that its launches
+    # fit the card's launch queue behind the spin) must still run when
+    # window k's collect returns
+    depth = launch_queue_depth()
+    wk_cases, wk1_cases = iso_windows(cohort_cases)
+    sex.collect_window(sex.submit_window(wk_cases))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wk1 = sex.submit_window(wk1_cases)
+    iso_sub_s = time.perf_counter() - t0
+    sex.collect_window(wk1)
+    queued, wk1 = queued_launches(lambda: sex.submit_window(wk1_cases))
+    sex.collect_window(wk1)
+    queued_20, w20 = queued_launches(lambda: sex.submit_window(windows[0]))
+    sex.collect_window(w20)
+    sleep_ms = 3e3 * iso_sub_s + 50.0
+    cycles = int(sleep_ms * cycles_per_ms())
+    torch.cuda.synchronize()
+    f0 = dict(sex.transfer_log)
+    wk = sex.submit_window(wk_cases)
+    torch.cuda._sleep(cycles)  # ahead of window k+1's launches
+    gate = torch.cuda.Event()
+    gate.record()
+    t0 = time.perf_counter()
+    wk1 = sex.submit_window(wk1_cases)
+    sub_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rows_k, _ = sex.collect_window(wk)
+    collect_ms = 1e3 * (time.perf_counter() - t0)
+    spinning = not gate.query()
+    collect_fetches = fetch_delta(sex.transfer_log, f0)
+    rows_k1, _ = sex.collect_window(wk1)
+    check(np.array_equal(np.stack(rows_k + rows_k1), srows[20:22]),
+          "the isolation windows' rows differ")
+    check(not ({"pass2b_retry", "hint_retry"} & set(collect_fetches)),
+          f"window k's collect launched a re-sweep: {collect_fetches}")
+    check(spinning and collect_ms < sleep_ms / 4,
+          f"window k's collect waited for window k+1's queued work: collect "
+          f"{collect_ms:.1f} ms, submit of k+1 {sub_ms:.1f} ms ({queued} launches and copies; "
+          f"launch queue depth {depth}), spin {sleep_ms:.1f} ms still running {spinning}")
+    print(f"[stream] isolation (windows of one case, seed-1 cases 0 and 1): a "
+          f"{sleep_ms:.1f} ms spin queued ahead of window k+1's {queued} launches and copies "
+          f"(its submit {sub_ms:.1f} ms); window k's collect took {collect_ms:.2f} ms and "
+          f"returned with the spin still running; the card's launch queue blocks the host "
+          f"at {depth} pending launches, and a 20-case window's submit queues {queued_20}")
+    # pairs pass 2b sweeps: the static schedule against the counted one
+    with Recorder(dm, "max_diameters_batch") as rec_cd:
+        fext.run(cohort_cases)
+    c_pad, c_swept = pairs_of(rec_cd.calls)
+    s_pad, s_swept = pairs_of(rec_sd.calls)
+    # plan.work_census of the stream's windows: hint caps under the static
+    # schedule, and count caps under each schedule (metadata only)
+    count_metas = [fext.executor.case_meta(fext.executor.prep_case(c)) for c in cohort_cases]
+    census = {"static/hint": sum(census_pairs(w["census"]) for w in per_window)}
+    for schedule in ("static", "counted"):
+        census[f"{schedule}/count"] = sum(
+            census_pairs(planlib.build_plan(count_metas[s0:s0 + STREAM_WINDOW], schedule,
+                                            families=FAMS).work_census())
+            for s0 in range(0, len(cohort_cases), STREAM_WINDOW))
+    print(f"[stream] pass 2b pairs over the 60 cases: static/hint stream {len(rec_sd.calls)} "
+          f"launches, padded {s_pad}, extent-swept {s_swept}; counted/count run "
+          f"{len(rec_cd.calls)} launches, padded {c_pad}, extent-swept {c_swept} (padded "
+          f"{ratio(s_pad, c_pad)}x, swept {ratio(s_swept, c_swept)}x); plan.work_census "
+          f"padded pairs of the windows of {STREAM_WINDOW} {census} (counted: at the "
+          f"pre-compaction cap, an upper bound)")
+    del rec_sd, rec_cd
+    # cases/s: the stream against phase 7's run and the same extractor's run
+    s_run_s, f_run_s = [], []
+    for which in ("stream", "counted", "static", "static", "counted", "stream"):
+        t0 = time.perf_counter()
+        if which == "stream":
+            for _ in sext.extract_stream(iter(cohort_cases), window=STREAM_WINDOW):
+                pass
+        else:
+            (fext if which == "counted" else sext).run(cohort_cases)
+        {"stream": stream_s, "counted": f_run_s, "static": s_run_s}[which].append(
+            time.perf_counter() - t0)
+    print("[stream] cases/s over the 60 cases, rounds in order stream, run (counted/count), "
+          "run (static/hint), run (static/hint), run (counted/count), stream: stream "
+          f"{[round(len(cohort) / t, 3) for t in stream_s[1:]]} (counted run "
+          f"{len(cohort) / stream_s[0]:.3f}), run counted/count "
+          f"{[round(len(cohort) / t, 3) for t in f_run_s]}, run static/hint "
+          f"{[round(len(cohort) / t, 3) for t in s_run_s]}; stream / counted run "
+          f"{ratio(sum(f_run_s), sum(stream_s[1:]))}x")
+    # one traced stream: busy and idle share, the longest idle gaps and the
+    # host span each falls in
+    from torch.profiler import ProfilerActivity, profile
+    sex.submit_window = labelled(sex.submit_window, "stream.submit")
+    sex.collect_window = labelled(sex.collect_window, "stream.collect")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in sext.extract_stream(iter(cohort_cases), window=STREAM_WINDOW):
+                pass
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        del sex.submit_window, sex.collect_window
+    busy_us, gaps, per_kernel = idle_gaps(prof)
+    by_span = collections.Counter()
+    for us, where in gaps:
+        by_span[where] += us
+    top = per_kernel.most_common(6)
+    print(f"[strace] stream over the {len(cohort)} cases: wall {wall_us / 1e3:.3f} ms, device "
+          f"busy {busy_us / 1e3:.3f} ms, idle share "
+          + (f"{1 - busy_us / wall_us:.4f}" if busy_us else "not measured")
+          + f"; idle between device intervals by host span (ms) "
+          f"{ {k: round(v / 1e3, 3) for k, v in by_span.items()} }; longest gaps "
+          + ", ".join(f"{us / 1e3:.3f} ms in {where}" for us, where in gaps[:6])
+          + "; top device items: " + "; ".join(f"{k[:48]} {us:.1f} us" for k, us in top))
+    # a stream with a tiled segment: 00001-1 as a TiledCase between two in-core segments
+    text = stream_extractor(TILED_FAMS)
+    tcases = tiled_stream(cohort_cases, cases)
+    zero_counts()
+    trows = list(text.extract_stream(iter(tcases), window=4))
+    tstream_launches = read_counts()
+    check(all(tstream_launches[k] > 0 for k in (
+              "marching_cubes", "diameter", "compact", "firstorder", "mc_slab_partials",
+              "mc_partials_finalize", "fold_packed_chunks")),
+          f"a kernel of the tiled stream's path never ran: {tstream_launches}")
+    img, msk, sp = cases["00001-1"]
+    n_tiled = planlib.row_width(TILED_FAMS)
+    check(np.array_equal(trows[4], text.extract_one(img, msk, sp))
+          and np.array_equal(np.stack(trows[:4] + trows[5:]), frows[20:28, :n_tiled]),
+          "the tiled stream's rows != extract_one (the tiled case) or phase 7's rows")
+    print(f"[stream] tiled segment: {len(tcases)} cases (00001-1 a TiledCase at 8 MiB between "
+          f"two in-core segments), window 4: the tiled row == in-core extract_one bitwise, the "
+          f"in-core rows == phase 7's shape and first-order columns bitwise; launches "
+          f"{tstream_launches}")
+    check_no_sweep(sweeps_warm, "stream")
 
     # -- 8. the tiled path ----------------------------------------------------
     # 8a. the window kernel (row 2) on 00001-1's bucket frame, cut into 4 windows

@@ -1,27 +1,51 @@
 """Executor layer: runs :class:`~repro_torch.core.plan.ExtractionPlan`s with a
 device-resident data plane on the card.
 
-Counterpart of ``repro.core.executor`` for the counted schedule with
-count-sized prep.  ``submit_window`` turns one window of cases into
-device launches, ``collect_window`` drains the results; the thin
+Counterpart of ``repro.core.executor`` for the counted and static
+schedules with count- or hint-sized prep.  ``submit_window`` turns one
+window of cases into device launches, ``collect_window`` drains the
+results, ``extract_stream`` pipelines windows; the thin
 :class:`~repro_torch.core.pipeline.BatchedExtractor` facade sits on top.
 
 Data plane of one window:
 
 * **pass 0 (prep):** each case is cropped, padded to its shape bucket and
   staged on the device once; its dedup vertex fields and count are
-  computed there, the count is fetched (one host sync per non-empty case)
-  and sizes the case's vertex cap, and the stable active-first compaction
+  computed there.  ``prep='count'`` fetches the count (one host sync per
+  non-empty case) to size the case's vertex cap; ``prep='hint'`` sizes
+  it from ``plan.vertex_hint`` metadata alone and leaves the count on the
+  device for the collector.  The stable active-first compaction then
   fills a ``(cap, 3)`` vertex list on the device;
 * **pass 1:** per cap group, one batched pruning bound
-  (``prune.keep_mask_batch``), one ``(B, 2)`` count fetch that sizes each
-  case's pruned bucket (``prune.plan_compaction``), and one compaction
-  kernel launch per target bucket (``kernels/compact``); the vertex data
-  never leaves the card;
+  (``prune.keep_mask_batch``) and the compaction kernel
+  (``kernels/compact``); the vertex data never leaves the card.  Under
+  ``schedule='counted'`` one ``(B, 2)`` count fetch sizes each case's
+  pruned bucket (``prune.plan_compaction``), with one compaction launch
+  per target bucket.  Under ``schedule='static'`` the group compacts
+  straight into the plan's static target (``plan.static_bucket``, the
+  counted schedule's re-bucketing boundary) and its counts stay on the
+  device: pass 1 makes no host fetch;
 * **pass 2a:** one batched marching-cubes launch per shape bucket, sliced
   straight off a device pool of the staged masks;
 * **pass 2b:** one batched diameter launch per pruned vertex bucket, off
   the pass-1 stacks.
+
+Deferred collect, as in the reference: under the static schedule each
+group's counts are fetched at collect (stage ``pass2b_counts``) and give
+the counted schedule's decision; a case that decision keeps at its
+original cap is re-swept there from the retained stacks (``pass2b_retry``).
+Under hint prep each case's count is fetched at collect
+(``collect_counts``); a case whose count overflowed its hint cap re-runs
+count-sized through the single-case stages (``hint_retry``).  Both give
+the counted, count-sized rows bitwise.
+
+Drains that do not wait for later launches: the last step of a submit
+queues a ``non_blocking`` copy of every result the collector will fetch
+into pinned host memory and records one CUDA event behind them, so a
+window's fetches wait for that event alone, not for the launches of
+windows submitted after it (``extract_stream`` submits window k+1 before
+it collects window k).  Launches made at collect time (the re-sweeps)
+are fetched directly and do queue behind later windows.
 
 Feature families (``core/plan.FAMILIES``): any subset of shape,
 first-order and GLCM.  With an intensity family, pass 0 stages each
@@ -42,7 +66,8 @@ is no compile cache and a short last chunk is launched as it is.
 
 Every device-to-host copy of the executor goes through :meth:`_fetch`,
 under the reference's stage names (``prep``, ``pass1``, ``pass2a``,
-``pass2b``, ``pass2``, ``firstorder``, ``glcm``), and every host-to-device
+``pass2b``, ``pass2``, ``firstorder``, ``glcm``, ``pass2b_counts``,
+``pass2b_retry``, ``collect_counts``, ``hint_retry``), and every host-to-device
 copy is queued from pinned memory (``dispatcher.to_device``), so on the default path and the
 one-pass path ``transfer_log`` counts every host sync; the tests hold it
 equal to the reference's, and on the card hold ``submit_window`` to no
@@ -78,17 +103,18 @@ its kernel choices (``_resolve_mc``, ``_resolve_diameter``), its family row
 derivation and its ``_fetch`` census.  ``mc_chunk`` is the z-granule of the
 marching-cubes partial layout that the in-core passes and the tiles share.
 
-Not ported yet, and refused with ``ValueError``: ``schedule='static'`` or
-``'auto'``, ``prep='hint'`` and ``extract_stream`` (ROADMAP.md Queue 1
-item 4(b)), ``retry`` (item 8) and ``mesh`` (item 9).
+Not ported yet, and refused with ``ValueError``: ``schedule='auto'`` and
+``extract_stream(window='auto')`` (ROADMAP.md Queue 1 item 4(b)ii, the
+cost model), ``retry`` (item 8) and ``mesh`` (item 9).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import itertools
 import time
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
@@ -121,8 +147,29 @@ def _sync_allowed():
             torch.cuda.set_sync_debug_mode(prev)
 
 
+def _compact_at(fields, cap: int):
+    """The stable compaction of ``fields`` into ``cap`` slots: ``(verts,
+    vmask)``.  A cap past the field's slot count (a hint cap of a tiny
+    volume) pads with invalid zero rows, which no stage reads."""
+    verts, vmask, _ = ops.compact_vertices(fields, cap)
+    short = cap - verts.shape[0]
+    if short > 0:
+        verts = torch.nn.functional.pad(verts, (0, 0, 0, short))
+        vmask = torch.nn.functional.pad(vmask, (0, short))
+    return verts, vmask
+
+
 def _unported(what: str, item: str) -> ValueError:
     return ValueError(f"{what} is not ported yet (ROADMAP.md, Queue 1 item {item})")
+
+
+def check_window(window) -> None:
+    """Raises ``ValueError`` unless ``window`` is a positive int (a stream's
+    fixed window; ``'auto'`` is not ported yet)."""
+    if window == "auto":
+        raise _unported("window='auto'", "4(b)ii")
+    if isinstance(window, bool) or not isinstance(window, int) or window < 1:
+        raise ValueError(f"window must be a positive int, got {window!r}")
 
 
 @dataclasses.dataclass
@@ -146,6 +193,8 @@ class _Prepped:
     n_vertices: int = 0  # pre-prune dedup vertex count (a feature)
     vertex_cap: int = 0  # vertex bucket the diameter sweep runs at
     prune_info: object | None = None
+    n_fut: object | None = None  # hint prep: the true dedup count, not yet fetched
+    prep_cap: int = 0  # hint prep: the pass-0 cap (pass 1 overwrites vertex_cap)
     error: str | None = None  # quarantined case: the row degrades to NaNs
 
 
@@ -160,6 +209,21 @@ class _Window:
     fused_futs: list
     t_prune: float
     family_futs: dict  # {family: [(idxs, future)]}: the intensity launches
+    static_aux: list = dataclasses.field(default_factory=list)
+    # [(cap, idxs, counts, verts, masks)]: the static groups' deferred counts
+
+
+@dataclasses.dataclass
+class _Staged:
+    """A result whose copy to host memory was queued at submit.
+
+    ``host`` is the pinned destination of a ``non_blocking`` copy and
+    ``done`` the event recorded behind the window's copies (None on the
+    CPU, where ``host`` is the result itself).
+    """
+
+    host: torch.Tensor
+    done: object | None = None
 
 
 class PlanExecutor:
@@ -190,15 +254,19 @@ class PlanExecutor:
                  schedule: str = "counted", prep: str = "count", transfer_callback=None,
                  retry=None, families=None, n_bins: int = 32):
         self.device = resolve_device(device)
-        if schedule in ("static", "auto"):
-            raise _unported(f"schedule={schedule!r}", "4(b)")
-        if schedule != "counted":
+        if schedule == "auto":
+            raise _unported("schedule='auto'", "4(b)ii")
+        if schedule not in planlib.SCHEDULES:
             raise ValueError(f"schedule must be one of ('counted', 'static', 'auto'), "
                              f"got {schedule!r}")
-        if prep == "hint":
-            raise _unported("prep='hint'", "4(b)")
-        if prep != "count":
+        if schedule == "static" and not (prune and device_compact):
+            raise ValueError("schedule='static' is a device-resident schedule: it requires "
+                             "prune=True and device_compact=True")
+        if prep not in ("count", "hint"):
             raise ValueError(f"prep must be one of ('count', 'hint'), got {prep!r}")
+        if prep == "hint" and not (prune and device_compact):
+            raise ValueError("prep='hint' is a device-resident prep: it requires "
+                             "prune=True and device_compact=True")
         self.families = planlib.resolve_families(families)
         if variant != "auto":
             _diam.check_variant(variant)
@@ -232,8 +300,15 @@ class PlanExecutor:
         """The ONLY device-to-host copy point of the executor.
 
         Counts every host materialisation per stage in ``transfer_log``.
+        A :class:`_Staged` result waits for its window's copy event and
+        reads its host buffer; a device tensor is copied here.
         """
         self.transfer_log[stage] += 1
+        if isinstance(x, _Staged):
+            if x.done is not None:
+                with _sync_allowed():
+                    x.done.synchronize()
+            x = x.host
         if self._transfer_cb is not None:
             self._transfer_cb(stage, x)
         if isinstance(x, torch.Tensor) and x.is_cuda:
@@ -258,6 +333,39 @@ class PlanExecutor:
             yield
         finally:
             torch.cuda.set_sync_debug_mode(prev)
+
+    def _stage_results(self, window: _Window) -> _Window:
+        """Queue the host copy of every result ``window``'s collect fetches.
+
+        The last step of a submit: each copy goes ``non_blocking`` into
+        pinned memory behind the window's own launches, and one event is
+        recorded behind the copies, so :meth:`_fetch` waits for this
+        window alone however many windows were submitted after it.
+        """
+        done = torch.cuda.Event() if self.device.type == "cuda" else None
+
+        def stage(x):
+            if done is None:
+                return _Staged(x)
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x, non_blocking=True)
+            return _Staged(host, done)
+
+        def stage_all(futs):
+            return [(idxs, stage(f)) for idxs, f in futs]
+
+        window.mc_futs = stage_all(window.mc_futs)
+        window.diam_futs = stage_all(window.diam_futs)
+        window.fused_futs = stage_all(window.fused_futs)
+        window.family_futs = {k: stage_all(v) for k, v in window.family_futs.items()}
+        window.static_aux = [(cap, idxs, stage(counts), verts, masks)
+                             for cap, idxs, counts, verts, masks in window.static_aux]
+        for p in window.prepped:
+            if p.n_fut is not None:
+                p.n_fut = stage(p.n_fut)
+        if done is not None:
+            done.record(torch.cuda.current_stream(self.device))
+        return window
 
     # -- launches ------------------------------------------------------------
 
@@ -406,12 +514,17 @@ class PlanExecutor:
 
     # -- pass 0: prep + device staging --------------------------------------
 
-    def _prep_case(self, image, mask, spacing, fields: bool = True) -> _Prepped:
+    def _prep_case(self, image, mask, spacing, fields: bool = True,
+                   prep: str | None = None) -> _Prepped:
         """Crop, bucket-pad, stage and compact one case (pass 0).
 
         ``fields=False`` (the one-pass path, which computes the vertex
         fields in its own launch) sizes the cap from ``plan.vertex_hint``
-        instead of the measured count.  With an intensity family, the
+        instead of the measured count.  ``prep`` (default: the executor's)
+        sizes the cap of the two-pass path: ``'count'`` fetches the
+        measured count, ``'hint'`` takes ``plan.vertex_hint`` and leaves the
+        count on the device (``n_fut``) for the collector, which retries a
+        case whose count overflowed the cap.  With an intensity family, the
         image is checked (present, of the mask's shape, finite), cropped
         with the mask and staged once beside it; a shape-only request
         never reads it.  An intensity-only request stops after staging:
@@ -446,9 +559,16 @@ class PlanExecutor:
                             roi_shape=roi_shape, n_vertices=hint,
                             vertex_cap=planlib.vertex_bucket(hint))
         f = ops.vertex_fields(mdev, 0.5, sp)
+        if (prep or self.prep) == "hint":
+            hint = planlib.vertex_hint(tuple(s - 2 for s in roi_shape), sp)
+            cap = planlib.vertex_bucket(hint)
+            verts, vmask = _compact_at(f, cap)
+            return _Prepped(mask=mdev, image=idev, spacing=sp, shape=bshape,
+                            roi_shape=roi_shape, verts=verts, vmask=vmask, n_vertices=hint,
+                            vertex_cap=cap, n_fut=ops.count_vertices(f), prep_cap=cap)
         n = int(self._fetch("prep", ops.count_vertices(f)))
         cap = planlib.vertex_bucket(n)
-        verts, vmask, _ = ops.compact_vertices(f, cap)
+        verts, vmask = _compact_at(f, cap)
         if not self.device_compact:  # host path: pull the list per case
             verts = self._fetch("prep", verts)
             vmask = self._fetch("prep", vmask)
@@ -555,6 +675,96 @@ class PlanExecutor:
                 entries.append((gkey, gidxs, (cv, cm)))
         return entries
 
+    def _pass1_static(self, plan, prepped):
+        """Pass 1 (static schedule): no host fetch.
+
+        Per cap group, one bound and one compaction launch into the plan's
+        static target; the ``(B, 2)`` ``[m_valid, m_kept]`` counts stay on
+        the device and ride to the collector in ``static_aux`` with the
+        original stacks (for the keep-originals re-sweep).  A floor-cap
+        group (no target: it can never re-bucket) runs no chain, feeds
+        pass 2b its original stacks and takes a metadata-only
+        ``PruneInfo``, as in the reference.  Returns ``(entries, aux)``.
+        """
+        entries, aux = [], []
+        for cap, idxs in plan.cap_groups.items():
+            target = plan.static_targets[cap]
+            verts = torch.stack([prepped[i].verts for i in idxs])
+            masks = torch.stack([prepped[i].vmask for i in idxs])
+            if target is None:
+                for i in idxs:
+                    n = prepped[i].n_vertices
+                    prepped[i].prune_info = prune_kernels.PruneInfo(cap, n, n, False)
+                    prepped[i].vertex_cap = cap
+                entries.append((cap, idxs, (verts, masks)))
+                continue
+            keep, _ = prune_kernels.keep_mask_batch(verts, masks, self.k_dirs)
+            counts = torch.stack([masks.sum(1), keep.sum(1)], dim=1)
+            cv, cm, _ = ops.compact_survivors_batch(
+                verts, keep, target, device=self.device,
+                block=self._resolve_compact(cap, len(idxs)))
+            entries.append((target, idxs, (cv, cm)))
+            aux.append((cap, idxs, counts, verts, masks))
+        return entries, aux
+
+    def _resolve_static_aux(self, window: _Window, d_out: dict) -> None:
+        """Static collect: the deferred counts and the keep-originals re-sweep.
+
+        Fetches each group's counts (``pass2b_counts``), takes the counted
+        schedule's decision (``prune.plan_compaction``) and re-sweeps the
+        cases it keeps at their input cap from the retained stacks, one
+        launch per group, drained under ``pass2b_retry``.  Every other
+        case's static result is already exact: the target is the counted
+        schedule's re-bucketing boundary, so no survivor was dropped.
+        """
+        prepped = window.prepped
+        retries = []
+        for cap, idxs, counts, verts, masks in window.static_aux:
+            counts = self._fetch("pass2b_counts", counts)
+            retry_js = []
+            for j, (i, (mv, mk)) in enumerate(zip(idxs, counts)):
+                cap_out, info = prune_kernels.plan_compaction(cap, int(mv), int(mk),
+                                                              planlib.vertex_bucket)
+                prepped[i].prune_info = info
+                prepped[i].vertex_cap = cap_out or cap
+                if cap_out is None:
+                    retry_js.append(j)
+            if retry_js:
+                take = to_device(np.asarray(retry_js, np.int64), self.device)
+                retries.append((cap, [idxs[j] for j in retry_js],
+                                (verts.index_select(0, take), masks.index_select(0, take))))
+        if retries:
+            futs = self._submit(retries, self._diam_launch, self._stacked_chunk)
+            d_out.update(self._drain(futs, "pass2b_retry"))
+
+    def _resolve_hint_counts(self, window: _Window, d_out: dict) -> None:
+        """Hint-prep collect: the deferred counts and the overflow retry.
+
+        Fetches each case's true count (``collect_counts``, a feature of
+        the row).  A case whose count exceeds its hint cap lost vertices in
+        pass 0: it re-runs count-sized through the single-case stages
+        (vertex fields, compaction, ``ops.prune_candidates``,
+        ``ops.max_diameters``), drained under ``hint_retry``, which gives
+        ``extract_one``'s diameters; its host compaction pulls the list
+        uncounted, as the reference's does.  Runs after the static
+        collect, so a retried row wins over both.
+        """
+        for i, p in enumerate(window.prepped):
+            if p.n_fut is None:
+                continue
+            n = int(self._fetch("collect_counts", p.n_fut))
+            p.n_vertices, p.n_fut = n, None
+            if n <= p.prep_cap:
+                continue
+            verts, vmask = _compact_at(ops.vertex_fields(p.mask, 0.5, p.spacing),
+                                       planlib.vertex_bucket(n))
+            v2, m2, p.prune_info = ops.prune_candidates(verts, vmask, k_dirs=self.k_dirs)
+            variant, block = self._resolve_diameter(len(v2))
+            d_out[i] = self._fetch("hint_retry", ops.max_diameters(
+                v2, m2, device=self.device, block=block, variant=variant))
+            p.verts, p.vmask = to_device(v2, self.device), to_device(m2, self.device)
+            p.vertex_cap = len(v2)
+
     # -- window API ----------------------------------------------------------
 
     def submit_window(self, cases, batch_size=None) -> _Window:
@@ -575,7 +785,7 @@ class PlanExecutor:
                  if self._needs_intensity or self.prune else {})
         family_futs = self._submit_families(plan, prepped, pools, batch_size)
         if not self._shape_on:  # intensity only: the family launches are the window
-            return _Window(prepped, plan, [], [], [], 0.0, family_futs)
+            return self._stage_results(_Window(prepped, plan, [], [], [], 0.0, family_futs))
         if not self.prune:
             fused_entries = [
                 (bucket, idxs, self._pool(prepped, idxs))
@@ -583,14 +793,18 @@ class PlanExecutor:
             ]
             fused_futs = self._submit(fused_entries, self._fused_launch,
                                       self._stacked_chunk, batch_size)
-            return _Window(prepped, plan, [], [], fused_futs, 0.0, family_futs)
+            return self._stage_results(_Window(prepped, plan, [], [], fused_futs, 0.0,
+                                               family_futs))
 
         t1 = time.perf_counter()
-        if self.device_compact:
-            entries = self._pass1_counted(plan, prepped)
-        else:
+        aux = []
+        if not self.device_compact:
             self._prune_pass(plan, prepped)
             entries = None
+        elif plan.schedule == "static":
+            entries, aux = self._pass1_static(plan, prepped)
+        else:
+            entries = self._pass1_counted(plan, prepped)
         t_prune = time.perf_counter() - t1
 
         mc_entries = [(shape, idxs, pools[shape]) for shape, idxs in plan.shape_groups.items()]
@@ -608,7 +822,8 @@ class PlanExecutor:
                 self._host_chunk(lambda i: (prepped[i].verts, prepped[i].vmask)),
                 batch_size,
             )
-        return _Window(prepped, plan, mc_futs, diam_futs, [], t_prune, family_futs)
+        return self._stage_results(_Window(prepped, plan, mc_futs, diam_futs, [], t_prune,
+                                           family_futs, aux))
 
     def resubmit_window(self, window: _Window) -> _Window:
         """Re-submit a window from its prepped device state.
@@ -630,7 +845,10 @@ class PlanExecutor:
         """Drain one submitted window; returns ``(rows, stats)`` in input order.
 
         The intensity families drain first (they were submitted first),
-        each under its own stage; then the shape stages.
+        each under its own stage; then the shape stages, the static
+        schedule's deferred counts and re-sweeps, and hint prep's deferred
+        counts and overflow retries.  The window's fetches wait for its own
+        copy event only (see :meth:`_stage_results`).
         """
         prepped = window.prepped
         fam_out = {family: self._drain(futs, family)
@@ -641,6 +859,9 @@ class PlanExecutor:
         elif self._shape_on:
             mc_out = self._drain(window.mc_futs, "pass2a")
             d_out = self._drain(window.diam_futs, "pass2b")
+            if window.static_aux:
+                self._resolve_static_aux(window, d_out)
+            self._resolve_hint_counts(window, d_out)
             shape_out = {i: self._shape_row(mc_out[i], d_out[i], prepped[i].n_vertices)
                          for i in mc_out}
         rows = [
@@ -730,8 +951,32 @@ class PlanExecutor:
         )
         return results, stats
 
-    def extract_stream(self, *args, **kwargs):
-        raise _unported("extract_stream", "4(b)")
+    def extract_stream(self, cases: Iterable, window: int = 32,
+                       batch_size: int | None = None, stats_callback=None):
+        """Stream ``(image, mask, spacing)`` cases; yields rows in input order.
+
+        Window k+1 is prepped and submitted before window k is collected,
+        so the host prep of one window overlaps the card's work on the
+        other, and window k's drain waits for its own copies only.
+        ``stats_callback(window_index, plan_stats)`` is called at each
+        submit.  ``window`` is a positive int; ``'auto'`` (windows closed by
+        the cost model) is not ported yet.  Rows equal ``run``'s bitwise.
+        """
+        check_window(window)
+        return self._stream(iter(cases), window, batch_size, stats_callback)
+
+    def _stream(self, it, window, batch_size, stats_callback):
+        pending = None
+        for widx in itertools.count():
+            chunk = list(itertools.islice(it, window))
+            state = self.submit_window(chunk, batch_size) if chunk else None
+            if state is not None and stats_callback is not None:
+                stats_callback(widx, state.plan.stats())
+            if pending is not None:
+                yield from self.collect_window(pending)[0]
+            if state is None:
+                return
+            pending = state
 
     def extract_one(self, image, mask, spacing) -> np.ndarray:
         """Single-case path with the pipeline's stages: the parity oracle.
@@ -740,9 +985,10 @@ class PlanExecutor:
         the single-case MC and diameter kernels and host compaction, and
         each intensity family at batch depth 1.  Returns a
         ``(plan.row_width(families),)`` row; an empty mask gives zeros.
-        Batching never changes a row: ``run`` equals this bitwise.
+        Batching never changes a row: ``run`` equals this bitwise, under
+        either schedule and either prep (the oracle is always count-sized).
         """
-        p = self._prep_case(image, mask, spacing)
+        p = self._prep_case(image, mask, spacing, prep="count")
         if p.mask is None:
             return np.zeros(self.n_features, np.float32)
         shape_row = None

@@ -14,6 +14,9 @@ group of cases.  It is split, as in the reference, into
   marching-cubes kernel per shape bucket, pass 2b the batched diameter
   kernel per pruned vertex bucket; the intensity families run the
   first-order and GLCM kernels per shape bucket in the same window.
+  ``schedule='static'`` and ``prep='hint'`` make passes 0 and 1 fetch
+  nothing, so ``extract_stream`` can submit window k+1 while the card
+  still runs window k.
 
 Usage::
 
@@ -25,33 +28,44 @@ Usage::
     ext = BatchedExtractor(families=("shape", "firstorder", "glcm"))
     rows, stats = ext.run(cases)   # 20 columns: plan.family_slices(ext.families)
 
-``run`` / ``extract_batch`` extract one window; ``extract_one`` is the
-single-case parity oracle (identical stages, no batching, bitwise the
-same row).  ``prune=False`` (one-pass, unpruned) and
-``device_compact=False`` (host compaction) are the reference's parity
-baselines.  Empty masks give zero rows; cases that fail to load or
-validate give NaN rows and an ``errors`` entry in the stats.
+``run`` / ``extract_batch`` extract one window; ``extract_stream`` yields
+the rows of a stream of cases, window by window, in input order;
+``extract_one`` is the single-case parity oracle (identical stages, no
+batching, bitwise the same row).  ``prune=False`` (one-pass, unpruned),
+``device_compact=False`` (host compaction), ``schedule='counted'`` and
+``prep='count'`` are the reference's parity baselines: every schedule,
+prep and window gives the same rows, bitwise.  Empty masks give zero
+rows; cases that fail to load or validate give NaN rows and an
+``errors`` entry in the stats.
+
+Streaming::
+
+    ext = BatchedExtractor(families=("shape", "firstorder", "glcm"),
+                           schedule="static", prep="hint")
+    for row in ext.extract_stream(cases, window=20):   # any iterable
+        ...
 
 Out-of-core cases (``core/tiled``): a ``TiledCase`` always takes the tiled
 engine, and with ``tiled=True`` so does a tuple whose staged frame would
 exceed the tile budget (``tile_mem_mb``, default ``REPRO_TILE_MEM_MB``);
-``run`` merges their rows back in input order with ``stats["tiled"]``, and
-``extract_tiled`` runs one case.  ``tile_prune`` is ``'none'``,
+``run`` merges their rows back in input order with ``stats["tiled"]``,
+``extract_stream`` runs them between the in-core segments of the stream,
+and ``extract_tiled`` runs one case.  ``tile_prune`` is ``'none'``,
 ``'occupancy'`` or ``'bounds'``; ``mc_chunk`` the marching-cubes z-granule
 both paths share, so a tiled row equals ``extract_one``'s bitwise.
 
 Not ported yet: served extraction (ROADMAP.md Queue 1 item 9),
-``extract_stream`` with the tiled segments in a stream (item 4(b)), and
-the options the executor refuses (see ``core/executor``).
+``window='auto'`` and ``schedule='auto'`` (item 4(b)ii, the cost model),
+and the other options the executor refuses (see ``core/executor``).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
 from repro_torch.core import plan as planlib
-from repro_torch.core.executor import PlanExecutor
+from repro_torch.core.executor import PlanExecutor, check_window
 from repro_torch.core.tiled import TiledExtractor
 from repro_torch.data.tiles import TiledCase
 
@@ -69,9 +83,13 @@ class BatchedExtractor:
     ``"firstorder"`` and ``"glcm"``; ``n_bins`` is the intensity families'
     bin count.  ``variant`` is the diameter variant: ``'auto'`` (the
     default, the autotuned choice per launch) or any of
-    ``kernels.diameter.VARIANTS``.  Only ``schedule='counted'`` and ``prep='count'`` are
-    ported; the other options of the reference raise ``ValueError``
-    naming their ROADMAP item.
+    ``kernels.diameter.VARIANTS``.  ``schedule`` is ``'counted'`` (a
+    count fetch per cap group in pass 1) or ``'static'`` (none; the counts
+    are fetched at collect); ``prep`` is ``'count'`` (a count fetch per
+    case in pass 0) or ``'hint'`` (caps from metadata, counts fetched at
+    collect); both sync-free options need ``prune`` and
+    ``device_compact``.  The options of the reference not ported yet
+    raise ``ValueError`` naming their ROADMAP item.
     """
 
     N_FEATURES = PlanExecutor.N_FEATURES
@@ -181,10 +199,45 @@ class BatchedExtractor:
         """Alias of :meth:`run`."""
         return self.run(cases, batch_size)
 
-    def extract_stream(self, *args, **kwargs):
-        """Not ported yet, nor its tiled segments (ROADMAP.md Queue 1 item
-        4(b)); raises ValueError."""
-        return self.executor.extract_stream(*args, **kwargs)
+    def extract_stream(self, cases: Iterable, window: int = 32,
+                       batch_size: int | None = None, stats_callback=None):
+        """Stream (image, mask, spacing) cases; yields rows in input order.
+
+        The executor's fixed-window stream (``PlanExecutor.
+        extract_stream``): window k+1 is prepped and submitted before
+        window k is drained, and ``stats_callback(i, plan_stats)`` reports
+        each window's plan census at submit.  A case routed out-of-core
+        (see :meth:`_route_tiled`) splits the stream: the in-core segment
+        before it is flushed through the windowed stream, the tiled case
+        runs through the tiled engine, and streaming resumes after it; no
+        prep overlaps across that boundary.  ``window`` is checked here,
+        before the first case is read.
+        """
+        check_window(window)
+
+        def segments():
+            seg = []
+            for case in cases:
+                if self._route_tiled(case):
+                    if seg:
+                        yield False, seg
+                        seg = []
+                    yield True, case
+                else:
+                    seg.append(case)
+            if seg:
+                yield False, seg
+
+        def rows():
+            for tiled, item in segments():
+                if tiled:
+                    yield self.extract_tiled(item).row
+                else:
+                    yield from self.executor.extract_stream(
+                        item, window=window, batch_size=batch_size,
+                        stats_callback=stats_callback)
+
+        return rows()
 
     def extract_one(self, image, mask, spacing):
         """Single-case parity oracle (identical stages, no batching)."""

@@ -80,15 +80,14 @@ from repro_torch.kernels import masked_range as _range
 
 SCHEMA_VERSION = 3
 
-# 'gram' is left out of 'auto': its bits differ from the direct sweep's in
-# the last place, so an 'auto' that picked it at one bucket or depth and
-# not at another would break batched == single and tiled == in-core.  It
-# runs when asked for by name.  The other direct variants ('fused', 'tri',
-# 'naive', 'tri_prefetch') give the same bits but sweep the whole padded
-# list, one tile a block, where these two sweep each list's extent on a
-# persistent grid: 'tri_prefetch', once a candidate here, ran 2.4x
-# seqacc at 00001-1 and won only launch-bound buckets, by ~1 us in ~10.
-DEFAULT_VARIANTS = ("seqacc", "nomask")
+# The reference's candidates without 'gram': its bits differ from the
+# direct sweep's in the last place, so an 'auto' that picked it at one
+# bucket or depth and not at another would break batched == single and
+# tiled == in-core.  It runs when asked for by name.  'tri_prefetch' gives
+# seqacc's bits and, on its upper-triangle tiles, beats it at the largest
+# lists at block 512 (PERF.md, section 6); 'fused', 'tri' and 'naive' are
+# slower than it everywhere.
+DEFAULT_VARIANTS = ("seqacc", "tri_prefetch", "nomask")
 # the card's sweep of the extent-sweep kernels (PERF.md, section 6): 64 wins
 # at buckets 512-2048, 128 up to 16384, 256 and 512 above; 1024 gains at
 # most 1.3% at the two largest keys and is left out (4 blocks at most, so

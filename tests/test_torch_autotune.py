@@ -85,6 +85,15 @@ def test_defaults_are_the_kernels():
     assert all(compact.valid_block(b) for b in autotune.DEFAULT_COMPACT_BLOCKS)
 
 
+def test_sweep_candidates_hold_tri_prefetch_not_gram(cache_path, measured):
+    """The reference's candidates (its autotune.DEFAULT_VARIANTS) less gram:
+    a cold sweep times seqacc, tri_prefetch and nomask at every block."""
+    assert set(autotune.DEFAULT_VARIANTS) == set(jax_autotune.DEFAULT_VARIANTS) - {"gram"}
+    autotune.get_diameter_config(2048, "cuda", batch=2)
+    assert {v for _, v, _, _ in measured} == {"seqacc", "tri_prefetch", "nomask"}
+    assert len(measured) == 3 * len(autotune.DEFAULT_BLOCKS)
+
+
 def test_cache_path_default_and_env(monkeypatch, tmp_path):
     monkeypatch.delenv("REPRO_AUTOTUNE_CACHE", raising=False)
     assert autotune.cache_path() == jax_autotune.cache_path()

@@ -522,8 +522,8 @@ def test_default_extractor_keeps_tuples_in_core():
     assert bx._route_tiled(TiledCase(mask, spacing=SP))
     assert BatchedExtractor(device="cpu", tiled=True, tile_mem_mb=0.01)._route_tiled(
         (image, mask, SP))
-    with pytest.raises(ValueError, match="4\\(b\\)"):
-        bx.extract_stream(iter([(image, mask, SP)]))
+    with pytest.raises(ValueError, match="4\\(b\\)ii"):
+        bx.extract_stream(iter([(image, mask, SP)]), window="auto")
 
 
 def test_only_tiled_cases_run():
