@@ -12,9 +12,10 @@ the 20 synthetic Table-2 cases, the batched two-pass extractor
 (``BatchedExtractor``) over a 60-case cohort of them, the same cohort
 with the intensity families (shape, first-order, GLCM), the same cohort
 streamed on the sync-free window path (``extract_stream``), the
-out-of-core tiled path (``BatchedExtractor(tiled=True)``, ``TiledCase``)
-and the diameter variant axis with its autotuner -- checks the features
-against the port's CPU path or the in-core path, and prints the kernels
+out-of-core tiled path (``BatchedExtractor(tiled=True)``, ``TiledCase``),
+the diameter variant axis with its autotuner, and the cost model's auto
+knobs with the multi-tenant service (``BatchedExtractor.serve``) -- checks
+the features against the port's CPU path or the in-core path, and prints the kernels
 line and a last JSON status line.  The autotune cache is a fresh
 temporary file, so no run reads another run's winners; an untimed pass
 warms it, and no timed or sync-debug phase runs a sweep.  Any failed check raises, so the script exits
@@ -172,7 +173,32 @@ Phases:
      cases and 00001-1 unpruned and BatchedExtractor(variant=v) over the
      60, counts read, == seqacc bitwise (gram rtol 1e-6); a torch.cdist
      yardstick at 00001-1's list
-  10. the kernels line (each variant at block 256, as phase 5b); 11. the status line
+  10. (run after 8c, before 9, whose cold sweeps add measured depths) the
+     auto knobs and the service: (a) the sync/cuda and hw/cuda probes on an
+     empty cache of their own, each value and its seconds beside the card's
+     name and power limit, a second CostModel reading both back without
+     probing (autotune.PROBES); (b) launch counts reset,
+     BatchedExtractor(families=(shape, firstorder, glcm), schedule='auto',
+     prep='hint').extract_stream(window='auto') over the 60 cases on the
+     warm cache (its windows warmed in phase 1), counts read; rows == phase
+     7's counted/count run bitwise; the fetch census; every submit of the
+     stream's windows under CUDA sync debugging, fetching nothing but the
+     counted schedule's pass-1 counts, with its cases, shape and cap
+     buckets, resolved schedule and launches and copies queued; cases/s
+     against phase 7's run and 7b's fixed-window stream (two interleaved
+     rounds each); (c) per window the cost model's counted and static
+     prices beside the window's measured wall under each fixed schedule
+     (rows bitwise); (d) BatchedExtractor(schedule='static', prep='hint',
+     families=all).serve() with 4 client threads x 6 requests of 2 cases of
+     mixed_traffic_stream(48, huge_every=16), after an untimed pass: launch
+     counts reset, a plug parks the driver while a request's deadline
+     expires in the queue (DeadlineExceeded rows, no window slot), one case
+     poisoned (NaN mask: a NaN row and its error), counts read; every other
+     served row == extract_stream's bitwise and no other error; p50/p99
+     request latency, cases/s, the windows' cases and tenants, the most
+     launches one served window's submit queues; (e) python -m
+     repro_torch.launch.serve --smoke in a subprocess exits 0
+  11. the kernels line (each variant at block 256, as phase 5b); 12. the status line
 """
 import collections
 import ctypes
@@ -182,6 +208,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -194,7 +221,7 @@ from repro_torch.core import BatchedExtractor, ShapeFeatureExtractor, crop_to_ro
 from repro_torch.core import TiledCase, mc_tables  # noqa: E402
 from repro_torch.core import plan as planlib  # noqa: E402
 from repro_torch.data.tiles import FnSlabSource  # noqa: E402
-from repro_torch.data.synthetic import table2_suite  # noqa: E402
+from repro_torch.data.synthetic import mixed_traffic_stream, table2_suite  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import compact as cp  # noqa: E402
 from repro_torch.kernels import diameter as dm  # noqa: E402
@@ -202,19 +229,16 @@ from repro_torch.kernels import firstorder as fo  # noqa: E402
 from repro_torch.kernels import glcm as gl  # noqa: E402
 from repro_torch.kernels import marching_cubes as mc  # noqa: E402
 from repro_torch.kernels import masked_range as mr  # noqa: E402
-from repro_torch.runtime import autotune  # noqa: E402
+from repro_torch.runtime import autotune, costmodel  # noqa: E402
+from repro_torch.runtime import roofline as rl  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM bandwidth
-# and float32 outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-# FP32 operations the MC kernel does, counted from csrc/marching_cubes.cu:
-# 8 compares per cell; per triangle 3 vertices x 12 (interpolation and
-# position) + 23 (area) + 16 (signed volume).
-MC_OPS_PER_CELL = 8
-MC_OPS_PER_TRIANGLE = 75
-# per pair: 3 sub, 3 mul, 4 add, 4 max (csrc/diameter.cu)
-DIAM_OPS_PER_PAIR = 14
+# and float32 outside the tensor cores (the cost model's default profile).
+H100 = autotune.H100_SXM_PROFILE
+PEAK_BYTES_PER_S = H100["mem_bw"]
+PEAK_FP32_PER_S = H100["peak_flops"]
+# the kernels' operation counts (runtime/roofline.py, shared with the cost model)
+DIAM_OPS_PER_PAIR = rl.DIAM_OPS_PER_PAIR
 # H100 SXM FP64 tensor-core peak (NVIDIA data sheet, dense, 700 W): the
 # 'gram' variant's products
 PEAK_FP64_TC_PER_S = 67e12
@@ -225,18 +249,12 @@ AB_PARENT = Path(__file__).resolve().parent / "build" / "ab_parent"
 # the reference's kernel body of each variant (src/repro/kernels/diameter.py)
 VARIANT_REPLACES = {"fused": 122, "tri": 122, "naive": 122, "tri_prefetch": 150,
                     "nomask": 174, "gram": 88}
-# FP32 operations the intensity functions need (csrc/quantize.cuh,
-# firstorder.cu, glcm.cu): a mask compare per voxel; quantising a masked
-# voxel is 5 (sub, div, floor, max, min); first-order adds a square and two
-# additions per masked voxel, GLCM per pair a neighbour compare and the
-# neighbour's quantisation
-QUANT_OPS = 5
-FO_OPS_PER_MASKED = 3 + QUANT_OPS
-GLCM_OPS_PER_PAIR = 1 + QUANT_OPS
 FAMS = ("shape", "firstorder", "glcm")
 TILED_FAMS = ("shape", "firstorder")
 TILED_BIG_N = 1024  # the out-of-core sphere's edge (4 GiB materialised)
 STREAM_WINDOW = 20  # phase 7b's fixed window: the 60 cases in 3 windows
+# phase 10d's service traffic: clients x requests x cases a request
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCH, SERVE_HUGE_EVERY = 4, 6, 2, 16
 # the tuner's diameter candidates before 'tri_prefetch' rejoined them
 OLD_DIAMETER_VARIANTS = ("seqacc", "nomask")
 # the reference's census for the cohort: one family fetch per shape bucket
@@ -368,10 +386,8 @@ def mc_bound_ms(vols, dev):
         cube = ref._cell_cube_index(vol, 0.5).long()
         n_tris += int(table[cube].sum())
         cells += cube.numel()
-    nbytes = 4 * sum(v.numel() for v in vols) + 8 * len(vols)
-    ops_ = MC_OPS_PER_CELL * cells + MC_OPS_PER_TRIANGLE * n_tris
-    return {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
-            "operations": ops_ / PEAK_FP32_PER_S * 1e3}, n_tris
+    work = rl.mc_work(sum(v.numel() for v in vols), cells, n_tris, len(vols))
+    return rl.bound_ms(work, H100), n_tris
 
 
 def diam_bound_ms(masks):
@@ -381,8 +397,7 @@ def diam_bound_ms(masks):
     masks = masks.reshape(-1, masks.shape[-1])
     valid = masks.sum(1).double()
     pairs = int((valid * (valid + 1) / 2).sum())
-    return {"bytes": (13 * masks.numel() + 16 * len(masks)) / PEAK_BYTES_PER_S * 1e3,
-            "operations": DIAM_OPS_PER_PAIR * pairs / PEAK_FP32_PER_S * 1e3}, pairs
+    return rl.bound_ms(rl.diameter_work(masks.numel(), len(masks), pairs), H100), pairs
 
 
 def rate_ceiling_ms(pairs, per_pair, clock_mhz):
@@ -397,7 +412,6 @@ def rate_ceiling_ms(pairs, per_pair, clock_mhz):
 def smi_sampler(period_s=0.1):
     """Samples nvidia-smi's SM clock, power draw and limit every
     ``period_s`` on a thread until :func:`smi_summary` stops it."""
-    import threading
     rows, stop = [], threading.Event()
 
     def run():
@@ -697,17 +711,11 @@ def intensity_bounds_ms(masks, glcm_out):
     Operations: what these inputs need (masked voxels, valid pairs; the
     pairs are half the symmetrised counts).
     """
-    batch, voxels = masks.shape[0], masks[0].numel()
+    batch, voxels = masks.shape[0], masks.numel()
     masked = int((masks > 0).sum())
     pairs = int(glcm_out.double().sum()) // 2
-    nb = fo.N_BINS
-    in_bytes = 4 * batch * voxels + 4 * masked + 8 * batch
-    fo_b = {"bytes": (in_bytes + 4 * batch * fo.packed_width(nb)) / PEAK_BYTES_PER_S * 1e3,
-            "operations": (batch * voxels + FO_OPS_PER_MASKED * masked)
-            / PEAK_FP32_PER_S * 1e3}
-    gl_b = {"bytes": (in_bytes + 4 * batch * nb * nb) / PEAK_BYTES_PER_S * 1e3,
-            "operations": (batch * voxels + QUANT_OPS * masked + GLCM_OPS_PER_PAIR * pairs)
-            / PEAK_FP32_PER_S * 1e3}
+    fo_b, gl_b = (rl.bound_ms(rl.intensity_work(f, batch, voxels, masked, pairs, fo.N_BINS), H100)
+                  for f in ("firstorder", "glcm"))
     return fo_b, gl_b, masked, pairs
 
 
@@ -813,6 +821,12 @@ def warm_autotune(suite, cases, cohort_cases):
         sext.run(window)
     list(stream_extractor(TILED_FAMS).extract_stream(tiled_stream(cohort_cases, cases),
                                                      window=4))
+    # phase 10: the auto stream's windows, and each under both fixed schedules
+    sizes, _ = auto_stream_windows(cohort_cases)
+    cext = BatchedExtractor(families=FAMS, schedule="counted", prep="hint")
+    for chunk in split(cohort_cases, sizes):
+        cext.run(chunk)
+        sext.run(chunk)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
@@ -958,6 +972,343 @@ def sphere_volume(n, r):
     g = np.arange(n) - (n - 1) / 2
     x, y, z = np.meshgrid(g, g, g, indexing="ij")
     return np.pad((x * x + y * y + z * z <= r * r).astype(np.float32), 1)
+
+
+def check_no_probe(probes, phase):
+    """Fails if a sync or hardware probe ran since ``probes`` was read."""
+    check(autotune.PROBES == probes,
+          f"{phase}: {autotune.PROBES - probes} probe(s) ran on a warm cache")
+
+
+class Plug:
+    """A loader that parks the service's driver inside prep until released:
+    whatever is submitted meanwhile is queued together."""
+
+    def __init__(self, case):
+        self.entered, self.release = threading.Event(), threading.Event()
+        self._case = case
+
+    def __call__(self):
+        self.entered.set()
+        check(self.release.wait(120), "the plug was never released")
+        return self._case
+
+
+def auto_stream_windows(cohort_cases):
+    """The auto stream's window sizes over the cohort, run until a pass
+    sweeps nothing (its own sweeps add measured depths, which can move a
+    boundary); returns ``(sizes, passes)``."""
+    for passes in range(1, 5):
+        s0, sizes = autotune.SWEEPS, []
+        list(auto_extractor().extract_stream(
+            iter(cohort_cases), window="auto",
+            stats_callback=lambda i, st: sizes.append(st["cases"])))
+        if autotune.SWEEPS == s0:
+            return sizes, passes
+    raise AssertionError("the auto stream still sweeps after 4 passes")
+
+
+def auto_extractor():
+    """Phase 10's auto extractor: the cost model's schedule per window, hint caps."""
+    return BatchedExtractor(families=FAMS, schedule="auto", prep="hint")
+
+
+def split(cases, sizes):
+    bounds = np.cumsum([0] + list(sizes))
+    return [cases[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def serve_traffic():
+    """Phase 10d's traffic: the clients' 48 cases of mixed_traffic_stream(.,
+    huge_every=16), then two for the request that expires and one for the
+    plug; and where the poisoned case sits (client, request, case)."""
+    n = SERVE_CLIENTS * SERVE_REQUESTS * SERVE_BATCH
+    traffic = [(img, msk, sp) for _, img, msk, sp in
+               mixed_traffic_stream(n + 3, seed=0, huge_every=SERVE_HUGE_EVERY)]
+    return traffic[:n], traffic[n:n + 2], traffic[n + 2], (1, 2, 0)
+
+
+def client_requests(cases, poison_at):
+    """Each client's requests, as (case indices, cases), the case at
+    ``poison_at`` replaced by a copy with a NaN in its mask."""
+    out = []
+    for c in range(SERVE_CLIENTS):
+        mine = list(range(c, len(cases), SERVE_CLIENTS))
+        reqs = []
+        for r in range(SERVE_REQUESTS):
+            idx = mine[r * SERVE_BATCH:(r + 1) * SERVE_BATCH]
+            batch = [cases[i] for i in idx]
+            if (c, r) == poison_at[:2]:
+                img, msk, sp = batch[poison_at[2]]
+                bad = np.asarray(msk, np.float32).copy()
+                bad[tuple(s // 2 for s in bad.shape)] = np.nan
+                batch[poison_at[2]] = (img, bad, sp)
+            reqs.append((idx, batch))
+        out.append(reqs)
+    return out
+
+
+def probe_phase(dev, smi):
+    """Phase 10a: the sync and hardware probes, on an empty cache of their own."""
+    fd, probe_file = tempfile.mkstemp(prefix="repro_probe_", suffix=".json")
+    os.close(fd)
+    os.unlink(probe_file)
+    pcache = autotune.AutotuneCache(probe_file)
+    probes0, secs0 = autotune.PROBES, dict(autotune.PROBE_SECONDS)
+    cm = costmodel.CostModel(dev, cache=pcache).resolve()
+    prof, sync_us = cm.hw_profile(), cm.sync_cost_us()
+    stored = json.load(open(probe_file))["entries"]
+    check(autotune.PROBES == probes0 + 2 and prof["source"] == "measured"
+          and set(stored) == {autotune.sync_key("cuda"), autotune.hw_key("cuda")},
+          f"the probes: {autotune.PROBES - probes0} run, profile {prof}, stored {sorted(stored)}")
+    again = costmodel.CostModel(dev, cache=pcache).resolve()
+    check_no_probe(probes0 + 2, "probe")
+    check(again.sync_cost_us() == sync_us and again.hw_profile() == prof,
+          "a second CostModel read other values than the probes stored")
+    os.unlink(probe_file)
+    secs = {k: autotune.PROBE_SECONDS[k] - secs0[k] for k in secs0}
+    print(f"[probe] card: {smi}; sync/cuda {sync_us:.3f} us ({secs['sync']:.3f} s), hw/cuda "
+          f"peak FP32 {prof['peak_flops'] / 1e12:.3f} TFLOP/s (an N={autotune.HW_PROBE_MATMUL_N} "
+          f"matmul, TF32 off) and bandwidth {prof['mem_bw'] / 1e12:.3f} TB/s (u + 0.5 v over "
+          f"16 MiB) ({secs['hw']:.3f} s), against the data sheet's "
+          f"{H100['peak_flops'] / 1e12:.0f} and {H100['mem_bw'] / 1e12:.2f}; a second CostModel "
+          f"read both from the cache: {autotune.PROBES - probes0} probes in all")
+
+
+def auto_phase(cohort_cases, frows, fext, sext):
+    """Phases 10b and 10c: the auto stream, and choose_schedule against the card."""
+    sizes, passes = auto_stream_windows(cohort_cases)
+    sweeps0, probes0 = autotune.SWEEPS, autotune.PROBES
+    aext = auto_extractor()
+    aex = aext.executor
+    seen = []
+    f0 = dict(aex.transfer_log)
+    zero_counts()
+    t0 = time.perf_counter()
+    arows = list(aext.extract_stream(iter(cohort_cases), window="auto",
+                                     stats_callback=lambda i, st: seen.append(st)))
+    auto_s = [time.perf_counter() - t0]
+    auto_launches = read_counts()
+    auto_fetches = fetch_delta(aex.transfer_log, f0)
+    check(all(auto_launches[k] > 0 for k in ("marching_cubes", "diameter", "compact",
+                                             "firstorder", "glcm", "masked_range")),
+          f"a kernel of the auto stream's path never ran: {auto_launches}")
+    check(np.array_equal(np.stack(arows), frows),
+          "auto stream rows != phase 7's counted/count three-family run")
+    check([st["cases"] for st in seen] == sizes, "the auto stream's windows moved")
+    windows = split(cohort_cases, sizes)
+    print(f"[auto] extract_stream(window='auto') over {len(cohort_cases)} cases, "
+          f"schedule='auto', prep='hint', families {FAMS}: {auto_s[0]:.3f} s = "
+          f"{len(cohort_cases) / auto_s[0]:.3f} cases/s; rows == phase 7's counted/count run "
+          f"bitwise; {len(windows)} windows ({passes} warm pass(es)); launches {auto_launches}")
+    print(f"[auto] host_fetches {auto_fetches}")
+    # every submit under CUDA sync debugging, the stream's windows driven as
+    # it drives them; the cost model's decision recorded per window
+    cm = aex.cost_model
+    decided, choose = [], cm.choose_schedule
+    cm.choose_schedule = lambda metas: decided.append(cm.schedule_costs(metas)) or choose(metas)
+    pending, loop_rows, per_window = None, [], []
+    try:
+        for chunk in windows + [None]:
+            state = None
+            if chunk is not None:
+                f0 = dict(aex.transfer_log)
+
+                def submit():
+                    with aex.strict_syncs():
+                        return aex.submit_window(chunk)
+
+                queued, state = queued_launches(submit)
+                sub_fetches = fetch_delta(aex.transfer_log, f0)
+                plan = state.plan.stats()
+                want = ({"pass1": len(state.plan.cap_groups)}
+                        if plan["schedule"] == "counted" and state.plan.cap_groups else {})
+                check(sub_fetches == want, f"an auto submit fetched {sub_fetches}, "
+                                           f"not the {plan['schedule']} schedule's {want}")
+                per_window.append({"cases": len(chunk), "shape": plan["shape_buckets"],
+                                   "cap": plan["cap_buckets"], "schedule": plan["schedule"],
+                                   "queued": queued, "costs": decided[-1]})
+            if pending is not None:
+                loop_rows += aex.collect_window(pending)[0]
+            pending = state
+    finally:
+        del cm.choose_schedule
+    check(np.array_equal(np.stack(loop_rows), frows), "the strict-sync loop's rows differ")
+    check_no_sweep(sweeps0, "auto")
+    check_no_probe(probes0, "auto")
+    print("[auto] every submit under CUDA sync debugging ('error'): no host sync but the "
+          "counted schedule's own pass-1 fetches; per window (cases, shape/cap buckets, "
+          "resolved schedule, launches and copies queued): "
+          + "; ".join(f"{w['cases']} {w['shape']}/{w['cap']} {w['schedule']} {w['queued']}"
+                      for w in per_window))
+    print(f"[auto] resolved schedules {dict(collections.Counter(w['schedule'] for w in per_window))}, "
+          f"the most queued in one window {max(w['queued'] for w in per_window)}")
+    # cases/s: the auto stream against phase 7's run and 7b's fixed-window stream
+    run_s, fixed_s = [], []
+    for which in ("auto", "counted", "fixed", "fixed", "counted", "auto"):
+        t0 = time.perf_counter()
+        if which == "counted":
+            fext.run(cohort_cases)
+        else:
+            ext, window = (aext, "auto") if which == "auto" else (sext, STREAM_WINDOW)
+            for _ in ext.extract_stream(iter(cohort_cases), window=window):
+                pass
+        {"auto": auto_s, "counted": run_s, "fixed": fixed_s}[which].append(
+            time.perf_counter() - t0)
+    n = len(cohort_cases)
+    print(f"[auto] cases/s over the {n} cases, rounds in order auto stream, run (counted/count), "
+          f"stream (window={STREAM_WINDOW}, static/hint), the same, run, auto stream: auto "
+          f"{[round(n / t, 3) for t in auto_s[1:]]} (counted run {n / auto_s[0]:.3f}), run "
+          f"counted/count {[round(n / t, 3) for t in run_s]}, fixed-window stream "
+          f"{[round(n / t, 3) for t in fixed_s]}; auto / run {ratio(sum(run_s), sum(auto_s[1:]))}x, "
+          f"auto / fixed stream {ratio(sum(fixed_s), sum(auto_s[1:]))}x")
+    check_no_sweep(sweeps0, "auto")
+
+    # 10c. choose_schedule against the card: each window under both fixed schedules
+    cext = BatchedExtractor(families=FAMS, schedule="counted", prep="hint")
+    # the static lists swept by seqacc alone, an extent sweep whatever the
+    # tuned variant of the key
+    seq_ext = BatchedExtractor(families=FAMS, schedule="static", prep="hint", variant="seqacc")
+    rows_out = 0
+    for k, (chunk, w) in enumerate(zip(windows, per_window)):
+        turns = {"counted": [], "static": []}
+        for name in ("counted", "static", "static", "counted"):
+            s0 = autotune.SWEEPS
+            t0 = time.perf_counter()
+            rows, _ = (cext if name == "counted" else sext).run(chunk)
+            if autotune.SWEEPS == s0:  # a turn that swept a key is not timed
+                turns[name].append(time.perf_counter() - t0)
+            check(np.array_equal(np.stack(rows), frows[rows_out:rows_out + len(chunk)]),
+                  f"window {k} under {name}: rows differ")
+        check(all(turns.values()), f"window {k}: every turn of a schedule swept")
+        walls = {name: statistics.median(t) for name, t in turns.items()}
+        rows_out += len(chunk)
+        # the device time the model prices: pass 2b's sweeps (and the rest)
+        sweep_us, busy_us = {}, {}
+        for name, ext in (("counted", cext), ("static", sext), ("static/seqacc", seq_ext)):
+            per_kernel, _ = device_trace(lambda: ext.run(chunk))
+            sweep_us[name] = sum(us for key, us in per_kernel.items() if "diameter" in key)
+            busy_us[name] = sum(per_kernel.values())
+        sync_us = w["costs"]["groups"] * cm.sync_cost_us()
+        device = {s_: sweep_us[s_] + (sync_us if s_ == "counted" else 0.0)
+                  for s_ in ("counted", "static")}
+        modeled = min(("counted", "static"), key=lambda s_: (w["costs"][s_], s_ != "counted"))
+
+        def pick(d):
+            return min(d, key=d.get)
+
+        print(f"[choose] window {k} ({len(chunk)} cases, {w['cap']} cap groups): modeled "
+              f"counted {w['costs']['counted']:.2f} us ({sync_us:.2f} of it fetches), static "
+              f"{w['costs']['static']:.2f} us -> {w['schedule']}; measured pass-2b sweeps "
+              f"(device) counted {sweep_us['counted']:.2f} us + the fetches, static "
+              f"{sweep_us['static']:.2f} us -> {pick(device)} (model "
+              f"{'agrees' if modeled == pick(device) else 'disagrees'}), static with every "
+              f"list swept by seqacc {sweep_us['static/seqacc']:.2f} us; all device work "
+              f"counted {busy_us['counted']:.2f} us, static {busy_us['static']:.2f} us; wall "
+              f"(median of 2 turns) counted {walls['counted'] * 1e3:.3f} ms, static "
+              f"{walls['static'] * 1e3:.3f} ms -> {pick(walls)} (model "
+              f"{'agrees' if modeled == pick(walls) else 'disagrees'})")
+
+
+def serve_phase():
+    """Phase 10d: the service, 4 clients x 6 requests of 2 cases."""
+    cases, doomed, plug_case, poison_at = serve_traffic()
+    reqs = client_requests(cases, poison_at)
+    bx = BatchedExtractor(schedule="static", prep="hint", families=FAMS)
+    want = np.stack(list(bx.extract_stream(iter(cases + doomed + [plug_case]),
+                                           window=STREAM_WINDOW)))
+
+    def drive(svc, lat, results):
+        def client(c):
+            for r, (idx, batch) in enumerate(reqs[c]):
+                res = svc.submit(batch, tenant=f"client-{c}").result(timeout=600)
+                lat.append(res.latency_s)
+                results[c, r] = (idx, res)
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        check(not any(t.is_alive() for t in threads), "a service client never finished")
+
+    with bx.serve() as svc:  # untimed: the service's windows are keys of their own
+        drive(svc, [], {})
+    ex = bx.executor
+    served, submit = [], ex.submit_prepped
+    ex.submit_prepped = lambda prepped, batch_size=None: served.append(
+        submit(prepped, batch_size)) or served[-1]
+    lat, results = [], {}
+    zero_counts()
+    try:
+        svc = bx.serve()
+        plug = Plug(plug_case)
+        f_plug = svc.submit([plug], tenant="plug")
+        check(plug.entered.wait(120), "the driver never reached the plug")
+        f_dead = svc.submit(doomed, tenant="hurried", deadline_s=0.005)
+        time.sleep(0.05)  # the deadline passes while the request is queued
+        plug.release.set()
+        t0 = time.perf_counter()
+        drive(svc, lat, results)
+        serve_s = time.perf_counter() - t0
+        dead, plugged = f_dead.result(timeout=600), f_plug.result(timeout=600)
+        stats = svc.stats()
+        svc.close(timeout=600)  # raises the driver's failure, if any
+    finally:
+        del ex.submit_prepped
+    serve_launches = read_counts()
+    check(all(serve_launches[k] > 0 for k in ("marching_cubes", "diameter", "compact",
+                                              "firstorder", "glcm", "masked_range")),
+          f"a kernel of the service's path never ran: {serve_launches}")
+    check(set(dead.errors) == {0, 1} and all("DeadlineExceeded" in e for e in dead.errors.values())
+          and np.isnan(np.stack(dead.rows)).all() and stats["expired_cases"] == 2,
+          f"the expired request: errors {dead.errors}, expired {stats['expired_cases']}")
+    check(sum(stats["window_cases"]) == len(cases) + 1,
+          f"the windows hold {sum(stats['window_cases'])} cases, not the clients' "
+          f"{len(cases)} and the plug")
+    check(plugged.ok and np.array_equal(plugged.rows[0], want[-1]), "the plug's row differs")
+    for (c, r), (idx, res) in sorted(results.items()):
+        for j, i in enumerate(idx):
+            if (c, r, j) == poison_at:
+                check(list(res.errors) == [j] and "poisoned" in res.errors[j]
+                      and np.isnan(res.rows[j]).all(),
+                      f"the poisoned case: errors {res.errors}")
+                continue
+            check(j not in res.errors, f"client {c} request {r} case {j}: {res.errors.get(j)}")
+            check(np.array_equal(res.rows[j], want[i]),
+                  f"client {c} request {r} case {j}: served row != extract_stream's")
+    top = sorted(served, key=lambda w: -w.plan.n_cases)[:3]
+    most = 0
+    for w in top:
+        queued, again = queued_launches(lambda: ex.resubmit_window(w))
+        ex.collect_window(again)
+        most = max(most, queued)
+    lat = np.asarray(lat)
+    print(f"[serve] BatchedExtractor(schedule='static', prep='hint', families {FAMS}).serve(): "
+          f"{SERVE_CLIENTS} clients x {SERVE_REQUESTS} requests of {SERVE_BATCH} cases "
+          f"(mixed_traffic_stream, huge_every={SERVE_HUGE_EVERY}): {len(cases)} cases in "
+          f"{serve_s:.3f} s = {len(cases) / serve_s:.3f} cases/s; request latency p50 "
+          f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 {np.percentile(lat, 99) * 1e3:.3f} ms, "
+          f"max {lat.max() * 1e3:.3f} ms; launches {serve_launches}")
+    print(f"[serve] every served row == extract_stream's bitwise; the poisoned case all NaN "
+          f"with its error, its co-tenant bitwise; the expired request {len(doomed)} "
+          f"DeadlineExceeded rows, no window slot; {stats['windows']} windows, cases "
+          f"{stats['window_cases']}, tenants {stats['window_tenants']}; the most launches and "
+          f"copies one served window's submit queues (its three largest re-submitted): {most}")
+
+
+def cli_phase():
+    """Phase 10e: ``python -m repro_torch.launch.serve --smoke`` exits 0."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--smoke"], cwd=root,
+                       env=dict(os.environ, PYTHONPATH=str(root / "src")), capture_output=True,
+                       text=True, timeout=600)
+    for line in (r.stdout + r.stderr).strip().splitlines():
+        print(f"[cli] {line}")
+    check(r.returncode == 0, f"python -m repro_torch.launch.serve --smoke exited {r.returncode}")
+    print(f"[cli] python -m repro_torch.launch.serve --smoke: exit 0 in "
+          f"{time.perf_counter() - t0:.3f} s")
 
 
 def main():
@@ -1206,8 +1557,7 @@ def main():
     # every output slot and mask byte, the counts
     cb, cm_ = ck.shape
     c_read = int(ck.sum(1).clamp(max=ccap).sum())
-    cp_bound = {"bytes": (cb * cm_ + 12 * c_read + 13 * cb * ccap + 4 * cb)
-                / PEAK_BYTES_PER_S * 1e3}
+    cp_bound = rl.bound_ms(rl.compact_work(cb, cm_, ccap, c_read), H100)
     cp_dev, _ = device_trace(lambda: cp.compact_batch(cv, ck, ccap), reps=10)
     print(f"[batch] compaction at the largest launch (B={cb}, M={cm_}, cap={ccap}): kernel "
           f"{cp_ms:.4f} ms/call (device {kernel_us(cp_dev, ['compact_'])}: "
@@ -1521,8 +1871,7 @@ def main():
     mr_floor = device_split(mr.launch_floor(len(fi), fi[0].numel()))
     mr_masked = int((fm > 0).sum())
     # bytes: every mask value, the image at the masked voxels, the (2, B) output
-    mr_bound = {"bytes": (4 * fm.numel() + 4 * mr_masked + 8 * len(fi)) / PEAK_BYTES_PER_S * 1e3,
-                "operations": (fm.numel() + 2 * mr_masked) / PEAK_FP32_PER_S * 1e3}
+    mr_bound = rl.bound_ms(rl.masked_range_work(fm.numel(), mr_masked, len(fi)), H100)
     fo_ms = time_ms(lambda: fo.firstorder_packed_batch(fi, fm, **fkw))
     fo_plain_ms = time_ms(lambda: fo.firstorder_packed_batch_ref(fi, fm, fkw["n_bins"],
                                                                  fkw["value_range"]),
@@ -1988,10 +2337,8 @@ def main():
         reps=5, warmup=1)
     fold_dev, _ = device_trace(lambda: fo.fold_packed_chunks(fx, fm, flo, fhi, **fkw), reps=10)
     fold_masked = int((fm > 0).sum())
-    fold_bound = {"bytes": (4 * fm.numel() + 4 * fold_masked + 8 + 4 * fo.packed_width(fo.N_BINS))
-                  / PEAK_BYTES_PER_S * 1e3,
-                  "operations": (fm.numel() + FO_OPS_PER_MASKED * fold_masked)
-                  / PEAK_FP32_PER_S * 1e3}
+    fold_bound = rl.bound_ms(rl.intensity_work("firstorder", 1, fm.numel(), fold_masked, 0,
+                                               fo.N_BINS), H100)
     print(f"[tiled] touched-chunk fold over {fx.shape[0]} chunks ({fold_masked} masked "
           f"voxels): {fold_ms:.4f} ms/call (device "
           f"{kernel_us(fold_dev, ['fo_partials_kernel', 'fo_fold_kernel'])}), plain "
@@ -2204,6 +2551,13 @@ def main():
                  f"cold sweep {sweep_seconds() - sweep_s0:.3f} s; ")
               + tuned_vs_default(key, autotune.AutotuneCache().get(key)))
 
+    # -- 10. the auto knobs and the service (before 9, whose cold sweeps add
+    # measured depths that could move the auto stream's windows) -------------
+    probe_phase(dev, smi)
+    auto_phase(cohort_cases, frows, fext, sext)
+    serve_phase()
+    cli_phase()
+
     # -- 9. the variant axis and the autotuner --------------------------------
     variants = ("seqacc",) + tuple(v for v in dm.VARIANTS if v != "seqacc")
 
@@ -2405,7 +2759,7 @@ def main():
           f"ms (all 4 combos)")
     os.unlink(cache_file)
 
-    # -- 10. kernels line ---------------------------------------------------
+    # -- 11. kernels line ---------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -2451,7 +2805,7 @@ def main():
         for v in variants if v != "seqacc"
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 11. status -----------------------------------------------------------
+    # -- 12. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

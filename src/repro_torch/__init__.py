@@ -4,10 +4,13 @@ A port of the JAX package ``repro`` to an NVIDIA H100, laid out like it
 (``core/``, ``kernels/``, ``data/``), that imports neither JAX nor ``repro``.
 It runs single-case shape extraction (``ShapeFeatureExtractor``), the
 batched two-pass cohort path (``BatchedExtractor``) with the shape,
-first-order and GLCM feature families, and out-of-core tiled extraction
-(``TiledExtractor``, ``TiledCase``, ``BatchedExtractor(tiled=True)``) with
-shape and first-order, each with every diameter variant of the reference
-and the autotuner that picks among them (``runtime/autotune``).  The TPU
+first-order and GLCM feature families, its stream and the cost model's
+auto knobs (``runtime/costmodel``), the multi-tenant service
+(``BatchedExtractor.serve``, ``serve/``, ``launch/serve``), and out-of-core
+tiled extraction (``TiledExtractor``, ``TiledCase``,
+``BatchedExtractor(tiled=True)``) with shape and first-order, each with
+every diameter variant of the reference and the autotuner that picks among
+them (``runtime/autotune``).  The TPU
 kernels on those paths (marching cubes and its per-window partials, the
 diameter sweep in all seven variants, segmented compaction, the batched
 forms of the first two, first-order stats and GLCM) are replaced by CUDA

@@ -14,6 +14,11 @@ through the measured autotune cache (``repro_torch.runtime.autotune``) on
 the card and to the fixed defaults on the CPU, which has no axis to tune;
 an explicit value always passes through.  They may run a measuring sweep
 on a cache miss, which synchronises the card.
+
+Cost-model inputs: :func:`sync_cost` (the per-fetch device-to-host
+latency) and :func:`hw_profile` (the roofline profile) resolve through the
+same cache; on a miss they probe the card, which synchronises it, so the
+executor resolves them before it prepares a window.
 """
 from __future__ import annotations
 
@@ -100,3 +105,21 @@ def glcm_config(device, shape, block="auto", batch: int = 1) -> int:
         return int(block)
     return autotune.get_family_config("glcm", autotune.mc_shape_bucket(shape), device,
                                       batch=batch).block
+
+
+def sync_cost(device, cache=None) -> float:
+    """Per-fetch device-to-host latency (microseconds) of ``device``: the
+    ``sync/<device>`` record, else a probe on the card, else the default
+    (``autotune.get_sync_cost``)."""
+    from repro_torch.runtime import autotune
+
+    return autotune.get_sync_cost(device, cache=cache)
+
+
+def hw_profile(device, cache=None) -> dict | None:
+    """Roofline profile (peak FP32 rate, memory bandwidth) of ``device``:
+    the ``hw/<device>`` record, else a probe on the card, else the default;
+    ``None`` under ``REPRO_ROOFLINE=0`` (``autotune.get_hw_profile``)."""
+    from repro_torch.runtime import autotune
+
+    return autotune.get_hw_profile(device, cache=cache)

@@ -84,7 +84,8 @@ A case that fails to load or validate (a NaN-poisoned mask, a bad
 spacing, a loader that raises, and with an intensity family a missing,
 mismatched or non-finite image) is quarantined as an all-NaN row with an
 ``errors`` entry in the window stats; an empty mask gives a zero row; the
-rest of the window is unchanged.
+rest of the window is unchanged.  An error of the card in pass 0 (a CUDA
+error or an out-of-memory, ``DEVICE_ERRORS``) is raised, not quarantined.
 
 Kernel configurations resolve per launch, as in the reference:
 ``_resolve_diameter(cap, depth)``, ``_resolve_compact(cap_in, depth)``
@@ -103,9 +104,20 @@ its kernel choices (``_resolve_mc``, ``_resolve_diameter``), its family row
 derivation and its ``_fetch`` census.  ``mc_chunk`` is the z-granule of the
 marching-cubes partial layout that the in-core passes and the tiles share.
 
-Not ported yet, and refused with ``ValueError``: ``schedule='auto'`` and
-``extract_stream(window='auto')`` (ROADMAP.md Queue 1 item 4(b)ii, the
-cost model), ``retry`` (item 8) and ``mesh`` (item 9).
+The auto knobs (``runtime/costmodel``): ``schedule='auto'`` resolves
+counted or static per window in :meth:`PlanExecutor.submit_prepped`
+(``CostModel.choose_schedule`` on the window's metadata; the run stats say
+``'auto'``, the plan's stats the resolved schedule), and
+``extract_stream(window='auto')`` preps case by case into a
+``plan.WindowCensus`` and closes each window where
+``CostModel.should_close`` says, window k+1 submitted before window k is
+collected.  Both give the fixed knobs' rows bitwise.  The cost model's
+sync cost and hardware profile are resolved before a window is prepared
+(at construction under ``schedule='auto'``, at the start of an auto
+stream), so a probe's sync never lands inside a submit.
+
+Not ported yet, and refused with ``ValueError``: ``retry`` (ROADMAP.md
+Queue 1 item 8) and ``mesh`` (item 9).
 """
 from __future__ import annotations
 
@@ -159,17 +171,23 @@ def _compact_at(fields, cap: int):
     return verts, vmask
 
 
+_END = object()  # the end of an auto stream's cases
+# errors of the card, not of a case: never quarantined
+DEVICE_ERRORS = (getattr(torch, "AcceleratorError", torch.cuda.OutOfMemoryError),
+                 torch.cuda.OutOfMemoryError)
+
+
 def _unported(what: str, item: str) -> ValueError:
     return ValueError(f"{what} is not ported yet (ROADMAP.md, Queue 1 item {item})")
 
 
 def check_window(window) -> None:
     """Raises ``ValueError`` unless ``window`` is a positive int (a stream's
-    fixed window; ``'auto'`` is not ported yet)."""
+    fixed window) or ``'auto'`` (windows closed by the cost model)."""
     if window == "auto":
-        raise _unported("window='auto'", "4(b)ii")
+        return
     if isinstance(window, bool) or not isinstance(window, int) or window < 1:
-        raise ValueError(f"window must be a positive int, got {window!r}")
+        raise ValueError(f"window must be a positive int or 'auto', got {window!r}")
 
 
 @dataclasses.dataclass
@@ -242,26 +260,26 @@ class PlanExecutor:
     in-core passes and the tiled engine (``core/tiled.py``) use the same
     value, so their rows agree bitwise.  ``families`` is any request
     ``plan.resolve_families`` takes; ``n_bins`` the intensity families'
-    bin count.
+    bin count.  ``schedule`` is ``'counted'``, ``'static'`` or ``'auto'``
+    (the cost model's choice per window); ``cost_model`` replaces the
+    lazily built ``runtime/costmodel.CostModel`` of the auto knobs.
     """
 
     N_FEATURES = planlib.row_width(planlib.DEFAULT_FAMILIES)
     # [vol, area, d3, dxy, dxz, dyz, n_vertices]
+    SCHEDULES = (*planlib.SCHEDULES, "auto")
 
     def __init__(self, device=None, variant="auto", mesh=None, prune: bool = True,
                  mc_block="auto", mc_chunk: int | None = None, k_dirs: int = 16,
                  device_compact: bool = True, compact_block="auto",
-                 schedule: str = "counted", prep: str = "count", transfer_callback=None,
-                 retry=None, families=None, n_bins: int = 32):
+                 schedule: str = "counted", prep: str = "count", cost_model=None,
+                 transfer_callback=None, retry=None, families=None, n_bins: int = 32):
         self.device = resolve_device(device)
-        if schedule == "auto":
-            raise _unported("schedule='auto'", "4(b)ii")
-        if schedule not in planlib.SCHEDULES:
-            raise ValueError(f"schedule must be one of ('counted', 'static', 'auto'), "
-                             f"got {schedule!r}")
-        if schedule == "static" and not (prune and device_compact):
-            raise ValueError("schedule='static' is a device-resident schedule: it requires "
-                             "prune=True and device_compact=True")
+        if schedule not in self.SCHEDULES:
+            raise ValueError(f"schedule must be one of {self.SCHEDULES}, got {schedule!r}")
+        if schedule in ("static", "auto") and not (prune and device_compact):
+            raise ValueError(f"schedule={schedule!r} is (or may resolve to) a device-resident "
+                             "schedule: it requires prune=True and device_compact=True")
         if prep not in ("count", "hint"):
             raise ValueError(f"prep must be one of ('count', 'hint'), got {prep!r}")
         if prep == "hint" and not (prune and device_compact):
@@ -293,6 +311,20 @@ class PlanExecutor:
         self.prep = prep
         self.transfer_log = collections.Counter()
         self._transfer_cb = transfer_callback
+        self._cost_model = cost_model
+        if schedule == "auto":
+            self.cost_model.resolve()  # any probe syncs here, not in a submit
+
+    @property
+    def cost_model(self):
+        """The auto knobs' decision layer (``runtime/costmodel.CostModel``),
+        built on first use: fixed-knob runs never read the autotune cache
+        through it."""
+        if self._cost_model is None:
+            from repro_torch.runtime import costmodel  # local import: avoids a cycle
+
+            self._cost_model = costmodel.CostModel(self.device)
+        return self._cost_model
 
     # -- host-sync accounting ----------------------------------------------
 
@@ -584,7 +616,9 @@ class PlanExecutor:
         non-finite mask or spacing, a crop failure -- quarantines the case:
         its row is all-NaN, its message rides the window stats, and the
         rest of the window is untouched.  With an intensity family, a
-        missing, mismatched or non-finite image quarantines it too.
+        missing, mismatched or non-finite image quarantines it too.  An
+        error of the card (:data:`DEVICE_ERRORS`: a CUDA error, an
+        out-of-memory) is raised: it is not the case's fault.
         """
         try:
             if callable(case):
@@ -597,7 +631,7 @@ class PlanExecutor:
             if sp.shape != (3,) or not np.isfinite(sp).all() or (sp <= 0).any():
                 raise ValueError(f"invalid spacing {spacing!r}")
             return self._prep_case(image, mask, spacing, fields=fields)
-        except (KeyboardInterrupt, SystemExit):
+        except (KeyboardInterrupt, SystemExit, *DEVICE_ERRORS):
             raise
         except Exception as e:  # the row-level error record
             return _Prepped(error=f"{type(e).__name__}: {e}")
@@ -777,9 +811,16 @@ class PlanExecutor:
         return self.submit_prepped(prepped, batch_size)
 
     def submit_prepped(self, prepped, batch_size=None) -> _Window:
-        """Plan and submit already-prepped cases."""
-        plan = planlib.build_plan([self._meta(p) for p in prepped], self.schedule,
-                                  families=self.families)
+        """Plan and submit already-prepped cases.
+
+        ``schedule='auto'`` resolves here, per window
+        (``CostModel.choose_schedule`` on the window's metadata).
+        """
+        metas = [self._meta(p) for p in prepped]
+        schedule = self.schedule
+        if schedule == "auto":
+            schedule = self.cost_model.choose_schedule(metas)
+        plan = planlib.build_plan(metas, schedule, families=self.families)
         # the shape groups' mask stacks, built once for the families and pass 2a
         pools = ({shape: self._pool(prepped, idxs) for shape, idxs in plan.shape_groups.items()}
                  if self._needs_intensity or self.prune else {})
@@ -941,7 +982,7 @@ class PlanExecutor:
             data_parallel=1,
             two_pass=self.prune,
             device_compact=self.prune and self.device_compact,
-            schedule=self.schedule,
+            schedule=self.schedule,  # 'auto' here; stats['plan']['schedule'] is resolved
             prep=self.prep,
             host_fetches={
                 k: v - fetches0.get(k, 0)
@@ -951,7 +992,7 @@ class PlanExecutor:
         )
         return results, stats
 
-    def extract_stream(self, cases: Iterable, window: int = 32,
+    def extract_stream(self, cases: Iterable, window: int | str = 32,
                        batch_size: int | None = None, stats_callback=None):
         """Stream ``(image, mask, spacing)`` cases; yields rows in input order.
 
@@ -959,10 +1000,13 @@ class PlanExecutor:
         so the host prep of one window overlaps the card's work on the
         other, and window k's drain waits for its own copies only.
         ``stats_callback(window_index, plan_stats)`` is called at each
-        submit.  ``window`` is a positive int; ``'auto'`` (windows closed by
-        the cost model) is not ported yet.  Rows equal ``run``'s bitwise.
+        submit.  ``window`` is a positive int or ``'auto'``, windows closed
+        by the cost model (:meth:`_stream_auto`).  Rows equal ``run``'s
+        bitwise.
         """
         check_window(window)
+        if window == "auto":
+            return self._stream_auto(iter(cases), batch_size, stats_callback)
         return self._stream(iter(cases), window, batch_size, stats_callback)
 
     def _stream(self, it, window, batch_size, stats_callback):
@@ -977,6 +1021,34 @@ class PlanExecutor:
             if state is None:
                 return
             pending = state
+
+    def _stream_auto(self, it, batch_size, stats_callback):
+        """Adaptive windows: each case is prepped as it arrives into an open
+        window whose ``plan.WindowCensus`` feeds ``CostModel.should_close``;
+        a closed window is submitted before the previous one is collected,
+        as in :meth:`_stream`.  The cost model is resolved before the first
+        case is prepared."""
+        cm = self.cost_model.resolve()
+        pending, widx = None, 0
+        buf, census = [], planlib.WindowCensus()
+        for case in itertools.chain(it, [_END]):
+            if case is not _END:
+                p = self._prep_case_safe(case, fields=self.prune)
+                meta = self._meta(p)
+            if buf and (case is _END or cm.should_close(census, meta)):
+                state = self.submit_prepped(buf, batch_size)
+                if stats_callback is not None:
+                    stats_callback(widx, state.plan.stats())
+                widx += 1
+                buf, census = [], planlib.WindowCensus()
+                if pending is not None:
+                    yield from self.collect_window(pending)[0]
+                pending = state
+            if case is not _END:
+                buf.append(p)
+                census.add(meta)
+        if pending is not None:
+            yield from self.collect_window(pending)[0]
 
     def extract_one(self, image, mask, spacing) -> np.ndarray:
         """Single-case path with the pipeline's stages: the parity oracle.

@@ -54,9 +54,23 @@ and ``extract_tiled`` runs one case.  ``tile_prune`` is ``'none'``,
 ``'occupancy'`` or ``'bounds'``; ``mc_chunk`` the marching-cubes z-granule
 both paths share, so a tiled row equals ``extract_one``'s bitwise.
 
-Not ported yet: served extraction (ROADMAP.md Queue 1 item 9),
-``window='auto'`` and ``schedule='auto'`` (item 4(b)ii, the cost model),
-and the other options the executor refuses (see ``core/executor``).
+The auto knobs (``runtime/costmodel``, reached as ``cost_model``):
+``schedule='auto'`` picks counted or static per window, and
+``extract_stream(cases, window='auto')`` closes each window where the
+cost model says; both give the fixed knobs' rows bitwise.
+
+Serving::
+
+    with BatchedExtractor(schedule="static", prep="hint").serve() as svc:
+        fut = svc.submit(cases, tenant="clinic-a", deadline_s=2.0)
+        res = fut.result(timeout=60)   # res.rows, res.errors, res.latency_s
+
+``serve()`` starts a ``serve.service.ExtractionService``: a persistent
+driver thread fuses concurrent clients' cases into shared windows, with
+admission by queued bytes, per-request deadlines and quarantine; served
+rows equal ``extract_stream``'s bitwise.
+
+Not ported yet: the options the executor refuses (see ``core/executor``).
 """
 from __future__ import annotations
 
@@ -88,7 +102,8 @@ class BatchedExtractor:
     are fetched at collect); ``prep`` is ``'count'`` (a count fetch per
     case in pass 0) or ``'hint'`` (caps from metadata, counts fetched at
     collect); both sync-free options need ``prune`` and
-    ``device_compact``.  The options of the reference not ported yet
+    ``device_compact``.  ``schedule='auto'`` lets the cost model pick per
+    window (``cost_model``).  The options of the reference not ported yet
     raise ``ValueError`` naming their ROADMAP item.
     """
 
@@ -120,6 +135,11 @@ class BatchedExtractor:
         self.device_compact = ex.device_compact
         self.schedule = ex.schedule
         self.prep = ex.prep
+
+    @property
+    def cost_model(self):
+        """The executor's decision layer (``runtime/costmodel.CostModel``)."""
+        return self.executor.cost_model
 
     @property
     def tiled_extractor(self) -> TiledExtractor:
@@ -199,7 +219,7 @@ class BatchedExtractor:
         """Alias of :meth:`run`."""
         return self.run(cases, batch_size)
 
-    def extract_stream(self, cases: Iterable, window: int = 32,
+    def extract_stream(self, cases: Iterable, window: int | str = 32,
                        batch_size: int | None = None, stats_callback=None):
         """Stream (image, mask, spacing) cases; yields rows in input order.
 
@@ -210,8 +230,9 @@ class BatchedExtractor:
         (see :meth:`_route_tiled`) splits the stream: the in-core segment
         before it is flushed through the windowed stream, the tiled case
         runs through the tiled engine, and streaming resumes after it; no
-        prep overlaps across that boundary.  ``window`` is checked here,
-        before the first case is read.
+        prep overlaps across that boundary.  ``window`` is a positive int or
+        ``'auto'`` (each in-core segment in the cost model's windows), and
+        is checked here, before the first case is read.
         """
         check_window(window)
 
@@ -242,3 +263,17 @@ class BatchedExtractor:
     def extract_one(self, image, mask, spacing):
         """Single-case parity oracle (identical stages, no batching)."""
         return self.executor.extract_one(image, mask, spacing)
+
+    def serve(self, *, max_queue_bytes: float | None = None, idle_tick_s: float = 0.002):
+        """Start the persistent multi-tenant service over this extractor.
+
+        Returns a running ``serve.service.ExtractionService`` (also a
+        context manager): concurrent clients ``submit()`` cases, and its
+        driver thread fuses them across tenants into shared windows under
+        the cost model's close rules, each request's deadline and the
+        queue-byte budget.
+        """
+        from repro_torch.serve.service import ExtractionService
+
+        return ExtractionService(self, max_queue_bytes=max_queue_bytes,
+                                 idle_tick_s=idle_tick_s)

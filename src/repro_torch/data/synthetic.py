@@ -1,9 +1,10 @@
 """Synthetic CT volumes + ROI masks mimicking the paper's KITS19 test set.
 
-The port's own copy of ``repro.data.synthetic`` (numpy only), cut to the
-single-case slice: the 20 Table-2 shapes, ``make_case`` and the suite.
-``tests/test_torch_port_rules.py`` holds ``make_case`` array-equal to the
-JAX package's for the same shape and seed.
+The port's own copy of ``repro.data.synthetic`` (numpy only): the 20
+Table-2 shapes, ``make_case``, the suite and the service's
+``mixed_traffic_stream``.  ``tests/test_torch_port_rules.py`` holds
+``make_case`` array-equal to the JAX package's for the same shape and
+seed, ``tests/test_torch_service.py`` the traffic stream.
 
 The paper benchmarks on 20 KITS19 kidney/tumour cases spanning image sizes
 50 kB - 9 MB and 2 700 - 236 588 mesh vertices (Table 2).  The dataset is not
@@ -89,3 +90,23 @@ def table2_suite(seed=0, spacing=(1.0, 1.0, 1.0)):
         img, msk, sp = make_case(shape, seed=seed * 1000 + i, spacing=spacing)
         out.append((name, img, msk, sp))
     return out
+
+
+def mixed_traffic_stream(n, seed=0, huge_every=16, small_dims=None,
+                         huge_dims=(96, 96, 96), spacing=(1.0, 1.0, 1.0)):
+    """Mixed service traffic: many small ROIs plus rare huge cases.
+
+    Clinic-sized single studies interleaved with occasional
+    research-cohort volumes: every ``huge_every``-th case uses
+    ``huge_dims``, the rest cycle a pool of small dimensions
+    (``huge_every=0``: none huge).  Yields ``(name, image, mask,
+    spacing)``; drives ``launch/serve``.
+    """
+    if small_dims is None:
+        small_dims = [(24, 28, 32), (32, 36, 40), (28, 40, 34), (36, 30, 26)]
+    for i in range(n):
+        huge = bool(huge_every) and (i % huge_every == huge_every - 1)
+        dims = huge_dims if huge else small_dims[i % len(small_dims)]
+        name = f"{'huge' if huge else 'small'}-{i:05d}"
+        img, msk, sp = make_case(dims, seed=seed + i, spacing=spacing)
+        yield name, img, msk, sp

@@ -57,6 +57,17 @@ disables them (a miss returns the default, uncached).  ``'cpu'`` has no
 axis: ``'auto'`` gives the defaults and never touches the cache.
 :data:`SWEEPS` counts the sweeps this process ran, :data:`SWEEP_SECONDS`
 their host-clock seconds by kind.
+
+Probes (the cost model's inputs, ``runtime/costmodel``): the per-fetch
+device-to-host latency (:func:`get_sync_cost`, key ``sync/<device>``) and
+the card's roofline profile, peak FP32 rate and memory bandwidth
+(:func:`get_hw_profile`, key ``hw/<device>``).  They follow the sweeps'
+policy: a cached record wins, a miss probes on ``'cuda'`` unless
+``REPRO_AUTOTUNE=0`` and stores the result, and ``'cpu'`` never probes.
+With probing off the defaults apply, uncached: :data:`DEFAULT_SYNC_US`
+and :data:`DEFAULT_HW_PROFILES`.  A probe that raises is not caught.
+:data:`PROBES` counts the probes this process ran, :data:`PROBE_SECONDS`
+their host-clock seconds by kind.
 """
 from __future__ import annotations
 
@@ -105,6 +116,8 @@ SWEEP_BUDGET_S = 1.0  # device seconds the timed rounds of one sweep aim at
 _SPIN_CYCLES = 1 << 18  # ~0.13 ms of spin ahead of each timed launch
 
 SWEEPS = 0  # measuring sweeps run by this process (any kernel)
+PROBES = 0  # sync and hardware probes run by this process
+PROBE_SECONDS = dict.fromkeys(("sync", "hw"), 0.0)
 SWEEP_SECONDS = dict.fromkeys(("diameter", "compact", "firstorder", "glcm"), 0.0)
 _PARSED: dict = {}  # path -> (file stamp, parsed JSON): see AutotuneCache._read_raw
 
@@ -330,16 +343,21 @@ def _diameter_name(cfg: DiameterConfig) -> str:
     return f"{cfg.variant}/{cfg.block}"
 
 
+def probe_extent(bucket: int) -> int:
+    """Valid slots of each list of the diameter probe: 3/4 of the bucket."""
+    return max(1, 3 * int(bucket) // 4)
+
+
 def _diameter_probe(bucket: int, device, batch: int, seed: int = 0):
     """A ``(batch, bucket)`` stack of normally scattered vertices, each list
-    valid-first over 3/4 of its slots: a list of n vertices sits in the
-    bucket of the next power of two, so it fills between half and all of
-    it, and ``seqacc`` and ``nomask`` sweep only that extent."""
+    valid-first over :func:`probe_extent` of its slots: a list of n vertices
+    sits in the bucket of the next power of two, so it fills between half
+    and all of it, and ``seqacc`` and ``nomask`` sweep only that extent."""
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
     verts = torch.from_numpy(
         (rng.normal(size=(max(1, batch), bucket, 3)) * 10.0).astype(np.float32)).to(dev)
-    masks = torch.arange(bucket, device=dev) < max(1, 3 * bucket // 4)
+    masks = torch.arange(bucket, device=dev) < probe_extent(bucket)
     return verts, masks.expand(verts.shape[:2]).contiguous()
 
 
@@ -528,3 +546,166 @@ def get_family_config(family: str, shape, device, *, batch: int = 1) -> FamilyCo
         family, family_key(family, shape, backend, batch), default, parse,
         lambda: sweep_family(family, shape, device, batch=batch_bucket(batch)), _block_name,
         extra={"revision": revision})
+
+
+# ---------------------------------------------------------------------------
+# probes: device-to-host sync cost, the card's roofline profile
+# ---------------------------------------------------------------------------
+
+# per-fetch d2h latency (us) when probing is off: the reference's modest
+# default, so no schedule is chosen on an unmeasured link's account
+DEFAULT_SYNC_US = 150.0
+SYNC_PROBE_SHAPE = (32, 2)  # the (B, 2) count matrix pass 1 fetches
+
+# Roofline profiles when probing is off.  'cuda': the H100 SXM data sheet
+# (dense, 700 W): FP32 outside the tensor cores and HBM3 bandwidth, the
+# figures PERF.md's bounds use.  'cpu': one CPU core running torch ops.
+H100_SXM_PROFILE = {"peak_flops": 67.0e12, "mem_bw": 3.35e12, "source": "default"}
+DEFAULT_HW_PROFILES = {
+    "cuda": H100_SXM_PROFILE,
+    "cpu": {"peak_flops": 8.0e9, "mem_bw": 20.0e9, "source": "default"},
+}
+HW_PROBE_MATMUL_N = 512  # float32 matmul edge of the peak-rate probe
+HW_PROBE_COPY_ELEMS = 1 << 22  # float32 elements of each bandwidth-probe stream (16 MiB)
+
+
+def sync_key(backend: str) -> str:
+    return f"sync/{backend}"
+
+
+def hw_key(backend: str) -> str:
+    return f"hw/{backend}"
+
+
+def _probe_allowed(backend: str) -> bool:
+    return backend == "cuda" and _sweep_allowed()
+
+
+def measure_sync_cost(device, *, repeat: int = 64, warmup: int = 8) -> float:
+    """Best-of-``repeat`` host seconds of one small device-to-host fetch.
+
+    The fetch the counted schedule's pass 1 makes (``PlanExecutor._fetch``
+    of a device tensor): ``.cpu()`` of a ready ``(32, 2)`` int32 tensor, so
+    the latency of a sync and its copy is timed, not device work.
+    """
+    x = torch.zeros(SYNC_PROBE_SHAPE, dtype=torch.int32, device=device)
+    torch.cuda.synchronize(x.device)
+    for _ in range(warmup):
+        x.cpu()
+    best = float("inf")
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        x.cpu()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _best_device_s(fn, repeat: int, warmup: int) -> float:
+    """Least device seconds of one call of ``fn`` over ``repeat`` samples,
+    each a pair of CUDA events recorded behind a spin kernel, so the host's
+    enqueue is not timed."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeat):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(_SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) * 1e-3)
+    return best
+
+
+def measure_hw_profile(device, *, repeat: int = 8, warmup: int = 2) -> dict:
+    """Measured ``{"peak_flops", "mem_bw"}`` of the card.
+
+    Peak rate: an (N, N) float32 ``torch.matmul`` (2 N^3 operations) with
+    TF32 off, as the pruning bound runs it (a TF32 rate would be ~8x the
+    FP32 one).  Bandwidth: ``u + 0.5 * v`` over two 16 MiB float32 streams
+    (two reads and a write).  Library calls, timed by device time; small,
+    so the probe costs milliseconds once per card.
+    """
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        n = HW_PROBE_MATMUL_N
+        a = torch.full((n, n), 0.5, dtype=torch.float32, device=dev)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            mm_s = _best_device_s(lambda: torch.matmul(a, a), repeat, warmup)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        m = HW_PROBE_COPY_ELEMS
+        u = torch.ones(m, dtype=torch.float32, device=dev)
+        v = torch.full((m,), 2.0, dtype=torch.float32, device=dev)
+        bw_s = _best_device_s(lambda: u + 0.5 * v, repeat, warmup)
+    return {"peak_flops": 2.0 * n ** 3 / mm_s, "mem_bw": 3.0 * 4.0 * m / bw_s}
+
+
+def _probed(kind: str, cache: AutotuneCache, key: str, measure):
+    """Runs ``measure()``, counts it and stores it in ``cache`` under
+    ``key``; returns the record."""
+    global PROBES
+    PROBES += 1
+    t0 = time.perf_counter()
+    rec = measure()
+    PROBE_SECONDS[kind] += time.perf_counter() - t0
+    cache.put(key, {**rec, "probed_at": time.strftime("%Y-%m-%dT%H:%M:%S")})
+    return rec
+
+
+def get_sync_cost(device, *, cache: AutotuneCache | None = None) -> float:
+    """Cached-or-probed per-fetch device-to-host latency in MICROSECONDS.
+
+    A positive ``us`` in the ``sync/<device>`` record wins (on every
+    device, the CPU included: an operator may pin it); a miss probes on
+    ``'cuda'`` (:func:`measure_sync_cost`) unless ``REPRO_AUTOTUNE=0`` and
+    stores the result; otherwise :data:`DEFAULT_SYNC_US`, uncached.
+    """
+    backend = torch.device(device).type
+    cache = cache or AutotuneCache()
+    hit = cache.get(sync_key(backend))
+    if hit is not None:
+        try:
+            us = float(hit["us"])
+        except (KeyError, TypeError, ValueError):
+            us = 0.0
+        if us > 0:
+            return us
+    if not _probe_allowed(backend):
+        return DEFAULT_SYNC_US
+    rec = _probed("sync", cache, sync_key(backend),
+                  lambda: {"us": measure_sync_cost(device) * 1e6})
+    return rec["us"]
+
+
+def get_hw_profile(device, *, cache: AutotuneCache | None = None) -> dict | None:
+    """Cached-or-probed roofline profile ``{"peak_flops", "mem_bw",
+    "source"}`` of ``device``, or ``None`` under ``REPRO_ROOFLINE=0``.
+
+    A ``hw/<device>`` record with both figures positive wins (``source``
+    'measured'); a miss probes on ``'cuda'`` (:func:`measure_hw_profile`)
+    unless ``REPRO_AUTOTUNE=0`` and stores the result; otherwise the
+    :data:`DEFAULT_HW_PROFILES` entry, uncached.
+    """
+    if os.environ.get("REPRO_ROOFLINE") == "0":
+        return None
+    backend = torch.device(device).type
+    cache = cache or AutotuneCache()
+    hit = cache.get(hw_key(backend))
+    if hit is not None:
+        try:
+            peak, bw = float(hit["peak_flops"]), float(hit["mem_bw"])
+        except (KeyError, TypeError, ValueError):
+            peak = bw = 0.0
+        if peak > 0 and bw > 0:
+            return {"peak_flops": peak, "mem_bw": bw, "source": "measured"}
+    if not _probe_allowed(backend):
+        prof = DEFAULT_HW_PROFILES.get(backend)
+        return None if prof is None else dict(prof)
+    rec = _probed("hw", cache, hw_key(backend), lambda: measure_hw_profile(device))
+    return {"peak_flops": rec["peak_flops"], "mem_bw": rec["mem_bw"], "source": "measured"}

@@ -151,7 +151,8 @@ def test_transfer_callback_sees_every_fetch():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"schedule": "auto"}, "item 4(b)ii"), ({"schedule": "auto", "prep": "hint"}, "item 4(b)ii"),
+    ({"schedule": "auto", "retry": object()}, "item 8"),
+    ({"schedule": "auto", "prep": "hint", "mesh": object()}, "item 9"),
     ({"schedule": "static", "mesh": object()}, "item 9"), ({"mesh": object()}, "item 9"),
     ({"retry": object()}, "item 8"),
 ])
@@ -167,9 +168,15 @@ def test_family_requests_are_accepted(families, n_features):
 
 
 def test_extract_stream_raises_naming_roadmap_item():
-    """The fixed-window stream is ported; the cost model's windows are not."""
-    with pytest.raises(ValueError, match=r"window.*ROADMAP.*4\(b\)ii"):
-        BatchedExtractor(device="cpu").extract_stream(iter(_cases()), window="auto")
+    """Both stream windows are ported: ``'auto'`` (the cost model's, ROADMAP
+    item 4(b)ii) streams the fixed window's rows; a junk window raises."""
+    ext = BatchedExtractor(device="cpu")
+    cases = _cases()[:3]
+    want, _ = ext.run(cases)
+    for a, b in zip(want, ext.extract_stream(iter(cases), window="auto")):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="window must be a positive int or 'auto'"):
+        ext.extract_stream(iter(cases), window="adaptive")
 
 
 def test_default_device_raises_without_cuda():

@@ -33,7 +33,9 @@ def test_import_loads_no_jax_or_reference():
         "import repro_torch.core.pipeline, repro_torch.core.executor, repro_torch.core.plan\n"
         "import repro_torch.kernels.compact, repro_torch.kernels.firstorder\n"
         "import repro_torch.kernels.glcm, repro_torch.core.tiled, repro_torch.data.tiles\n"
-        "import repro_torch.runtime.autotune\n"
+        "import repro_torch.runtime.autotune, repro_torch.runtime.costmodel\n"
+        "import repro_torch.runtime.roofline, repro_torch.serve.service\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
