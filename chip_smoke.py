@@ -13,8 +13,10 @@ the 20 synthetic Table-2 cases, the batched two-pass extractor
 with the intensity families (shape, first-order, GLCM), the same cohort
 streamed on the sync-free window path (``extract_stream``), the
 out-of-core tiled path (``BatchedExtractor(tiled=True)``, ``TiledCase``),
-the diameter variant axis with its autotuner, and the cost model's auto
-knobs with the multi-tenant service (``BatchedExtractor.serve``) -- checks
+the diameter variant axis with its autotuner, the cost model's auto
+knobs with the multi-tenant service (``BatchedExtractor.serve``), and the
+resilience layer (``ResilientRunner``, a soak under injected faults and a
+preemption, a cluster job killed and resumed) -- checks
 the features against the port's CPU path or the in-core path, and prints the kernels
 line and a last JSON status line.  The autotune cache is a fresh
 temporary file, so no run reads another run's winners; an untimed pass
@@ -27,13 +29,17 @@ Phases:
      cache warmed by an untimed pass over every configuration phases 4-8
      run (the 60 cases single-case, batched, with the families, on the
      host-compaction and one-pass paths, extract_one, and 00001-1 tiled at
-     the three prune levels); autotune.SWEEPS is then held still through
+     the three prune levels; phase 11's soak, its three runs, and the
+     cluster job's uninterrupted run, kept as 11c's reference);
+     autotune.SWEEPS is then held still through
      phases 2-8, but for the 512^3 sphere's cold run (8c); prints the
      warm pass's sweep seconds by kind and each diameter winner beside
      seqacc at the default block at the same key; then, uncached, the
-     diameter sweep at every warm key with the tuner's old candidates
-     (seqacc, nomask: 8 a key) and its current ones (with tri_prefetch:
-     12), each key's two winners and the two sets' seconds
+     diameter sweep at every warm key (M: a bucket, its probe 3/4 full;
+     T: a static target, its probe 1/32 full) with the
+     tuner's old candidates (seqacc, nomask: 8 a key) and its current ones
+     (with tri_prefetch: 12), each key's two winners and the two sets'
+     seconds
   2. marching-cubes kernel vs plain (case 00001-1 and a sphere), rtol 1e-5,
      two runs bitwise equal; kernel, plain and bound times
   3. diameter kernel vs plain, bitwise (00001-1's unpruned vertex list and
@@ -188,7 +194,9 @@ Phases:
      against phase 7's run and 7b's fixed-window stream (two interleaved
      rounds each); (c) per window the cost model's counted and static
      prices beside the window's measured wall under each fixed schedule
-     (rows bitwise); (d) BatchedExtractor(schedule='static', prep='hint',
+     (rows bitwise), and the tuned static pass-2b sweeps (device time, 3
+     traced runs) at most 1.10x the same lists swept by seqacc alone; (d)
+     BatchedExtractor(schedule='static', prep='hint',
      families=all).serve() with 4 client threads x 6 requests of 2 cases of
      mixed_traffic_stream(48, huge_every=16), after an untimed pass: launch
      counts reset, a plug parks the driver while a request's deadline
@@ -198,12 +206,39 @@ Phases:
      request latency, cases/s, the windows' cases and tenants, the most
      launches one served window's submit queues; (e) python -m
      repro_torch.launch.serve --smoke in a subprocess exits 0
-  11. the kernels line (each variant at block 256, as phase 5b); 12. the status line
+  11. (run after 9) the resilience layer, on the warm cache (no sweep, no
+     probe): (a) launch counts reset, ResilientRunner(BatchedExtractor(
+     schedule='static', prep='hint', families=(shape, firstorder, glcm),
+     retry=RetryPolicy(2)), window=20) over the 60 cases with one one-shot
+     collect fault, the whole run under CUDA sync debugging, counts read;
+     every manifest row's features, read back from the JSON, == phase 7's
+     counted/count rows bitwise as float32, no prep or pass-1 fetch; (b)
+     the soak: stream_cases(200, seed=0) in windows of 20 under one
+     FaultPlan (load errors, NaN and emptied masks at 2% each, a collect
+     fault in window 3, window 7 a straggler), A uninterrupted, B preempted
+     by a real SIGTERM at case 120 with its in-flight window dropped
+     (drain_on_preempt=False), that window run on a stream of its own
+     with a 3 s torch.cuda._sleep spin between its launches and its
+     copies (the copies still pending as C begins), C resumed with a
+     fresh extractor: A's records == B + C's (window ordinals aside), no id
+     lost or duplicated, windows B + C <= A + 1, one retry in A whose
+     window's rows == a clean run of its cases bitwise, window 7 flagged,
+     no prep or pass-1 fetch; (c) examples/cluster_pipeline_torch.py
+     --cases 200 --window 20 --schedule static --prep hint in two
+     subprocesses at once on the warm cache, one sent SIGTERM and one
+     SIGKILL once its manifest holds 2 windows of lines, each run again to
+     the end: both manifests == the uninterrupted in-process run's
+     records; (d) the runner's cases/s against extract_stream(window=20)
+     over the 60 cases (two interleaved rounds), case_id's and record's
+     host microseconds a case, the soak's collect seconds a window with
+     their straggler flags, the retried window's against the median
+  12. the kernels line (each variant at block 256, as phase 5b); 13. the status line
 """
 import collections
 import ctypes
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -221,7 +256,11 @@ from repro_torch.core import BatchedExtractor, ShapeFeatureExtractor, crop_to_ro
 from repro_torch.core import TiledCase, mc_tables  # noqa: E402
 from repro_torch.core import plan as planlib  # noqa: E402
 from repro_torch.data.tiles import FnSlabSource  # noqa: E402
-from repro_torch.data.synthetic import mixed_traffic_stream, table2_suite  # noqa: E402
+from repro_torch.data.synthetic import (  # noqa: E402
+    mixed_traffic_stream,
+    stream_cases,
+    table2_suite,
+)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import compact as cp  # noqa: E402
 from repro_torch.kernels import diameter as dm  # noqa: E402
@@ -231,6 +270,12 @@ from repro_torch.kernels import marching_cubes as mc  # noqa: E402
 from repro_torch.kernels import masked_range as mr  # noqa: E402
 from repro_torch.runtime import autotune, costmodel  # noqa: E402
 from repro_torch.runtime import roofline as rl  # noqa: E402
+from repro_torch.runtime.resilience import (  # noqa: E402
+    FaultPlan,
+    ResilientRunner,
+    RetryPolicy,
+    RunManifest,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM bandwidth
 # and float32 outside the tensor cores (the cost model's default profile).
@@ -255,6 +300,19 @@ TILED_BIG_N = 1024  # the out-of-core sphere's edge (4 GiB materialised)
 STREAM_WINDOW = 20  # phase 7b's fixed window: the 60 cases in 3 windows
 # phase 10d's service traffic: clients x requests x cases a request
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCH, SERVE_HUGE_EVERY = 4, 6, 2, 16
+# phase 10c: the tuned static pass-2b sweeps against the same lists swept by
+# seqacc alone (the static targets' own tuner keys)
+STATIC_SWEEP_LIMIT = 1.10
+# phase 11b's soak: stream_cases(SOAK_CASES, seed=0) in windows of STREAM_WINDOW
+# under one fault plan (benchmarks/soak.py's kinds), preempted at SOAK_PREEMPT
+SOAK_CASES, SOAK_PREEMPT = 200, 120
+SOAK_FAULTS = dict(seed=20261017, load_error_rate=0.02, poison_nan_rate=0.02,
+                   poison_empty_rate=0.02, fail_windows=(3,), straggle_windows=(7,),
+                   straggle_seconds=0.25)
+SOAK_SPIN_MS = 3000  # phase 11b's spin ahead of the abandoned window's copies
+# phase 11c's cluster job (examples/cluster_pipeline_torch.py) and its flags
+CLUSTER = ["examples/cluster_pipeline_torch.py", "--cases", str(SOAK_CASES), "--window",
+           str(STREAM_WINDOW), "--schedule", "static", "--prep", "hint"]
 # the tuner's diameter candidates before 'tri_prefetch' rejoined them
 OLD_DIAMETER_VARIANTS = ("seqacc", "nomask")
 # the reference's census for the cohort: one family fetch per shape bucket
@@ -1186,7 +1244,7 @@ def auto_phase(cohort_cases, frows, fext, sext):
         # the device time the model prices: pass 2b's sweeps (and the rest)
         sweep_us, busy_us = {}, {}
         for name, ext in (("counted", cext), ("static", sext), ("static/seqacc", seq_ext)):
-            per_kernel, _ = device_trace(lambda: ext.run(chunk))
+            per_kernel, _ = device_trace(lambda: ext.run(chunk), reps=3)
             sweep_us[name] = sum(us for key, us in per_kernel.items() if "diameter" in key)
             busy_us[name] = sum(per_kernel.values())
         sync_us = w["costs"]["groups"] * cm.sync_cost_us()
@@ -1208,6 +1266,14 @@ def auto_phase(cohort_cases, frows, fext, sext):
               f"(median of 2 turns) counted {walls['counted'] * 1e3:.3f} ms, static "
               f"{walls['static'] * 1e3:.3f} ms -> {pick(walls)} (model "
               f"{'agrees' if modeled == pick(walls) else 'disagrees'})")
+        # the static targets' own tuner keys: the tuned sweeps as fast as the
+        # same lists swept by seqacc alone, within 10%
+        check(sweep_us["static"] <= STATIC_SWEEP_LIMIT * sweep_us["static/seqacc"],
+              f"window {k}: the tuned static pass-2b sweeps take {sweep_us['static']:.2f} us, "
+              f"over {STATIC_SWEEP_LIMIT}x seqacc's {sweep_us['static/seqacc']:.2f} us")
+        print(f"[choose] window {k}: tuned static sweeps / seqacc alone "
+              f"{ratio(sweep_us['static'], sweep_us['static/seqacc'])}x (limit "
+              f"{STATIC_SWEEP_LIMIT}x)")
 
 
 def serve_phase():
@@ -1311,6 +1377,325 @@ def cli_phase():
           f"{time.perf_counter() - t0:.3f} s")
 
 
+class RunnerProbe:
+    """The executor a phase-11 runner drives, seen through: records each
+    window's raw cases (``windows``: a list of case lists, in submit
+    order).  The submit numbered ``spin_at`` runs on a stream of its own,
+    with a ``torch.cuda._sleep`` spin of ``spin_cycles`` queued after its
+    launches and ahead of its copies into pinned memory (``dropped``: the
+    copies' events); a spin ahead of the launches would fill the card's
+    launch queue and block the submit itself, and one on the default
+    stream would hold up the next collect's own launches.  Re-submits made
+    by the executor's retry go to the executor itself and are not
+    counted."""
+
+    def __init__(self, ex, spin_at=None, spin_cycles=0):
+        self._ex, self._spin_at, self._spin_cycles = ex, spin_at, spin_cycles
+        self._cases, self.windows, self.dropped = [], [], []
+        self._side = self._kept = None
+
+    def __getattr__(self, name):
+        return getattr(self._ex, name)
+
+    def prep_case(self, case):
+        self._cases.append(case)
+        return self._ex.prep_case(case)
+
+    def submit_prepped(self, prepped, batch_size=None):
+        self.windows.append(self._cases[-len(prepped):])
+        ex = self._ex
+        if len(self.windows) - 1 != self._spin_at:
+            return ex.submit_prepped(prepped, batch_size)
+        stage = ex._stage_results
+
+        def spin_then_stage(window):
+            torch.cuda._sleep(self._spin_cycles)
+            return stage(window)
+
+        self._side = torch.cuda.Stream()
+        self._side.wait_stream(torch.cuda.current_stream())  # the prepped cases
+        ex._stage_results = spin_then_stage
+        try:
+            with torch.cuda.stream(self._side):
+                state = ex.submit_prepped(prepped, batch_size)
+        finally:
+            del ex._stage_results
+        # the window itself is dropped with the run; its inputs, read on the
+        # side stream, are kept until the probe goes
+        self._kept = prepped
+        self.dropped = [f.done for _, f in state.mc_futs]
+        return state
+
+
+def strip_windows(rows):
+    """Manifest records without their window ordinals (which restart on a
+    resume), sorted by id."""
+    return sorted([{k: v for k, v in r.items() if k != "window"} for r in rows],
+                  key=lambda r: r["id"])
+
+
+def soak(out, stream, spin_at=None, spin_cycles=0):
+    """Phase 11b's three runs over ``stream`` (``stream_cases(SOAK_CASES,
+    seed=0)``, made once) into ``out`` (a directory): A uninterrupted,
+    B preempted by a real SIGTERM at case SOAK_PREEMPT with its in-flight
+    window dropped (a spin ahead of submit ``spin_at``), C its resume with
+    a fresh extractor; every run under the same SOAK_FAULTS plan.  Returns
+    the runs' (report, manifest rows, probe, extractor, window census) by
+    name and the abandoned window's staged state as C started."""
+    runs, abandoned_done = {}, None
+    for name in ("A", "B", "C"):
+        fp = FaultPlan(**SOAK_FAULTS, preempt_at_case=SOAK_PREEMPT if name == "B" else None)
+        ext = BatchedExtractor(schedule="static", prep="hint", transfer_callback=fp.transfer_hook,
+                               retry=RetryPolicy(max_retries=3, base_delay=0.01))
+        probe = RunnerProbe(ext.executor, spin_at if name == "B" else None, spin_cycles)
+        census = {}
+        man = RunManifest(out / ("soak_a.jsonl" if name == "A" else "soak_b.jsonl"))
+        if name == "C":
+            abandoned_done = all(e is None or e.query() for e in runs["B"][2].dropped)
+        rep = ResilientRunner(probe, man, window=STREAM_WINDOW, fault_plan=fp,
+                              drain_on_preempt=False,
+                              stats_callback=lambda w, st: census.__setitem__(w, st)
+                              ).run(stream)
+        man.close()
+        runs[name] = (rep, man.rows(), probe, ext, census)
+    return runs, abandoned_done
+
+
+def cluster_reference(out, stream):
+    """Phase 11c's uninterrupted in-process run: the cluster job's own
+    configuration (its default variant and retries) over ``stream``, the
+    cases the job streams; returns its manifest rows."""
+    ext = BatchedExtractor(variant="seqacc", schedule="static", prep="hint",
+                           retry=RetryPolicy(max_retries=2))
+    man = RunManifest(out / "cluster_ref.jsonl")
+    rep = ResilientRunner(ext, man, window=STREAM_WINDOW).run(stream)
+    man.close()
+    check(rep.status == "complete" and rep.processed == SOAK_CASES,
+          f"the uninterrupted cluster run: {rep}")
+    return man.rows()
+
+
+def warm_resilience(out, stream):
+    """Phase 1's untimed pass over phase 11's windows: the soak's three runs
+    (the retry's re-submit and the resume's windows included) and the
+    cluster job's uninterrupted run, whose rows phase 11c compares with,
+    over ``stream``.  Returns ``(the soak's abandoned submit, the cluster
+    run's rows)``."""
+    runs, _ = soak(out / "warm", stream)
+    return runs["B"][0].windows, cluster_reference(out, stream)
+
+
+def spawn_cluster(root, manifest, cache_file):
+    return subprocess.Popen(
+        [sys.executable, *CLUSTER, "--out", str(manifest)], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src"), REPRO_AUTOTUNE_CACHE=cache_file),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def manifest_lines(path):
+    return path.read_bytes().count(b"\n") if path.exists() else 0
+
+
+def resil_phase(out, stream, cohort, frows, sext, abandoned, cluster_rows, cache_file):
+    """Phase 11: the resilience layer on the card (11a full width, 11b the
+    soak, 11c a real process kill, 11d what it costs)."""
+    sweeps0, probes0 = autotune.SWEEPS, autotune.PROBES
+    root = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    # -- 11a. the 60 cases, three families, the whole run under strict syncs
+    per_seed = len(cohort) // 3  # the cohort is table2_suite of seeds 0, 1, 2
+    names = [f"s{i // per_seed}-{name}" for i, (name, *_) in enumerate(cohort)]
+    named = [(n, img, msk, sp) for n, (_, img, msk, sp) in zip(names, cohort)]
+    fp = FaultPlan(fail_windows=(1,))
+    ext = BatchedExtractor(schedule="static", prep="hint", families=FAMS,
+                           transfer_callback=fp.transfer_hook,
+                           retry=RetryPolicy(max_retries=2, base_delay=0.01))
+    ex = ext.executor
+    man = RunManifest(out / "full.jsonl")
+    runner = ResilientRunner(ext, man, window=STREAM_WINDOW, fault_plan=fp,
+                             feature_names=planlib.feature_names(FAMS))
+    f0 = dict(ex.transfer_log)
+    zero_counts()
+    t0 = time.perf_counter()
+    with ex.strict_syncs():
+        rep = runner.run(named)
+    full_s = time.perf_counter() - t0
+    full_launches = read_counts()
+    man.close()
+    fetches = fetch_delta(ex.transfer_log, f0)
+    check(all(full_launches[k] > 0 for k in ("marching_cubes", "diameter", "compact",
+                                             "firstorder", "glcm", "masked_range")),
+          f"a kernel of the runner's path never ran: {full_launches}")
+    check(rep.status == "complete" and rep.processed == len(named) and rep.quarantined == 0
+          and rep.window_retries == 1, f"the full-width run: {rep}")
+    by_name = {r["name"]: r for r in RunManifest(out / "full.jsonl").__enter__().rows()}
+    cols = planlib.feature_names(FAMS)
+    got = np.array([[by_name[n]["features"][c] for c in cols] for n in names], np.float32)
+    check(np.array_equal(got, frows), "11a: manifest features != phase 7's counted/count rows")
+    check(fetches.get("prep", 0) == 0 and fetches.get("pass1", 0) == 0,
+          f"11a fetched in prep or pass 1: {fetches}")
+    print(f"[resil] 11a ResilientRunner(BatchedExtractor(schedule='static', prep='hint', "
+          f"families {FAMS}, retry=RetryPolicy(2)), window={STREAM_WINDOW}) over "
+          f"{len(named)} cases, the whole run under CUDA sync debugging ('error'): {full_s:.3f} "
+          f"s, {rep.windows} windows, {rep.window_retries} retry (window 1's one-shot fault "
+          f"at collect); every manifest row's features == phase 7's counted/count rows "
+          f"bitwise as float32; host_fetches {fetches}; launches {full_launches}")
+
+    # -- 11b. the soak: A uninterrupted, B preempted (in-flight window dropped
+    # behind a spin), C the resume
+    spin = int(SOAK_SPIN_MS * cycles_per_ms())
+    t0 = time.perf_counter()
+    runs, abandoned_done = soak(out, stream, spin_at=abandoned, spin_cycles=spin)
+    soak_s = time.perf_counter() - t0
+    (rep_a, rows_a, probe_a, ext_a, census_a) = runs["A"]
+    rep_b, rep_c, rows_c = runs["B"][0], runs["C"][0], runs["C"][1]
+    ids = [r["id"] for r in rows_c]
+    # two emptied masks of one shape are one case by content: the second is skipped
+    check(rep_a.status == "complete" and rep_a.processed + rep_a.skipped == SOAK_CASES
+          and rep_a.processed == len(rows_a) and rep_a.quarantined > 0, f"soak A: {rep_a}")
+    check(rep_b.status == "preempted" and 0 < rep_b.processed < SOAK_CASES, f"soak B: {rep_b}")
+    check(len(runs["B"][2].windows) == abandoned + 1, "soak B's abandoned window moved")
+    check(abandoned_done is False, "the abandoned window's copies had landed before the resume: "
+                                   "the spin did not cover it")
+    check(rep_c.status == "complete" and rep_b.processed + rep_c.processed == len(rows_a),
+          f"soak C: {rep_c}")
+    check(len(ids) == len(rows_a) == len(set(ids)), "soak: a case id lost or duplicated")
+    check(rep_b.windows + rep_c.windows <= rep_a.windows + 1,
+          f"soak: {rep_b.windows} + {rep_c.windows} windows against A's {rep_a.windows}")
+    check(strip_windows(rows_c) == strip_windows(rows_a), "soak: A's records != B + C's")
+    check(rep_a.window_retries == 1, f"soak A retried {rep_a.window_retries} times, not once")
+    fail_w = SOAK_FAULTS["fail_windows"][0]
+    retried = probe_a.windows[fail_w]
+    clean, clean_stats = BatchedExtractor(schedule="static", prep="hint").run(retried)
+    recs = [rec for rec in rows_a if rec.get("window") == fail_w]
+    check(len(recs) == len(clean), f"soak: window {fail_w} holds {len(recs)} records")
+    for j, rec in enumerate(recs):
+        if rec["status"] == "error":
+            check(j in clean_stats["errors"], f"soak: window {fail_w} case {j} quarantined")
+            continue
+        got = np.array([rec["features"][c] for c in planlib.feature_names()], np.float32)
+        check(np.array_equal(got, clean[j]), f"soak: the retried window's case {j} differs")
+    flagged = [w for w, _ in rep_a.stragglers]
+    check(SOAK_FAULTS["straggle_windows"][0] in flagged, f"soak: stragglers {flagged}")
+    for name in ("A", "C"):
+        log = runs[name][3].executor.transfer_log
+        check(log.get("prep", 0) == 0 and log.get("pass1", 0) == 0,
+              f"soak {name} fetched in prep or pass 1: {dict(log)}")
+    print(f"[resil] 11b soak over stream_cases({SOAK_CASES}, seed=0), window {STREAM_WINDOW}, "
+          f"static/hint, faults {SOAK_FAULTS}: {soak_s:.3f} s for A+B+C; A {rep_a.processed} "
+          f"rows ({rep_a.quarantined} quarantined, {rep_a.skipped} a repeat of a case's "
+          f"content) in {rep_a.windows} windows, "
+          f"{rep_a.cases_per_second:.3f} cases/s; B preempted at case {SOAK_PREEMPT} after "
+          f"{rep_b.processed} rows, its window {abandoned} dropped, run on a stream of its own "
+          f"with a {SOAK_SPIN_MS} ms spin ahead of its copies (still pending as C began); C "
+          f"{rep_c.processed} rows, "
+          f"{rep_c.skipped} skipped; B+C == A's records (window ordinals aside), {len(ids)} "
+          f"ids, none lost or duplicated; windows B+C {rep_b.windows + rep_c.windows} <= A's "
+          f"{rep_a.windows} + 1; A's {rep_a.window_retries} retry absorbed, the retried window's "
+          f"rows == a clean run of its cases bitwise; stragglers {flagged}; prep and pass1 "
+          f"fetches 0")
+
+    # -- 11c. a real process kill: SIGTERM, then SIGKILL, each resumed
+    t0 = time.perf_counter()
+    procs, outputs = {}, {}
+    paths = {"sigterm": out / "cluster_term.jsonl", "sigkill": out / "cluster_kill.jsonl"}
+    try:
+        for kind, path in paths.items():
+            procs[kind] = spawn_cluster(root, path, cache_file)
+        deadline = time.time() + 600
+        pending = set(procs)
+        while pending and time.time() < deadline:
+            for kind in list(pending):
+                if manifest_lines(paths[kind]) >= 2 * STREAM_WINDOW:
+                    procs[kind].send_signal(15 if kind == "sigterm" else 9)
+                    pending.discard(kind)
+            time.sleep(0.01)
+        check(not pending, f"11c: the cluster job never wrote 2 windows: {pending}")
+        killed_at = {}
+        for kind, p in procs.items():
+            outputs[kind] = [p.communicate(timeout=600)[0]]
+            killed_at[kind] = manifest_lines(paths[kind])
+            want_rc = 0 if kind == "sigterm" else -9
+            check(p.returncode == want_rc, f"11c {kind}: exit {p.returncode}\n{outputs[kind][0]}")
+        check("preempted" in outputs["sigterm"][0],
+              f"11c: the SIGTERM'd job did not stop as preempted:\n{outputs['sigterm'][0]}")
+        for kind, path in paths.items():
+            procs[kind] = spawn_cluster(root, path, cache_file)
+        for kind, p in procs.items():
+            outputs[kind].append(p.communicate(timeout=900)[0])
+            check(p.returncode == 0 and "complete:" in outputs[kind][1],
+                  f"11c {kind} resume: exit {p.returncode}\n{outputs[kind][1]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    kill_s = time.perf_counter() - t0
+    want = strip_windows(cluster_rows)
+    for kind, path in paths.items():
+        rows = RunManifest(path).__enter__().rows()
+        check(len(rows) == len(cluster_rows) == len({r["id"] for r in rows}),
+              f"11c {kind}: {len(rows)} records")
+        check(strip_windows(rows) == want,
+              f"11c {kind}: the resumed manifest != the uninterrupted run's")
+    print(f"[resil] 11c python {' '.join(CLUSTER)} in subprocesses (warm cache), two at once: "
+          f"SIGTERM at {killed_at['sigterm']} manifest lines (exit 0, preempted), SIGKILL at "
+          f"{killed_at['sigkill']} (exit -9), each resumed to the end (exit 0); both manifests "
+          f"== the uninterrupted in-process run's {len(cluster_rows)} records (window ordinals "
+          f"aside) in {kill_s:.3f} s")
+    for kind in paths:
+        for k, text in enumerate(outputs[kind]):
+            tail = [ln for ln in text.strip().splitlines()
+                    if ln.startswith(("complete", "preempted", "resuming"))]
+            print(f"[resil] 11c {kind} run {k + 1}: {' | '.join(tail)}")
+
+    # -- 11d. what it costs
+    rounds = {"runner": [], "stream": []}
+    rext = BatchedExtractor(schedule="static", prep="hint", families=FAMS,
+                            retry=RetryPolicy(max_retries=2))
+    for k, which in enumerate(("runner", "stream", "stream", "runner")):
+        t0 = time.perf_counter()
+        if which == "runner":
+            m = RunManifest(out / f"cost_{k}.jsonl")
+            ResilientRunner(rext, m, window=STREAM_WINDOW,
+                            feature_names=planlib.feature_names(FAMS)).run(named)
+            m.close()
+        else:
+            for _ in sext.extract_stream(iter([c[1:] for c in named]), window=STREAM_WINDOW):
+                pass
+        rounds[which].append(time.perf_counter() - t0)
+    n = len(named)
+    masks = [(msk, sp) for _, _, msk, sp in named]
+    t0 = time.perf_counter()
+    for msk, sp in masks:
+        RunManifest.case_id(msk, sp)
+    hash_us = (time.perf_counter() - t0) / n * 1e6
+    mb = sum(np.asarray(msk).nbytes for msk, _ in masks) / n / 2**20
+    m = RunManifest(out / "record_cost.jsonl")
+    m.resume()
+    feats = dict(zip(planlib.feature_names(FAMS), map(float, frows[0])))
+    t0 = time.perf_counter()
+    for i in range(n):
+        m.record(f"id-{i}", "done", name=names[i], features=feats, window=0)
+    record_us = (time.perf_counter() - t0) / n * 1e6
+    m.close()
+    secs = {w: st["seconds"] for w, st in sorted(census_a.items())}
+    med = statistics.median(secs.values())
+    print(f"[resil] 11d cases/s over the {n} cases, rounds in order runner, stream, stream, "
+          f"runner: runner {[round(n / t, 3) for t in rounds['runner']]}, "
+          f"extract_stream(window={STREAM_WINDOW}) {[round(n / t, 3) for t in rounds['stream']]}; "
+          f"runner / stream {ratio(sum(rounds['stream']), sum(rounds['runner']))}x")
+    print(f"[resil] 11d host cost a case: case_id {hash_us:.1f} us (mean mask {mb:.3f} MiB, "
+          f"{mb / hash_us * 1e6:.1f} MiB/s), record {record_us:.1f} us ({len(feats)} features)")
+    print(f"[resil] 11d soak A's collects (s, * = flagged straggler): "
+          + ", ".join(f"w{w} {s_:.4f}{'*' if w in flagged else ''}" for w, s_ in secs.items())
+          + f"; the retried window {fail_w}: {secs[fail_w]:.4f} s against the median "
+          f"{med:.4f} s ({ratio(secs[fail_w], med)}x)")
+    check_no_sweep(sweeps0, "resil")
+    check_no_probe(probes0, "resil")
+    print(f"[resil] phase 11 took {time.perf_counter() - t_phase:.3f} s")
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
@@ -1351,9 +1736,18 @@ def main():
     os.environ.pop("REPRO_AUTOTUNE", None)  # sweeps on, as the card's default
     print(f"[setup] autotune cache {cache_file} (fresh)")
     warm_s = warm_autotune(suite, cases, cohort_cases)
+    resil_dir = Path(tempfile.mkdtemp(prefix="repro_resil_"))
+    t0 = time.perf_counter()
+    soak_stream = list(stream_cases(SOAK_CASES, seed=0))  # phase 11's cases, made once
+    gen_s = time.perf_counter() - t0
+    abandoned, cluster_rows = warm_resilience(resil_dir, soak_stream)
+    warm_resil_s = time.perf_counter() - t0
+    warm_s += warm_resil_s
     entries = json.load(open(cache_file))["entries"]
     sweeps_warm = autotune.SWEEPS
-    print(f"[setup] warm pass (untimed): {warm_s:.3f} s, {sweeps_warm} sweeps taking "
+    print(f"[setup] warm pass (untimed): {warm_s:.3f} s ({warm_resil_s:.3f} s of it phase "
+          f"11's soak and cluster run, {gen_s:.3f} s of that making their {SOAK_CASES} "
+          f"cases), {sweeps_warm} sweeps taking "
           f"{sweep_seconds():.3f} s by kind "
           f"{ {k: round(v, 3) for k, v in autotune.SWEEP_SECONDS.items()} }, cache entries by "
           f"kind {dict(sorted(collections.Counter(k.split('/')[0] for k in entries).items()))}; "
@@ -1365,19 +1759,21 @@ def main():
     # (seqacc, nomask: 8 a key) and its new ones (12), in turns, uncached
     cand_s = {"old": 0.0, "new": 0.0}
     for key in sorted(k for k in entries if k.startswith("diameter/")):
+        kind = key.split("/")[2][0]  # M: a bucket, T: a static target
         bucket, depth = (int(x[1:]) for x in key.split("/")[2:4])
+        extent = autotune.static_probe_extent(bucket) if kind == "T" else None
         wins = {}
         for which in ("old", "new"):
             variants = OLD_DIAMETER_VARIANTS if which == "old" else autotune.DEFAULT_VARIANTS
             saved, autotune.DEFAULT_VARIANTS = autotune.DEFAULT_VARIANTS, variants
             try:
                 t0 = time.perf_counter()
-                best, table = autotune.sweep_diameter(bucket, dev, batch=depth)
+                best, table = autotune.sweep_diameter(bucket, dev, batch=depth, extent=extent)
                 cand_s[which] += time.perf_counter() - t0
             finally:
                 autotune.DEFAULT_VARIANTS = saved
             wins[which] = f"{best.variant}/{best.block} {table[f'{best.variant}/{best.block}']:.1f} us"
-        print(f"[setup] sweep M{bucket}/B{depth}: {len(OLD_DIAMETER_VARIANTS)} variants -> "
+        print(f"[setup] sweep {kind}{bucket}/B{depth}: {len(OLD_DIAMETER_VARIANTS)} variants -> "
               f"{wins['old']}; {len(autotune.DEFAULT_VARIANTS)} variants -> {wins['new']}")
     print(f"[setup] diameter sweeps over the warm keys: {len(OLD_DIAMETER_VARIANTS)} variants "
           f"{cand_s['old']:.3f} s, {len(autotune.DEFAULT_VARIANTS)} variants {cand_s['new']:.3f} s "
@@ -2757,9 +3153,14 @@ def main():
     print(f"[var] yardstick at 00001-1's {len(valid)} valid vertices: torch.cdist(v, v).amax() "
           f"{lib_ms:.4f} ms (3D combo only) vs seqacc {fig1['00001-1 unpruned', 'seqacc', 256]:.4f} "
           f"ms (all 4 combos)")
+
+    # -- 11. the resilience layer ---------------------------------------------
+    resil_phase(resil_dir, soak_stream, cohort, frows, sext, abandoned, cluster_rows,
+                cache_file)
+    shutil.rmtree(resil_dir)
     os.unlink(cache_file)
 
-    # -- 11. kernels line ---------------------------------------------------
+    # -- 12. kernels line ---------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -2805,7 +3206,7 @@ def main():
         for v in variants if v != "seqacc"
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 12. status -----------------------------------------------------------
+    # -- 13. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

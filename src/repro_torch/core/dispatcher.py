@@ -58,19 +58,20 @@ def to_device(x, device: torch.device, dtype: torch.dtype | None = None) -> torc
 
 
 def diameter_config(device, bucket: int, variant: str = "auto", block: int | None = None,
-                    batch: int = 1):
+                    batch: int = 1, static: bool = False):
     """``(variant, block)`` of the diameter kernel for a vertex bucket.
 
     ``variant='auto'`` reads the autotune cache for the (vertex bucket,
-    batch-depth bucket) pair, sweeping on a miss; an explicit variant
-    passes through at the default block.  An explicit ``block`` always
-    wins over the tuned one.
+    batch-depth bucket) pair, sweeping on a miss (``static=True``: the
+    bucket is a static schedule's target, tuned on lists as empty as
+    those, ``autotune.static_probe_extent``); an explicit variant passes through at the
+    default block.  An explicit ``block`` always wins over the tuned one.
     """
     from repro_torch.runtime import autotune  # local import: avoids a cycle
 
     if variant != "auto":
         return variant, (block or autotune.DEFAULT_CONFIG.block)
-    cfg = autotune.get_diameter_config(int(bucket), device, batch=batch)
+    cfg = autotune.get_diameter_config(int(bucket), device, batch=batch, static=static)
     return cfg.variant, (block or cfg.block)
 
 

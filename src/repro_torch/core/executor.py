@@ -116,8 +116,17 @@ sync cost and hardware profile are resolved before a window is prepared
 (at construction under ``schedule='auto'``, at the start of an auto
 stream), so a probe's sync never lands inside a submit.
 
-Not ported yet, and refused with ``ValueError``: ``retry`` (ROADMAP.md
-Queue 1 item 8) and ``mesh`` (item 9).
+Retry (``retry=``, a ``runtime/resilience.RetryPolicy``, duck-typed): a
+window whose collect raises is re-submitted from its prepped device state
+(:meth:`PlanExecutor.resubmit_window`) and drained again after the
+policy's backoff, up to ``max_retries`` times; ``window_retries`` counts
+the retries.  An error of the card (:data:`DEVICE_ERRORS`) is re-raised at
+once: a CUDA error poisons the context, so a re-submit would fail too.
+Every retry re-stages the window's results, so a re-submitted window
+collects like a first submit under every schedule and prep.
+
+Not ported yet, and refused with ``ValueError``: ``mesh`` (ROADMAP.md
+Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -211,8 +220,10 @@ class _Prepped:
     n_vertices: int = 0  # pre-prune dedup vertex count (a feature)
     vertex_cap: int = 0  # vertex bucket the diameter sweep runs at
     prune_info: object | None = None
-    n_fut: object | None = None  # hint prep: the true dedup count, not yet fetched
-    prep_cap: int = 0  # hint prep: the pass-0 cap (pass 1 overwrites vertex_cap)
+    # hint prep: the true dedup count, left on the device for every submit
+    # of the case (each stages its own copy, ``_Window.hint_counts``)
+    n_dev: object | None = None
+    hint: int = 0  # hint prep: the metadata count the pass-0 cap was sized from
     error: str | None = None  # quarantined case: the row degrades to NaNs
 
 
@@ -229,6 +240,8 @@ class _Window:
     family_futs: dict  # {family: [(idxs, future)]}: the intensity launches
     static_aux: list = dataclasses.field(default_factory=list)
     # [(cap, idxs, counts, verts, masks)]: the static groups' deferred counts
+    hint_counts: list = dataclasses.field(default_factory=list)
+    # [(case index, staged count)]: hint prep's deferred counts
 
 
 @dataclasses.dataclass
@@ -237,7 +250,11 @@ class _Staged:
 
     ``host`` is the pinned destination of a ``non_blocking`` copy and
     ``done`` the event recorded behind the window's copies (None on the
-    CPU, where ``host`` is the result itself).
+    CPU, where ``host`` is the result itself).  A window dropped before its
+    collect (a preempted run's in-flight window) may leave its copies
+    running: PyTorch's pinned-memory cache records the copy's stream on
+    the block and hands it out again only once the copy has landed, so a
+    later window never reads or reuses it early.
     """
 
     host: torch.Tensor
@@ -288,8 +305,6 @@ class PlanExecutor:
         self.families = planlib.resolve_families(families)
         if variant != "auto":
             _diam.check_variant(variant)
-        if retry is not None:
-            raise _unported("retry", "8")
         if mesh is not None:
             raise _unported("mesh", "9")
         self.n_features = planlib.row_width(self.families)
@@ -311,6 +326,8 @@ class PlanExecutor:
         self.prep = prep
         self.transfer_log = collections.Counter()
         self._transfer_cb = transfer_callback
+        self.retry = retry  # runtime/resilience.RetryPolicy (duck-typed)
+        self.window_retries = 0  # collect retries performed
         self._cost_model = cost_model
         if schedule == "auto":
             self.cost_model.resolve()  # any probe syncs here, not in a submit
@@ -392,9 +409,9 @@ class PlanExecutor:
         window.family_futs = {k: stage_all(v) for k, v in window.family_futs.items()}
         window.static_aux = [(cap, idxs, stage(counts), verts, masks)
                              for cap, idxs, counts, verts, masks in window.static_aux]
-        for p in window.prepped:
-            if p.n_fut is not None:
-                p.n_fut = stage(p.n_fut)
+        # the device counts stay on the prepped cases: a re-submit stages them again
+        window.hint_counts = [(i, stage(p.n_dev)) for i, p in enumerate(window.prepped)
+                              if p.n_dev is not None]
         if done is not None:
             done.record(torch.cuda.current_stream(self.device))
         return window
@@ -406,10 +423,12 @@ class PlanExecutor:
         the tiled path's bitwise agreement with the in-core path needs."""
         return self.mc_block, self.mc_chunk
 
-    def _resolve_diameter(self, cap, depth: int = 1):
+    def _resolve_diameter(self, cap, depth: int = 1, static: bool = False):
         """``(variant, block)`` of a diameter launch over ``depth`` lists of
-        ``cap`` slots."""
-        return dispatcher.diameter_config(self.device, cap, self.variant, batch=depth)
+        ``cap`` slots (``static``: a static schedule's target, whose lists
+        hold the pruning survivors of a bucket twice its size)."""
+        return dispatcher.diameter_config(self.device, cap, self.variant, batch=depth,
+                                          static=static)
 
     def _resolve_compact(self, cap_in, depth: int = 1) -> int:
         """The tile of a compaction launch over ``depth`` lists of ``cap_in``
@@ -428,9 +447,15 @@ class PlanExecutor:
         return ops.mc_volume_area_batch(masks, 0.5, spacings, device=self.device,
                                         block=self.mc_block, chunk_z=self.mc_chunk)
 
-    def _diam_launch(self, cap, verts, vmasks):
-        """Pass 2b: batched diameter sweep over one chunk of a vertex bucket."""
-        variant, block = self._resolve_diameter(cap, len(verts))
+    def _diam_launch(self, key, verts, vmasks):
+        """Pass 2b: batched diameter sweep over one chunk of a vertex bucket.
+
+        ``key`` is the bucket, or ``("static", target)`` for a static
+        schedule's target, which resolves its configuration under a key of
+        its own (``autotune.static_key``)."""
+        static = isinstance(key, tuple)
+        cap = key[1] if static else key
+        variant, block = self._resolve_diameter(cap, len(verts), static=static)
         return ops.max_diameters_batch(verts, vmasks, device=self.device, block=block,
                                        variant=variant)
 
@@ -555,7 +580,7 @@ class PlanExecutor:
         instead of the measured count.  ``prep`` (default: the executor's)
         sizes the cap of the two-pass path: ``'count'`` fetches the
         measured count, ``'hint'`` takes ``plan.vertex_hint`` and leaves the
-        count on the device (``n_fut``) for the collector, which retries a
+        count on the device (``n_dev``) for the collector, which retries a
         case whose count overflowed the cap.  With an intensity family, the
         image is checked (present, of the mask's shape, finite), cropped
         with the mask and staged once beside it; a shape-only request
@@ -597,7 +622,7 @@ class PlanExecutor:
             verts, vmask = _compact_at(f, cap)
             return _Prepped(mask=mdev, image=idev, spacing=sp, shape=bshape,
                             roi_shape=roi_shape, verts=verts, vmask=vmask, n_vertices=hint,
-                            vertex_cap=cap, n_fut=ops.count_vertices(f), prep_cap=cap)
+                            vertex_cap=cap, n_dev=ops.count_vertices(f), hint=hint)
         n = int(self._fetch("prep", ops.count_vertices(f)))
         cap = planlib.vertex_bucket(n)
         verts, vmask = _compact_at(f, cap)
@@ -737,7 +762,7 @@ class PlanExecutor:
             cv, cm, _ = ops.compact_survivors_batch(
                 verts, keep, target, device=self.device,
                 block=self._resolve_compact(cap, len(idxs)))
-            entries.append((target, idxs, (cv, cm)))
+            entries.append((("static", target), idxs, (cv, cm)))
             aux.append((cap, idxs, counts, verts, masks))
         return entries, aux
 
@@ -781,14 +806,16 @@ class PlanExecutor:
         ``ops.max_diameters``), drained under ``hint_retry``, which gives
         ``extract_one``'s diameters; its host compaction pulls the list
         uncounted, as the reference's does.  Runs after the static
-        collect, so a retried row wins over both.
+        collect, so a retried row wins over both.  The counts are the
+        window's staged copies; the case keeps its device count and its
+        hint-sized list (unlike the reference, which swaps in the retried
+        list), so :meth:`resubmit_window` re-plans it as its first submit.
         """
-        for i, p in enumerate(window.prepped):
-            if p.n_fut is None:
-                continue
-            n = int(self._fetch("collect_counts", p.n_fut))
-            p.n_vertices, p.n_fut = n, None
-            if n <= p.prep_cap:
+        for i, staged in window.hint_counts:
+            p = window.prepped[i]
+            n = int(self._fetch("collect_counts", staged))
+            p.n_vertices = n
+            if n <= p.verts.shape[0]:  # within the pass-0 cap: nothing was dropped
                 continue
             verts, vmask = _compact_at(ops.vertex_fields(p.mask, 0.5, p.spacing),
                                        planlib.vertex_bucket(n))
@@ -796,7 +823,6 @@ class PlanExecutor:
             variant, block = self._resolve_diameter(len(v2))
             d_out[i] = self._fetch("hint_retry", ops.max_diameters(
                 v2, m2, device=self.device, block=block, variant=variant))
-            p.verts, p.vmask = to_device(v2, self.device), to_device(m2, self.device)
             p.vertex_cap = len(v2)
 
     # -- window API ----------------------------------------------------------
@@ -867,12 +893,16 @@ class PlanExecutor:
                                            family_futs, aux))
 
     def resubmit_window(self, window: _Window) -> _Window:
-        """Re-submit a window from its prepped device state.
+        """Re-submit a window from its prepped device state (the retry path).
 
-        Pass 1 may have overwritten each case's ``vertex_cap`` with its
-        pass-2b bucket and attached a ``PruneInfo``; both are reset to the
-        prep-time state (the cap is the length of the retained vertex
-        list) before re-planning, so the re-run equals a first run.
+        A collect may have overwritten each case's ``vertex_cap`` with its
+        pass-2b bucket, attached a ``PruneInfo`` and, under hint prep, set
+        the fetched count; all are reset to the prep-time state (the cap is
+        the length of the retained vertex list, the count the hint) before
+        re-planning.  The submit stages every result again, the hint
+        counts from the device counts the cases keep, so the re-submitted
+        window collects like a first submit, under every schedule and
+        prep, however far the failed collect got.
         """
         for p in window.prepped:
             if p.mask is None or p.error is not None:
@@ -880,6 +910,8 @@ class PlanExecutor:
             if p.verts is not None:
                 p.vertex_cap = int(p.verts.shape[0])
                 p.prune_info = None
+            if p.n_dev is not None:
+                p.n_vertices = p.hint
         return self.submit_prepped(window.prepped)
 
     def collect_window(self, window: _Window):
@@ -890,7 +922,45 @@ class PlanExecutor:
         schedule's deferred counts and re-sweeps, and hint prep's deferred
         counts and overflow retries.  The window's fetches wait for its own
         copy event only (see :meth:`_stage_results`).
+
+        With a ``retry`` policy, a collect that raises re-submits the
+        window (:meth:`resubmit_window`) and drains it again after
+        ``policy.delay(attempt)`` seconds, up to ``max_retries`` times; the
+        last failure re-raises.  An error of the card (:data:`DEVICE_ERRORS`)
+        re-raises at once, without backoff: a CUDA error poisons the
+        context, so every re-submit would fail too (the reference retries
+        any exception).  ``timeout_s`` is advisory: a collect over it is
+        flagged in the stats (``collect_timeout``), since a blocking fetch
+        cannot be interrupted.  The backoff and the re-submit make no host
+        sync, so a retried static/hint window stays sync-free but for its
+        counted fetches.
         """
+        policy = self.retry
+        if policy is None:
+            return self._collect_window(window)
+        attempt = 0
+        while True:
+            t0 = time.perf_counter()
+            try:
+                rows, stats = self._collect_window(window)
+            except (KeyboardInterrupt, SystemExit, *DEVICE_ERRORS):
+                raise
+            except Exception:
+                if attempt >= policy.max_retries:
+                    raise
+                self.window_retries += 1
+                time.sleep(policy.delay(attempt))
+                window = self.resubmit_window(window)
+                attempt += 1
+                continue
+            dt = time.perf_counter() - t0
+            if policy.timeout_s is not None and dt > policy.timeout_s:
+                stats["collect_timeout"] = dt
+            if attempt:
+                stats["window_retries"] = attempt
+            return rows, stats
+
+    def _collect_window(self, window: _Window):
         prepped = window.prepped
         fam_out = {family: self._drain(futs, family)
                    for family, futs in window.family_futs.items()}

@@ -1,10 +1,11 @@
 """Synthetic CT volumes + ROI masks mimicking the paper's KITS19 test set.
 
 The port's own copy of ``repro.data.synthetic`` (numpy only): the 20
-Table-2 shapes, ``make_case``, the suite and the service's
-``mixed_traffic_stream``.  ``tests/test_torch_port_rules.py`` holds
-``make_case`` array-equal to the JAX package's for the same shape and
-seed, ``tests/test_torch_service.py`` the traffic stream.
+Table-2 shapes, ``make_case``, the suite, the cohort stream
+``stream_cases`` and the service's ``mixed_traffic_stream``.
+``tests/test_torch_port_rules.py`` holds ``make_case`` array-equal to the
+JAX package's for the same shape and seed, ``tests/test_torch_service.py``
+the traffic stream, ``tests/test_torch_resilience.py`` ``stream_cases``.
 
 The paper benchmarks on 20 KITS19 kidney/tumour cases spanning image sizes
 50 kB - 9 MB and 2 700 - 236 588 mesh vertices (Table 2).  The dataset is not
@@ -90,6 +91,36 @@ def table2_suite(seed=0, spacing=(1.0, 1.0, 1.0)):
         img, msk, sp = make_case(shape, seed=seed * 1000 + i, spacing=spacing)
         out.append((name, img, msk, sp))
     return out
+
+
+def stream_cases(n, dims_pool=None, seed=0, spacing=(1.0, 1.0, 1.0), skip=()):
+    """Lazy case stream for a cohort run (``extract_stream``,
+    ``runtime/resilience.ResilientRunner``).
+
+    Yields ``(name, image, mask, spacing)`` one case at a time, without
+    materialising the cohort: a stream preps window k+1 while the card
+    runs window k, so the producer is an iterator.  ``dims_pool``
+    defaults to the first 8 Table-2 dimensions; ``skip`` names cases to
+    leave out (a restart's done cases).
+
+    Always yields exactly ``n`` surviving cases: a skipped name advances
+    the index past it rather than shrinking the output, and each case's
+    content stays keyed to its original index (``case-i`` is the same
+    whether or not earlier names were skipped).
+    """
+    if dims_pool is None:
+        dims_pool = [d for _, d in TABLE2_CASES if min(d) >= 10][:8]
+    produced, i = 0, 0
+    while produced < n:
+        name = f"case-{i:05d}"
+        if name in skip:
+            i += 1
+            continue
+        img, msk, sp = make_case(dims_pool[i % len(dims_pool)], seed=seed + i,
+                                 spacing=spacing)
+        yield name, img, msk, sp
+        produced += 1
+        i += 1
 
 
 def mixed_traffic_stream(n, seed=0, huge_every=16, small_dims=None,

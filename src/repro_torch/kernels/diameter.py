@@ -62,10 +62,12 @@ DEFAULT_VARIANT = "seqacc"
 # the block with the smallest mean and worst loss against each key's best
 # over the card's sweep of buckets 512-131072 at depths 1-16 (PERF.md, section 6)
 DEFAULT_BLOCK = 128
-# The kernels' revision: an autotune record measured against another one
-# is swept again (runtime/autotune.py).  2: 'seqacc' and 'nomask' sweep
-# each list's extent on persistent register-tiled blocks.
-REVISION = 2
+# The revision of the kernels and of the tuner's probes: an autotune record
+# measured against another one is swept again (runtime/autotune.py).  2:
+# 'seqacc' and 'nomask' sweep each list's extent on persistent
+# register-tiled blocks; 3: a static target is tuned under a key of its
+# own, on lists 1/32 full.
+REVISION = 3
 # kernel launches on CUDA tensors per variant, single-case and batched
 # ('naive' counts its four launches)
 LAUNCHES = dict.fromkeys(VARIANTS, 0)

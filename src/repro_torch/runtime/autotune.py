@@ -11,7 +11,13 @@ every later call.  The tuned axes:
 * **diameter**: ``(variant, block)`` over :data:`DEFAULT_VARIANTS` x
   :data:`DEFAULT_BLOCKS`, timed as the kernel launch of
   ``max_diameters_sq_batch`` on a ``(depth, bucket)`` stack, the launch
-  pass 2b issues;
+  pass 2b issues.  A list in its own bucket is probed 3/4 full
+  (:func:`probe_extent`); a static schedule's target (``plan.
+  static_bucket``) has keys of its own, probed 1/32 full
+  (:func:`static_probe_extent`): its lists hold the pruning survivors of
+  a bucket twice its size, mostly empty, where an upper-triangle tile
+  launch costs many times an extent sweep and small blocks spread the
+  few valid rows over more SMs;
 * **compaction**: ``block``, the keep flags a CUDA block takes (a
   multiple of ``compact.TILE_GRAIN``, 512, up to 16384);
 * **first-order**: ``block`` (a multiple of ``firstorder.CANON_CHUNK``);
@@ -31,7 +37,8 @@ in-core path bitwise only because both use the same granule.
 namespace is not read.
 
 Cache schema (versioned, shared with the reference): one JSON object
-``{"schema": 3, "entries": {...}}`` keyed ``"diameter/cuda/M<bucket>/B<depth>"``,
+``{"schema": 3, "entries": {...}}`` keyed ``"diameter/cuda/M<bucket>/B<depth>"``
+(a static target: ``"diameter/cuda/T<target>/B<depth>"``),
 ``"compact/cuda/M<bucket>/B<depth>"`` and ``"<family>/cuda/S<nx>x<ny>x<nz>/B<depth>"``;
 ``B<depth>`` is the power-of-two batch-depth bucket (:func:`batch_bucket`).
 Each record holds the winner and the measured table (microseconds) and
@@ -109,6 +116,13 @@ DEFAULT_FIRSTORDER_BLOCKS = (1024, 2048, 4096)
 DEFAULT_GLCM_BLOCKS = (2, 4, 8)  # CUDA blocks an SM
 # variants a cached diameter entry may name for 'auto': the direct ones
 AUTO_VARIANTS = tuple(v for v in _diam.VARIANTS if v != "gram")
+# a static target's probe lists are valid over 1/STATIC_PROBE_SHARE of its
+# slots: the cohort's static targets hold 0.2-19% of theirs (median 2.4%),
+# and on the card the 1/32 probe's winners sweep the cohort's real static
+# lists in 0.951x the time of seqacc at the default block, the 1/4 probe's
+# (the cost model's assumed keep fraction) in 1.325x, the 3/4 probe's in
+# 4.105x (experiments/torch_static_probe.py; PERF.md, section 6)
+STATIC_PROBE_SHARE = 32
 
 REPEAT = 15  # timed rounds of a sweep, each candidate once a round
 MIN_REPEAT = 3  # the fewest rounds where REPEAT would overrun SWEEP_BUDGET_S
@@ -241,6 +255,11 @@ def sweep_key(bucket: int, backend: str, batch: int = 1) -> str:
     return f"diameter/{backend}/M{int(bucket)}/B{batch_bucket(batch)}"
 
 
+def static_key(target: int, backend: str, batch: int = 1) -> str:
+    """The key of a static schedule's pass-2b launch at ``target`` slots."""
+    return f"diameter/{backend}/T{int(target)}/B{batch_bucket(batch)}"
+
+
 def compact_key(bucket: int, backend: str, batch: int = 1) -> str:
     return f"compact/{backend}/M{int(bucket)}/B{batch_bucket(batch)}"
 
@@ -348,62 +367,86 @@ def probe_extent(bucket: int) -> int:
     return max(1, 3 * int(bucket) // 4)
 
 
-def _diameter_probe(bucket: int, device, batch: int, seed: int = 0):
+def static_probe_extent(target: int) -> int:
+    """Valid slots of each list of a static target's probe: ``max(2,
+    target // STATIC_PROBE_SHARE)``, near the pruning survivors' measured
+    fill there (:data:`STATIC_PROBE_SHARE`), far from the 3/4 of
+    :func:`probe_extent`, where ``tri_prefetch``, which launches every
+    upper-triangle tile of the target, wins."""
+    return max(2, int(target) // STATIC_PROBE_SHARE)
+
+
+def _diameter_probe(bucket: int, device, batch: int, seed: int = 0, extent=None):
     """A ``(batch, bucket)`` stack of normally scattered vertices, each list
-    valid-first over :func:`probe_extent` of its slots: a list of n vertices
-    sits in the bucket of the next power of two, so it fills between half
-    and all of it, and ``seqacc`` and ``nomask`` sweep only that extent."""
+    valid-first over ``extent`` slots (default :func:`probe_extent`: a list
+    of n vertices sits in the bucket of the next power of two, so it fills
+    between half and all of it); ``seqacc`` and ``nomask`` sweep only that
+    extent."""
     dev = torch.device(device)
     rng = np.random.default_rng(seed)
     verts = torch.from_numpy(
         (rng.normal(size=(max(1, batch), bucket, 3)) * 10.0).astype(np.float32)).to(dev)
-    masks = torch.arange(bucket, device=dev) < probe_extent(bucket)
+    masks = torch.arange(bucket, device=dev) < (probe_extent(bucket) if extent is None
+                                                else int(extent))
     return verts, masks.expand(verts.shape[:2]).contiguous()
 
 
-def measure_diameter_configs(bucket: int, device, configs, *, batch: int = 1) -> dict:
+def measure_diameter_configs(bucket: int, device, configs, *, batch: int = 1,
+                             extent=None) -> dict:
     """Median device seconds of each :class:`DiameterConfig` on one
-    ``(batch, bucket)`` probe stack: the kernel launch pass 2b issues
-    (``diameter.batch_launcher``), its input prepared outside the timing."""
-    verts, masks = _diameter_probe(bucket, device, batch)
+    ``(batch, bucket)`` probe stack, its lists valid over ``extent`` slots:
+    the kernel launch pass 2b issues (``diameter.batch_launcher``), its
+    input prepared outside the timing."""
+    verts, masks = _diameter_probe(bucket, device, batch, extent=extent)
     with torch.cuda.device(verts.device):
         return _time_launches({c: _diam.batch_launcher(verts, masks, block=c.block,
                                                        variant=c.variant) for c in configs})
 
 
-def sweep_diameter(bucket: int, device, *, batch: int = 1):
-    """Measure every (variant, block) candidate; returns ``(best, table)``,
-    ``table`` mapping ``"variant/block"`` to microseconds."""
+def sweep_diameter(bucket: int, device, *, batch: int = 1, extent=None):
+    """Measure every (variant, block) candidate on lists valid over
+    ``extent`` slots (default :func:`probe_extent`); returns ``(best,
+    table)``, ``table`` mapping ``"variant/block"`` to microseconds."""
     configs = [DiameterConfig(v, b) for v in DEFAULT_VARIANTS
                for b in _usable(DEFAULT_BLOCKS, bucket)]
-    return _table(measure_diameter_configs(bucket, device, configs, batch=batch),
+    return _table(measure_diameter_configs(bucket, device, configs, batch=batch, extent=extent),
                   _diameter_name)
 
 
 def _parse_diameter(rec) -> DiameterConfig | None:
     if rec.get("revision") != _diam.REVISION:
-        return None  # measured against other kernels (or before revisions)
+        return None  # measured against other kernels or probes (or before revisions)
     cfg = DiameterConfig(str(rec["variant"]), int(rec["block"]))
     return cfg if cfg.variant in AUTO_VARIANTS and _valid_block(cfg.block) else None
 
 
-def get_diameter_config(bucket: int, device, *, batch: int = 1) -> DiameterConfig:
+def get_diameter_config(bucket: int, device, *, batch: int = 1,
+                        static: bool = False) -> DiameterConfig:
     """Cached-or-swept best ``(variant, block)`` for a (bucket, depth) pair.
+
+    ``static=True``: ``bucket`` is a static schedule's pass-2b target,
+    looked up under :func:`static_key` and swept on lists valid over
+    :func:`static_probe_extent` of its slots.
 
     A cache hit runs no kernel.  A miss sweeps (when allowed, see the
     module docstring) at the batch-depth bucket of ``batch``, stores the
     winner and its table, and returns it; when sweeping is not allowed the
     default comes back uncached.  A cached entry that names ``gram``, an
     unknown variant or a block the kernel refuses, or that was measured
-    against another kernel revision, counts as a miss.
+    against another revision of the kernels or of their probes
+    (``diameter.REVISION``), counts as a miss.
     """
     backend = torch.device(device).type
     if backend == "cpu":
         return DEFAULT_CONFIG
+    if static:
+        key, extent = static_key(bucket, backend, batch), static_probe_extent(bucket)
+    else:
+        key, extent = sweep_key(bucket, backend, batch), None
     return _cached_or_swept(
-        "diameter", sweep_key(bucket, backend, batch), DEFAULT_CONFIG, _parse_diameter,
-        lambda: sweep_diameter(bucket, device, batch=batch_bucket(batch)), _diameter_name,
-        extra={"revision": _diam.REVISION})
+        "diameter", key, DEFAULT_CONFIG, _parse_diameter,
+        lambda: sweep_diameter(bucket, device, batch=batch_bucket(batch), extent=extent),
+        _diameter_name, extra={"revision": _diam.REVISION})
 
 
 # ---------------------------------------------------------------------------

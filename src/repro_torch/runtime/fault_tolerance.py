@@ -1,0 +1,114 @@
+"""Fault tolerance of a long extraction run: stragglers and preemption.
+
+The port's own copy of the two pieces of ``repro.runtime.fault_tolerance``
+that the resilience layer (``runtime/resilience``) drives, without its
+JAX imports:
+
+  * :class:`StragglerDetector` keeps the median of recent window (or
+    step) wall-times and flags one slower than ``threshold x`` that
+    median;
+  * :class:`PreemptionHandler` turns a ``SIGTERM`` (a cluster's
+    preemption notice) into a flag the runner reads at each case.
+
+The reference's ``surviving_mesh`` and ``elastic_remesh`` belong to the
+multi-card mesh and to checkpoint-restart, which the port does not have
+yet (``ROADMAP.md``, Queue 1 items 9 and 10).
+"""
+from __future__ import annotations
+
+import signal
+from collections import deque
+from dataclasses import dataclass, field
+
+
+@dataclass
+class StragglerDetector:
+    """Median-based outlier detection over step (or window) wall-times.
+
+    ``warmup`` observations are swallowed entirely -- neither flagged nor
+    admitted to the median window -- because the first window of a run
+    pays its cold start (kernel builds, autotune lookups) and would
+    otherwise both be flagged as a spurious straggler and inflate the
+    median every real straggler is compared against.  ``min_samples``
+    overrides the default ``max(8, window // 4)`` flagging threshold for
+    short runs (a 13-window job should still flag its stalled 9th window).
+    """
+
+    window: int = 50
+    threshold: float = 2.0
+    warmup: int = 0
+    min_samples: int | None = None
+    _times: deque = field(default_factory=lambda: deque(maxlen=256))
+    slow_steps: list = field(default_factory=list)
+    _seen: int = field(default=0, repr=False)
+
+    def observe(self, step: int, seconds: float) -> bool:
+        """Record a step time; returns True if this step was a straggler."""
+        self._seen += 1
+        if self._seen <= self.warmup:
+            return False  # cold-start grace: excluded from the median too
+        self._times.append(seconds)
+        need = self.min_samples if self.min_samples is not None \
+            else max(8, self.window // 4)
+        if len(self._times) < max(2, need):
+            return False
+        med = sorted(self._times)[len(self._times) // 2]
+        if seconds > self.threshold * med:
+            self.slow_steps.append((step, seconds, med))
+            return True
+        return False
+
+    @property
+    def median(self):
+        if not self._times:
+            return 0.0
+        return sorted(self._times)[len(self._times) // 2]
+
+
+class PreemptionHandler:
+    """SIGTERM -> request a graceful stop at the next step/window boundary.
+
+    ``install`` CHAINS any pre-existing Python SIGTERM handler (it still
+    fires after ours -- two independent layers both get their preemption
+    notice) and is idempotent: a second ``install`` is a no-op rather
+    than making the handler its own predecessor.  ``uninstall`` restores
+    exactly what was installed before -- including ``SIG_DFL``/``SIG_IGN``
+    dispositions and the C-level ``None`` case (restored as ``SIG_DFL``,
+    the closest Python can express).
+
+    CPython sets a signal handler from the main thread only
+    (``signal.signal`` raises ``ValueError`` elsewhere), as in the
+    reference: a runner driven from another thread (the service's driver)
+    must be given a handler installed on the main thread, or none.
+    """
+
+    def __init__(self):
+        self.requested = False
+        self._prev = None
+        self._installed = False
+
+    def install(self):
+        if self._installed:
+            return self
+
+        def handler(signum, frame):
+            self.requested = True
+            prev = self._prev
+            if callable(prev) and prev is not handler:
+                prev(signum, frame)
+
+        self._prev = signal.signal(signal.SIGTERM, handler)
+        self._installed = True
+        return self
+
+    def uninstall(self):
+        if not self._installed:
+            return
+        prev = self._prev if self._prev is not None else signal.SIG_DFL
+        signal.signal(signal.SIGTERM, prev)
+        self._prev = None
+        self._installed = False
+
+    def reset(self):
+        """Clear a consumed preemption notice (e.g. between runner calls)."""
+        self.requested = False

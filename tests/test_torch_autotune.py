@@ -21,7 +21,7 @@ from repro_torch.core import ShapeFeatureExtractor, dispatcher  # noqa: E402
 from repro_torch.core.executor import PlanExecutor  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import compact, diameter, firstorder, glcm  # noqa: E402
-from repro_torch.runtime import autotune  # noqa: E402
+from repro_torch.runtime import autotune, costmodel  # noqa: E402
 
 
 @pytest.fixture
@@ -44,7 +44,7 @@ def measured(monkeypatch):
     """Replaces the diameter measurement; records every measured config."""
     calls = []
 
-    def measure(bucket, device, configs, *, batch):
+    def measure(bucket, device, configs, *, batch, extent=None):
         calls.extend((bucket, c.variant, c.block, batch) for c in configs)
         return {c: _fake_times(c.variant, c.block) for c in configs}
 
@@ -264,6 +264,99 @@ def test_stale_diameter_record_resweeps(cache_path, measured, revision):
     n = len(measured)
     assert autotune.get_diameter_config(4096, "cuda", batch=2).variant == "nomask"
     assert len(measured) == n  # the fresh record is read
+
+
+def _fill_times(bucket, configs, extent):
+    """Lists 3/4 full: 'tri_prefetch' (every upper-triangle tile) wins; as
+    empty as a static target's: the extent sweeps win by far."""
+    full = extent is None or extent >= autotune.probe_extent(bucket)
+    out = {}
+    for c in configs:
+        if c.variant == "tri_prefetch":
+            t = 2.0 if full else 5.0
+        else:
+            t = (2.5 if full else 0.5) + (0.1 if c.variant == "nomask" else 0.0)
+        out[c] = (t + abs(c.block - 128) / 1024) * 1e-3
+    return out
+
+
+def test_static_target_resolves_its_own_key_and_probe(cache_path, monkeypatch):
+    """A static schedule's pass-2b launch resolves its configuration under
+    ``static_key(target)``, swept on lists valid over
+    ``static_probe_extent(target)`` (1/32 of its slots); the same
+    bucket as a counted launch resolves ``sweep_key`` on the 3/4 probe."""
+    seen = []
+
+    def measure(bucket, device, configs, *, batch, extent=None):
+        seen.append((bucket, batch, extent))
+        return _fill_times(bucket, configs, extent)
+
+    monkeypatch.setattr(autotune, "measure_diameter_configs", measure)
+    assert autotune.static_probe_extent(4096) == 128 == 4096 // autotune.STATIC_PROBE_SHARE
+    assert autotune.static_probe_extent(32) == 2
+    ex = PlanExecutor(device="cpu", schedule="static", prep="hint")
+    ex.device = torch.device("cuda")
+    assert ex._resolve_diameter(4096, 3, static=True) == ("seqacc", 128)
+    assert ex._resolve_diameter(4096, 3) == ("tri_prefetch", 128)
+    assert seen == [(4096, 4, 128), (4096, 4, None)]
+    entries = json.load(open(cache_path))["entries"]
+    assert set(entries) == {"diameter/cuda/T4096/B4", "diameter/cuda/M4096/B4"}
+    assert all(e["revision"] == diameter.REVISION for e in entries.values())
+    seen.clear()  # both are hits now
+    assert ex._resolve_diameter(4096, 4, static=True) == ("seqacc", 128) and not seen
+
+
+def test_static_schedule_launches_resolve_the_static_keys(monkeypatch):
+    """Which key each pass-2b launch of a static window asks for: the static
+    chains at their targets as static targets; a floor-cap group and the
+    keep-originals re-sweep at their input caps as ordinary buckets; the
+    counted schedule never asks for a static key."""
+    from repro_torch.core import plan as planlib
+
+    cases = [synthetic.make_case((48, 48, 48), seed=1), synthetic.make_case((20, 18, 16), 5),
+             synthetic.make_case((70, 20, 20), seed=4)]
+    for schedule in ("static", "counted"):
+        ex = PlanExecutor(device="cpu", schedule=schedule, prep="hint")
+        asked, real = [], ex._resolve_diameter
+
+        def spy(cap, depth=1, static=False):
+            asked.append((cap, depth, static))
+            return real(cap, depth, static=static)
+
+        monkeypatch.setattr(ex, "_resolve_diameter", spy)
+        window = ex.submit_window(cases)
+        if schedule == "counted":
+            assert asked and not any(static for *_, static in asked)
+            continue
+        targets = {(t, len(window.plan.cap_groups[cap]))
+                   for cap, t in window.plan.static_targets.items() if t is not None}
+        assert targets and {(c, d) for c, d, static in asked if static} == targets
+        floors = {(cap, len(idxs)) for cap, idxs in window.plan.cap_groups.items()
+                  if window.plan.static_targets[cap] is None}
+        assert {(c, d) for c, d, static in asked if not static} == floors
+        assert all(planlib.static_bucket(c) is None for c, _ in floors)
+
+
+@pytest.mark.parametrize("key", ["M4096", "T4096"])
+def test_records_of_the_old_probes_are_swept_again(cache_path, monkeypatch, key):
+    """A diameter record from before the static targets' probe (revision 2)
+    is re-swept at either kind of key, not misread; the cost model ignores
+    it too."""
+    assert diameter.REVISION == 3
+    seen = []
+    monkeypatch.setattr(autotune, "measure_diameter_configs",
+                        lambda b, d, configs, *, batch, extent=None:
+                        seen.append(extent) or _fill_times(b, configs, extent))
+    static = key.startswith("T")
+    full = autotune.static_key(4096, "cuda") if static else autotune.sweep_key(4096, "cuda")
+    old = {"variant": "tri_prefetch" if static else "seqacc", "block": 512, "us": 1.0,
+           "table": {}, "revision": 2}
+    autotune.AutotuneCache().put(full, old)
+    assert costmodel.CostModel("cuda")._measured_us(full) is None
+    cfg = autotune.get_diameter_config(4096, "cuda", static=static)
+    assert cfg == autotune.DiameterConfig("seqacc" if static else "tri_prefetch", 128)
+    assert seen == [128 if static else None]
+    assert autotune.AutotuneCache().get(full)["revision"] == 3
 
 
 @pytest.mark.parametrize("bad", [

@@ -151,10 +151,10 @@ def test_transfer_callback_sees_every_fetch():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"schedule": "auto", "retry": object()}, "item 8"),
+    ({"schedule": "auto", "retry": object(), "mesh": object()}, "item 9"),
     ({"schedule": "auto", "prep": "hint", "mesh": object()}, "item 9"),
     ({"schedule": "static", "mesh": object()}, "item 9"), ({"mesh": object()}, "item 9"),
-    ({"retry": object()}, "item 8"),
+    ({"retry": object(), "mesh": object()}, "item 9"),
 ])
 def test_unported_options_raise_naming_roadmap_item(kwargs, item):
     with pytest.raises(ValueError, match=rf"ROADMAP.*{re.escape(item)}"):

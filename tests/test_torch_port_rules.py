@@ -35,7 +35,8 @@ def test_import_loads_no_jax_or_reference():
         "import repro_torch.kernels.glcm, repro_torch.core.tiled, repro_torch.data.tiles\n"
         "import repro_torch.runtime.autotune, repro_torch.runtime.costmodel\n"
         "import repro_torch.runtime.roofline, repro_torch.serve.service\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.runtime.resilience\n"
+        "import repro_torch.runtime.fault_tolerance\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -48,7 +49,8 @@ def test_import_loads_no_jax_or_reference():
 
 def test_sources_import_no_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "examples" / "quickstart_torch.py"]
+                                          ROOT / "examples" / "quickstart_torch.py",
+                                          ROOT / "examples" / "cluster_pipeline_torch.py"]
     assert len(files) > 10
     offenders = [str(p) for p in files if _FORBIDDEN_IMPORT.search(p.read_text())]
     assert not offenders

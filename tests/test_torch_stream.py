@@ -336,7 +336,7 @@ def test_submit_stages_every_result_and_fetches_nothing():
     assert sum(ex.transfer_log.values()) == 0
     futs = (window.mc_futs + window.diam_futs + window.family_futs["glcm"]
             + [(None, aux[2]) for aux in window.static_aux]
-            + [(None, p.n_fut) for p in window.prepped if p.n_fut is not None])
+            + window.hint_counts)
     assert futs and all(isinstance(f, exmod._Staged) for _, f in futs)
     ex.collect_window(window)
     assert sum(ex.transfer_log.values()) == len(futs)
