@@ -16,7 +16,8 @@ out-of-core tiled path (``BatchedExtractor(tiled=True)``, ``TiledCase``),
 the diameter variant axis with its autotuner, the cost model's auto
 knobs with the multi-tenant service (``BatchedExtractor.serve``), and the
 resilience layer (``ResilientRunner``, a soak under injected faults and a
-preemption, a cluster job killed and resumed) -- checks
+preemption, a cluster job killed and resumed), and data parallelism over a
+mesh of slots (``BatchedExtractor(mesh=...)``) -- checks
 the features against the port's CPU path or the in-core path, and prints the kernels
 line and a last JSON status line.  The autotune cache is a fresh
 temporary file, so no run reads another run's winners; an untimed pass
@@ -232,7 +233,27 @@ Phases:
      over the 60 cases (two interleaved rounds), case_id's and record's
      host microseconds a case, the soak's collect seconds a window with
      their straggler flags, the retried window's against the median
-  12. the kernels line (each variant at block 256, as phase 5b); 13. the status line
+  12. (run after 10, before 9; printed as [mesh]) data parallelism on the
+     warm cache (its shard depths warmed in phase 1): a 4-slot mesh of the
+     one card (parallel/sharding.Mesh, a stream a slot); launch counts
+     reset, BatchedExtractor(mesh=..., families=(shape, firstorder, glcm))
+     .run over the 60 cases, counts read: every kernel launched between 1x
+     and 4x phase 7's counts (once for each slot a launch's rows fill),
+     more in all than phase 7, rows == phase 7's counted/count run bitwise,
+     stats['data_parallel'] == 4, the fetch census == phase 7's, the bytes
+     each slot received; extract_stream(window=20) under static/hint with
+     every submit under CUDA sync debugging (no sync, no fetch), rows and
+     census == the unsharded stream's; extract_stream(window='auto') under
+     schedule='auto'/prep='hint', rows and census == the unsharded auto
+     stream's; cases/s of each against its unsharded twin (two
+     interleaved rounds); a traced mesh run's busy share of each stream
+     (the slots' and the first device's; a trace without device events
+     fails); the slots overlap: data_parallel_map with every shard
+     spinning ~50 ms takes under (N + 1) / 2 spins (N one after another);
+     with two cards or more all of this again over make_host_mesh()
+     (every card, its shards peer copies), else a line saying so;
+     python -m repro_torch.launch.tiled_smoke in a subprocess exits 0
+  13. the kernels line (each variant at block 256, as phase 5b); 14. the status line
 """
 import collections
 import ctypes
@@ -268,6 +289,8 @@ from repro_torch.kernels import firstorder as fo  # noqa: E402
 from repro_torch.kernels import glcm as gl  # noqa: E402
 from repro_torch.kernels import marching_cubes as mc  # noqa: E402
 from repro_torch.kernels import masked_range as mr  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.parallel.sharding import Mesh, data_parallel_map  # noqa: E402
 from repro_torch.runtime import autotune, costmodel  # noqa: E402
 from repro_torch.runtime import roofline as rl  # noqa: E402
 from repro_torch.runtime.resilience import (  # noqa: E402
@@ -298,6 +321,9 @@ FAMS = ("shape", "firstorder", "glcm")
 TILED_FAMS = ("shape", "firstorder")
 TILED_BIG_N = 1024  # the out-of-core sphere's edge (4 GiB materialised)
 STREAM_WINDOW = 20  # phase 7b's fixed window: the 60 cases in 3 windows
+MESH_SLOTS = 4  # phase 12's mesh: slots of the one card
+MESH_KERNELS = ("marching_cubes", "diameter", "compact", "firstorder", "glcm", "masked_range")
+MESH_SPIN_CYCLES = 100_000_000  # phase 12's overlap check: ~50 ms a shard
 # phase 10d's service traffic: clients x requests x cases a request
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCH, SERVE_HUGE_EVERY = 4, 6, 2, 16
 # phase 10c: the tuned static pass-2b sweeps against the same lists swept by
@@ -885,8 +911,241 @@ def warm_autotune(suite, cases, cohort_cases):
     for chunk in split(cohort_cases, sizes):
         cext.run(chunk)
         sext.run(chunk)
+    # phase 12: each mesh's launches resolve at their shard depths
+    for mesh in mesh_meshes():
+        warm_mesh(mesh, cohort_cases)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def mesh_meshes():
+    """Phase 12's meshes: MESH_SLOTS slots of the first card, and every card
+    where there are two or more."""
+    meshes = [Mesh([torch.device("cuda", 0)] * MESH_SLOTS)]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(make_host_mesh())
+    return meshes
+
+
+def mesh_extractors(mesh):
+    """Phase 12's drives over ``mesh`` (None: unsharded): the counted run,
+    7b's static/hint stream and 10b's auto stream, three families."""
+    return {"run": BatchedExtractor(mesh=mesh, families=FAMS),
+            "stream": BatchedExtractor(mesh=mesh, families=FAMS, schedule="static",
+                                       prep="hint"),
+            "auto": BatchedExtractor(mesh=mesh, families=FAMS, schedule="auto", prep="hint")}
+
+
+def mesh_drive(ext, which, cases):
+    """One drive of phase 12: ``(rows, seconds, the run's stats or None)``."""
+    t0 = time.perf_counter()
+    stats = None
+    if which == "run":
+        rows, stats = ext.run(cases)
+    else:
+        rows = list(ext.extract_stream(iter(cases),
+                                       window=STREAM_WINDOW if which == "stream" else "auto"))
+    return np.stack(rows), time.perf_counter() - t0, stats
+
+
+def warm_mesh(mesh, cohort_cases):
+    """Phase 1's untimed pass over phase 12's mesh drives: until one pass
+    sweeps nothing (a sweep can move an auto window's boundary)."""
+    for _ in range(4):
+        s0 = autotune.SWEEPS
+        for which, ext in mesh_extractors(mesh).items():
+            mesh_drive(ext, which, cohort_cases)
+        if autotune.SWEEPS == s0:
+            return
+    raise AssertionError("phase 12's mesh drives still sweep after 4 passes")
+
+
+def stream_busy(prof):
+    """Device busy time (us) and items of each stream of a trace, keyed by
+    (device, stream), with its count of host-to-device copies."""
+    per = collections.defaultdict(lambda: [[], 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rec = per[(e.device_index, e.device_resource_id)]
+            rec[0].append((e.time_range.start, e.time_range.end))
+            rec[1] += "HtoD" in e.name
+    out = {}
+    for key, (iv, htod) in per.items():
+        iv.sort()
+        busy, end = 0.0, -np.inf
+        for a, b in iv:
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        out[key] = {"busy_us": busy, "items": len(iv), "htod": htod}
+    return out
+
+
+def mesh_phase(mesh, label, cohort_cases, frows, plain, want_fetches, fam_launches):
+    """Phase 12 over one mesh: the three drives, each against its unsharded
+    twin in ``plain`` (rows, fetch census, cases/s), under counted launches,
+    the stream's submits under strict syncs, a trace's busy share of each
+    stream, the bytes each slot received."""
+    n, slots = len(cohort_cases), mesh.shape["data"]
+    exts = mesh_extractors(mesh)
+    check(all(e.mesh is mesh and e.device == mesh.home for e in exts.values()),
+          f"{label}: the extractors did not take the mesh")
+    for which, ext in exts.items():
+        ex = ext.executor
+        f0 = dict(ex.transfer_log)
+        mesh.received[...] = 0
+        zero_counts()
+        rows, secs, stats = mesh_drive(ext, which, cohort_cases)
+        launches = read_counts()
+        fetches = fetch_delta(ex.transfer_log, f0)
+        check(np.array_equal(rows, frows), f"{label} {which}: rows != the unsharded rows")
+        check(fetches == want_fetches[which],
+              f"{label} {which}: host fetches {fetches} != the unsharded {want_fetches[which]}")
+        check(all(launches[k] > 0 for k in MESH_KERNELS),
+              f"{label} {which}: a kernel of the path never ran: {launches}")
+        if which == "run":
+            check(all(fam_launches[k] <= launches[k] <= slots * fam_launches[k]
+                      for k in MESH_KERNELS)
+                  and sum(launches[k] for k in MESH_KERNELS)
+                  > sum(fam_launches[k] for k in MESH_KERNELS),
+                  f"{label} run: launches {launches} are not 1x-{slots}x phase 7's "
+                  f"{fam_launches}, more in all")
+            check(stats["data_parallel"] == slots,
+                  f"{label}: stats['data_parallel'] {stats['data_parallel']} != {slots}")
+        print(f"[mesh] {label} {which}: {n} cases in {secs:.3f} s = {n / secs:.3f} cases/s "
+              f"(first drive); rows == the unsharded rows bitwise; host_fetches == the "
+              f"unsharded {fetches}; launches {({k: launches[k] for k in MESH_KERNELS})}; bytes "
+              f"each slot received {mesh.received.ravel().tolist()}")
+    # every submit of the stream under CUDA sync debugging, windows driven as
+    # the stream drives them
+    sex = exts["stream"].executor
+    windows = [cohort_cases[s0:s0 + STREAM_WINDOW] for s0 in range(0, n, STREAM_WINDOW)]
+    pending, loop_rows = None, []
+    for chunk in windows + [None]:
+        state = None
+        if chunk is not None:
+            f0 = dict(sex.transfer_log)
+            with sex.strict_syncs():
+                state = sex.submit_window(chunk)
+            check(dict(sex.transfer_log) == f0, f"{label}: a static/hint submit fetched")
+        if pending is not None:
+            loop_rows += sex.collect_window(pending)[0]
+        pending = state
+    check(np.array_equal(np.stack(loop_rows), frows), f"{label}: the strict-sync loop's rows")
+    print(f"[mesh] {label}: every static/hint submit_window under CUDA sync debugging "
+          "('error'): no host sync, no fetch; rows bitwise")
+    # cases/s: each drive against its unsharded twin, in turns
+    rates = {}
+    for which in exts:
+        turns = {"mesh": [], "plain": []}
+        for side in ("mesh", "plain", "plain", "mesh"):
+            ext = exts[which] if side == "mesh" else plain[which]
+            turns[side].append(n / mesh_drive(ext, which, cohort_cases)[1])
+        rates[which] = turns
+    print(f"[mesh] {label} cases/s over the {n} cases, turns mesh, unsharded, unsharded, mesh: "
+          + "; ".join(f"{w} mesh {[round(r, 3) for r in t['mesh']]} unsharded "
+                      f"{[round(r, 3) for r in t['plain']]} (mesh / unsharded "
+                      f"{ratio(sum(t['mesh']), sum(t['plain']))}x)" for w, t in rates.items()))
+    # a traced mesh run: the busy share of each stream
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exts["run"].run(cohort_cases)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = stream_busy(prof)
+    check(busy, f"{label}: the traced run holds no device events")
+    check(len(busy) >= slots + 1, f"{label}: the trace shows {len(busy)} streams, not "
+                                  "a stream a slot and the first device's")
+    print(f"[mesh] {label} traced run: wall {wall_us / 1e3:.3f} ms; busy share by (device, "
+          "stream) (the one with the pinned host-to-device copies is the first device's "
+          "stream, the others the slots' and, on other cards, their links'): "
+          + "; ".join(f"{k} {v['busy_us'] / 1e3:.3f} ms = {v['busy_us'] / wall_us:.4f} "
+                      f"({v['items']} items, {v['htod']} HtoD)"
+                      for k, v in sorted(busy.items())))
+    slot_overlap(mesh, label)
+
+
+def spin_seconds(mesh):
+    """Wall seconds of one data_parallel_map over ``mesh`` whose every shard
+    spins MESH_SPIN_CYCLES on its slot's stream (its first call untimed)."""
+    x = torch.arange(mesh.shape["data"] * 1024, dtype=torch.float32, device=mesh.home)
+
+    def fn(x):
+        torch.cuda._sleep(MESH_SPIN_CYCLES)
+        return x * 2
+
+    f = data_parallel_map(fn, mesh)
+    check(torch.equal(f(x), x * 2), "the spinning map's output")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f(x)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def slot_overlap(mesh, label):
+    """The slots' work overlaps: N spinning shards take well under the N
+    spins they would one after another."""
+    n = mesh.shape["data"]
+    one = spin_seconds(Mesh([mesh.home]))
+    wall = spin_seconds(mesh)
+    check(wall < 0.5 * (n + 1) * one, f"{label}: {n} spinning slots took {wall * 1e3:.3f} ms, "
+                                      f"one slot {one * 1e3:.3f} ms: the slots do not overlap")
+    print(f"[mesh] {label}: {n} slots each spinning {MESH_SPIN_CYCLES} cycles: wall "
+          f"{wall * 1e3:.3f} ms, one slot {one * 1e3:.3f} ms ({wall / one:.3f} spins; "
+          f"{n} one after another)")
+
+
+def data_parallel_phase(cohort_cases, frows, fstats, fam_launches):
+    """Phase 12: the three drives unsharded (the census each mesh drive is
+    held to), then over each of :func:`mesh_meshes`, then the tiled smoke."""
+    t_mesh = time.perf_counter()
+    sweeps_mesh = autotune.SWEEPS
+    plain = mesh_extractors(None)
+    want_fetches = {}
+    for which, ext in plain.items():
+        f0 = dict(ext.executor.transfer_log)
+        unsharded_rows, _, _ = mesh_drive(ext, which, cohort_cases)
+        check(np.array_equal(unsharded_rows, frows), f"unsharded {which}: rows != phase 7's")
+        want_fetches[which] = fetch_delta(ext.executor.transfer_log, f0)
+    check(want_fetches["run"] == fstats["host_fetches"],
+          "the unsharded run's census != phase 7's")
+    meshes = mesh_meshes()
+    mesh_phase(meshes[0], f"{MESH_SLOTS} slots of {torch.cuda.get_device_name(0)}",
+               cohort_cases, frows, plain, want_fetches, fam_launches)
+    if len(meshes) > 1:
+        mesh_phase(meshes[1], f"every card ({torch.cuda.device_count()})", cohort_cases, frows,
+                   plain, want_fetches, fam_launches)
+    else:
+        print(f"[mesh] this machine has {torch.cuda.device_count()} card: the every-card "
+              "mesh (make_host_mesh()) needs two or more, so that check is not run here")
+    check_no_sweep(sweeps_mesh, "mesh")
+    tiled_smoke_phase()
+    print(f"[mesh] phase 12 took {time.perf_counter() - t_mesh:.3f} s")
+
+
+def tiled_smoke_phase():
+    """Phase 12's last step: ``python -m repro_torch.launch.tiled_smoke``
+    exits 0 (its autotune cache a file of its own)."""
+    root = Path(__file__).resolve().parent
+    fd, cache = tempfile.mkstemp(prefix="repro_tiled_smoke_", suffix=".json")
+    os.close(fd)
+    os.unlink(cache)
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.tiled_smoke"], cwd=root,
+                           env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                                    REPRO_AUTOTUNE_CACHE=cache),
+                           capture_output=True, text=True, timeout=600)
+    finally:
+        if os.path.exists(cache):
+            os.unlink(cache)
+    for line in (r.stdout + r.stderr).strip().splitlines():
+        print(f"[mesh] {line}")
+    check(r.returncode == 0, f"python -m repro_torch.launch.tiled_smoke exited {r.returncode}")
+    print(f"[mesh] python -m repro_torch.launch.tiled_smoke: exit 0 in "
+          f"{time.perf_counter() - t0:.3f} s")
 
 
 def stream_extractor(families):
@@ -2954,6 +3213,9 @@ def main():
     serve_phase()
     cli_phase()
 
+    # -- 12. data parallelism over a mesh (before 9, as 10) --------------------
+    data_parallel_phase(cohort_cases, frows, fstats, fam_launches)
+
     # -- 9. the variant axis and the autotuner --------------------------------
     variants = ("seqacc",) + tuple(v for v in dm.VARIANTS if v != "seqacc")
 
@@ -3160,7 +3422,7 @@ def main():
     shutil.rmtree(resil_dir)
     os.unlink(cache_file)
 
-    # -- 12. kernels line ---------------------------------------------------
+    # -- 13. kernels line ---------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -3206,7 +3468,7 @@ def main():
         for v in variants if v != "seqacc"
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 13. status -----------------------------------------------------------
+    # -- 14. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -57,6 +57,30 @@ def to_device(x, device: torch.device, dtype: torch.dtype | None = None) -> torc
     return x.contiguous().pin_memory().to(device, non_blocking=True)
 
 
+def stream_shared(value, device):
+    """``(value, ready)`` for a cache of device tensors that every stream
+    reads: ``value`` holds tensors whose copies were just queued on the
+    current stream of ``device``, ``ready`` the CUDA event behind them (None
+    off the card).  A copy queued on one stream is not ordered before
+    another stream's reads, so every reader goes through
+    :func:`await_shared` (the data-parallel slots of ``parallel/sharding``
+    launch on streams of their own)."""
+    if torch.device(device).type != "cuda":
+        return value, None
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(device))
+    return value, ready
+
+
+def await_shared(shared, device):
+    """The value of a :func:`stream_shared` pair, once the current stream of
+    ``device`` has been made to wait for its copies (no host sync)."""
+    value, ready = shared
+    if ready is not None:
+        torch.cuda.current_stream(device).wait_event(ready)
+    return value
+
+
 def diameter_config(device, bucket: int, variant: str = "auto", block: int | None = None,
                     batch: int = 1, static: bool = False):
     """``(variant, block)`` of the diameter kernel for a vertex bucket.

@@ -61,7 +61,8 @@ intensity-only request runs no vertex stage and no shape pass.  Rows are
 
 Every launch of passes 2a and 2b and of the families is queued before
 any result is drained, and each chunk is drained with one fetch.
-``batch_size`` cuts a group into chunks of at most that many cases.  PyTorch runs eagerly, so there
+``batch_size`` cuts a group into chunks of at most that many cases
+(rounded up to a multiple of a mesh's data axis).  PyTorch runs eagerly, so there
 is no compile cache and a short last chunk is launched as it is.
 
 Every device-to-host copy of the executor goes through :meth:`_fetch`,
@@ -125,8 +126,25 @@ once: a CUDA error poisons the context, so a re-submit would fail too.
 Every retry re-stages the window's results, so a re-submitted window
 collects like a first submit under every schedule and prep.
 
-Not ported yet, and refused with ``ValueError``: ``mesh`` (ROADMAP.md
-Queue 1 item 9).
+Data parallelism (``mesh=``, a ``parallel/sharding.Mesh``, and
+``data_axis``, default ``'data'``): every batched device pass shards over
+the mesh's data axis, as the reference's ``_dp_map`` does -- pass 1's
+bound and compaction (both schedules), pass 2a, pass 2b and its collect
+re-sweeps, the one-pass launch, and the intensity families with their
+masked range.  Each launch's stacks are padded to a multiple of the axis
+size with copies of row 0, split into one contiguous shard a slot, run on
+the slot's device and stream, and gathered on the mesh's first device,
+which is the executor's device (:meth:`PlanExecutor._sharded`); the
+padding rows are cut off before anything reads them.  A shard is a batch
+of its own, and a case's row does not depend on its batch, so a mesh run's
+rows equal the unsharded run's bitwise; it makes the same host fetches
+and no other host sync.  Pass 0 stages every case on the first device and
+shards are sliced off its stacks.  Each launch resolves its kernel
+configuration at the depth one slot launches (the shard depth).  The host
+compaction of ``device_compact=False`` and the single-case stages of
+``extract_one`` and the hint retry's prune stay unsharded.  Without a
+``mesh``, the executor adopts the ambient ``sharding.use_mesh`` mesh when
+it has the data axis.
 """
 from __future__ import annotations
 
@@ -152,6 +170,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import masked_range as _range
 from repro_torch.kernels import prune as prune_kernels
 from repro_torch.kernels import ref as _ref
+from repro_torch.parallel import sharding
 
 
 @contextlib.contextmanager
@@ -184,10 +203,6 @@ _END = object()  # the end of an auto stream's cases
 # errors of the card, not of a case: never quarantined
 DEVICE_ERRORS = (getattr(torch, "AcceleratorError", torch.cuda.OutOfMemoryError),
                  torch.cuda.OutOfMemoryError)
-
-
-def _unported(what: str, item: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP.md, Queue 1 item {item})")
 
 
 def check_window(window) -> None:
@@ -280,18 +295,36 @@ class PlanExecutor:
     bin count.  ``schedule`` is ``'counted'``, ``'static'`` or ``'auto'``
     (the cost model's choice per window); ``cost_model`` replaces the
     lazily built ``runtime/costmodel.CostModel`` of the auto knobs.
+    ``mesh`` (a ``parallel/sharding.Mesh``; default the ambient
+    ``use_mesh`` mesh when it has ``data_axis``) shards every batched pass
+    over its ``data_axis``; the executor's device is then the mesh's first
+    device (``device=None`` takes it, another device raises).
     """
 
     N_FEATURES = planlib.row_width(planlib.DEFAULT_FAMILIES)
     # [vol, area, d3, dxy, dxz, dyz, n_vertices]
     SCHEDULES = (*planlib.SCHEDULES, "auto")
 
-    def __init__(self, device=None, variant="auto", mesh=None, prune: bool = True,
-                 mc_block="auto", mc_chunk: int | None = None, k_dirs: int = 16,
-                 device_compact: bool = True, compact_block="auto",
+    def __init__(self, device=None, variant="auto", mesh=None, data_axis: str = "data",
+                 prune: bool = True, mc_block="auto", mc_chunk: int | None = None,
+                 k_dirs: int = 16, device_compact: bool = True, compact_block="auto",
                  schedule: str = "counted", prep: str = "count", cost_model=None,
                  transfer_callback=None, retry=None, families=None, n_bins: int = 32):
-        self.device = resolve_device(device)
+        if mesh is None:
+            # adopt the ambient mesh only where it can shard the batch
+            ambient = sharding.active_mesh()
+            if ambient is not None and data_axis in ambient.shape:
+                mesh = ambient
+        elif not isinstance(mesh, sharding.Mesh):
+            raise TypeError(f"mesh must be a repro_torch.parallel.sharding.Mesh, got {mesh!r}")
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.n_data = sharding.axis_size(mesh, data_axis)
+        sharded = mesh is not None and data_axis in mesh.shape
+        self.device = resolve_device(mesh.home if device is None and sharded else device)
+        if sharded and sharding.slot_device(self.device) != mesh.home:
+            raise ValueError(f"a mesh's batches gather on its first device {mesh.home}, which "
+                             f"is the executor's device; got device={device!r}")
         if schedule not in self.SCHEDULES:
             raise ValueError(f"schedule must be one of {self.SCHEDULES}, got {schedule!r}")
         if schedule in ("static", "auto") and not (prune and device_compact):
@@ -305,8 +338,6 @@ class PlanExecutor:
         self.families = planlib.resolve_families(families)
         if variant != "auto":
             _diam.check_variant(variant)
-        if mesh is not None:
-            raise _unported("mesh", "9")
         self.n_features = planlib.row_width(self.families)
         self.n_bins = int(n_bins)
         _ref.check_bins(self.n_bins)
@@ -442,10 +473,32 @@ class PlanExecutor:
                     else dispatcher.glcm_config)
         return resolver(self.device, shape, "auto", batch=depth)
 
+    def _shard_depth(self, n: int) -> int:
+        """Rows one slot's launch takes from a chunk of ``n`` cases: the
+        batch depth its kernel configuration resolves at."""
+        return -(-n // self.n_data)
+
+    def _sharded(self, fn, *arrays):
+        """``fn`` over the leading (case) axis of ``arrays``, sharded over the
+        mesh's data axis (``sharding.data_parallel_map``): padded to a
+        multiple of the axis size with copies of row 0, split into one
+        contiguous shard a slot, launched on the slots whose shards hold a
+        real row, gathered on the executor's device, and the padding rows
+        cut off.  Without a mesh, the plain call."""
+        if self.mesh is None:
+            return fn(*arrays)
+        n = len(arrays[0])
+        out = sharding.data_parallel_map(fn, self.mesh, self.data_axis)(
+            *sharding.pad_batch(arrays, n, self.mesh, self.data_axis), rows=n)
+        return tuple(o[:n] for o in out) if isinstance(out, tuple) else out[:n]
+
     def _mc_launch(self, shape, masks, spacings):
         """Pass 2a: batched MC over one chunk of a shape bucket's pool."""
-        return ops.mc_volume_area_batch(masks, 0.5, spacings, device=self.device,
-                                        block=self.mc_block, chunk_z=self.mc_chunk)
+        def batch(masks, spacings):
+            return ops.mc_volume_area_batch(masks, 0.5, spacings, device=masks.device,
+                                            block=self.mc_block, chunk_z=self.mc_chunk)
+
+        return self._sharded(batch, masks, spacings)
 
     def _diam_launch(self, key, verts, vmasks):
         """Pass 2b: batched diameter sweep over one chunk of a vertex bucket.
@@ -455,20 +508,35 @@ class PlanExecutor:
         its own (``autotune.static_key``)."""
         static = isinstance(key, tuple)
         cap = key[1] if static else key
-        variant, block = self._resolve_diameter(cap, len(verts), static=static)
-        return ops.max_diameters_batch(verts, vmasks, device=self.device, block=block,
-                                       variant=variant)
+        variant, block = self._resolve_diameter(cap, self._shard_depth(len(verts)),
+                                                static=static)
+
+        def batch(verts, vmasks):
+            return ops.max_diameters_batch(verts, vmasks, device=verts.device, block=block,
+                                           variant=variant)
+
+        return self._sharded(batch, verts, vmasks)
+
+    def _family_fn(self, family: str, shape, depth: int):
+        """One intensity family's batched op over ``depth`` volumes of the
+        padded ``shape``, at its resolved block: ``(images, masks, lo, hi)``
+        to packed stats rows (first-order) or count matrices (GLCM), left on
+        the device."""
+        op = ops.firstorder_packed_batch if family == "firstorder" else ops.glcm_matrix_batch
+        block = self._resolve_family_block(family, shape, depth)
+
+        def batch(images, masks, lo, hi):
+            return op(images, masks, device=images.device, n_bins=self.n_bins, block=block,
+                      value_range=(lo, hi))
+
+        return batch
 
     def _family_launch(self, family: str):
         """The launch of one intensity family over one chunk of a shape
-        bucket's intensity pool: packed stats rows (first-order) or count
-        matrices (GLCM), left on the device."""
-        op = ops.firstorder_packed_batch if family == "firstorder" else ops.glcm_matrix_batch
-
+        bucket's intensity pool (:meth:`_family_fn`, sharded)."""
         def launch(shape, images, masks, lo, hi):
-            block = self._resolve_family_block(family, shape, len(images))
-            return op(images, masks, device=self.device, n_bins=self.n_bins, block=block,
-                      value_range=(lo, hi))
+            fn = self._family_fn(family, shape, self._shard_depth(len(images)))
+            return self._sharded(fn, images, masks, lo, hi)
 
         return launch
 
@@ -479,17 +547,22 @@ class PlanExecutor:
         compaction into the bucket's hint-sized cap, then one batched
         sweep over the unpruned lists; the count rides along on the device.
         """
-        mc = ops.mc_volume_area_batch(masks, 0.5, spacings, device=self.device,
-                                      block=self.mc_block, chunk_z=self.mc_chunk)
-        verts, vmasks, counts = zip(*(
-            ops.compact_vertices(ops.vertex_fields(m, 0.5, sp), bucket.vertex_cap)
-            for m, sp in zip(masks, spacings)
-        ))
-        variant, block = self._resolve_diameter(bucket.vertex_cap, len(verts))
-        d = ops.max_diameters_batch(torch.stack(verts), torch.stack(vmasks),
-                                    device=self.device, block=block, variant=variant)
-        n = torch.stack(counts).to(torch.float32)[:, None]
-        return torch.cat([mc, d, n], dim=1)
+        variant, block = self._resolve_diameter(bucket.vertex_cap,
+                                                self._shard_depth(len(masks)))
+
+        def batch(masks, spacings):
+            mc = ops.mc_volume_area_batch(masks, 0.5, spacings, device=masks.device,
+                                          block=self.mc_block, chunk_z=self.mc_chunk)
+            verts, vmasks, counts = zip(*(
+                ops.compact_vertices(ops.vertex_fields(m, 0.5, sp), bucket.vertex_cap)
+                for m, sp in zip(masks, spacings)
+            ))
+            d = ops.max_diameters_batch(torch.stack(verts), torch.stack(vmasks),
+                                        device=masks.device, block=block, variant=variant)
+            n = torch.stack(counts).to(torch.float32)[:, None]
+            return torch.cat([mc, d, n], dim=1)
+
+        return self._sharded(batch, masks, spacings)
 
     # -- submit/drain loops ------------------------------------------------
 
@@ -504,7 +577,9 @@ class PlanExecutor:
         """
         futs = []
         for gkey, idxs, payload in entries:
-            bs = batch_size or len(idxs)
+            # a multiple of the data axis, as the reference's chunks; the
+            # launch pads a short last chunk (:meth:`_sharded`)
+            bs = -(-(batch_size or len(idxs)) // self.n_data) * self.n_data
             for s in range(0, len(idxs), bs):
                 chunk = idxs[s : s + bs]
                 futs.append((chunk, launch(gkey, *make_chunk(payload, s, chunk))))
@@ -540,12 +615,12 @@ class PlanExecutor:
             np.stack([prepped[i].spacing for i in idxs]),
         )
 
-    @staticmethod
-    def _ipool(images, masks):
+    def _ipool(self, images, masks):
         """Intensity pool of one shape group: ``(images, masks, lo, hi)``,
         the stacks and each case's masked range (``csrc/masked_range.cu``
-        on the card), taken once and shared by every intensity family."""
-        lo, hi = _range.masked_range_batch(images, masks)
+        on the card, sharded), taken once and shared by every intensity
+        family."""
+        lo, hi = self._sharded(_range.masked_range_batch, images, masks)
         return images, masks, lo, hi
 
     def _submit_families(self, plan, prepped, pools, batch_size=None) -> dict:
@@ -704,9 +779,9 @@ class PlanExecutor:
         for cap, idxs in plan.cap_groups.items():
             verts = torch.stack([prepped[i].verts for i in idxs])
             masks = torch.stack([prepped[i].vmask for i in idxs])
-            keep, _ = prune_kernels.keep_mask_batch(verts, masks, self.k_dirs)
+            keep, counts = self._sharded(self._bound, verts, masks)
             # the one host sync of pass 1: a small (B, 2) matrix
-            counts = self._fetch("pass1", torch.stack([masks.sum(1), keep.sum(1)], dim=1))
+            counts = self._fetch("pass1", counts)
             plans = [
                 prune_kernels.plan_compaction(cap, int(mv), int(mk), planlib.vertex_bucket)
                 for mv, mk in counts
@@ -728,11 +803,20 @@ class PlanExecutor:
                 if isinstance(gkey, tuple):  # unpruned: originals, input cap
                     entries.append((cap, gidxs, sub[:2]))
                     continue
-                cv, cm, _ = ops.compact_survivors_batch(
-                    sub[0], sub[2], gkey, device=self.device,
-                    block=self._resolve_compact(cap, len(gidxs)))
-                entries.append((gkey, gidxs, (cv, cm)))
+                block = self._resolve_compact(cap, self._shard_depth(len(gidxs)))
+
+                def compact(verts, keep, cap_out=gkey, block=block):
+                    return ops.compact_survivors_batch(verts, keep, cap_out, device=verts.device,
+                                                       block=block)[:2]
+
+                entries.append((gkey, gidxs, self._sharded(compact, sub[0], sub[2])))
         return entries
+
+    def _bound(self, verts, masks):
+        """Pass 1's pruning bound over a stack: ``(keep, (B, 2) [m_valid,
+        m_kept] counts)``, both on the stack's device."""
+        keep, _ = prune_kernels.keep_mask_batch(verts, masks, self.k_dirs)
+        return keep, torch.stack([masks.sum(1), keep.sum(1)], dim=1)
 
     def _pass1_static(self, plan, prepped):
         """Pass 1 (static schedule): no host fetch.
@@ -757,11 +841,15 @@ class PlanExecutor:
                     prepped[i].vertex_cap = cap
                 entries.append((cap, idxs, (verts, masks)))
                 continue
-            keep, _ = prune_kernels.keep_mask_batch(verts, masks, self.k_dirs)
-            counts = torch.stack([masks.sum(1), keep.sum(1)], dim=1)
-            cv, cm, _ = ops.compact_survivors_batch(
-                verts, keep, target, device=self.device,
-                block=self._resolve_compact(cap, len(idxs)))
+            block = self._resolve_compact(cap, self._shard_depth(len(idxs)))
+
+            def chain(verts, masks, target=target, block=block):
+                keep, counts = self._bound(verts, masks)
+                cv, cm, _ = ops.compact_survivors_batch(verts, keep, target, device=verts.device,
+                                                        block=block)
+                return cv, cm, counts
+
+            cv, cm, counts = self._sharded(chain, verts, masks)
             entries.append((("static", target), idxs, (cv, cm)))
             aux.append((cap, idxs, counts, verts, masks))
         return entries, aux
@@ -802,11 +890,13 @@ class PlanExecutor:
         Fetches each case's true count (``collect_counts``, a feature of
         the row).  A case whose count exceeds its hint cap lost vertices in
         pass 0: it re-runs count-sized through the single-case stages
-        (vertex fields, compaction, ``ops.prune_candidates``,
-        ``ops.max_diameters``), drained under ``hint_retry``, which gives
-        ``extract_one``'s diameters; its host compaction pulls the list
-        uncounted, as the reference's does.  Runs after the static
-        collect, so a retried row wins over both.  The counts are the
+        (vertex fields, compaction, ``ops.prune_candidates``) and sweeps as
+        a batch of one through pass 2b's (sharded) launch, which runs it
+        on the first slot alone, drained under ``hint_retry``; a batch of
+        one is the single-case kernel, so this gives ``extract_one``'s
+        diameters.  Its host compaction pulls the list uncounted, as the
+        reference's does.  Runs after the static collect, so a retried row
+        wins over both.  The counts are the
         window's staged copies; the case keeps its device count and its
         hint-sized list (unlike the reference, which swaps in the retried
         list), so :meth:`resubmit_window` re-plans it as its first submit.
@@ -820,9 +910,10 @@ class PlanExecutor:
             verts, vmask = _compact_at(ops.vertex_fields(p.mask, 0.5, p.spacing),
                                        planlib.vertex_bucket(n))
             v2, m2, p.prune_info = ops.prune_candidates(verts, vmask, k_dirs=self.k_dirs)
-            variant, block = self._resolve_diameter(len(v2))
-            d_out[i] = self._fetch("hint_retry", ops.max_diameters(
-                v2, m2, device=self.device, block=block, variant=variant))
+            # a batch of one through pass 2b's launch (the first slot): the single-case bits
+            d = self._diam_launch(len(v2), to_device(v2[None], self.device),
+                                  to_device(m2[None], self.device))
+            d_out[i] = self._fetch("hint_retry", d)[0]
             p.vertex_cap = len(v2)
 
     # -- window API ----------------------------------------------------------
@@ -1049,7 +1140,7 @@ class PlanExecutor:
             cases=window.plan.n_cases,
             seconds=dt,
             cases_per_second=window.plan.n_cases / dt if dt > 0 else float("inf"),
-            data_parallel=1,
+            data_parallel=self.n_data,
             two_pass=self.prune,
             device_compact=self.prune and self.device_compact,
             schedule=self.schedule,  # 'auto' here; stats['plan']['schedule'] is resolved
@@ -1147,9 +1238,11 @@ class PlanExecutor:
                                   variant=variant)
             out = self._fetch("extract_one", torch.cat([torch.stack([vol, area]), d]))
             shape_row = self._shape_row(out[:2], out[2:], p.n_vertices)
-        fam_out = {
-            family: self._fetch(family, self._family_launch(family)(
-                p.shape, *self._ipool(p.image[None], p.mask[None])))
-            for family in self.families if family != "shape"
-        }
+        fam_out = {}
+        if self._needs_intensity:
+            image, mask = p.image[None], p.mask[None]
+            lo, hi = _range.masked_range_batch(image, mask)
+            fam_out = {family: self._fetch(family, self._family_fn(family, p.shape, 1)(
+                           image, mask, lo, hi))
+                       for family in self.families if family != "shape"}
         return self._assemble_row(0, shape_row, fam_out)

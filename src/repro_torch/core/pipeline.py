@@ -70,7 +70,16 @@ driver thread fuses concurrent clients' cases into shared windows, with
 admission by queued bytes, per-request deadlines and quarantine; served
 rows equal ``extract_stream``'s bitwise.
 
-Not ported yet: the options the executor refuses (see ``core/executor``).
+Data parallelism::
+
+    from repro_torch.launch.mesh import make_host_mesh
+    ext = BatchedExtractor(mesh=make_host_mesh())   # every visible card
+    rows, stats = ext.run(cases)                    # stats["data_parallel"] cards
+
+``mesh=`` (a ``parallel/sharding.Mesh``, or the ambient ``use_mesh`` mesh
+when it has ``data_axis``) shards every batched pass over the mesh's data
+axis and gathers on its first device, the extractor's device; the rows
+equal the unsharded run's bitwise.  Tiled cases run on that first device.
 """
 from __future__ import annotations
 
@@ -85,7 +94,7 @@ from repro_torch.data.tiles import TiledCase
 
 
 class BatchedExtractor:
-    """Batched multi-case feature extraction on one card.
+    """Batched multi-case feature extraction on one card or a mesh of them.
 
     The facade over ``plan.build_plan`` + ``executor.PlanExecutor``.
     ``device`` defaults to ``'cuda'`` and raises ``RuntimeError`` without a
@@ -103,21 +112,22 @@ class BatchedExtractor:
     case in pass 0) or ``'hint'`` (caps from metadata, counts fetched at
     collect); both sync-free options need ``prune`` and
     ``device_compact``.  ``schedule='auto'`` lets the cost model pick per
-    window (``cost_model``).  The options of the reference not ported yet
-    raise ``ValueError`` naming their ROADMAP item.
+    window (``cost_model``).  ``mesh`` and ``data_axis`` shard the batched
+    passes over a mesh of devices (see ``core/executor``); ``.mesh`` is the
+    executor's mesh, the ambient one where it was adopted.
     """
 
     N_FEATURES = PlanExecutor.N_FEATURES
 
-    def __init__(self, device=None, variant="auto", mesh=None, prune: bool = True,
-                 mc_block="auto", mc_chunk: int | None = None, k_dirs: int = 16,
-                 device_compact: bool = True, compact_block="auto",
+    def __init__(self, device=None, variant="auto", mesh=None, data_axis: str = "data",
+                 prune: bool = True, mc_block="auto", mc_chunk: int | None = None,
+                 k_dirs: int = 16, device_compact: bool = True, compact_block="auto",
                  schedule: str = "counted", prep: str = "count", transfer_callback=None,
                  retry=None, families=None, n_bins: int = 32, tiled: bool = False,
                  tile_prune: str = "bounds", tile_mem_mb: float | None = None):
         self.executor = ex = PlanExecutor(
-            device=device, variant=variant, mesh=mesh, prune=prune, mc_block=mc_block,
-            mc_chunk=mc_chunk, k_dirs=k_dirs, device_compact=device_compact,
+            device=device, variant=variant, mesh=mesh, data_axis=data_axis, prune=prune,
+            mc_block=mc_block, mc_chunk=mc_chunk, k_dirs=k_dirs, device_compact=device_compact,
             compact_block=compact_block, schedule=schedule, prep=prep,
             transfer_callback=transfer_callback, retry=retry, families=families,
             n_bins=n_bins,
@@ -127,6 +137,8 @@ class BatchedExtractor:
         self._tile_budget = None if tile_mem_mb is None else int(tile_mem_mb * 2**20)
         self._tiledx = None  # built on the first tiled case (family-validated)
         self.device = ex.device
+        self.mesh = ex.mesh
+        self.data_axis = ex.data_axis
         self.families = ex.families
         self.n_features = ex.n_features
         self.n_bins = ex.n_bins

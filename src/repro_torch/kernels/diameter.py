@@ -52,7 +52,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.dispatcher import to_device
+from repro_torch.core.dispatcher import await_shared, stream_shared, to_device
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
@@ -75,7 +75,7 @@ LAUNCHES = dict.fromkeys(VARIANTS, 0)
 _FULL_GRID = ("naive", "fused", "tri")  # csrc diameter_partial_launch
 _SWEEP_KIND = {"seqacc": 0, "nomask": 1}  # diameter_sweep_launch
 _ALL_COMBOS = 0xF
-_SCHEDULES: dict = {}  # (nb, device) -> (2, T) int32 tile schedule on the card
+_SCHEDULES: dict = {}  # (nb, device) -> (2, T) int32 tile schedule on the card, its event
 _RESIDENT: dict = {}  # (block, kind, device) -> sweep blocks the card holds at once
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -109,12 +109,14 @@ def _tiles(variant: str, nb: int) -> int:
 
 def _schedule(nb: int, device: torch.device) -> torch.Tensor:
     """The (2, T) colex upper-triangle schedule on ``device``, built once
-    per ``nb`` and device (pinned, ``non_blocking``: no host sync)."""
+    per ``nb`` and device (pinned, ``non_blocking``: no host sync) and
+    ready for the current stream, whichever stream built it."""
     key = (nb, device)
-    ij = _SCHEDULES.get(key)
-    if ij is None:
-        ij = _SCHEDULES[key] = to_device(_ref.tile_schedule(nb), device)
-    return ij
+    shared = _SCHEDULES.get(key)
+    if shared is None:
+        shared = _SCHEDULES[key] = stream_shared(to_device(_ref.tile_schedule(nb), device),
+                                                 device)
+    return await_shared(shared, device)
 
 
 def sweep_rows(block: int) -> int:

@@ -39,7 +39,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.dispatcher import to_device
+from repro_torch.core.dispatcher import await_shared, stream_shared, to_device
 
 COMBOS = ((0, 1, 2), (0, 1), (0, 2), (1, 2))  # 3D, xy, xz, yz
 
@@ -90,11 +90,15 @@ def _directions(combo: tuple, k: int) -> np.ndarray:
     return d.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
 def _constants(device: torch.device, k_dirs: int):
-    """The bound's constant tensors on ``device``, made once: the (8, 3)
-    corner signs and, per combo, its (3,) axis selector and (K', 3)
-    directions."""
+    """The bound's constant tensors on ``device``: the (8, 3) corner signs
+    and, per combo, its (3,) axis selector and (K', 3) directions; made
+    once and ready for the current stream, whichever stream made them."""
+    return await_shared(_constant_tensors(device, k_dirs), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _constant_tensors(device: torch.device, k_dirs: int):
     signs = to_device(np.asarray(_CORNER_SIGNS, np.float32), device)
     per_combo = []
     for combo in COMBOS:
@@ -102,7 +106,8 @@ def _constants(device: torch.device, k_dirs: int):
         axes[list(combo)] = 1.0
         per_combo.append((to_device(axes, device),
                           to_device(_directions(combo, k_dirs), device)))
-    return signs, tuple(per_combo)
+    # one event behind the last copy covers them all: one stream, in order
+    return stream_shared((signs, tuple(per_combo)), device)
 
 
 def candidate_keep_mask(verts, mask, k_dirs: int = 16):

@@ -1,18 +1,21 @@
-"""Fault tolerance of a long extraction run: stragglers and preemption.
+"""Fault tolerance of a long extraction run: stragglers, preemption and
+the surviving mesh.
 
-The port's own copy of the two pieces of ``repro.runtime.fault_tolerance``
-that the resilience layer (``runtime/resilience``) drives, without its
-JAX imports:
+The port's own copy of the pieces of ``repro.runtime.fault_tolerance``
+that the resilience layer (``runtime/resilience``) and a multi-card run
+need, without its JAX imports:
 
   * :class:`StragglerDetector` keeps the median of recent window (or
     step) wall-times and flags one slower than ``threshold x`` that
     median;
   * :class:`PreemptionHandler` turns a ``SIGTERM`` (a cluster's
-    preemption notice) into a flag the runner reads at each case.
+    preemption notice) into a flag the runner reads at each case;
 
-The reference's ``surviving_mesh`` and ``elastic_remesh`` belong to the
-multi-card mesh and to checkpoint-restart, which the port does not have
-yet (``ROADMAP.md``, Queue 1 items 9 and 10).
+and :func:`surviving_mesh`, the largest well-formed ``(data, model)``
+mesh (``parallel/sharding.Mesh``) of the cards that survive.  The
+reference's ``elastic_remesh`` restores a checkpoint of model parameters
+on such a mesh and belongs to the LLM scaffold, which the port does not
+have yet (``ROADMAP.md``, Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -112,3 +115,23 @@ class PreemptionHandler:
     def reset(self):
         """Clear a consumed preemption notice (e.g. between runner calls)."""
         self.requested = False
+
+
+def surviving_mesh(axis_names=("data", "model"), model_parallel: int = 1, devices=None):
+    """The largest well-formed mesh of the surviving devices.
+
+    Drops trailing devices so the data axis stays a whole number: ``n``
+    devices give a ``(n // model_parallel, model_parallel)`` mesh over the
+    first ``model_parallel * (n // model_parallel)`` of them.  At scale the
+    survivors come from a coordinator's health service; here ``devices``
+    defaults to every visible card (raising without one).
+    """
+    import torch
+
+    from repro_torch.core.dispatcher import resolve_device
+    from repro_torch.launch.mesh import grid_mesh
+
+    if devices is None:
+        resolve_device("cuda")  # raises without a card
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return grid_mesh(devices, model_parallel, axis_names)

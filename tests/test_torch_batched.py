@@ -11,7 +11,6 @@ versions are held against the reference's (compaction exactly, MC at the
 reference's own MC tolerance, ``tests/test_kernels_mc.py``).
 """
 import functools
-import re
 
 import numpy as np
 import pytest
@@ -25,6 +24,8 @@ from repro.kernels import prune as jax_prune  # noqa: E402
 from repro_torch.core.pipeline import BatchedExtractor  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import ops, prune, ref  # noqa: E402
+from repro_torch.parallel.sharding import Mesh  # noqa: E402
+from repro_torch.runtime.resilience import RetryPolicy  # noqa: E402
 
 from conftest import sphere_mask  # noqa: E402
 
@@ -150,15 +151,22 @@ def test_transfer_callback_sees_every_fetch():
     assert ext.executor.transfer_log == dict(stats["host_fetches"])
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"schedule": "auto", "retry": object(), "mesh": object()}, "item 9"),
-    ({"schedule": "auto", "prep": "hint", "mesh": object()}, "item 9"),
-    ({"schedule": "static", "mesh": object()}, "item 9"), ({"mesh": object()}, "item 9"),
-    ({"retry": object(), "mesh": object()}, "item 9"),
-])
-def test_unported_options_raise_naming_roadmap_item(kwargs, item):
-    with pytest.raises(ValueError, match=rf"ROADMAP.*{re.escape(item)}"):
-        BatchedExtractor(device="cpu", **kwargs)
+@pytest.mark.parametrize("kwargs", [
+    {"schedule": "auto", "retry": True}, {"schedule": "auto", "prep": "hint"},
+    {"schedule": "static"}, {}, {"retry": True},
+], ids=["auto-retry", "auto-hint", "static", "plain", "retry"])
+def test_mesh_runs_bitwise_as_unsharded(kwargs):
+    """``mesh=`` under each combination of options it was once refused
+    with: a 3-slot CPU mesh gives the unsharded run's rows, errors and
+    host-fetch census bitwise."""
+    kwargs = dict(kwargs)
+    if kwargs.pop("retry", False):
+        kwargs["retry"] = RetryPolicy(max_retries=1, base_delay=0.0)
+    want, wstats = BatchedExtractor(device="cpu", **kwargs).run(_cases())
+    rows, stats = BatchedExtractor(device="cpu", mesh=Mesh(["cpu"] * 3), **kwargs).run(_cases())
+    np.testing.assert_array_equal(np.stack(rows), np.stack(want))
+    assert stats["data_parallel"] == 3 and stats["errors"] == wstats["errors"]
+    assert stats["host_fetches"] == wstats["host_fetches"]
 
 
 @pytest.mark.parametrize("families,n_features", [(("shape", "glcm"), 11), ("firstorder", 9)])

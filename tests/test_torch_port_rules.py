@@ -36,7 +36,8 @@ def test_import_loads_no_jax_or_reference():
         "import repro_torch.runtime.autotune, repro_torch.runtime.costmodel\n"
         "import repro_torch.runtime.roofline, repro_torch.serve.service\n"
         "import repro_torch.launch.serve, repro_torch.runtime.resilience\n"
-        "import repro_torch.runtime.fault_tolerance\n"
+        "import repro_torch.runtime.fault_tolerance, repro_torch.parallel.sharding\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.tiled_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

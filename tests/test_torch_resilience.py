@@ -40,6 +40,7 @@ from repro_torch.core import executor as exmod  # noqa: E402
 from repro_torch.core import plan as planlib  # noqa: E402
 from repro_torch.core.pipeline import BatchedExtractor  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.parallel.sharding import Mesh  # noqa: E402
 from repro_torch.runtime import resilience as port_res  # noqa: E402
 from repro_torch.runtime.fault_tolerance import PreemptionHandler, StragglerDetector  # noqa: E402
 from repro_torch.runtime.resilience import (  # noqa: E402
@@ -322,9 +323,20 @@ def test_device_error_is_not_retried(monkeypatch, error):
     assert ex.window_retries == 0 and not slept and not resubmits
 
 
-def test_mesh_is_still_refused_with_its_item():
-    with pytest.raises(ValueError, match=r"ROADMAP.*item 9"):
-        _ext(retry=RetryPolicy(), mesh=object())
+def test_window_retry_over_a_mesh_is_bit_identical():
+    """A one-shot collect fault over a 3-slot mesh: the executor's retry
+    re-runs the window's sharded passes and gives the undisturbed
+    unsharded rows bitwise."""
+    cases = _retry_cases()
+    rows0, _ = _ext().run(cases)
+    fp = FaultPlan(seed=0, fail_windows=(0,))
+    fp.begin_window(0)  # arm the one-shot collect fault
+    ext = _ext(mesh=Mesh(["cpu"] * 3), transfer_callback=fp.transfer_hook,
+               retry=RetryPolicy(max_retries=2, base_delay=0.001))
+    rows, stats = ext.run(cases)
+    assert ext.executor.window_retries == 1 and stats["window_retries"] == 1
+    assert stats["data_parallel"] == 3
+    np.testing.assert_array_equal(_stack(rows), _stack(rows0))
 
 
 # -- re-submission under every schedule x prep ---------------------------------

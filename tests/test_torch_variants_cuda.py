@@ -262,10 +262,10 @@ def test_schedule_is_built_once_per_size(dev):
     v = torch.randn((1, 600, 3), device=dev)
     m = torch.ones((1, 600), dtype=torch.bool, device=dev)
     diameter.max_diameters_sq_batch(v, m, block=128, variant="tri_prefetch")
-    ij = diameter._SCHEDULES[(5, v.device)]
-    assert torch.equal(ij.cpu(), ref.tile_schedule(5))
+    ij, ready = diameter._SCHEDULES[(5, v.device)]  # the schedule and its copy's event
+    assert torch.equal(ij.cpu(), ref.tile_schedule(5)) and ready is not None
     diameter.max_diameters_sq_batch(v, m, block=128, variant="nomask")
-    assert diameter._SCHEDULES[(5, v.device)] is ij
+    assert diameter._SCHEDULES[(5, v.device)][0] is ij
 
 
 def test_variant_wrappers_refuse_bad_inputs(dev):
