@@ -16,8 +16,10 @@ out-of-core tiled path (``BatchedExtractor(tiled=True)``, ``TiledCase``),
 the diameter variant axis with its autotuner, the cost model's auto
 knobs with the multi-tenant service (``BatchedExtractor.serve``), and the
 resilience layer (``ResilientRunner``, a soak under injected faults and a
-preemption, a cluster job killed and resumed), and data parallelism over a
-mesh of slots (``BatchedExtractor(mesh=...)``) -- checks
+preemption, a cluster job killed and resumed), data parallelism over a
+mesh of slots (``BatchedExtractor(mesh=...)``), and the LLM scaffold's
+serving path (every architecture reduced, qwen3-1.7b served at full width
+and depth) -- checks
 the features against the port's CPU path or the in-core path, and prints the kernels
 line and a last JSON status line.  The autotune cache is a fresh
 temporary file, so no run reads another run's winners; an untimed pass
@@ -253,10 +255,30 @@ Phases:
      with two cards or more all of this again over make_host_mesh()
      (every card, its shards peer copies), else a line saying so;
      python -m repro_torch.launch.tiled_smoke in a subprocess exits 0
-  13. the kernels line (each variant at block 256, as phase 5b); 14. the status line
+  13. (printed as [models]) the LLM scaffold's serving path, which runs
+     none of the kernels, float32 checks with TF32 off: (a) every
+     architecture at reduced(capacity_factor=8.0), and arctic and
+     deepseek-moe at their own 1.25 in groups of 20 (padded), parameters
+     made on the CPU from a seed and copied to the card: forward logits and
+     aux == the CPU path at rtol/atol 1e-4; at capacity 8 teacher-forced
+     decode_step == the card's own forward at 2e-3, and 8 greedy
+     make_serve_step tokens after a 16-token prompt == the CPU path's (each
+     step's top-2 gap above 1e-4); (b) qwen3-1.7b at full width and two
+     layers, float32, 4 prompts of 32: forward == the CPU at rtol/atol 1e-4,
+     teacher-forced decode == forward at 2e-3; (c) qwen3-1.7b at full width
+     and depth, bf16, parameters drawn on the card: make_prefill_fn over 4
+     prompts of 256 (ms, median of 3 after a warm-up), the prompts by
+     decode into a max_len=512 cache, 64 greedy serve steps (ms a step,
+     tokens/s); finite logits, every token below vocab_size, the cache
+     position 320; the bf16 gap between the decode-filled last logits and
+     the prefill fn's (not gated), max_memory_allocated, the card's name and
+     power limit; (d) deepseek-moe-16b at full width and two layers, bf16,
+     one forward over 2 x 512 tokens: finite logits, ms, max_memory_allocated
+  14. the kernels line (each variant at block 256, as phase 5b); 15. the status line
 """
 import collections
 import ctypes
+import dataclasses
 import json
 import os
 import shutil
@@ -290,6 +312,9 @@ from repro_torch.kernels import glcm as gl  # noqa: E402
 from repro_torch.kernels import marching_cubes as mc  # noqa: E402
 from repro_torch.kernels import masked_range as mr  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.encdec import enc_len_for  # noqa: E402
+from repro_torch.models.registry import get_config, get_model, list_archs  # noqa: E402
 from repro_torch.parallel.sharding import Mesh, data_parallel_map  # noqa: E402
 from repro_torch.runtime import autotune, costmodel  # noqa: E402
 from repro_torch.runtime import roofline as rl  # noqa: E402
@@ -299,6 +324,7 @@ from repro_torch.runtime.resilience import (  # noqa: E402
     RetryPolicy,
     RunManifest,
 )
+from repro_torch.serve.serve_step import make_prefill_fn, make_serve_step  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM bandwidth
 # and float32 outside the tensor cores (the cost model's default profile).
@@ -324,6 +350,14 @@ STREAM_WINDOW = 20  # phase 7b's fixed window: the 60 cases in 3 windows
 MESH_SLOTS = 4  # phase 12's mesh: slots of the one card
 MESH_KERNELS = ("marching_cubes", "diameter", "compact", "firstorder", "glcm", "masked_range")
 MESH_SPIN_CYCLES = 100_000_000  # phase 12's overlap check: ~50 ms a shard
+# phase 13: the LLM scaffold's serving path
+LLM_MOE = ("arctic-480b", "deepseek-moe-16b")  # 13a also at their own capacity 1.25
+LLM_MOE_GROUP = 20  # 13a's groups at capacity 1.25: 2 x 24 tokens, the last padded
+LLM_SMALL = (2, 24, 16)  # 13a: batch, tokens, prompt (then 8 greedy steps)
+LLM_SERVED = "qwen3-1.7b"  # 13b at two layers, 13c at full depth
+LLM_WIDE = (4, 32)  # 13b: prompts x tokens
+LLM_SERVE = (4, 256, 64, 512)  # 13c: requests, prompt tokens, greedy steps, max_len
+LLM_MOE_WIDE = (2, 512)  # 13d: deepseek-moe-16b's batch x tokens
 # phase 10d's service traffic: clients x requests x cases a request
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCH, SERVE_HUGE_EVERY = 4, 6, 2, 16
 # phase 10c: the tuned static pass-2b sweeps against the same lists swept by
@@ -1955,6 +1989,268 @@ def resil_phase(out, stream, cohort, frows, sext, abandoned, cluster_rows, cache
     print(f"[resil] phase 11 took {time.perf_counter() - t_phase:.3f} s")
 
 
+# -- 13. the LLM scaffold's serving path -------------------------------------
+
+def llm_inputs(cfg, batch, seq, seed=0):
+    """Seeded tokens (batch, seq) and the frontend's stub input, if any:
+    0.1 + 0.01 N(0, 1), after the reference tests' constant 0.1."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+    n = enc_len_for(seq) if cfg.n_encoder_layers else cfg.frontend_tokens
+    if not n:
+        return tokens, ()
+    stub = (0.1 + 0.01 * rng.standard_normal((batch, n, cfg.d_model))).astype(np.float32)
+    return tokens, (torch.from_numpy(stub),)
+
+
+def llm_forward(model, cfg, tokens, extra, text_only=False):
+    """``forward`` on the model's device: (logits on the host, aux)."""
+    tokens = tokens.to(model.device)
+    extra = [e.to(model.device) for e in extra]
+    with torch.inference_mode():
+        if cfg.frontend_tokens:
+            out = model.forward(tokens) if text_only else model.forward(tokens, extra[0])
+        else:
+            out = model.forward(tokens, *extra)
+    return out[0].float().cpu(), float(out[1])
+
+
+def llm_cache(model, cfg, batch, max_len, extra):
+    """A float32 cache, the encoder's cross K/V written where there is one."""
+    if cfg.n_encoder_layers:
+        cache = model.init_cache(batch, max_len, dtype=torch.float32, enc_len=extra[0].shape[1])
+        with torch.inference_mode():
+            return model.prefill_encoder(cache, extra[0].to(model.device))
+    return model.init_cache(batch, max_len, dtype=torch.float32)
+
+
+def llm_teacher_forced(model, cache, tokens):
+    """Every token of ``tokens`` through ``decode_step``: the logits of
+    each step, stacked on the sequence axis (on the model's device)."""
+    tokens = tokens.to(model.device)
+    out = []
+    with torch.inference_mode():
+        for t in range(tokens.shape[1]):
+            logits, cache = model.decode_step(cache, tokens[:, t:t + 1])
+            out.append(logits[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def llm_greedy(model, cfg, cache, first, steps):
+    """``steps`` greedy serve steps from the tokens ``first`` (B, 1): the
+    tokens (B, steps) and their masked logits (B, steps, vocab_size)."""
+    step = make_serve_step(model)
+    nxt, toks, logits = first.to(model.device), [], []
+    for _ in range(steps):
+        nxt, lg, cache = step(cache, nxt)
+        toks.append(nxt)
+        logits.append(lg[:, -1, :cfg.vocab_size])
+    return torch.cat(toks, dim=1), torch.stack(logits, dim=1)
+
+
+def traced_launches(fn):
+    """One call of ``fn`` after a warm-up, traced: (kernels launched, their
+    device time in us, the call's wall in ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    return (sum(e.count for e in events), sum(e.device_time_total for e in events), wall_ms)
+
+
+def top2_gap_ok(logits, rtol, atol):
+    top2 = logits.float().topk(2, dim=-1).values
+    return bool(((top2[..., 0] - top2[..., 1]) > atol + rtol * top2[..., 0].abs()).all())
+
+
+def llm_reduced_check(name, capacity, dev):
+    """Phase 13a for one architecture: the card against the port's CPU path."""
+    cfg = get_config(name).reduced(capacity_factor=capacity)
+    if capacity != 8.0:  # groups of 20 over 2 x 24 tokens: the last padded
+        cfg = dataclasses.replace(cfg, moe_group_size=LLM_MOE_GROUP)
+    b, s, prompt = LLM_SMALL
+    cpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = get_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    tokens, extra = llm_inputs(cfg, b, s)
+    want, want_aux = llm_forward(cpu, cfg, tokens, extra)
+    got, got_aux = llm_forward(card, cfg, tokens, extra)
+    check(bool(torch.isfinite(got).all()), f"[models] {name}: card logits not finite")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-4,
+                               err_msg=f"[models] {name} forward, card vs CPU")
+    np.testing.assert_allclose(got_aux, want_aux, rtol=1e-4, atol=1e-4,
+                               err_msg=f"[models] {name} aux, card vs CPU")
+    line = (f"{name} cf {capacity}: forward max|card - cpu| "
+            f"{(got - want).abs().max().item():.3e} (rtol/atol 1e-4), aux {got_aux:.6f}")
+    if capacity != 8.0:  # decode groups tokens otherwise: drops differ from forward's
+        return line
+    text, _ = llm_forward(card, cfg, tokens, extra, text_only=True)
+    dec = llm_teacher_forced(card, llm_cache(card, cfg, b, s, extra), tokens).cpu()
+    np.testing.assert_allclose(dec.numpy(), text.numpy(), rtol=2e-3, atol=2e-3,
+                               err_msg=f"[models] {name} decode vs forward on the card")
+    runs = []
+    for model in (card, cpu):
+        cache = llm_cache(model, cfg, b, s, extra)
+        llm_teacher_forced(model, cache, tokens[:, :prompt - 1])
+        toks, logits = llm_greedy(model, cfg, cache, tokens[:, prompt - 1:prompt], s - prompt)
+        runs.append((toks.cpu(), logits.cpu()))
+    (card_toks, _), (cpu_toks, cpu_logits) = runs
+    check(top2_gap_ok(cpu_logits, 1e-4, 1e-4), f"[models] {name}: a near-tie decides a step")
+    check(torch.equal(card_toks, cpu_toks),
+          f"[models] {name}: greedy tokens {card_toks.tolist()} != CPU's {cpu_toks.tolist()}")
+    return (line + f"; decode max|dec - fwd| {(dec - text).abs().max().item():.3e} (2e-3); "
+            f"{s - prompt} greedy tokens == CPU's")
+
+
+def models_phase(smi):
+    """Phase 13: the LLM scaffold's serving path on the card (printed as
+    [models]); fails on any check."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "[models] TF32 must be off for the float32 checks")
+    # (a) every architecture, reduced, card against CPU
+    t0 = time.perf_counter()
+    for name, capacity in [(n, 8.0) for n in list_archs()] + [(n, 1.25) for n in LLM_MOE]:
+        print(f"[models] 13a {llm_reduced_check(name, capacity, dev)}")
+    print(f"[models] 13a: {len(list_archs()) + len(LLM_MOE)} reduced configurations, float32, "
+          f"TF32 off: {time.perf_counter() - t0:.3f} s")
+
+    # (b) qwen3-1.7b at full width, two layers, float32, card against CPU
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLM_SERVED), n_layers=2, dtype="float32")
+    cpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = get_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    b, s = LLM_WIDE
+    tokens, _ = llm_inputs(cfg, b, s, seed=1)
+    want, _ = llm_forward(cpu, cfg, tokens, ())
+    got, _ = llm_forward(card, cfg, tokens, ())
+    check(bool(torch.isfinite(got).all()), "[models] 13b: card logits not finite")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-4,
+                               err_msg="[models] 13b forward, card vs CPU")
+    dec = llm_teacher_forced(card, llm_cache(card, cfg, b, s, ()), tokens).cpu()
+    np.testing.assert_allclose(dec.numpy(), got.numpy(), rtol=2e-3, atol=2e-3,
+                               err_msg="[models] 13b decode vs forward on the card")
+    print(f"[models] 13b {LLM_SERVED} d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"({cfg.vocab_padded} padded), 2 layers, float32, {b} prompts of {s}: forward "
+          f"max|card - cpu| {(got - want).abs().max().item():.3e} (rtol/atol 1e-4), decode "
+          f"max|dec - fwd| {(dec - got).abs().max().item():.3e} (2e-3); "
+          f"{time.perf_counter() - t0:.3f} s")
+    del cpu, card, want, got, dec
+
+    # (c) qwen3-1.7b at full width and depth, bf16, served
+    t0 = time.perf_counter()
+    cfg = get_config(LLM_SERVED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    b, prompt, gen, max_len = LLM_SERVE
+    tokens, _ = llm_inputs(cfg, b, prompt, seed=2)
+    tokens = tokens.to(dev)
+    prefill = make_prefill_fn(model)
+    prefill(tokens)  # the first call pays cuBLAS' set-up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        last = prefill(tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    prefill_ms = statistics.median(walls) * 1e3
+    cache = model.init_cache(b, max_len, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    filled = llm_teacher_forced(model, cache, tokens)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t1
+    dec_last = filled[:, -1:].float()
+    first = torch.where(torch.arange(cfg.vocab_padded, device=dev) < cfg.vocab_size,
+                        dec_last[:, -1], -1e30).argmax(dim=-1, keepdim=True)
+    t1 = time.perf_counter()
+    out, logits = llm_greedy(model, cfg, cache, first, gen)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    # one traced decode step on a cache of its own: kernels, device time, wall
+    spare = model.init_cache(b, max_len, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        step_kernels, step_us, step_ms = traced_launches(
+            lambda: model.decode_step(spare, tokens[:, :1]))
+        pre_kernels, pre_us, pre_ms = traced_launches(lambda: prefill(tokens))
+    del spare
+    check(bool(torch.isfinite(last.float()).all() and torch.isfinite(dec_last).all()
+               and torch.isfinite(logits.float()).all()), "[models] 13c: logits not finite")
+    check(int(out.max()) < cfg.vocab_size and int(first.max()) < cfg.vocab_size,
+          f"[models] 13c: a token at or past vocab_size {cfg.vocab_size}: the padded slots "
+          f"were not masked")
+    check(bool((cache["pos"] == prompt + gen).all()),
+          f"[models] 13c: cache positions {cache['pos'].tolist()} != {prompt + gen}")
+    gap = (dec_last - last.float()).abs().max().item()
+    agree = bool((dec_last.argmax(-1) == last.float().argmax(-1)).all())
+    print(f"[models] 13c {LLM_SERVED} full width and depth ({cfg.n_layers} layers, "
+          f"{n_params:,} parameters), bf16, {b} requests: prefill fn over {b} x {prompt} "
+          f"tokens {prefill_ms:.3f} ms (median of 3 after one warm-up; {[round(w * 1e3, 3) for w in walls]}); "
+          f"the prompts by decode into a max_len={max_len} cache {fill_s * 1e3 / prompt:.3f} ms a "
+          f"step ({b * prompt / fill_s:.1f} tokens/s); {gen} greedy serve steps "
+          f"{gen_s * 1e3 / gen:.3f} ms a step, {b * gen / gen_s:.1f} tokens/s; cache pos "
+          f"{cache['pos'].tolist()}; bf16 gap max|decode-filled last logits - prefill fn's| "
+          f"{gap:.4f} (not gated), argmax agree {agree}; "
+          f"max_memory_allocated {peak:,} B serving, {init_peak:,} B at init; card {smi}")
+    print(f"[models] 13c traced: a decode step {step_kernels} kernels, device "
+          f"{step_us / 1e3:.3f} ms of {step_ms:.3f} ms wall (busy {ratio(step_us / 1e3, step_ms)}); "
+          f"the prefill fn {pre_kernels} kernels, device {pre_us / 1e3:.3f} ms of "
+          f"{pre_ms:.3f} ms wall (busy {ratio(pre_us / 1e3, pre_ms)})")
+    print(f"[models] 13c took {time.perf_counter() - t0:.3f} s")
+    del model, prefill, cache, filled, last, logits
+
+    # (d) deepseek-moe-16b at full width, two layers, bf16, one forward
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    b, s = LLM_MOE_WIDE
+    tokens, _ = llm_inputs(cfg, b, s, seed=3)
+    tokens = tokens.to(dev)
+    with torch.inference_mode():
+        model.forward(tokens)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, aux = model.forward(tokens)
+        torch.cuda.synchronize()
+        moe_ms = (time.perf_counter() - t1) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(logits.float()).all()) and bool(torch.isfinite(aux)),
+          "[models] 13d: logits not finite")
+    cap = moe._capacity(cfg.moe_group_size, cfg.n_experts_per_token, cfg.n_experts,
+                        cfg.capacity_factor)
+    print(f"[models] 13d deepseek-moe-16b full width ({cfg.n_experts} experts of "
+          f"{cfg.moe_d_ff}, top-{cfg.n_experts_per_token}, {cfg.n_shared_experts} shared), "
+          f"2 layers, bf16, {b} x {s} tokens in groups of {cfg.moe_group_size} (capacity "
+          f"{cap} a group and expert): forward {moe_ms:.3f} ms, aux {float(aux):.6f}, "
+          f"max_memory_allocated {peak:,} B in the forwards, {init_peak:,} B at init; card {smi}")
+    del model, logits
+    torch.cuda.empty_cache()
+    print(f"[models] phase 13 took {time.perf_counter() - t_phase:.3f} s")
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
@@ -3422,7 +3718,10 @@ def main():
     shutil.rmtree(resil_dir)
     os.unlink(cache_file)
 
-    # -- 13. kernels line ---------------------------------------------------
+    # -- 13. the LLM scaffold's serving path (runs none of the kernels) -------
+    models_phase(smi)
+
+    # -- 14. kernels line ---------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -3468,7 +3767,7 @@ def main():
         for v in variants if v != "seqacc"
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 14. status -----------------------------------------------------------
+    # -- 15. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -19,13 +19,22 @@ beside each sits its plain PyTorch version.  Entry points run on the
 card unless the caller passes ``device='cpu'``, and raise when there is no
 card.
 
-The system has no learned weights.  The only state carried across from the
-reference is the marching-cubes tables, the case data and the slab
-sources, and the port has its own copies of their numpy code
+The radiomics path has no learned weights.  The state carried across from
+the reference there is the marching-cubes tables, the case data and the
+slab sources, and the port has its own copies of their numpy code
 (``core/mc_tables.py``, ``data/synthetic.py``, ``data/tiles.py``,
 ``data/nifti.py``); tests hold every table, ``make_case`` array and slab
-equal to the reference's.  No other conversion function
-is needed.
+equal to the reference's.
+
+The package also ports the LLM scaffold's serving path: the ten
+architectures' configs (``configs/``), their models (``models/``:
+``Decoder``, ``RWKV6``, ``EncDec`` as ``nn.Module``s, parameters drawn
+from a seed) and the serve step (``serve/serve_step.py``).  Its weights
+cross between the packages through ``models/convert.py``
+(``params_from_reference``, ``params_to_reference``: the reference's
+nested parameter dicts, exactly), which the tests use so both packages
+compute with the same weights.  The scaffold runs no hand kernel: the
+reference computes it outside any Pallas kernel.
 """
 from repro_torch.core import (
     BatchedExtractor,

@@ -1,0 +1,214 @@
+"""Minimal parameter-spec system: shapes + logical axes + init.
+
+Counterpart of the reference's ``models/params.py``.  A model is described
+by a nested dict of ``P`` leaves.  From the same spec tree we derive:
+  * materialised parameters  (``init_params``, drawn from an explicit
+    ``torch.Generator``)
+  * abstract parameters      (``abstract_params``: tensors on the ``meta``
+    device, shapes and dtypes with no allocation)
+  * logical axes             (``axes_tree``; ``parallel.sharding.pspec``
+    maps them to mesh axes)
+
+A model's spec stacks its layers on a leading axis (``layers``,
+``encoder``, ``decoder``: :data:`STACKED`), as the reference's
+``lax.scan`` reads them.  The port's modules hold one :class:`ParamTree`
+per layer instead, each leaf with the unstacked shape, in an
+``nn.ModuleList``; :class:`SpecModule` maps between the two.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.dispatcher import resolve_device
+
+# spec keys whose leaves carry a leading per-layer axis
+STACKED = ("layers", "encoder", "decoder")
+
+
+class P(NamedTuple):
+    shape: tuple
+    axes: tuple  # logical axis name per dim (or None)
+    init: str = "normal"  # normal | zeros | ones
+
+    def with_leading(self, n: int, axis_name: str | None = "layers"):
+        return P((n, *self.shape), (axis_name, *self.axes), self.init)
+
+
+def is_leaf(x):
+    return isinstance(x, P)
+
+
+def tree_paths(spec):
+    """Deterministic (path, leaf) list."""
+    out = []
+
+    def rec(node, path):
+        if is_leaf(node):
+            out.append((path, node))
+            return
+        for k in sorted(node):
+            rec(node[k], path + (k,))
+
+    rec(spec, ())
+    return out
+
+
+def stack_spec(one: dict, n: int) -> dict:
+    """``one`` layer's spec with a leading axis of ``n`` on every leaf."""
+    return _unflatten({path: leaf.with_leading(n) for path, leaf in tree_paths(one)})
+
+
+def _init_one(leaf: P, generator: torch.Generator, dtype, device):
+    if leaf.init == "zeros":
+        return torch.zeros(leaf.shape, dtype=dtype, device=device)
+    if leaf.init == "ones":
+        return torch.ones(leaf.shape, dtype=dtype, device=device)
+    # the reference's law: normal / sqrt(fan_in), fan_in from the stacked leaf
+    fan_in = leaf.shape[-2] if len(leaf.shape) >= 2 else leaf.shape[-1]
+    std = 1.0 / math.sqrt(max(1, fan_in))
+    x = torch.randn(leaf.shape, generator=generator, dtype=torch.float32, device=device)
+    return x.mul_(std).to(dtype)
+
+
+def init_params(spec, generator: torch.Generator, dtype=torch.float32, device=None):
+    """Materialised parameters of ``spec`` (a nested dict of tensors), drawn
+    leaf by leaf in :func:`tree_paths` order from ``generator``, which lives
+    on ``device`` (default ``'cuda'``)."""
+    device = resolve_device(device)
+    flat = {path: _init_one(leaf, generator, dtype, device) for path, leaf in tree_paths(spec)}
+    return _unflatten(flat)
+
+
+def abstract_params(spec, dtype=torch.float32):
+    """Shapes and dtypes of ``spec``'s parameters as ``meta`` tensors."""
+    flat = {path: torch.empty(leaf.shape, dtype=dtype, device="meta")
+            for path, leaf in tree_paths(spec)}
+    return _unflatten(flat)
+
+
+def axes_tree(spec):
+    flat = {path: leaf.axes for path, leaf in tree_paths(spec)}
+    return _unflatten(flat)
+
+
+def _unflatten(flat: dict):
+    root: dict = {}
+    for path, v in flat.items():
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return root
+
+
+def get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def map_with_axes(fn, params, spec):
+    """Map ``fn(param_leaf, logical_axes)`` over a params tree."""
+    return _unflatten({path: fn(get_path(params, path), leaf.axes)
+                       for path, leaf in tree_paths(spec)})
+
+
+class ParamTree(nn.Module):
+    """The parameters of one nested spec dict, each leaf an ``nn.Parameter``
+    of its shape, each inner dict a child ``ParamTree``.  ``tree[key]`` reads
+    a leaf or a child, so the layer functions take a ``ParamTree`` where the
+    reference's take a dict."""
+
+    def __init__(self, spec: dict, device, dtype):
+        super().__init__()
+        for k in sorted(spec):
+            v = spec[k]
+            if is_leaf(v):
+                self.register_parameter(
+                    k, nn.Parameter(torch.empty(v.shape, dtype=dtype, device=device)))
+            else:
+                self.add_module(k, ParamTree(v, device, dtype))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+
+def _unstacked(stacked: dict) -> dict:
+    return _unflatten({path: P(leaf.shape[1:], leaf.axes[1:], leaf.init)
+                       for path, leaf in tree_paths(stacked)})
+
+
+class SpecModule(nn.Module):
+    """A model whose parameters follow its config's spec.
+
+    A subclass sets ``build_spec`` (``cfg`` -> the reference's spec, layers
+    stacked; :meth:`spec` applies it to the model's config).  Each
+    top-level key becomes an attribute: a :class:`ParamTree`, or for the
+    keys of :data:`STACKED` an ``nn.ModuleList`` of one ``ParamTree`` a
+    layer with the unstacked shapes.  Parameters are stored in ``dtype``
+    (default float32, as the reference's ``init``) on ``device`` (default
+    ``'cuda'``; ``'cpu'`` on request) and drawn from ``generator`` (default:
+    one seeded 0 on that device); compute runs in ``cfg.dtype``.  The
+    layers run in a Python loop over the ``ModuleList``, the counterpart of
+    the reference's ``scan_or_unroll``: ``cfg.remat`` and
+    ``cfg.scan_layers`` change nothing in a forward pass and are ignored.
+    """
+
+    build_spec = None
+
+    def __init__(self, cfg, device=None, dtype=torch.float32, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.param_dtype = dtype
+        for key, node in self.spec().items():
+            if key in STACKED:
+                one = _unstacked(node)
+                n = tree_paths(node)[0][1].shape[0]
+                self.add_module(key, nn.ModuleList(
+                    ParamTree(one, self.device, dtype) for _ in range(n)))
+            else:
+                self.add_module(key, ParamTree(node, self.device, dtype))
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.init(generator)
+
+    def spec(self) -> dict:
+        return self.build_spec(self.cfg)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator):
+        """Draw every parameter anew from ``generator`` (on the model's
+        device), leaf by leaf as :func:`init_params`; returns ``self``."""
+        for path, leaf in tree_paths(self.spec()):
+            self.load_leaf(path, _init_one(leaf, generator, self.param_dtype, self.device))
+        return self
+
+    def leaf(self, path: tuple):
+        """The parameter at a spec path; for a stacked path the list of the
+        layers' parameters."""
+        node = getattr(self, path[0])
+        if path[0] in STACKED:
+            return [get_path(layer, path[1:]) for layer in node]
+        return get_path(node, path[1:])
+
+    @torch.no_grad()
+    def load_leaf(self, path: tuple, value: torch.Tensor):
+        """Copy ``value``, shaped as the spec's (stacked) leaf, into the
+        parameter(s) at ``path``."""
+        target = self.leaf(path)
+        if isinstance(target, list):
+            if value.shape[0] != len(target) or tuple(value.shape[1:]) != tuple(target[0].shape):
+                raise ValueError(f"{'/'.join(path)}: shape {tuple(value.shape)} against "
+                                 f"{len(target)} x {tuple(target[0].shape)}")
+            for p, v in zip(target, value):
+                p.copy_(v)
+        else:
+            if tuple(value.shape) != tuple(target.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {tuple(value.shape)} against "
+                                 f"{tuple(target.shape)}")
+            target.copy_(value)

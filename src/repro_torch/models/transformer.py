@@ -1,0 +1,277 @@
+"""Decoder-only transformer assembly: dense, MoE, and hybrid families.
+
+Counterpart of the reference's ``models/transformer.py``.  One
+config-driven module covers 8 of the 10 architectures (arctic,
+deepseek-moe, nemotron, qwen3, minicpm, granite, hymba, and the internvl2
+language backbone).  Layers run in a Python loop over an
+``nn.ModuleList`` (the reference's ``lax.scan``; see ``SpecModule``).
+
+Hybrid (Hymba): each layer runs attention and a Mamba2-style SSD branch in
+parallel on the same normed input and averages the outputs; a per-layer
+window vector selects full vs sliding-window attention.  In decode the
+sliding-window layers keep ring-buffer caches of window size while the
+global layers keep full caches.
+
+Caches are preallocated tensors that ``decode_step`` writes in place.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
+from repro_torch.models.params import P, SpecModule, stack_spec
+from repro_torch.parallel.sharding import Ax, constrain
+
+
+# --------------------------------------------------------------------------
+# Hybrid SSD branch (Mamba2-style scalar-per-head decay)
+# --------------------------------------------------------------------------
+
+def ssd_spec(cfg):
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    nh = di // cfg.head_dim
+    n = cfg.ssm_state
+    return {
+        "wx": P((d, di), ("embed", "mlp")),
+        "wz": P((d, di), ("embed", "mlp")),
+        "wb": P((d, nh, n), ("embed", "ssm_heads", "ssm_state")),
+        "wc": P((d, nh, n), ("embed", "ssm_heads", "ssm_state")),
+        "wdt": P((d, nh), ("embed", "ssm_heads")),
+        "dt0": P((nh,), ("ssm_heads",), "zeros"),
+        "norm": P((di,), ("mlp",), "ones"),
+        "wo": P((di, d), ("mlp", "embed")),
+    }
+
+
+def _ssd_project(params, x, cfg):
+    di = cfg.ssm_expand * cfg.d_model
+    nh = di // cfg.head_dim
+    xv = x @ params["wx"].to(x.dtype)
+    z = x @ params["wz"].to(x.dtype)
+    bts = torch.einsum("bsd,dhn->bshn", x, params["wb"].to(x.dtype))
+    cts = torch.einsum("bsd,dhn->bshn", x, params["wc"].to(x.dtype))
+    dt = x @ params["wdt"].to(x.dtype)
+    logw = -F.softplus(dt.float() + params["dt0"].float())
+    v = xv.reshape(*xv.shape[:-1], nh, cfg.head_dim)
+    return v, z, bts, cts, logw
+
+
+def _ssd_out(params, y, z, cfg, x_dtype):
+    di = cfg.ssm_expand * cfg.d_model
+    y = y.reshape(*y.shape[:-2], di)
+    yn = y.float()
+    yn = yn * torch.rsqrt(torch.mean(yn * yn, dim=-1, keepdim=True) + 1e-5)
+    y = (yn * params["norm"].float()).to(x_dtype)
+    y = y * F.silu(z).to(x_dtype)
+    return y @ params["wo"].to(x_dtype)
+
+
+def ssd_apply(params, x, cfg, state0=None, chunk=64):
+    """Full-sequence SSD branch.  Returns (out, final_state)."""
+    v, z, bts, cts, logw = _ssd_project(params, x, cfg)
+    out, state = S.chunked_decay_attention(cts, bts, v, logw[..., None], u=None,
+                                           state0=state0, chunk=chunk, inclusive=True)
+    return _ssd_out(params, out, z, cfg, x.dtype), state
+
+
+def ssd_step(params, x, cfg, state):
+    """Single-token decode.  x: (B,1,d)."""
+    v, z, bts, cts, logw = _ssd_project(params, x, cfg)
+    out, state = S.decay_attention_step(
+        cts[:, 0], bts[:, 0], v[:, 0],
+        torch.broadcast_to(logw[:, 0, :, None], bts[:, 0].shape), None, state)
+    return _ssd_out(params, out[:, None], z, cfg, x.dtype), state
+
+
+# --------------------------------------------------------------------------
+# Layer spec / apply
+# --------------------------------------------------------------------------
+
+def layer_spec(cfg):
+    spec = {
+        "ln1": L.rmsnorm_spec(cfg.d_model),
+        "ln2": L.rmsnorm_spec(cfg.d_model),
+        "attn": L.attention_spec(cfg),
+    }
+    if cfg.n_experts:
+        spec["moe"] = M.moe_spec(cfg)
+    else:
+        spec["mlp"] = L.mlp_spec(cfg)
+    if cfg.family == "hybrid":
+        spec["ssd"] = ssd_spec(cfg)
+    return spec
+
+
+def decoder_spec(cfg):
+    """The reference's ``Decoder(cfg).spec()``: layers stacked."""
+    spec = {
+        "embed": L.embed_spec(cfg),
+        "layers": stack_spec(layer_spec(cfg), cfg.n_layers),
+        "final_norm": L.rmsnorm_spec(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        spec["unembed"] = L.unembed_spec(cfg)
+    return spec
+
+
+def _ffn(params, h, cfg):
+    if cfg.n_experts:
+        return M.moe_apply(params["moe"], h, cfg)
+    return L.mlp(params["mlp"], h, cfg.mlp_act), 0.0
+
+
+def layer_apply(params, x, positions, cfg, window, ssm_chunk=64):
+    """Training/prefill layer.  window: per-layer scalar (0 = full)."""
+    h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
+    attn = L.self_attention(params["attn"], h, positions, cfg, window=window)
+    if cfg.family == "hybrid":
+        ssm_out, _ = ssd_apply(params["ssd"], h, cfg, chunk=ssm_chunk)
+        attn = (attn + ssm_out) * 0.5
+    x = x + attn
+    x = constrain(x, "batch", "seq", "embed_act")
+    h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
+    out, aux = _ffn(params, h, cfg)
+    x = x + out
+    x = constrain(x, "batch", "seq", "embed_act")
+    return x, aux
+
+
+# --------------------------------------------------------------------------
+# Decoder model
+# --------------------------------------------------------------------------
+
+class Decoder(SpecModule):
+    """Parameters: ``embed``, ``layers`` (one :class:`ParamTree` a layer),
+    ``final_norm`` and, unless tied, ``unembed``; see :class:`SpecModule`
+    for ``device``, ``dtype`` and ``generator``."""
+
+    build_spec = staticmethod(decoder_spec)
+
+    def windows(self):
+        cfg = self.cfg
+        if cfg.family == "hybrid" and cfg.attn_window:
+            w = [0 if i in cfg.global_attn_layers else cfg.attn_window
+                 for i in range(cfg.n_layers)]
+        else:
+            w = [cfg.attn_window] * cfg.n_layers
+        return np.asarray(w, np.int32)
+
+    # ---- forward (train / full-sequence) ----
+    def forward(self, tokens, prefix_embeds=None):
+        """tokens: (B, S) integer; prefix_embeds: (B, P, d) or None.
+
+        Returns (logits (B, S_total, V), aux_loss).
+        """
+        cfg = self.cfg
+        x = L.embed(self.embed, tokens).to(L.compute_dtype(cfg))
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        x = constrain(x, "batch", "seq", "embed_act")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp, w in zip(self.layers, self.windows()):
+            x, a = layer_apply(lp, x, positions, cfg, int(w))
+            aux = aux + a
+        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        logits = constrain(self._unembed(x), "batch", "seq", "vocab")
+        return logits, aux
+
+    # ---- decode ----
+    def init_cache(self, batch, max_len, dtype=torch.bfloat16):
+        """Zeroed caches for ``batch`` rows of up to ``max_len`` tokens, on
+        the model's device."""
+        cfg = self.cfg
+        dev = self.device
+        kvh, hd = cfg.n_kv_heads, cfg.head_dim
+        pos = torch.zeros((batch,), dtype=torch.int64, device=dev)
+        if cfg.family == "hybrid":
+            nh = cfg.ssm_expand * cfg.d_model // hd
+            caches = []
+            for w in self.windows():
+                slots = max_len if w == 0 else min(int(w), max_len)
+                caches.append({
+                    "k": torch.zeros((batch, slots, kvh, hd), dtype=dtype, device=dev),
+                    "v": torch.zeros((batch, slots, kvh, hd), dtype=dtype, device=dev),
+                    "kpos": torch.full((batch, slots), -1, dtype=torch.int64, device=dev),
+                    "state": torch.zeros((batch, nh, cfg.ssm_state, hd), dtype=torch.float32,
+                                         device=dev),
+                })
+            return {"layers": caches, "pos": pos}
+        shape = (cfg.n_layers, batch, max_len, kvh, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev), "pos": pos}
+
+    def cache_axes(self):
+        """Logical axes for each cache leaf."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            per_layer = {
+                "k": Ax(("cache_batch", "cache_seq", "kv_heads", "head_dim")),
+                "v": Ax(("cache_batch", "cache_seq", "kv_heads", "head_dim")),
+                "kpos": Ax(("cache_batch", "cache_seq")),
+                "state": Ax(("cache_batch", "ssm_heads", "ssm_state", "head_dim")),
+            }
+            return {"layers": [dict(per_layer) for _ in range(cfg.n_layers)],
+                    "pos": Ax(("cache_batch",))}
+        kv = Ax(("layers", "cache_batch", "cache_seq", "kv_heads", "head_dim"))
+        return {"k": kv, "v": kv, "pos": Ax(("cache_batch",))}
+
+    def decode_step(self, cache, tokens):
+        """tokens: (B, 1) -> (logits (B, 1, V), cache), the cache written in
+        place and its ``pos`` advanced by one."""
+        cfg = self.cfg
+        x = L.embed(self.embed, tokens).to(L.compute_dtype(cfg))
+        x = constrain(x, "batch", "seq", "embed_act")
+        pos = cache["pos"]
+        if cfg.family == "hybrid":
+            for lp, lc, w in zip(self.layers, cache["layers"], self.windows()):
+                x = self._hybrid_step(lp, x, lc, pos, int(w))
+        else:
+            for i, lp in enumerate(self.layers):
+                h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+                attn, _, _ = L.decode_attention(lp["attn"], h, cache["k"][i], cache["v"][i],
+                                                pos, cfg, window=cfg.attn_window)
+                x = x + attn
+                h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+                out, _ = _ffn(lp, h, cfg)
+                x = x + out
+        x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
+        logits = self._unembed(x)
+        pos.add_(1)
+        return logits, cache
+
+    def _unembed(self, x):
+        if self.cfg.tie_embeddings:
+            return x @ self.embed["embedding"].to(x.dtype).T
+        return L.unembed(self.unembed, x)
+
+    def _hybrid_step(self, lp, x, lc, pos, window):
+        """One hybrid layer, single token, ring-buffer SWA cache."""
+        cfg = self.cfg
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        q, kv = L.attention_qkv(lp["attn"], h, pos[:, None], cfg)
+        slots = lc["k"].shape[1]
+        oh = F.one_hot(pos % slots, slots)  # (B, slots)
+        ohk = oh.to(lc["k"].dtype)[..., None, None]
+        lc["k"].copy_(lc["k"] * (1 - ohk) + ohk * kv.k)
+        lc["v"].copy_(lc["v"] * (1 - ohk) + ohk * kv.v)
+        kpos = lc["kpos"]
+        kpos.copy_(torch.where(oh > 0, pos[:, None], kpos))
+        # attend over the ring buffer by the stored absolute positions
+        valid = (kpos >= 0) & (kpos <= pos[:, None])
+        if window:
+            valid = valid & (kpos > pos[:, None] - window)
+        o = L.cached_attention(q, lc["k"], lc["v"], valid, cfg)
+        attn = L.attention_out(lp["attn"], o, x.dtype)
+        ssm_out, nstate = ssd_step(lp["ssd"], h, cfg, lc["state"])
+        lc["state"].copy_(nstate)
+        x = x + (attn + ssm_out) * 0.5
+        h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        out, _ = _ffn(lp, h2, cfg)
+        return x + out

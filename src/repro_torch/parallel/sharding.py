@@ -43,13 +43,23 @@ With more than one axis, the shards go to the devices along ``axis`` at
 index 0 of the other axes: ``shard_map`` runs the same shard on every
 device of the other axes, which gives the same output.
 
-The logical-axis half of the reference module (``DEFAULT_RULES``,
-``pspec``, ``constrain`` and kin) serves the LLM scaffold only and is not
-ported here.
+The logical-axis half (``Ax``, ``DEFAULT_RULES``, the rules of
+:func:`use_mesh`, :func:`active_rules`, :func:`pspec`, :func:`constrain`)
+serves the LLM scaffold (``repro_torch.models``).  :func:`pspec` gives the
+reference's ``PartitionSpec`` as a plain tuple, one entry a dimension
+(``None``, a mesh-axis name or a tuple of them).  The port runs a model on
+one device: :func:`constrain` is a no-op without a mesh or on a mesh of
+one slot, and raises on a mesh of more, since model parallelism over
+several cards is not ported (ROADMAP.md, Queue 1 item 5.3).  The
+reference's ``named_sharding``, ``param_shardings`` and
+``tree_shardings`` serve only its trainer and dry-run (item 5.2), and
+``shard_map_compat`` only its pipeline parallelism (item 5.3).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 import threading
 
 import numpy as np
@@ -134,26 +144,129 @@ class Mesh:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.ravel()]})"
 
 
+@dataclasses.dataclass(frozen=True)
+class Ax:
+    """Logical-axes annotation used as a *leaf* inside nested dicts (e.g. the
+    per-leaf axis names of a decode cache)."""
+
+    axes: tuple
+
+
+# the reference's FSDP + TP (+ DP over pods) rule set: logical axis -> mesh axes
+DEFAULT_RULES: dict[str, object] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": "data",  # FSDP on weight embed dims
+    "embed_act": None,  # activation embed dim stays replicated
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "vocab": "model",
+    "expert": "data",
+    "layers": None,
+    "ssm_heads": "model",
+    "ssm_state": None,
+    "cache_batch": ("pod", "data"),
+    "cache_seq": None,
+}
+
+
 class _Ctx(threading.local):
     mesh: Mesh | None = None
+    rules: dict | None = None
 
 
 _CTX = _Ctx()
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Mesh | None):
-    """Make ``mesh`` the ambient mesh of this thread (:func:`active_mesh`)."""
-    old = _CTX.mesh
-    _CTX.mesh = mesh
+def use_mesh(mesh: Mesh | None, rules: dict | None = None):
+    """Make ``mesh`` the ambient mesh of this thread (:func:`active_mesh`),
+    with ``rules`` over :data:`DEFAULT_RULES` as its logical-axis rule set
+    (:func:`active_rules`)."""
+    old = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh, _CTX.rules = mesh, dict(DEFAULT_RULES, **(rules or {}))
     try:
         yield mesh
     finally:
-        _CTX.mesh = old
+        _CTX.mesh, _CTX.rules = old
 
 
 def active_mesh() -> Mesh | None:
     return _CTX.mesh
+
+
+def active_rules() -> dict:
+    return _CTX.rules or DEFAULT_RULES
+
+
+def _mesh_axes_for(logical: str, rules: dict, mesh):
+    ax = rules.get(logical, None)
+    if ax is None:
+        return None
+    axes = (ax,) if isinstance(ax, str) else tuple(ax)
+    if mesh is not None:
+        axes = tuple(a for a in axes if a in mesh.shape)
+    if not axes:
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def pspec(axes: tuple, rules: dict | None = None, mesh=None,
+          shape: tuple | None = None) -> tuple:
+    """The mesh axes of each dimension of a tuple of logical axis names:
+    the reference's ``PartitionSpec`` as a tuple.
+
+    ``mesh`` is anything with a ``shape`` mapping of axis names to sizes
+    (a :class:`Mesh`); it defaults to the ambient one, ``rules`` to
+    :func:`active_rules`.  No mesh axis is used twice (later dims lose the
+    conflict and stay replicated).  When ``shape`` is given, mesh axes that
+    do not divide the dim are dropped greedily (e.g. 56 attention heads on a
+    16-way 'model' axis stay replicated).
+    """
+    rules = rules or active_rules()
+    mesh = mesh or active_mesh()
+    used: set = set()
+    parts = []
+    for i, name in enumerate(axes):
+        m = None if name is None else _mesh_axes_for(name, rules, mesh)
+        if m is None:
+            parts.append(None)
+            continue
+        ms = (m,) if isinstance(m, str) else tuple(m)
+        ms = tuple(a for a in ms if a not in used)
+        if shape is not None and mesh is not None:
+            dim = shape[i]
+            kept = []
+            prod = 1
+            for a in ms:  # greedy prefix that divides the dim
+                if dim % (prod * mesh.shape[a]) == 0:
+                    kept.append(a)
+                    prod *= mesh.shape[a]
+                else:
+                    break
+            ms = tuple(kept)
+        if not ms:
+            parts.append(None)
+            continue
+        used.update(ms)
+        parts.append(ms if len(ms) > 1 else ms[0])
+    return tuple(parts)
+
+
+def constrain(x, *axes):
+    """Sharding constraint by logical axes: ``x`` itself without an active
+    mesh or on a mesh of one slot.  On a mesh of more slots it raises
+    ``NotImplementedError``: a model runs on one device until model
+    parallelism is ported (ROADMAP.md, Queue 1 item 5.3)."""
+    mesh = active_mesh()
+    if mesh is None or math.prod(mesh.shape.values()) == 1:
+        return x
+    raise NotImplementedError(
+        f"constrain{pspec(tuple(axes), mesh=mesh, shape=tuple(x.shape))} on a mesh of "
+        f"{mesh.shape}: model parallelism over several slots is not ported "
+        f"(ROADMAP.md, Queue 1 item 5.3); run the model without a multi-slot mesh")
 
 
 def axis_size(mesh: Mesh | None, axis: str = "data") -> int:

@@ -49,6 +49,16 @@ def _isolated_autotune(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """These cases' tensors are small: one intra-op thread runs them about
+    as fast alone, and the suite's parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _cases():
     return tuple(make_case(s, seed=seed) for s, seed in SHAPES)

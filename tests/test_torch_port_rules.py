@@ -38,6 +38,14 @@ def test_import_loads_no_jax_or_reference():
         "import repro_torch.launch.serve, repro_torch.runtime.resilience\n"
         "import repro_torch.runtime.fault_tolerance, repro_torch.parallel.sharding\n"
         "import repro_torch.launch.mesh, repro_torch.launch.tiled_smoke\n"
+        "import repro_torch.configs.base, repro_torch.configs.shapes\n"
+        "import repro_torch.models.params, repro_torch.models.layers, repro_torch.models.moe\n"
+        "import repro_torch.models.ssm, repro_torch.models.transformer\n"
+        "import repro_torch.models.rwkv6, repro_torch.models.encdec\n"
+        "import repro_torch.models.registry, repro_torch.models.convert\n"
+        "import repro_torch.serve.serve_step\n"
+        "from repro_torch.models.registry import ARCHS, get_config\n"
+        "for name in ARCHS: get_config(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -70,6 +78,20 @@ def test_default_device_raises_without_cuda():
     for entry in (ops.firstorder_packed_batch, ops.glcm_matrix_batch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry(vols, vols)
+
+
+def test_model_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.models import params, registry
+    from repro_torch.models.transformer import Decoder
+    cfg = registry.get_config("qwen3-1.7b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.get_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Decoder(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params.init_params(registry.model_spec(cfg), torch.Generator())
 
 
 def test_unknown_device_and_variant_raise():

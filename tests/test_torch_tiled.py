@@ -66,6 +66,16 @@ def _isolated_autotune(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """These cases' tensors are small: one intra-op thread runs them about
+    as fast alone, and the suite's parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ellipsoid(shape=(40, 44, 57), radii=(12, 15, 20), seed=0):
     X, Y, Z = shape
     xs, ys, zs = np.meshgrid(np.arange(X), np.arange(Y), np.arange(Z), indexing="ij")

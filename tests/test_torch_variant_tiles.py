@@ -23,6 +23,16 @@ BLOCKS = (32, 64, 96)
 NTILES = 5  # tiles a side of every list
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """These cases' tensors are small: one intra-op thread runs them about
+    as fast alone, and the suite's parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _masks(block):
     """Masks of a list of ``NTILES * block - 7`` slots, by name."""
     m = NTILES * block - 7

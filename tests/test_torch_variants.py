@@ -29,6 +29,16 @@ SHAPE_KEYS = ["MeshVolume", "SurfaceArea", "Maximum3DDiameter", "Maximum2DDiamet
               "Maximum2DDiameterRow", "Maximum2DDiameterColumn", "MajorAxisLength"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """These cases' tensors are small: one intra-op thread runs them about
+    as fast alone, and the suite's parallel workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(m, block):
     rng = np.random.default_rng(m + block)
     verts = (rng.normal(size=(m, 3)) * [3.0, 7.0, 1.5]).astype(np.float32)
