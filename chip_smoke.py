@@ -19,12 +19,15 @@ resilience layer (``ResilientRunner``, a soak under injected faults and a
 preemption, a cluster job killed and resumed), data parallelism over a
 mesh of slots (``BatchedExtractor(mesh=...)``), and the LLM scaffold's
 serving path (every architecture reduced, qwen3-1.7b served at full width
-and depth) -- checks
+and depth) and its training path (four families reduced, qwen3-1.7b trained
+at full width and depth, the launcher, a checkpoint written and resumed)
+-- checks
 the features against the port's CPU path or the in-core path, and prints the kernels
 line and a last JSON status line.  The autotune cache is a fresh
 temporary file, so no run reads another run's winners; an untimed pass
 warms it, and no timed or sync-debug phase runs a sweep.  Any failed check raises, so the script exits
-non-zero; without a CUDA device it exits non-zero before printing any
+non-zero; without a CUDA device, or run from a directory without the port
+beside it (``src/repro_torch``), it exits non-zero before printing any
 result.
 
 Phases:
@@ -186,7 +189,13 @@ Phases:
      auto knobs and the service: (a) the sync/cuda and hw/cuda probes on an
      empty cache of their own, each value and its seconds beside the card's
      name and power limit, a second CostModel reading both back without
-     probing (autotune.PROBES); (b) launch counts reset,
+     probing (autotune.PROBES), the hw record carrying its revision, the
+     bandwidth (one kernel over three 256 MiB streams) at most the data
+     sheet's 3.35 TB/s and printed beside the probe before its repair (the
+     eager two-kernel u + 0.5 * v over 16 MiB, counted as three streams);
+     (f) (run after 12) the auto stream's windows (cases, resolved schedule)
+     under the repaired figure and under the old one written into the
+     cache's hw/cuda record, printed with whether any moved; (b) launch counts reset,
      BatchedExtractor(families=(shape, firstorder, glcm), schedule='auto',
      prep='hint').extract_stream(window='auto') over the 60 cases on the
      warm cache (its windows warmed in phase 1), counts read; rows == phase
@@ -274,7 +283,31 @@ Phases:
      the prefill fn's (not gated), max_memory_allocated, the card's name and
      power limit; (d) deepseek-moe-16b at full width and two layers, bf16,
      one forward over 2 x 512 tokens: finite logits, ms, max_memory_allocated
-  14. the kernels line (each variant at block 256, as phase 5b); 15. the status line
+  14. (printed as [train]) the LLM scaffold's training path, which runs none
+     of the kernels (their launch counts stay 0), float32 checks with TF32
+     off: (a) qwen3-1.7b, deepseek-moe-16b, seamless-m4t-large-v2 and
+     internvl2-26b at reduced(capacity_factor=8.0), parameters made on the
+     CPU from a seed and copied to the card, one make_train_step step (lr
+     1e-2, 2 x 17 tokens, stub inputs 0.1 + 0.01 N(0, 1)) on each: loss,
+     ce, aux, lr, grad_norm at rtol 1e-4, every gradient and m at rtol 1e-4
+     with an atol of 1e-4 of the leaf's largest entry, v at twice both, the
+     parameters after at atol 2 lr where the gradient is under that floor
+     (its sign is rounding) and rtol 1e-4 elsewhere (tests/test_torch_train.py);
+     (b) the same for qwen3-1.7b at full width and two layers (724 M
+     parameters) over 2 x 65 tokens; (c) qwen3-1.7b at full width and depth
+     (2,032 M parameters), float32 parameters and moments, bf16 compute,
+     remat, 8 steps on one batch of 4 x 257 tokens at lr 3e-4 (warm-up 2):
+     every loss finite, the 8th below the first, step ms, the median after
+     the first and tokens/s, max_memory_allocated, the work's bounds, and a
+     traced step's launches and busy share; (d) python -m
+     repro_torch.launch.train --arch qwen3-1.7b --smoke --steps 4 --device
+     cuda:0 in a subprocess (exit 0, metrics.jsonl steps 0-3), then the
+     Trainer at full width and two layers, float32, in a temporary workdir
+     (its free bytes printed first): 4 steps and an 8.7 GB checkpoint, a
+     fresh Trainer resumed at step 4 with parameters, m, v and step bitwise
+     equal to those saved, trained to 6; the host copy, write and restore
+     seconds; the workdir removed
+  15. the kernels line (each variant at block 256, as phase 5b); 16. the status line
 """
 import collections
 import ctypes
@@ -290,10 +323,15 @@ import threading
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+SRC = Path(__file__).resolve().parent / "src"
+if not (SRC / "repro_torch").is_dir():
+    raise SystemExit(f"chip_smoke: the port is not beside this script ({SRC / 'repro_torch'} "
+                     f"is missing); run it from the root of a checkout of the repository")
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+sys.path.insert(0, str(SRC))
 
 from repro_torch.core import BatchedExtractor, ShapeFeatureExtractor, crop_to_roi  # noqa: E402
 from repro_torch.core import TiledCase, mc_tables  # noqa: E402
@@ -311,8 +349,11 @@ from repro_torch.kernels import firstorder as fo  # noqa: E402
 from repro_torch.kernels import glcm as gl  # noqa: E402
 from repro_torch.kernels import marching_cubes as mc  # noqa: E402
 from repro_torch.kernels import masked_range as mr  # noqa: E402
+from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.train import synthetic_data  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.convert import opt_state_to_reference, params_to_reference  # noqa: E402
 from repro_torch.models.encdec import enc_len_for  # noqa: E402
 from repro_torch.models.registry import get_config, get_model, list_archs  # noqa: E402
 from repro_torch.parallel.sharding import Mesh, data_parallel_map  # noqa: E402
@@ -325,6 +366,9 @@ from repro_torch.runtime.resilience import (  # noqa: E402
     RunManifest,
 )
 from repro_torch.serve.serve_step import make_prefill_fn, make_serve_step  # noqa: E402
+from repro_torch.train import optimizer as opt  # noqa: E402
+from repro_torch.train.train_step import make_train_step  # noqa: E402
+from repro_torch.train.trainer import Trainer  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM bandwidth
 # and float32 outside the tensor cores (the cost model's default profile).
@@ -358,6 +402,15 @@ LLM_SERVED = "qwen3-1.7b"  # 13b at two layers, 13c at full depth
 LLM_WIDE = (4, 32)  # 13b: prompts x tokens
 LLM_SERVE = (4, 256, 64, 512)  # 13c: requests, prompt tokens, greedy steps, max_len
 LLM_MOE_WIDE = (2, 512)  # 13d: deepseek-moe-16b's batch x tokens
+# phase 14, the training path
+TRAIN_FAMILIES = ("qwen3-1.7b", "deepseek-moe-16b", "seamless-m4t-large-v2", "internvl2-26b")
+TRAIN_LR = 1e-2  # 14a-b: the compared step's rate (warm-up 1)
+TRAIN_GRAD_SHARE = 1e-4  # gradient atol, a share of the leaf's largest |g| (tests/test_torch_train.py)
+TRAIN_SMALL = (2, 17)  # 14a: rows x tokens
+TRAIN_WIDE = (2, 65)  # 14b: rows x tokens at full width, 2 layers
+TRAIN_DEEP = (4, 257, 8)  # 14c: rows x tokens, steps at full width and depth
+TRAIN_CKPT = (2, 64, 4, 6)  # 14d: rows, tokens (+1 label), run 1's steps, run 2's
+BF16_PEAK = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet, 700 W)
 # phase 10d's service traffic: clients x requests x cases a request
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCH, SERVE_HUGE_EVERY = 4, 6, 2, 16
 # phase 10c: the tuned static pass-2b sweeps against the same lists swept by
@@ -1399,8 +1452,18 @@ def client_requests(cases, poison_at):
     return out
 
 
+def old_bandwidth_probe(dev):
+    """The bandwidth probe before its repair: the eager ``u + 0.5 * v`` (two
+    kernels, five streams) over two 16 MiB streams, counted as three."""
+    m = 1 << 22
+    u = torch.ones(m, dtype=torch.float32, device=dev)
+    v = torch.full((m,), 2.0, dtype=torch.float32, device=dev)
+    return 3.0 * 4.0 * m / autotune._best_device_s(lambda: u + 0.5 * v, 8, 2)
+
+
 def probe_phase(dev, smi):
-    """Phase 10a: the sync and hardware probes, on an empty cache of their own."""
+    """Phase 10a: the sync and hardware probes, on an empty cache of their
+    own, and the bandwidth probe before its repair; returns the old figure."""
     fd, probe_file = tempfile.mkstemp(prefix="repro_probe_", suffix=".json")
     os.close(fd)
     os.unlink(probe_file)
@@ -1416,14 +1479,56 @@ def probe_phase(dev, smi):
     check_no_probe(probes0 + 2, "probe")
     check(again.sync_cost_us() == sync_us and again.hw_profile() == prof,
           "a second CostModel read other values than the probes stored")
+    check(stored[autotune.hw_key("cuda")].get("revision") == autotune.HW_PROBE_REVISION,
+          f"the hw record carries no revision {autotune.HW_PROBE_REVISION}: {stored}")
     os.unlink(probe_file)
     secs = {k: autotune.PROBE_SECONDS[k] - secs0[k] for k in secs0}
+    check(0 < prof["mem_bw"] <= H100["mem_bw"],
+          f"the bandwidth probe reads {prof['mem_bw'] / 1e12:.3f} TB/s, past the data sheet's "
+          f"{H100['mem_bw'] / 1e12:.2f}")
+    old_bw = old_bandwidth_probe(dev)
+    mib = autotune.HW_PROBE_COPY_ELEMS * 4 // 2**20
     print(f"[probe] card: {smi}; sync/cuda {sync_us:.3f} us ({secs['sync']:.3f} s), hw/cuda "
           f"peak FP32 {prof['peak_flops'] / 1e12:.3f} TFLOP/s (an N={autotune.HW_PROBE_MATMUL_N} "
-          f"matmul, TF32 off) and bandwidth {prof['mem_bw'] / 1e12:.3f} TB/s (u + 0.5 v over "
-          f"16 MiB) ({secs['hw']:.3f} s), against the data sheet's "
+          f"matmul, TF32 off) and bandwidth {prof['mem_bw'] / 1e12:.3f} TB/s (one kernel, "
+          f"torch.add(u, v, alpha=0.5), {autotune.HW_PROBE_STREAMS} streams of {mib} MiB) "
+          f"({secs['hw']:.3f} s), against the data sheet's "
           f"{H100['peak_flops'] / 1e12:.0f} and {H100['mem_bw'] / 1e12:.2f}; a second CostModel "
           f"read both from the cache: {autotune.PROBES - probes0} probes in all")
+    print(f"[probe] the probe before its repair (eager u + 0.5 * v, two kernels, over 16 MiB, "
+          f"counted as 3 streams): {old_bw / 1e12:.3f} TB/s; its 5 streams counted: "
+          f"{old_bw * 5 / 3 / 1e12:.3f} TB/s; new / old {ratio(prof['mem_bw'], old_bw)}x")
+    return old_bw
+
+
+def probe_moves(cohort_cases, old_bw):
+    """Phase 10f: the auto stream's windows (cases and resolved schedule)
+    under the repaired bandwidth figure and under the old one, written in
+    turn into the cache's hw/cuda record; prints whether any moved."""
+    cache = autotune.AutotuneCache()
+    key = autotune.hw_key("cuda")
+    rec = dict(cache.get(key))
+
+    def windows():
+        out = []
+        list(auto_extractor().extract_stream(
+            iter(cohort_cases), window="auto",
+            stats_callback=lambda i, st: out.append((st["cases"], st["schedule"]))))
+        return out
+
+    new = windows()
+    cache.put(key, {**rec, "mem_bw": old_bw})
+    try:
+        old = windows()
+    finally:
+        cache.put(key, rec)
+    check(windows() == new, "the auto stream's windows moved after the record was restored")
+    moved = [k for k in range(max(len(new), len(old)))
+             if new[k:k + 1] != old[k:k + 1]]
+    print(f"[probe] the auto stream over {len(cohort_cases)} cases at the repaired "
+          f"{rec['mem_bw'] / 1e12:.3f} TB/s: windows (cases, schedule) {new}; at the old "
+          f"{old_bw / 1e12:.3f} TB/s: {old}; "
+          + (f"windows {moved} moved" if moved else "no window's close or schedule moved"))
 
 
 def auto_phase(cohort_cases, frows, fext, sext):
@@ -2249,6 +2354,320 @@ def models_phase(smi):
     del model, logits
     torch.cuda.empty_cache()
     print(f"[models] phase 13 took {time.perf_counter() - t_phase:.3f} s")
+
+
+# -- 14. the LLM scaffold's training path -------------------------------------
+
+def train_batch(cfg, rows, tokens, device, seed=0):
+    """Seeded tokens (rows, tokens) and the frontend's stub input, if any
+    (0.1 + 0.01 N(0, 1), as phase 13's), on ``device``."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (rows, tokens)).astype(np.int32)}
+    n = enc_len_for(tokens) if cfg.n_encoder_layers else cfg.frontend_tokens
+    if n:
+        stub = (0.1 + 0.01 * rng.standard_normal((rows, n, cfg.d_model))).astype(np.float32)
+        out["frames" if cfg.n_encoder_layers else "prefix"] = stub
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def train_one_step(model, batch):
+    """One ``make_train_step`` step from zero moments at TRAIN_LR: the state,
+    the metrics as floats and the step's seconds (host clock, synced)."""
+    step = make_train_step(model, RunConfig(learning_rate=TRAIN_LR, warmup_steps=1))
+    state = opt.init_opt_state(dict(model.named_parameters()))
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    out = {k: float(v) for k, v in metrics.items()}
+    return state, out, time.perf_counter() - t0
+
+
+def close_on_card(a, b, rtol, atol, what):
+    """numpy's ``assert_allclose`` on the card: ``|a - b| <= atol + rtol
+    |b|`` everywhere (a NaN fails), ``b`` copied to ``a``'s device; returns
+    max |a - b|."""
+    a, b = a.detach().float(), b.detach().to(a.device, torch.float32)
+    if not b.numel():
+        return 0.0
+    d = (a - b).abs()
+    bad = int((~(d <= atol + rtol * b.abs())).sum())
+    check(bad == 0, f"{what}: {bad} of {b.numel()} elements past atol {atol:.3g} + rtol "
+                    f"{rtol:g} |b|; max |a - b| {float(d.max()):.3g}")
+    return float(d.max())
+
+
+def train_compare(label, card, cpu, card_step, cpu_step):
+    """A step on the card against the CPU's (the tests' tolerances): the
+    metrics at rtol 1e-4; every gradient and m at rtol 1e-4 with an atol of
+    TRAIN_GRAD_SHARE of the leaf's largest entry, v at twice both; the
+    parameters after at atol 2 lr under the gradient floor (the sign of a
+    gradient there is rounding), else rtol 1e-4 with atol 1e-6 + lr eps /
+    floor.  Compared on the card.  Returns the largest gaps, each over its
+    leaf's largest entry (the parameters' absolute)."""
+    (cs, cmet, _), (ws, wmet, _) = card_step, cpu_step
+    check(set(cmet) == set(wmet), f"{label}: metrics {sorted(cmet)} != {sorted(wmet)}")
+    for k, w in wmet.items():
+        np.testing.assert_allclose(cmet[k], w, rtol=1e-4, atol=1e-7, err_msg=f"{label} {k}")
+    gaps = dict.fromkeys(("grad", "m", "v", "param"), 0.0)
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        q = cpu_params[name]
+        for what, a, b in (("grad", p.grad, q.grad), ("m", cs.m[name], ws.m[name]),
+                           ("v", cs.v[name], ws.v[name])):
+            k = 2 if what == "v" else 1
+            top = max(float(b.abs().max()), 1e-30)
+            d = close_on_card(a, b, k * 1e-4, k * TRAIN_GRAD_SHARE * top,
+                              f"{label} {what} {name}")
+            gaps[what] = max(gaps[what], d / top)
+        g = ws.m[name].to(p.device).abs() / (1 - 0.9)
+        floor = max(TRAIN_GRAD_SHARE * float(g.max()), 1e-30)
+        noisy = g < floor
+        a, b = p.detach(), q.detach().to(p.device)
+        gaps["param"] = max(gaps["param"],
+                            close_on_card(a[~noisy], b[~noisy], 1e-4,
+                                          1e-6 + TRAIN_LR * 1e-8 / floor,
+                                          f"{label} parameter {name}"),
+                            close_on_card(a[noisy], b[noisy], 0.0, 2 * TRAIN_LR,
+                                          f"{label} parameter {name} (under the floor)"))
+    check(int(cs.step) == int(ws.step) == 1, f"{label}: steps {int(cs.step)}, {int(ws.step)}")
+    return gaps
+
+
+def train_pair(cfg, dev):
+    """The same seeded weights on the CPU and on the card."""
+    cpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = get_model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def train_spans(fn):
+    """One call of ``fn`` (a train step) after a warm-up, traced with host
+    and device events: each ``train_step.*`` span's host and device ms, and
+    the six kernels with the most device time (name, us, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    spans = {e.key: (e.cpu_time_total / 1e3, e.device_time_total / 1e3) for e in events
+             if e.key.startswith("train_step.")}
+    kern = sorted((e for e in events if e.self_device_time_total > 0 and not
+                   e.key.startswith("train_step.")),
+                  key=lambda e: -e.self_device_time_total)
+    return {"spans": spans,
+            "top": [(e.key, e.self_device_time_total, e.count) for e in kern[:6]]}
+
+
+def metrics_lines(path):
+    return [json.loads(line) for line in Path(path).read_text().splitlines()]
+
+
+def train_phase(smi):
+    """Phase 14: the LLM scaffold's training path on the card (printed as
+    [train]); fails on any check."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "[train] TF32 must be off for the float32 checks")
+    zero_counts()
+
+    # (a) four families, reduced, float32: one step, card against CPU
+    t0 = time.perf_counter()
+    for name in TRAIN_FAMILIES:
+        cfg = get_config(name).reduced(capacity_factor=8.0)
+        cpu, card = train_pair(cfg, dev)
+        batch = train_batch(cfg, *TRAIN_SMALL, "cpu")
+        ws = train_one_step(cpu, batch)
+        cs = train_one_step(card, {k: v.to(dev) for k, v in batch.items()})
+        gaps = train_compare(f"[train] 14a {name}", card, cpu, cs, ws)
+        print(f"[train] 14a {name}: loss {cs[1]['loss']:.6f} (CPU {ws[1]['loss']:.6f}), "
+              f"grad_norm {cs[1]['grad_norm']:.6f} (CPU {ws[1]['grad_norm']:.6f}), lr "
+              f"{cs[1]['lr']:.6g}, aux {cs[1]['aux']:.6g}; largest gap over the leaf's largest "
+              f"entry: grad {gaps['grad']:.2e}, m {gaps['m']:.2e}, v {gaps['v']:.2e}; "
+              f"parameters after max|card - cpu| {gaps['param']:.2e}")
+    print(f"[train] 14a: {len(TRAIN_FAMILIES)} reduced families, float32, TF32 off: "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    # (b) qwen3-1.7b at full width, two layers, float32, card against CPU
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLM_SERVED), n_layers=2, dtype="float32")
+    cpu, card = train_pair(cfg, dev)
+    n_params = sum(p.numel() for p in card.parameters())
+    batch = train_batch(cfg, *TRAIN_WIDE, "cpu", seed=1)
+    ws = train_one_step(cpu, batch)
+    cs = train_one_step(card, {k: v.to(dev) for k, v in batch.items()})
+    gaps = train_compare("[train] 14b", card, cpu, cs, ws)
+    print(f"[train] 14b {LLM_SERVED} full width, 2 layers ({n_params:,} parameters), float32, "
+          f"{TRAIN_WIDE[0]} x {TRAIN_WIDE[1]} tokens: loss {cs[1]['loss']:.6f} (CPU "
+          f"{ws[1]['loss']:.6f}), grad_norm {cs[1]['grad_norm']:.6f} (CPU "
+          f"{ws[1]['grad_norm']:.6f}); largest gap over the leaf's largest entry: grad "
+          f"{gaps['grad']:.2e}, m {gaps['m']:.2e}, v {gaps['v']:.2e}; parameters after "
+          f"max|card - cpu| {gaps['param']:.2e}; the step card {cs[2] * 1e3:.3f} ms (first), "
+          f"CPU {ws[2]:.3f} s; {time.perf_counter() - t0:.3f} s")
+    del cpu, card, cs, ws
+    torch.cuda.empty_cache()
+
+    # (c) qwen3-1.7b at full width and depth: 8 steps on one batch
+    t0 = time.perf_counter()
+    cfg = get_config(LLM_SERVED)
+    check(cfg.remat and cfg.dtype == "bfloat16", f"[train] 14c: {cfg.name} remat "
+                                                 f"{cfg.remat}, dtype {cfg.dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    rows, toks, n_steps = TRAIN_DEEP
+    batch = train_batch(cfg, rows, toks, dev, seed=4)
+    step = make_train_step(model, RunConfig(learning_rate=3e-4, warmup_steps=2))
+    state = opt.init_opt_state(dict(model.named_parameters()))
+    losses, walls = [], []
+    for _ in range(n_steps):
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"[train] 14c: losses {losses}")
+    check(losses[-1] < losses[0], f"[train] 14c: the 8th loss {losses[-1]} is not below the "
+                                  f"first {losses[0]}")
+    holder = [state]
+
+    def one():
+        holder[0], _ = step(holder[0], batch)
+
+    kernels, busy_us, traced_ms = traced_launches(one)
+    spans = train_spans(one)
+    med = statistics.median(walls[1:])
+    tokens = rows * toks
+    flops = 8.0 * n_params * tokens  # 6 N T, and the remat forward's 2 N T
+    adamw_bytes = 28.0 * n_params  # p, m, v read and written, g read, float32
+    print(f"[train] 14c {LLM_SERVED} full width and depth ({cfg.n_layers} layers, "
+          f"{n_params:,} parameters), float32 parameters and moments, bf16 compute, remat, "
+          f"{rows} x {toks} tokens, lr 3e-4 (warm-up 2): losses {[round(x, 4) for x in losses]}; "
+          f"step ms {[round(w * 1e3, 2) for w in walls]}, median after the first "
+          f"{med * 1e3:.3f} ms = {tokens / med:.1f} tokens/s; max_memory_allocated {peak:,} B; "
+          f"bounds: {flops / 1e12:.2f} TFLOP at the bf16 dense peak "
+          f"{flops / BF16_PEAK * 1e3:.3f} ms, AdamW's {adamw_bytes / 1e9:.2f} GB at "
+          f"{H100['mem_bw'] / 1e12:.2f} TB/s {adamw_bytes / H100['mem_bw'] * 1e3:.3f} ms; card {smi}")
+    print(f"[train] 14c traced step: {kernels} kernels, device {busy_us / 1e3:.3f} ms of "
+          f"{traced_ms:.3f} ms wall (busy {ratio(busy_us / 1e3, traced_ms)}); "
+          f"{time.perf_counter() - t0:.3f} s")
+    print(f"[train] 14c a step traced with host events too (the profiler's own cost on the "
+          f"host): " + "; ".join(
+              f"{name} host {h:.3f} ms, device "
+              + (f"{d:.3f} ms" if d > 0 else "not measured")
+              for name, (h, d) in spans["spans"].items())
+          + f"; kernels by device time: " + ", ".join(
+              f"{k[:48]} {us / 1e3:.3f} ms x{n}" for k, us, n in spans["top"]))
+    del model, step, state, holder, batch
+    torch.cuda.empty_cache()
+
+    # (d) the entry points: the launcher, and the Trainer at full width
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="repro_train_"))
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", LLM_SERVED, "--smoke",
+             "--steps", "4", "--device", "cuda:0", "--workdir", str(work / "launch")],
+            cwd=root, env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+            text=True, timeout=600)
+        check(r.returncode == 0, f"[train] 14d launcher exit {r.returncode}: "
+                                 f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+        recs = metrics_lines(work / "launch" / "metrics.jsonl")
+        check([x["step"] for x in recs] == [0, 1, 2, 3]
+              and all(np.isfinite(x["loss"]) for x in recs),
+              f"[train] 14d launcher metrics {recs}")
+        print(f"[train] 14d python -m repro_torch.launch.train --arch {LLM_SERVED} --smoke "
+              f"--steps 4 --device cuda:0: exit 0 in {time.perf_counter() - t0:.3f} s, "
+              f"metrics.jsonl steps 0-3, losses {[round(x['loss'], 4) for x in recs]}; "
+              f"{r.stdout.strip().splitlines()[-1]}")
+
+        t1 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(LLM_SERVED), n_layers=2, dtype="float32")
+        rows, seq, first, total = TRAIN_CKPT
+        run = RunConfig(steps=total, checkpoint_every=first, warmup_steps=2, learning_rate=3e-4)
+        model = get_model(cfg, device=dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        ckpt_bytes = 12 * n_params + 4  # params, m, v in float32, and the step
+        free = shutil.disk_usage(work).free
+        print(f"[train] 14d workdir {work}: {free:,} B free before writing; a checkpoint "
+              f"{ckpt_bytes:,} B, two kept")
+        check(free > 2.2 * ckpt_bytes, f"[train] 14d: {free:,} B free, two checkpoints of "
+                                       f"{ckpt_bytes:,} B do not fit")
+        trainer = Trainer(model, run, synthetic_data(cfg, rows, seq, device=dev), work / "run")
+        timed = {"snapshot": [], "write": []}
+        ckpt = trainer.ckpt
+        write, save_async = ckpt._write, ckpt.save_async
+
+        def timed_write(*a):
+            t = time.perf_counter()
+            write(*a)
+            timed["write"].append(time.perf_counter() - t)
+
+        def timed_save_async(*a, **k):
+            t = time.perf_counter()
+            save_async(*a, **k)
+            timed["snapshot"].append(time.perf_counter() - t)
+
+        ckpt._write, ckpt.save_async = timed_write, timed_save_async
+        _, state, last = trainer.train(steps=first)
+        run1_s = time.perf_counter() - t1
+        check(ckpt.latest_step() == first and np.isfinite(last["loss"]),
+              f"[train] 14d run 1: latest {ckpt.latest_step()}, last {last}")
+        saved = (params_to_reference(model), opt_state_to_reference(model, state))
+        del trainer, model, state, ckpt
+        torch.cuda.empty_cache()
+
+        t1 = time.perf_counter()
+        model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+        trainer = Trainer(model, run, synthetic_data(cfg, rows, seq, seed=1, device=dev),
+                          work / "run")
+        t2 = time.perf_counter()
+        start, _, state = trainer.resume_or_init()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t2
+        check(start == first, f"[train] 14d run 2 resumed at {start}, not {first}")
+        got = (params_to_reference(model), opt_state_to_reference(model, state))
+        flat_got = dict(zip(["params", "m", "v"], (got[0], got[1].m, got[1].v)))
+        flat_want = dict(zip(["params", "m", "v"], (saved[0], saved[1].m, saved[1].v)))
+        for what in flat_want:
+            for (path, a), (_, b) in zip(_walk(flat_got[what]), _walk(flat_want[what])):
+                check(np.array_equal(a, b), f"[train] 14d restored {what} {path} != saved")
+        check(int(got[1].step) == first, f"[train] 14d restored step {int(got[1].step)}")
+        del got, flat_got
+        _, state, last = trainer.train(steps=total)
+        run2_s = time.perf_counter() - t1
+        steps_logged = [x["step"] for x in metrics_lines(work / "run" / "metrics.jsonl")]
+        check(steps_logged == list(range(total)), f"[train] 14d metrics steps {steps_logged}")
+        check(trainer.ckpt.all_steps() == [first, total] and int(state.step) == total,
+              f"[train] 14d checkpoints {trainer.ckpt.all_steps()}, step {int(state.step)}")
+        print(f"[train] 14d Trainer, {LLM_SERVED} full width, 2 layers ({n_params:,} "
+              f"parameters), float32, {rows} x {seq + 1} tokens: run 1 {first} steps and a "
+              f"checkpoint of {ckpt_bytes:,} B in {run1_s:.3f} s (the host copy "
+              f"{sum(timed['snapshot']):.3f} s, the write {sum(timed['write']):.3f} s on its "
+              f"thread); run 2 a fresh Trainer resumed at step {start} (restore "
+              f"{restore_s:.3f} s; parameters, m, v and step bitwise equal to those saved), "
+              f"trained to {total} in {run2_s:.3f} s with a second checkpoint; metrics.jsonl "
+              f"steps {steps_logged}; latest_step {trainer.ckpt.latest_step()}; card {smi}")
+        del trainer, model, state, saved
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = read_counts()
+    check(not any(launches.values()), f"[train] the training path launched a kernel: {launches}")
+    print(f"[train] 14d took {time.perf_counter() - t0:.3f} s; the phase launched none of the "
+          f"hand kernels (rows 1-11, R); phase 14 took {time.perf_counter() - t_phase:.3f} s")
+
+
+def _walk(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], path + (k,))
+    else:
+        yield "/".join(path), tree
 
 
 def main():
@@ -3504,13 +3923,15 @@ def main():
 
     # -- 10. the auto knobs and the service (before 9, whose cold sweeps add
     # measured depths that could move the auto stream's windows) -------------
-    probe_phase(dev, smi)
+    old_bw = probe_phase(dev, smi)
     auto_phase(cohort_cases, frows, fext, sext)
     serve_phase()
     cli_phase()
 
     # -- 12. data parallelism over a mesh (before 9, as 10) --------------------
     data_parallel_phase(cohort_cases, frows, fstats, fam_launches)
+    # 10f. (after 12, before 9's cold sweeps) the auto windows under the old probe
+    probe_moves(cohort_cases, old_bw)
 
     # -- 9. the variant axis and the autotuner --------------------------------
     variants = ("seqacc",) + tuple(v for v in dm.VARIANTS if v != "seqacc")
@@ -3721,7 +4142,10 @@ def main():
     # -- 13. the LLM scaffold's serving path (runs none of the kernels) -------
     models_phase(smi)
 
-    # -- 14. kernels line ---------------------------------------------------
+    # -- 14. the LLM scaffold's training path (runs none of the kernels) ------
+    train_phase(smi)
+
+    # -- 15. kernels line ---------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -3767,7 +4191,7 @@ def main():
         for v in variants if v != "seqacc"
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 15. status -----------------------------------------------------------
+    # -- 16. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -33,8 +33,13 @@ from a seed) and the serve step (``serve/serve_step.py``).  Its weights
 cross between the packages through ``models/convert.py``
 (``params_from_reference``, ``params_to_reference``: the reference's
 nested parameter dicts, exactly), which the tests use so both packages
-compute with the same weights.  The scaffold runs no hand kernel: the
-reference computes it outside any Pallas kernel.
+compute with the same weights.  Its training path is ported too: AdamW
+and the schedules, the train and eval steps over ``torch.autograd`` with
+``cfg.remat`` as ``torch.utils.checkpoint`` (``train/``, exported there:
+``OptState``, ``make_train_step``, ``Trainer``, ...), the atomic
+checkpoint in the reference's layout (``runtime/checkpoint``), and
+``launch/train``.  The scaffold runs no hand kernel: the reference
+computes it outside any Pallas kernel.
 """
 from repro_torch.core import (
     BatchedExtractor,

@@ -1,0 +1,89 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
+
+Builds a mesh where the reference does (more than one visible card under
+``--device cuda``), and drives the fault-tolerant ``Trainer`` on synthetic
+data.  Training over a mesh of more than one card is not ported
+(``ROADMAP.md``, Queue 1 item 5.2(c)): on such a machine ``--device
+cuda:0`` trains on one card.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --smoke --steps 10 --workdir /path/to/run1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --smoke --steps 4 --device cpu
+
+The default workdir is ``repro_torch_launch_train`` in the temporary
+directory; a second run in the same workdir resumes from its checkpoint.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import RunConfig
+from repro_torch.core.dispatcher import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.encdec import enc_len_for
+from repro_torch.models.registry import get_config, get_model, list_archs
+from repro_torch.train.trainer import Trainer
+
+
+def synthetic_data(cfg, batch: int, seq: int, seed: int = 0, device=None):
+    """Synthetic token stream (plus modality-stub inputs where required):
+    the reference's numpy stream, as tensors on ``device`` (default
+    ``'cuda'``; raises without a card unless ``'cpu'``)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    while True:
+        out = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)).to(dev)}
+        if cfg.family in ("audio", "encdec"):
+            out["frames"] = torch.from_numpy(
+                rng.normal(size=(batch, enc_len_for(seq), cfg.d_model)).astype(np.float32)
+            ).to(dev) * 0.1
+        elif cfg.frontend_tokens:
+            out["prefix"] = torch.from_numpy(
+                rng.normal(size=(batch, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+            ).to(dev) * 0.1
+        yield out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="train an LLM-scaffold architecture")
+    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--workdir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_torch_launch_train"))
+    ap.add_argument("--smoke", action="store_true", help="reduced config (CPU-runnable)")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="'cuda' (default), 'cuda:N' or 'cpu'")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    model = get_model(cfg, device=dev)
+    multi = args.device == "cuda" and torch.cuda.device_count() > 1
+    mesh = make_host_mesh(args.model_parallel) if multi else None
+    run = RunConfig(steps=args.steps, microbatch=args.microbatch,
+                    warmup_steps=max(2, args.steps // 10),
+                    checkpoint_every=max(1, args.steps // 4))
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    print(f"[launch] arch={cfg.name} params~{cfg.n_params / 1e6:.1f}M "
+          f"device={dev} devices={n_dev} mesh={mesh.shape if mesh else None}")
+    trainer = Trainer(model, run, synthetic_data(cfg, args.batch, args.seq, device=dev),
+                      args.workdir, mesh=mesh)
+    _, _, last = trainer.train(steps=args.steps)
+    print(f"[launch] done: {last}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

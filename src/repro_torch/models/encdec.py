@@ -66,6 +66,29 @@ def _cross_attend(params, x, ck, cv):
     return torch.einsum("bshk,hkd->bsd", o, params["wo"].to(x.dtype))
 
 
+def _encoder_layer(lp, x, positions, cfg):
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    q, kv = L.attention_qkv(lp["attn"], h, positions, cfg)
+    o = L.blockwise_attention(q, kv.k, kv.v, causal=False)
+    x = x + L.attention_out(lp["attn"], o, x.dtype)
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    x = x + L.mlp(lp["mlp"], h, cfg.mlp_act)
+    return constrain(x, "batch", "seq", "embed_act")
+
+
+def _decoder_layer(lp, x, enc_out, positions, cfg):
+    """One teacher-forced decoder layer: self-attention, cross-attention to
+    ``enc_out``, MLP."""
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    x = x + L.self_attention(lp["attn"], h, positions, cfg)
+    h = L.rmsnorm(lp["ln_x"], x, cfg.norm_eps)
+    ck, cv = _cross_kv(lp["cross"], enc_out)
+    x = x + _cross_attend(lp["cross"], h, ck, cv)
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    x = x + L.mlp(lp["mlp"], h, cfg.mlp_act)
+    return constrain(x, "batch", "seq", "embed_act")
+
+
 class EncDec(SpecModule):
     """Parameters: ``embed``, ``encoder``, ``decoder`` (one
     :class:`ParamTree` a layer each), ``enc_norm``, ``final_norm``,
@@ -87,13 +110,7 @@ class EncDec(SpecModule):
         positions = torch.arange(s, device=x.device).expand(b, s)
         x = constrain(x, "batch", "seq", "embed_act")
         for lp in self.encoder:
-            h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            q, kv = L.attention_qkv(lp["attn"], h, positions, cfg)
-            o = L.blockwise_attention(q, kv.k, kv.v, causal=False)
-            x = x + L.attention_out(lp["attn"], o, x.dtype)
-            h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp(lp["mlp"], h, cfg.mlp_act)
-            x = constrain(x, "batch", "seq", "embed_act")
+            x = L.remat(cfg, _encoder_layer, lp, x, positions, cfg)
         return L.rmsnorm(self.enc_norm, x, cfg.norm_eps)
 
     def forward(self, tokens, frames):
@@ -105,14 +122,7 @@ class EncDec(SpecModule):
         positions = torch.arange(s, device=x.device).expand(b, s)
         x = constrain(x, "batch", "seq", "embed_act")
         for lp in self.decoder:
-            h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            x = x + L.self_attention(lp["attn"], h, positions, cfg)
-            h = L.rmsnorm(lp["ln_x"], x, cfg.norm_eps)
-            ck, cv = _cross_kv(lp["cross"], enc_out)
-            x = x + _cross_attend(lp["cross"], h, ck, cv)
-            h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp(lp["mlp"], h, cfg.mlp_act)
-            x = constrain(x, "batch", "seq", "embed_act")
+            x = L.remat(cfg, _decoder_layer, lp, x, enc_out, positions, cfg)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = L.unembed(self.unembed, x)
         return constrain(logits, "batch", "seq", "vocab"), 0.0

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models.params import P
 
@@ -29,6 +30,16 @@ _FAR = -(2**30)  # a window threshold no position reaches
 def compute_dtype(cfg) -> torch.dtype:
     """The activations' dtype, ``cfg.dtype`` as a ``torch.dtype``."""
     return getattr(torch, cfg.dtype)
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, one layer's body.  Under ``cfg.remat`` with autograd
+    recording, its activations are recomputed in the backward pass instead
+    of saved (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+    with ``nothing_saveable``); without a gradient (serving) it runs as is."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # --------------------------------------------------------------------------

@@ -154,8 +154,10 @@ class SpecModule(nn.Module):
     ``'cuda'``; ``'cpu'`` on request) and drawn from ``generator`` (default:
     one seeded 0 on that device); compute runs in ``cfg.dtype``.  The
     layers run in a Python loop over the ``ModuleList``, the counterpart of
-    the reference's ``scan_or_unroll``: ``cfg.remat`` and
-    ``cfg.scan_layers`` change nothing in a forward pass and are ignored.
+    the reference's ``scan_or_unroll``, so ``cfg.scan_layers`` is ignored;
+    under ``cfg.remat`` a forward that records a gradient recomputes each
+    layer's activations in the backward pass (``layers.remat``), and a
+    forward without one (serving) is unchanged.
     """
 
     build_spec = None

@@ -109,6 +109,18 @@ def _shift(x):
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
+def _layer(lp, x, cfg, ssm_chunk):
+    """One full-sequence layer: time-mix, then channel-mix."""
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    r, k, v, g, logw = _time_mix_project(lp["tm"], h, _shift(h), cfg)
+    wkv, _ = S.chunked_decay_attention(r, k, v, logw, u=lp["tm"]["u"], chunk=ssm_chunk,
+                                       inclusive=False)
+    x = x + _time_mix_out(lp["tm"], wkv, g, cfg, x.dtype)
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    x = x + _channel_mix(lp["cm"], h, _shift(h), cfg)
+    return constrain(x, "batch", "seq", "embed_act")
+
+
 class RWKV6(SpecModule):
     """Parameters: ``embed``, ``layers``, ``final_norm``, ``unembed``; see
     :class:`SpecModule` for ``device``, ``dtype`` and ``generator``."""
@@ -127,14 +139,7 @@ class RWKV6(SpecModule):
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         x = constrain(x, "batch", "seq", "embed_act")
         for lp in self.layers:
-            h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            r, k, v, g, logw = _time_mix_project(lp["tm"], h, _shift(h), cfg)
-            wkv, _ = S.chunked_decay_attention(r, k, v, logw, u=lp["tm"]["u"], chunk=ssm_chunk,
-                                               inclusive=False)
-            x = x + _time_mix_out(lp["tm"], wkv, g, cfg, x.dtype)
-            h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + _channel_mix(lp["cm"], h, _shift(h), cfg)
-            x = constrain(x, "batch", "seq", "embed_act")
+            x = L.remat(cfg, _layer, lp, x, cfg, ssm_chunk)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = L.unembed(self.unembed, x)
         return constrain(logits, "batch", "seq", "vocab"), 0.0

@@ -176,7 +176,7 @@ class Decoder(SpecModule):
         x = constrain(x, "batch", "seq", "embed_act")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp, w in zip(self.layers, self.windows()):
-            x, a = layer_apply(lp, x, positions, cfg, int(w))
+            x, a = L.remat(cfg, layer_apply, lp, x, positions, cfg, int(w))
             aux = aux + a
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = constrain(self._unembed(x), "batch", "seq", "vocab")

@@ -609,7 +609,13 @@ DEFAULT_HW_PROFILES = {
     "cpu": {"peak_flops": 8.0e9, "mem_bw": 20.0e9, "source": "default"},
 }
 HW_PROBE_MATMUL_N = 512  # float32 matmul edge of the peak-rate probe
-HW_PROBE_COPY_ELEMS = 1 << 22  # float32 elements of each bandwidth-probe stream (16 MiB)
+# float32 elements of each bandwidth-probe stream (256 MiB): the three
+# streams are 15x the H100's 50 MB L2, so no stream is served from it
+HW_PROBE_COPY_ELEMS = 1 << 26
+HW_PROBE_STREAMS = 3  # the probe's two reads and one write
+# revision of the hw/<device> record: a record without it (the eager
+# ``u + 0.5 * v`` of two kernels, five streams counted as three) is a miss
+HW_PROBE_REVISION = 2
 
 
 def sync_key(backend: str) -> str:
@@ -663,14 +669,22 @@ def _best_device_s(fn, repeat: int, warmup: int) -> float:
     return best
 
 
+def bandwidth_probe_op(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The bandwidth probe's expression, ``u + 0.5 v``, as one kernel that
+    reads ``u`` and ``v`` once and writes its result once
+    (:data:`HW_PROBE_STREAMS`).  The eager ``u + 0.5 * v`` is two kernels
+    whose temporary adds a write and a read."""
+    return torch.add(u, v, alpha=0.5)
+
+
 def measure_hw_profile(device, *, repeat: int = 8, warmup: int = 2) -> dict:
     """Measured ``{"peak_flops", "mem_bw"}`` of the card.
 
     Peak rate: an (N, N) float32 ``torch.matmul`` (2 N^3 operations) with
     TF32 off, as the pruning bound runs it (a TF32 rate would be ~8x the
-    FP32 one).  Bandwidth: ``u + 0.5 * v`` over two 16 MiB float32 streams
-    (two reads and a write).  Library calls, timed by device time; small,
-    so the probe costs milliseconds once per card.
+    FP32 one).  Bandwidth: :func:`bandwidth_probe_op` over two 256 MiB
+    float32 streams (two reads and a write, past the L2).  Library calls,
+    timed by device time; the probe costs milliseconds once per card.
     """
     dev = torch.device(device)
     with torch.cuda.device(dev):
@@ -685,8 +699,10 @@ def measure_hw_profile(device, *, repeat: int = 8, warmup: int = 2) -> dict:
         m = HW_PROBE_COPY_ELEMS
         u = torch.ones(m, dtype=torch.float32, device=dev)
         v = torch.full((m,), 2.0, dtype=torch.float32, device=dev)
-        bw_s = _best_device_s(lambda: u + 0.5 * v, repeat, warmup)
-    return {"peak_flops": 2.0 * n ** 3 / mm_s, "mem_bw": 3.0 * 4.0 * m / bw_s}
+        bw_s = _best_device_s(lambda: bandwidth_probe_op(u, v), repeat, warmup)
+        del u, v
+    return {"peak_flops": 2.0 * n ** 3 / mm_s, "mem_bw": HW_PROBE_STREAMS * 4.0 * m / bw_s,
+            "revision": HW_PROBE_REVISION}
 
 
 def _probed(kind: str, cache: AutotuneCache, key: str, measure):
@@ -730,8 +746,8 @@ def get_hw_profile(device, *, cache: AutotuneCache | None = None) -> dict | None
     """Cached-or-probed roofline profile ``{"peak_flops", "mem_bw",
     "source"}`` of ``device``, or ``None`` under ``REPRO_ROOFLINE=0``.
 
-    A ``hw/<device>`` record with both figures positive wins (``source``
-    'measured'); a miss probes on ``'cuda'`` (:func:`measure_hw_profile`)
+    A ``hw/<device>`` record with both figures positive and the probe's
+    :data:`HW_PROBE_REVISION` wins (``source`` 'measured'); a miss probes on ``'cuda'`` (:func:`measure_hw_profile`)
     unless ``REPRO_AUTOTUNE=0`` and stores the result; otherwise the
     :data:`DEFAULT_HW_PROFILES` entry, uncached.
     """
@@ -740,7 +756,7 @@ def get_hw_profile(device, *, cache: AutotuneCache | None = None) -> dict | None
     backend = torch.device(device).type
     cache = cache or AutotuneCache()
     hit = cache.get(hw_key(backend))
-    if hit is not None:
+    if hit is not None and hit.get("revision") == HW_PROBE_REVISION:
         try:
             peak, bw = float(hit["peak_flops"]), float(hit["mem_bw"])
         except (KeyError, TypeError, ValueError):

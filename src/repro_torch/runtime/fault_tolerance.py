@@ -11,15 +11,19 @@ need, without its JAX imports:
   * :class:`PreemptionHandler` turns a ``SIGTERM`` (a cluster's
     preemption notice) into a flag the runner reads at each case;
 
+  * :class:`StepTimer` times one training step on the host's clock (the
+    trainer reads the step's loss inside it, so on the card the time
+    includes the device work);
+
 and :func:`surviving_mesh`, the largest well-formed ``(data, model)``
 mesh (``parallel/sharding.Mesh``) of the cards that survive.  The
 reference's ``elastic_remesh`` restores a checkpoint of model parameters
-on such a mesh and belongs to the LLM scaffold, which the port does not
-have yet (``ROADMAP.md``, Queue 1 item 10).
+on such a mesh; it is not ported yet (``ROADMAP.md``, Queue 1 item 5.3).
 """
 from __future__ import annotations
 
 import signal
+import time
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -135,3 +139,15 @@ def surviving_mesh(axis_names=("data", "model"), model_parallel: int = 1, device
         resolve_device("cuda")  # raises without a card
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return grid_mesh(devices, model_parallel, axis_names)
+
+
+class StepTimer:
+    """``with StepTimer() as t: ...`` leaves the block's wall seconds in
+    ``t.seconds``."""
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *a):
+        self.seconds = time.perf_counter() - self.t0

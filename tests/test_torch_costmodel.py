@@ -236,10 +236,40 @@ def test_probes_default_without_calibration(monkeypatch):
     assert not os.path.exists(os.environ["REPRO_AUTOTUNE_CACHE"])
     # a pinned entry wins on every device type
     autotune.AutotuneCache().put(autotune.sync_key("cpu"), {"us": 12.5})
-    autotune.AutotuneCache().put(autotune.hw_key("cpu"), {"peak_flops": 1e9, "mem_bw": 2e9})
+    autotune.AutotuneCache().put(autotune.hw_key("cpu"), {"peak_flops": 1e9, "mem_bw": 2e9,
+                                                          "revision": autotune.HW_PROBE_REVISION})
     assert autotune.get_sync_cost("cpu") == 12.5
     assert autotune.get_hw_profile("cpu") == {"peak_flops": 1e9, "mem_bw": 2e9,
                                               "source": "measured"}
+
+
+@pytest.mark.parametrize("revision", [None, 1])
+def test_hw_record_of_another_revision_is_a_miss(revision):
+    """A hw/<device> record of the old probe (no revision: the eager two-kernel
+    expression) or of another revision is not read back."""
+    rec = {"peak_flops": 1e9, "mem_bw": 2e9}
+    if revision is not None:
+        rec["revision"] = revision
+    autotune.AutotuneCache().put(autotune.hw_key("cpu"), rec)
+    assert autotune.get_hw_profile("cpu") == autotune.DEFAULT_HW_PROFILES["cpu"]
+
+
+@pytest.mark.parametrize("probe,ops", [
+    (autotune.bandwidth_probe_op, ["aten::add"]),
+    (lambda u, v: u + 0.5 * v, ["aten::mul", "aten::add"]),  # the old probe: two kernels
+])
+def test_bandwidth_probe_is_one_kernel(probe, ops):
+    """The bandwidth probe counts HW_PROBE_STREAMS (3) streams, so its
+    expression must run as one kernel: two reads and one write."""
+    from torch.profiler import ProfilerActivity, profile
+
+    u, v = torch.ones(4096), torch.full((4096,), 2.0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = probe(u, v)
+    assert [e.name for e in prof.events() if e.cpu_parent is None] == ops
+    assert torch.equal(out, torch.full((4096,), 2.0))
+    assert autotune.HW_PROBE_STREAMS == 3
+    assert 3 * 4 * autotune.HW_PROBE_COPY_ELEMS > 10 * 50e6  # well past the H100's 50 MB L2
 
 
 def test_choose_schedule_prices_extents_not_caps():

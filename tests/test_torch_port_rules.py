@@ -44,6 +44,9 @@ def test_import_loads_no_jax_or_reference():
         "import repro_torch.models.rwkv6, repro_torch.models.encdec\n"
         "import repro_torch.models.registry, repro_torch.models.convert\n"
         "import repro_torch.serve.serve_step\n"
+        "import repro_torch.train, repro_torch.train.optimizer, repro_torch.train.train_step\n"
+        "import repro_torch.train.trainer, repro_torch.runtime.checkpoint\n"
+        "import repro_torch.launch.train\n"
         "from repro_torch.models.registry import ARCHS, get_config\n"
         "for name in ARCHS: get_config(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
@@ -59,7 +62,8 @@ def test_import_loads_no_jax_or_reference():
 def test_sources_import_no_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "examples" / "quickstart_torch.py",
-                                          ROOT / "examples" / "cluster_pipeline_torch.py"]
+                                          ROOT / "examples" / "cluster_pipeline_torch.py",
+                                          ROOT / "examples" / "train_lm_torch.py"]
     assert len(files) > 10
     offenders = [str(p) for p in files if _FORBIDDEN_IMPORT.search(p.read_text())]
     assert not offenders
