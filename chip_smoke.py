@@ -20,8 +20,9 @@ preemption, a cluster job killed and resumed), data parallelism over a
 mesh of slots (``BatchedExtractor(mesh=...)``), and the LLM scaffold's
 serving path (every architecture reduced, qwen3-1.7b served at full width
 and depth) and its training path (four families reduced, qwen3-1.7b trained
-at full width and depth, the launcher, a checkpoint written and resumed)
--- checks
+at full width and depth, a checkpoint written and resumed), and training over a mesh of
+slots (the dry run, a data-parallel step, int8 gradient compression,
+GPipe, elastic resume, the launcher over every card) -- checks
 the features against the port's CPU path or the in-core path, and prints the kernels
 line and a last JSON status line.  The autotune cache is a fresh
 temporary file, so no run reads another run's winners; an untimed pass
@@ -225,10 +226,10 @@ Phases:
      collect fault, the whole run under CUDA sync debugging, counts read;
      every manifest row's features, read back from the JSON, == phase 7's
      counted/count rows bitwise as float32, no prep or pass-1 fetch; (b)
-     the soak: stream_cases(200, seed=0) in windows of 20 under one
+     the soak: stream_cases(160, seed=0) in windows of 20 under one
      FaultPlan (load errors, NaN and emptied masks at 2% each, a collect
      fault in window 3, window 7 a straggler), A uninterrupted, B preempted
-     by a real SIGTERM at case 120 with its in-flight window dropped
+     by a real SIGTERM at case 96 with its in-flight window dropped
      (drain_on_preempt=False), that window run on a stream of its own
      with a 3 s torch.cuda._sleep spin between its launches and its
      copies (the copies still pending as C begins), C resumed with a
@@ -236,7 +237,7 @@ Phases:
      lost or duplicated, windows B + C <= A + 1, one retry in A whose
      window's rows == a clean run of its cases bitwise, window 7 flagged,
      no prep or pass-1 fetch; (c) examples/cluster_pipeline_torch.py
-     --cases 200 --window 20 --schedule static --prep hint in two
+     --cases 160 --window 20 --schedule static --prep hint in two
      subprocesses at once on the warm cache, one sent SIGTERM and one
      SIGKILL once its manifest holds 2 windows of lines, each run again to
      the end: both manifests == the uninterrupted in-process run's
@@ -299,19 +300,49 @@ Phases:
      remat, 8 steps on one batch of 4 x 257 tokens at lr 3e-4 (warm-up 2):
      every loss finite, the 8th below the first, step ms, the median after
      the first and tokens/s, max_memory_allocated, the work's bounds, and a
-     traced step's launches and busy share; (d) python -m
-     repro_torch.launch.train --arch qwen3-1.7b --smoke --steps 4 --device
-     cuda:0 in a subprocess (exit 0, metrics.jsonl steps 0-3), then the
+     traced step's launches and busy share; (d) the
      Trainer at full width and two layers, float32, in a temporary workdir
      (its free bytes printed first): 4 steps and an 8.7 GB checkpoint, a
      fresh Trainer resumed at step 4 with parameters, m, v and step bitwise
      equal to those saved, trained to 6; the host copy, write and restore
      seconds; the workdir removed
-  15. the kernels line (each variant at block 256, as phase 5b); 16. the status line
+  15. (printed as [dist]) training over a mesh of slots, which runs none of
+     the kernels (their launch counts stay 0): (a) the dry run of every
+     (arch x shape x mesh) cell on meta, each ok or skipped with the
+     reference's reason, the count over 80 GB a device; qwen3-1.7b's
+     train cell on a one-slot mesh against the model and opt state on the
+     card (every leaf's shape and dtype, the bytes); (b) qwen3-1.7b at
+     full width and two layers, float32, TF32 off: one DataParallelStep
+     over MESH_SLOTS (4) slots of the card against one slot on 4 x 65
+     tokens, as phase 14b compares (the loss, the gradient mean, m and v,
+     the parameters after), the replicas equal; (c) qwen3-1.7b at full
+     width and four layers, bf16 compute, remat, float32 master and
+     moments, 8 steps of 4 x 257 tokens over the 4 slots: losses finite
+     and falling, step ms and tokens/s against one slot on the same
+     global batch, a traced step's device items, streams and busy share
+     (the union over streams), max_memory_allocated; over every card where
+     there are several; (d) the twin of
+     tests/test_compression_multidevice.py over the 4 slots, its
+     assertions held, bitwise == 4 CPU slots; then compressed_psum_tree
+     over the slots of each leaf of (c)'s last gradients, within one
+     quantisation step of the plain mean; (e) GPipe: qwen3-1.7b's 28
+     decoder layers at full width, bf16, 4 stages of 7 over 4 slots,
+     n_micro 4, 8 x 256 tokens: bitwise == the stack microbatch by
+     microbatch, the whole batch's stack within DIST_PIPE_TOL, the times
+     of the three; (f) a Trainer over the 4 slots (qwen3-1.7b reduced)
+     checkpoints at step 2, elastic_remesh onto the first 2 slots restores
+     it bitwise and a Trainer there trains on from the tree it returned
+     to step 4; python -m
+     repro_torch.launch.train --arch qwen3-1.7b --smoke --steps 4 over
+     every card in a subprocess (exit 0, metrics.jsonl steps 0-3); the
+     phase's seconds
+  16. the kernels line (each variant at block 256, as phase 5b); 17. the status line
 """
 import collections
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -368,7 +399,23 @@ from repro_torch.runtime.resilience import (  # noqa: E402
 from repro_torch.serve.serve_step import make_prefill_fn, make_serve_step  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
-from repro_torch.train.trainer import Trainer  # noqa: E402
+from repro_torch.train.trainer import (  # noqa: E402
+    Trainer,
+    checkpoint_shardings,
+    checkpoint_skeleton,
+)
+from repro_torch.configs.shapes import SHAPES  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.models.convert import stack_named  # noqa: E402
+from repro_torch.models.params import get_path, tree_paths  # noqa: E402
+from repro_torch.models.transformer import layer_apply  # noqa: E402
+from repro_torch.parallel import compression  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
+from repro_torch.parallel.pipeline import pipeline_forward  # noqa: E402
+from repro_torch.parallel.sharding import AbstractMesh  # noqa: E402
+from repro_torch.parallel.sharding import PartitionSpec as P  # noqa: E402
+from repro_torch.runtime.fault_tolerance import elastic_remesh  # noqa: E402
+from repro_torch.train.train_step import DataParallelStep  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM bandwidth
 # and float32 outside the tensor cores (the cost model's default profile).
@@ -410,6 +457,11 @@ TRAIN_SMALL = (2, 17)  # 14a: rows x tokens
 TRAIN_WIDE = (2, 65)  # 14b: rows x tokens at full width, 2 layers
 TRAIN_DEEP = (4, 257, 8)  # 14c: rows x tokens, steps at full width and depth
 TRAIN_CKPT = (2, 64, 4, 6)  # 14d: rows, tokens (+1 label), run 1's steps, run 2's
+DIST_WIDE = (4, 65)  # 15b: rows x tokens at full width, 2 layers, float32 (a row a slot)
+DIST_DEEP = (4, 257, 8, 4)  # 15c: rows x tokens, steps, layers at full width
+DIST_PIPE = (8, 256, 4)  # 15e: rows x tokens, microbatches (4 stages of 7 layers)
+DIST_PIPE_TOL = 5e-2  # 15e: whole batch against microbatched, relative Frobenius, bf16
+DIST_ELASTIC = (4, 32, 2, 4)  # 15f: rows, tokens (+1 label), run 1's steps, run 2's
 BF16_PEAK = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet, 700 W)
 # phase 10d's service traffic: clients x requests x cases a request
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCH, SERVE_HUGE_EVERY = 4, 6, 2, 16
@@ -418,7 +470,7 @@ SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCH, SERVE_HUGE_EVERY = 4, 6, 2, 16
 STATIC_SWEEP_LIMIT = 1.10
 # phase 11b's soak: stream_cases(SOAK_CASES, seed=0) in windows of STREAM_WINDOW
 # under one fault plan (benchmarks/soak.py's kinds), preempted at SOAK_PREEMPT
-SOAK_CASES, SOAK_PREEMPT = 200, 120
+SOAK_CASES, SOAK_PREEMPT = 160, 96
 SOAK_FAULTS = dict(seed=20261017, load_error_rate=0.02, poison_nan_rate=0.02,
                    poison_empty_rate=0.02, fail_windows=(3,), straggle_windows=(7,),
                    straggle_seconds=0.25)
@@ -2564,27 +2616,10 @@ def train_phase(smi):
     del model, step, state, holder, batch
     torch.cuda.empty_cache()
 
-    # (d) the entry points: the launcher, and the Trainer at full width
+    # (d) the Trainer at full width (the launcher runs in phase 15f, over every card)
     t0 = time.perf_counter()
-    root = Path(__file__).resolve().parent
     work = Path(tempfile.mkdtemp(prefix="repro_train_"))
     try:
-        r = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch", LLM_SERVED, "--smoke",
-             "--steps", "4", "--device", "cuda:0", "--workdir", str(work / "launch")],
-            cwd=root, env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
-            text=True, timeout=600)
-        check(r.returncode == 0, f"[train] 14d launcher exit {r.returncode}: "
-                                 f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
-        recs = metrics_lines(work / "launch" / "metrics.jsonl")
-        check([x["step"] for x in recs] == [0, 1, 2, 3]
-              and all(np.isfinite(x["loss"]) for x in recs),
-              f"[train] 14d launcher metrics {recs}")
-        print(f"[train] 14d python -m repro_torch.launch.train --arch {LLM_SERVED} --smoke "
-              f"--steps 4 --device cuda:0: exit 0 in {time.perf_counter() - t0:.3f} s, "
-              f"metrics.jsonl steps 0-3, losses {[round(x['loss'], 4) for x in recs]}; "
-              f"{r.stdout.strip().splitlines()[-1]}")
-
         t1 = time.perf_counter()
         cfg = dataclasses.replace(get_config(LLM_SERVED), n_layers=2, dtype="float32")
         rows, seq, first, total = TRAIN_CKPT
@@ -2668,6 +2703,487 @@ def _walk(tree, path=()):
             yield from _walk(tree[k], path + (k,))
     else:
         yield "/".join(path), tree
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training over a mesh of slots
+# ---------------------------------------------------------------------------
+
+def traced_union(fn):
+    """One call of ``fn`` after a warm-up, traced: (device items -- kernels
+    and copies --, the device's busy us as the union of every stream's
+    intervals, their summed us, the call's wall ms, the streams that ran)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    iv = sorted((e.time_range.start, e.time_range.end, e.device_resource_id)
+                for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -np.inf
+    for a, b, _ in iv:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return len(iv), busy, sum(b - a for a, b, _ in iv), wall_ms, len({r for _, _, r in iv})
+
+
+def card_slots(n):
+    """A ``data`` mesh of ``n`` slots of the first card."""
+    return Mesh([torch.device("cuda", 0)] * n)
+
+
+def dist_dryrun(dev):
+    """15a: every dry-run cell on ``meta``; then qwen3-1.7b's train cell
+    on a one-slot mesh against the real model and opt state on the card."""
+    t0 = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="repro_dryrun_"))
+    recs = []
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            for mk in ("single", "multi"):
+                for arch in list_archs():
+                    for shape in SHAPES:
+                        recs.append(dryrun.run_cell(arch, shape, mk, out_dir=out_dir,
+                                                    rules=dryrun.cell_rules(arch, shape)))
+        written = len(list(out_dir.glob("*.json")))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    dry_s = time.perf_counter() - t0
+    ok = [r for r in recs if r.get("status") == "ok"]
+    skipped = [r for r in recs if "skipped" in r]
+    check(len(recs) == written == 2 * len(list_archs()) * len(SHAPES)
+          and len(ok) + len(skipped) == len(recs), f"[dist] 15a: {len(recs)} cells, {len(ok)} "
+          f"ok, {len(skipped)} skipped, {written} files")
+    for r in skipped:
+        check(r["skipped"] == dryrun.skip_reason(r["arch"], r["shape"])
+              and r["shape"] == "long_500k", f"[dist] 15a skipped {r}")
+    over = [f"{r['arch']}/{r['shape']}/{r['mesh']}" for r in ok if not r["fits_hbm"]]
+    big = max(ok, key=lambda r: r["bytes_per_device"]["total"])
+    print(f"[dist] 15a dry run: {len(recs)} cells (10 archs x {len(SHAPES)} shapes x the (16, 16) "
+          f"and (2, 16, 16) meshes) on meta in {dry_s:.3f} s: {len(ok)} ok, {len(skipped)} "
+          f"skipped with the reference's reason (long_500k on full attention); {len(over)} over "
+          f"80 GB a device (parameters, optimizer state, cache and batch; no activations) "
+          f"{over}; the largest {big['arch']}/{big['shape']}/{big['mesh']} "
+          f"{big['bytes_per_device']['total'] / 1e9:.3f} GB a device")
+
+    t0 = time.perf_counter()
+    cfg = get_config(LLM_SERVED)
+    one_slot = AbstractMesh((1, 1), ("data", "model"))
+    report, cell = dryrun.lower_cell(LLM_SERVED, "train_4k", one_slot)
+    model = get_model(cfg, device=dev)
+    state = opt.init_opt_state(dict(model.named_parameters()))
+    names = {id(p): n for n, p in model.named_parameters()}
+    params_abs, (step_abs, m_abs, v_abs) = cell["params"][0], cell["opt_state"][0]
+    n_leaves = 0
+    for path, _ in tree_paths(model.spec()):
+        got = model.leaf(path)
+        layers = got if isinstance(got, list) else [got]
+        shape = ((len(layers),) if isinstance(got, list) else ()) + tuple(layers[0].shape)
+        for what, tree, real in (("parameter", params_abs, layers),
+                                 ("m", m_abs, [state.m[names[id(p)]] for p in layers]),
+                                 ("v", v_abs, [state.v[names[id(p)]] for p in layers])):
+            leaf = get_path(tree, path)
+            check(tuple(leaf.shape) == shape and leaf.dtype == real[0].dtype and leaf.is_meta,
+                  f"[dist] 15a {what} {'/'.join(path)}: cell {tuple(leaf.shape)} {leaf.dtype}, "
+                  f"card {shape} {real[0].dtype}")
+        n_leaves += 1
+    p_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    o_bytes = sum(t.numel() * t.element_size() for d in (state.m, state.v) for t in d.values())
+    o_bytes += state.step.numel() * state.step.element_size()
+    held = report["bytes_per_device"]
+    check(held["params"] == p_bytes and held["opt_state"] == o_bytes,
+          f"[dist] 15a one-slot bytes: cell {held}, card parameters {p_bytes}, opt {o_bytes}")
+    check(step_abs.dtype == state.step.dtype and tuple(step_abs.shape) == (), "[dist] 15a step")
+    print(f"[dist] 15a {LLM_SERVED} train_4k on a one-slot mesh: {n_leaves} spec leaves (shape "
+          f"and dtype of parameter, m and v) == the model and opt state on the card (phase 14c's "
+          f"float32 full depth); parameters {p_bytes:,} B and optimizer state {o_bytes:,} B == "
+          f"the cell's; its computed terms (data sheet, not measured): compute "
+          f"{report['roofline']['compute_s']:.4f} s, memory "
+          f"{report['roofline']['memory_s']:.4f} s; "
+          f"{time.perf_counter() - t0:.3f} s")
+    del model, state, cell
+    torch.cuda.empty_cache()
+
+
+def mean_grads(step):
+    """The gradient mean of a DataParallelStep's replicas, added in slot
+    order over their count, by parameter name (on the first replica's
+    device)."""
+    out = {}
+    for name, p in step.model.named_parameters():
+        acc = None
+        for rep in step.replicas:
+            g = rep.get_parameter(name).grad.to(p.device)
+            acc = g.clone() if acc is None else acc.add_(g)
+        out[name] = acc.div_(step.n)
+    return out
+
+
+def compressed_allreduce_twin(mesh):
+    """The twin of tests/test_compression_multidevice.py's script over
+    ``mesh`` (4 data slots), its assertions held here; every step's output
+    and new error as numpy."""
+    rng = np.random.default_rng(0)
+    G = torch.from_numpy(rng.normal(size=(4, 64)).astype(np.float32))
+
+    def sync(g, e):
+        out, ne = compression.compressed_psum_tree({"g": g}, {"g": e}, axis_name="data")
+        return out["g"], ne["g"]
+
+    shmap = sharding.shard_map_compat(sync, mesh, (P("data"), P("data")), (P("data"), P("data")))
+    err = torch.zeros((4, 64), device=mesh.home)
+    acc = np.zeros((64,), np.float32)
+    true_acc = np.zeros((64,), np.float32)
+    trace = []
+    for step in range(30):
+        g = G.to(mesh.home) * (1.0 + 0.1 * step)
+        out, err = shmap(g, err)
+        o, gn = out.cpu().numpy(), g.cpu().numpy()
+        trace.append((o, err.cpu().numpy()))
+        check(np.abs(o[0] - o[1]).max() <= 1e-6, "[dist] 15d: the shards' means differ")
+        acc = acc + o[0]
+        true_acc = true_acc + gn.mean(0)
+        step_size = float(np.abs(gn).max()) / 127.0
+        check(np.abs(o[0] - gn.mean(0)).max() <= 2.0 * step_size,
+              f"[dist] 15d step {step}: the reduced mean is over two quantisation steps off")
+    drift = np.abs(acc - true_acc).max()
+    bound = 4.0 * float(np.abs(G.numpy()).max() * 4.0) / 127.0
+    check(drift < bound, f"[dist] 15d: drift {drift} over {bound}")
+    return trace, drift, bound
+
+
+def compress_replica_grads(step, mesh):
+    """15d: the int8 error-feedback reduction of each leaf of the
+    replicas' last gradients over ``mesh``, against their plain mean; the
+    largest gap over the leaf's quantisation step and the seconds."""
+    t0 = time.perf_counter()
+    worst = 0.0
+    plain = mean_grads(step)
+    for name in plain:
+        def f():
+            g = step.replicas[sharding.axis_index("data")].get_parameter(name).grad
+            out, _ = compression.compressed_psum_tree(g, compression.init_error_state(g), "data")
+            return out
+
+        red = sharding.shard_map_compat(f, mesh, (), P())()
+        q_step = max(float(r.get_parameter(name).grad.abs().max()) for r in step.replicas) / 127
+        gap = float((red - plain[name]).abs().max())
+        check(gap <= q_step * (1 + 1e-5) + 1e-30,
+              f"[dist] 15d {name}: compressed mean {gap:.3g} from the plain mean, over one "
+              f"quantisation step {q_step:.3g}")
+        worst = max(worst, gap / q_step if q_step else 0.0)
+    torch.cuda.synchronize()
+    return len(plain), worst, time.perf_counter() - t0
+
+
+def mesh_train(model, batch, mesh, n_steps, run):
+    """``n_steps`` DataParallelStep steps over ``mesh``: (step, state,
+    losses, step walls in s)."""
+    step = make_train_step(model, run, mesh)
+    state = step.init_state()
+    losses, walls = [], []
+    for _ in range(n_steps):
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t1)
+    return step, state, losses, walls
+
+
+def dist_phase(smi):
+    """Phase 15: training over a mesh of slots (printed as [dist]): the dry
+    run, a mesh step against one slot, training over the mesh, int8
+    compression, GPipe and elastic resume; fails on any check."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    check(not torch.backends.cuda.matmul.allow_tf32, "[dist] TF32 must be off")
+    zero_counts()
+    mesh = card_slots(MESH_SLOTS)
+
+    # (a) the dry run
+    dist_dryrun(dev)
+
+    # (b) one step over the mesh against one slot: qwen3-1.7b full width, 2 layers, float32
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLM_SERVED), n_layers=2, dtype="float32")
+    one = get_model(cfg, device=dev)
+    mod = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    mod.load_state_dict(one.state_dict())
+    batch = train_batch(cfg, *DIST_WIDE, dev, seed=1)
+    ws = train_one_step(one, batch)
+    run = RunConfig(learning_rate=TRAIN_LR, warmup_steps=1)
+    step = make_train_step(mod, run, mesh)
+    check(isinstance(step, DataParallelStep) and len(step.replicas) == MESH_SLOTS,
+          "[dist] 15b: not a data-parallel step")
+    t1 = time.perf_counter()
+    st, met = step(step.init_state(), batch)
+    met = {k: float(v) for k, v in met.items()}
+    cs = (step.gather(st), met, time.perf_counter() - t1)
+    grads = mean_grads(step)
+    for name, p in mod.named_parameters():
+        p.grad = grads[name]
+    gaps = train_compare("[dist] 15b", mod, one, cs, ws)
+    for rep in step.replicas[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(rep.parameters(), mod.parameters())),
+              "[dist] 15b: the replicas' parameters differ after the step")
+    # the same mesh step again from the same state: bitwise, or at the tolerance
+    first = [t.clone() for t in mod.parameters()] + \
+        [cs[0].m[n].clone() for n in cs[0].m] + [cs[0].v[n].clone() for n in cs[0].v]
+    del cs, grads
+    with torch.no_grad():
+        mod.load_state_dict(get_model(cfg, device=dev).state_dict())
+    step.broadcast()
+    st, met2 = step(step.init_state(), batch)
+    again = step.gather(st)
+    second = [t.detach() for t in mod.parameters()] + \
+        [again.m[n] for n in again.m] + [again.v[n] for n in again.v]
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    rerun_gap = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                    for a, b in zip(first, second))
+    check(same or rerun_gap <= 1e-4, f"[dist] 15b: a second run of the step is {rerun_gap:.3g} "
+                                     f"of a leaf's largest entry from the first")
+    del first, second, again
+    print(f"[dist] 15b {LLM_SERVED} full width, 2 layers, float32, TF32 off, {DIST_WIDE[0]} x "
+          f"{DIST_WIDE[1]} tokens: one step over {MESH_SLOTS} slots of the card against one "
+          f"slot: loss {met['loss']:.6f} (one slot {ws[1]['loss']:.6f}), grad_norm "
+          f"{met['grad_norm']:.6f} ({ws[1]['grad_norm']:.6f}); largest gap over the leaf's "
+          f"largest entry: gradient mean {gaps['grad']:.2e}, m {gaps['m']:.2e}, v "
+          f"{gaps['v']:.2e}; parameters after max|mesh - one| {gaps['param']:.2e}; the "
+          f"replicas equal; the same step run again from the same state: "
+          f"{'bitwise equal' if same else f'{rerun_gap:.3g} of a leaf largest entry apart'} "
+          f"(parameters, m, v); {time.perf_counter() - t0:.3f} s")
+    del one, mod, step, st, ws
+    torch.cuda.empty_cache()
+
+    # (c) training over the mesh: full width, 4 layers, bf16 compute, remat
+    t0 = time.perf_counter()
+    rows, toks, n_steps, n_layers = DIST_DEEP
+    cfg = dataclasses.replace(get_config(LLM_SERVED), n_layers=n_layers)
+    check(cfg.remat and cfg.dtype == "bfloat16", f"[dist] 15c: remat {cfg.remat}, {cfg.dtype}")
+    batch = train_batch(cfg, rows, toks, dev, seed=4)
+    run = RunConfig(learning_rate=3e-4, warmup_steps=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    step, state, losses, walls = mesh_train(model, batch, mesh, n_steps, run)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[dist] 15c: losses {losses} (finite, the last below the first)")
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], batch)
+
+    items, busy_us, sum_us, traced_ms, streams = traced_union(one_step)
+    med = statistics.median(walls[1:])
+    tokens = rows * toks
+
+    # (d) compression: the reference test's twin on the card and the CPU, then
+    # the replicas' last gradients
+    t1 = time.perf_counter()
+    card_trace, drift, bound = compressed_allreduce_twin(mesh)
+    cpu_trace, _, _ = compressed_allreduce_twin(Mesh(["cpu"] * 4))
+    for k, ((co, ce), (po, pe)) in enumerate(zip(card_trace, cpu_trace)):
+        check(np.array_equal(co, po) and np.array_equal(ce, pe),
+              f"[dist] 15d step {k}: the card's reduction != the CPU's bitwise")
+    twin_s = time.perf_counter() - t1
+    del holder, state
+    torch.cuda.empty_cache()
+    n_leaves, worst, comp_s = compress_replica_grads(step, mesh)
+    del step
+    torch.cuda.empty_cache()
+
+    # the same global batch on one slot
+    one_model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    one = make_train_step(one_model, run)
+    ostate = opt.init_opt_state(dict(one_model.named_parameters()))
+    one_walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        ostate, m = one(ostate, batch)
+        float(m["loss"])
+        one_walls.append(time.perf_counter() - t1)
+    oh = [ostate]
+
+    def one_slot_step():
+        oh[0], _ = one(oh[0], batch)
+
+    o_items, o_busy, _, o_ms, _ = traced_union(one_slot_step)
+    one_med = statistics.median(one_walls[1:])
+    del one_model, one, ostate, oh
+    torch.cuda.empty_cache()
+    print(f"[dist] 15c {LLM_SERVED} full width, {n_layers} layers ({n_params:,} parameters), "
+          f"float32 master and moments laid out by param_shardings, bf16 compute, remat, "
+          f"{rows} x {toks} tokens (a row a slot) over {MESH_SLOTS} slots of the card, lr 3e-4: "
+          f"losses {[round(x, 4) for x in losses]}; step ms {[round(w * 1e3, 2) for w in walls]}, "
+          f"median after the first {med * 1e3:.3f} ms = {tokens / med:.1f} tokens/s; one slot "
+          f"on the same global batch {one_med * 1e3:.3f} ms = {tokens / one_med:.1f} tokens/s "
+          f"(mesh / one {med / one_med:.3f}x); max_memory_allocated {peak:,} B; card {smi}")
+    print(f"[dist] 15c traced mesh step: {items} device items on {streams} streams, busy "
+          f"(union) {busy_us / 1e3:.3f} ms (summed {sum_us / 1e3:.3f}) of {traced_ms:.3f} ms wall "
+          f"(busy {ratio(busy_us / 1e3, traced_ms)}); one slot: {o_items} items, busy "
+          f"{o_busy / 1e3:.3f} of {o_ms:.3f} ms ({ratio(o_busy / 1e3, o_ms)}); launch rate "
+          f"{items / traced_ms:.1f} items/ms over the mesh, {o_items / o_ms:.1f} on one slot; "
+          f"{time.perf_counter() - t0:.3f} s")
+    print(f"[dist] 15d compression: the twin of test_compressed_allreduce_four_workers over "
+          f"{MESH_SLOTS} slots of the card, 30 steps, its assertions held (drift {drift:.4g} < "
+          f"{bound:.4g}), every step's output and error == {MESH_SLOTS} CPU slots' bitwise "
+          f"({twin_s:.3f} s for both); 15c's last gradients ({n_leaves} leaves) through "
+          f"compressed_psum_tree over the slots: within {worst:.3f} of a quantisation step of "
+          f"the plain mean, {comp_s:.3f} s")
+    if torch.cuda.device_count() > 1:
+        t1 = time.perf_counter()
+        every = make_host_mesh()
+        model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        step, state, losses, walls = mesh_train(model, batch, every, n_steps, run)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"[dist] 15c every card: losses {losses}")
+        med_all = statistics.median(walls[1:])
+        print(f"[dist] 15c over every card {every.shape}: losses "
+              f"{[round(x, 4) for x in losses]}; median step {med_all * 1e3:.3f} ms = "
+              f"{tokens / med_all:.1f} tokens/s; {time.perf_counter() - t1:.3f} s")
+        del model, step, state
+        torch.cuda.empty_cache()
+    else:
+        print("[dist] 15c over every card: one card here; the every-card mesh needs two or more")
+
+    # (e) GPipe: the 28 layers at full width and depth, bf16, 4 stages
+    t0 = time.perf_counter()
+    cfg = get_config(LLM_SERVED)
+    rows, toks, n_micro = DIST_PIPE
+    model = get_model(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (rows, toks)).astype(np.int64)).to(dev)
+    with torch.no_grad():
+        x = model.embed["embedding"][tokens].to(torch.bfloat16)
+        stacked = stack_named(model, dict(model.named_parameters()))["layers"]
+    windows = model.windows()
+    check(not windows.any(), f"[dist] 15e: {LLM_SERVED} windows {windows}")
+    del model
+    torch.cuda.empty_cache()
+    pod = Mesh([torch.device("cuda", 0)] * 4, ("pod",))
+
+    def layer_fn(lp, h):
+        pos = torch.arange(h.shape[1], device=h.device).expand(h.shape[0], h.shape[1])
+        return layer_apply(lp, h, pos, cfg, 0)[0]
+
+    def seq(h):
+        for i in range(cfg.n_layers):
+            h = layer_fn(sharding.tree_map(lambda p: p[i], stacked), h)
+        return h
+
+    def micro():
+        return torch.cat([seq(m) for m in x.reshape(n_micro, rows // n_micro, toks, -1)])
+
+    with torch.no_grad():
+        got = pipeline_forward(layer_fn, stacked, x, pod, n_micro=n_micro)
+        want = micro()
+        whole = seq(x)
+        check(got.shape == x.shape and torch.isfinite(got.float()).all(), "[dist] 15e output")
+        check(torch.equal(got, want), f"[dist] 15e: the pipeline != the stack microbatch by "
+                                      f"microbatch, max gap {float((got - want).abs().max())}")
+        rel = float((whole.float() - got.float()).norm() / whole.float().norm())
+        check(rel <= DIST_PIPE_TOL, f"[dist] 15e: whole batch vs pipeline relative gap {rel}")
+        pipe_ms = time_ms(lambda: pipeline_forward(layer_fn, stacked, x, pod, n_micro=n_micro),
+                          reps=3, warmup=1)
+        micro_ms = time_ms(micro, reps=3, warmup=1)
+        whole_ms = time_ms(lambda: seq(x), reps=3, warmup=1)
+    print(f"[dist] 15e GPipe: {LLM_SERVED}'s {cfg.n_layers} decoder layers at full width, bf16, "
+          f"4 stages of {cfg.n_layers // 4} over 4 slots of the card, n_micro {n_micro}, "
+          f"{rows} x {toks} tokens: == the stack microbatch by microbatch bitwise; the whole "
+          f"batch's stack within {rel:.3e} (relative Frobenius, bound {DIST_PIPE_TOL}); "
+          f"pipeline {pipe_ms:.3f} ms, the microbatched stack {micro_ms:.3f} ms "
+          f"({pipe_ms / micro_ms:.3f}x), the whole batch {whole_ms:.3f} ms; "
+          f"{time.perf_counter() - t0:.3f} s")
+    del stacked, x, got, want, whole
+    torch.cuda.empty_cache()
+
+    # (f) elastic: a Trainer over 4 slots checkpoints and stops; elastic_remesh
+    # onto 2 slots restores it bitwise and a Trainer there trains on from the
+    # tree elastic_remesh returned (not from a second restore)
+    t0 = time.perf_counter()
+    cfg = get_config(LLM_SERVED).reduced()
+    rows, seq_len, first, total = DIST_ELASTIC
+    run = RunConfig(steps=total, checkpoint_every=first, warmup_steps=2, learning_rate=3e-4,
+                    async_checkpoint=False)
+    work = Path(tempfile.mkdtemp(prefix="repro_elastic_"))
+    try:
+        model = get_model(cfg, device=dev)
+        t1 = Trainer(model, run, synthetic_data(cfg, rows, seq_len, device=dev), work / "run",
+                     mesh=mesh)
+        _, state, last = t1.train(steps=first)
+        check(t1.ckpt.latest_step() == first and np.isfinite(last["loss"]),
+              f"[dist] 15f run 1: latest {t1.ckpt.latest_step()}, last {last}")
+        saved = (params_to_reference(model),
+                 opt_state_to_reference(model, t1.step_fn.gather(state)))
+        skeleton = checkpoint_skeleton(model)
+
+        def make_shardings(m):
+            return checkpoint_shardings(model, m)
+
+        out = elastic_remesh(t1.ckpt, skeleton, make_shardings, devices=[dev] * 2)
+        check(out is not None, "[dist] 15f: elastic_remesh found no checkpoint")
+        mesh2, step_k, placed, _ = out
+        check(step_k == first and mesh2.shape == {"data": 2, "model": 1},
+              f"[dist] 15f: step {step_k}, mesh {mesh2.shape}")
+        back = sharding.tree_map(lambda s, sh: sh.gather(s, mesh2.home).cpu(), placed,
+                                 make_shardings(mesh2))
+        flat_got = dict(zip(["params", "m", "v"], (back[0], back[1].m, back[1].v)))
+        flat_want = dict(zip(["params", "m", "v"], (saved[0], saved[1].m, saved[1].v)))
+        n_cmp = 0
+        for what in flat_want:
+            for (path, a), (_, b) in zip(_walk(flat_got[what]), _walk(flat_want[what])):
+                check(np.array_equal(a.numpy(), b), f"[dist] 15f restored {what} {path}")
+                n_cmp += 1
+        check(int(back[1].step) == first, f"[dist] 15f restored step {int(back[1].step)}")
+        del t1, model, state, back
+        m2 = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+        t2 = Trainer(m2, run, synthetic_data(cfg, rows, seq_len, seed=1, device=dev),
+                     work / "run", mesh=mesh2)
+        _, s2, last2 = t2.train(steps=total, restored=(step_k, placed))
+        del placed
+        steps_logged = [x["step"] for x in metrics_lines(work / "run" / "metrics.jsonl")]
+        check(steps_logged == list(range(total)) and [int(s) for s in s2.step.flat] == [total] * 2
+              and t2.ckpt.latest_step() == total and np.isfinite(last2["loss"]),
+              f"[dist] 15f run 2: steps {steps_logged}, {[int(s) for s in s2.step.flat]}, "
+              f"latest {t2.ckpt.latest_step()}")
+        elastic_s = time.perf_counter() - t0
+
+        t1_ = time.perf_counter()
+        root = Path(__file__).resolve().parent
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", LLM_SERVED, "--smoke",
+             "--steps", "4", "--workdir", str(work / "launch")],
+            cwd=root, env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+            text=True, timeout=600)
+        check(r.returncode == 0, f"[dist] 15f launcher exit {r.returncode}: "
+                                 f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+        recs = metrics_lines(work / "launch" / "metrics.jsonl")
+        check([x["step"] for x in recs] == [0, 1, 2, 3]
+              and all(np.isfinite(x["loss"]) for x in recs), f"[dist] 15f launcher {recs}")
+        head = [ln for ln in r.stdout.splitlines() if ln.startswith("[launch] arch")]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[dist] 15f elastic: {LLM_SERVED} reduced, a Trainer over {MESH_SLOTS} slots "
+          f"trained {first} steps and checkpointed; elastic_remesh onto the first 2 slots "
+          f"resumed at step {step_k} with {n_cmp} leaves (parameters, m, v) and the step bitwise "
+          f"equal to those saved; a Trainer on those 2 slots trained on from that tree to "
+          f"{total} "
+          f"(metrics.jsonl steps {steps_logged}) in {elastic_s:.3f} s; python -m "
+          f"repro_torch.launch.train --arch {LLM_SERVED} --smoke --steps 4 (every card: "
+          f"{head[0] if head else '?'}) exit 0, steps 0-3, losses "
+          f"{[round(x['loss'], 4) for x in recs]}, {time.perf_counter() - t1_:.3f} s")
+    torch.cuda.empty_cache()
+    launches = read_counts()
+    check(not any(launches.values()), f"[dist] the phase launched a hand kernel: {launches}")
+    print(f"[dist] the phase launched none of the hand kernels (rows 1-11, R); phase 15 took "
+          f"{time.perf_counter() - t_phase:.3f} s")
 
 
 def main():
@@ -4145,7 +4661,10 @@ def main():
     # -- 14. the LLM scaffold's training path (runs none of the kernels) ------
     train_phase(smi)
 
-    # -- 15. kernels line ---------------------------------------------------
+    # -- 15. training over a mesh of slots (runs none of the kernels) ---------
+    dist_phase(smi)
+
+    # -- 16. kernels line ---------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -4191,7 +4710,7 @@ def main():
         for v in variants if v != "seqacc"
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 16. status -----------------------------------------------------------
+    # -- 17. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

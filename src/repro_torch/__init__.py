@@ -38,8 +38,11 @@ and the schedules, the train and eval steps over ``torch.autograd`` with
 ``cfg.remat`` as ``torch.utils.checkpoint`` (``train/``, exported there:
 ``OptState``, ``make_train_step``, ``Trainer``, ...), the atomic
 checkpoint in the reference's layout (``runtime/checkpoint``), and
-``launch/train``.  The scaffold runs no hand kernel: the reference
-computes it outside any Pallas kernel.
+``launch/train``; training runs over a mesh of slots too (a data-parallel
+``Trainer``, int8 gradient compression, GPipe, ``elastic_remesh``:
+``parallel/``), and ``launch/dryrun`` lays every (arch x shape x mesh)
+cell out on the ``meta`` device.  The scaffold runs no hand kernel: the
+reference computes it outside any Pallas kernel.
 """
 from repro_torch.core import (
     BatchedExtractor,

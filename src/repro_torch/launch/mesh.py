@@ -1,9 +1,14 @@
-"""Host meshes: ``make_host_mesh`` over the devices this process sees.
+"""Meshes: ``make_host_mesh`` over the devices this process sees, and the
+production meshes by shape alone.
 
-Counterpart of ``repro.launch.mesh.make_host_mesh``.  The reference's
-``make_production_mesh`` (a TPU pod's (16, 16) and (2, 16, 16) meshes) and
-its ``HW`` constants (a TPU's) belong to the LLM scaffold and are not
-ported.  Importing this module touches no device.
+Counterpart of ``repro.launch.mesh``.  ``make_production_mesh`` gives the
+reference's single-pod (16, 16) ``('data', 'model')`` and multi-pod (2, 16,
+16) ``('pod', 'data', 'model')`` meshes as :class:`AbstractMesh`es, which
+name the axes' sizes and hold no device: the dry run lays its cells out
+over them, cell for cell with the reference's.  The reference's ``HW``
+constants are a TPU's and are not ported; where the dry run needs a peak
+it reads the H100 profile of ``runtime/autotune.py``.  Importing this
+module touches no device.
 """
 from __future__ import annotations
 
@@ -11,7 +16,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.dispatcher import resolve_device
-from repro_torch.parallel.sharding import Mesh
+from repro_torch.parallel.sharding import AbstractMesh, Mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production mesh by shape: (16, 16) ``('data',
+    'model')``, or with ``multi_pod`` (2, 16, 16) ``('pod', 'data',
+    'model')``; no device is touched."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return AbstractMesh(shape, axes)
 
 
 def make_host_mesh(model_parallel: int = 1, device: str = "cuda",

@@ -2,9 +2,19 @@
 
 Builds a mesh where the reference does (more than one visible card under
 ``--device cuda``), and drives the fault-tolerant ``Trainer`` on synthetic
-data.  Training over a mesh of more than one card is not ported
-(``ROADMAP.md``, Queue 1 item 5.2(c)): on such a machine ``--device
-cuda:0`` trains on one card.
+data: on such a machine it trains over every card's ``data`` axis
+(``--device cuda:0`` trains on one card).  ``--model-parallel`` above 1
+there raises: tensor parallelism is not ported (``ROADMAP.md``, Queue 1
+item 5.3).
+
+Training over every card is today slower than on one card: the host
+holds it back (a thread a slot queues launches at half one slot's rate;
+where that time goes is not yet measured).  On 4 NVIDIA H100 80GB HBM3
+cards (700 W), qwen3-1.7b at 4 layers and 4 x 257 tokens took
+1,325-1,679 ms a step over the 4 cards, 612-776 tokens/s, against
+6,845-9,790 tokens/s on one card (``chip_smoke.py`` phase 15c;
+``ROADMAP.md``, Queue 1 item 5.4).  Pass ``--device cuda:0`` where speed
+matters.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --smoke --steps 10 --workdir /path/to/run1

@@ -46,14 +46,35 @@ device of the other axes, which gives the same output.
 The logical-axis half (``Ax``, ``DEFAULT_RULES``, the rules of
 :func:`use_mesh`, :func:`active_rules`, :func:`pspec`, :func:`constrain`)
 serves the LLM scaffold (``repro_torch.models``).  :func:`pspec` gives the
-reference's ``PartitionSpec`` as a plain tuple, one entry a dimension
-(``None``, a mesh-axis name or a tuple of them).  The port runs a model on
-one device: :func:`constrain` is a no-op without a mesh or on a mesh of
-one slot, and raises on a mesh of more, since model parallelism over
-several cards is not ported (ROADMAP.md, Queue 1 item 5.3).  The
-reference's ``named_sharding``, ``param_shardings`` and
-``tree_shardings`` serve only its trainer and dry-run (item 5.2), and
-``shard_map_compat`` only its pipeline parallelism (item 5.3).
+reference's ``PartitionSpec`` as a :class:`PartitionSpec`, a tuple with one
+entry a dimension (``None``, a mesh-axis name or a tuple of them).
+:class:`NamedSharding` lays a tensor out over a mesh by such a spec
+(``shard_shape``, ``place``, ``gather``), and :func:`named_sharding`,
+:func:`param_shardings` and :func:`tree_shardings` give one for each leaf
+of a parameter spec tree or an ``Ax``-annotated tree, as the reference's
+do for its trainer and dry run.  A mesh that only names axis sizes
+(:class:`AbstractMesh`, the production meshes) serves :func:`pspec` and
+``shard_shape`` and touches no device.
+
+:func:`shard_map_compat` is the counterpart of ``shard_map``: it runs a
+function once a slot, one host thread a slot, each on its own local view
+of the arguments, and inside it :func:`psum`, :func:`pmax`,
+:func:`ppermute`, :func:`axis_index` and :func:`collective` act over a
+named axis of the mesh.  A collective is a barrier: every slot hands in its
+operand and then reduces all of its group's operands in slot order, so
+every slot holds the same bits; no float atomics.  On the card a slot's
+work is queued on its own stream (:meth:`Mesh.stream`), an operand read by
+another slot is read behind an event recorded after it was made (a peer
+copy where the slot is on another card), and the owner's stream waits for
+every reader before it goes on, so no slot overwrites an operand that
+another still reads.  An exception in any slot breaks the barrier; it is
+re-raised in the caller once every thread has ended.
+
+The model runs on one device: outside a slot, :func:`constrain` is a no-op
+without a mesh or on a mesh of one slot, and raises on a mesh of more.
+Inside a slot it sees the slot's local view and is a no-op, unless the
+mesh's ``model`` axis is larger than one: tensor parallelism over the
+``model`` axis is not ported (ROADMAP.md, Queue 1 item 5.3).
 """
 from __future__ import annotations
 
@@ -144,6 +165,19 @@ class Mesh:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.ravel()]})"
 
 
+class PartitionSpec(tuple):
+    """The mesh axes of each dimension of a tensor: ``None`` (replicated),
+    a mesh-axis name, or a tuple of names (the dimension split over their
+    product, the first name outermost).  The reference's ``PartitionSpec``
+    as a tuple: it equals the plain tuple of its entries."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
 @dataclasses.dataclass(frozen=True)
 class Ax:
     """Logical-axes annotation used as a *leaf* inside nested dicts (e.g. the
@@ -214,9 +248,9 @@ def _mesh_axes_for(logical: str, rules: dict, mesh):
 
 
 def pspec(axes: tuple, rules: dict | None = None, mesh=None,
-          shape: tuple | None = None) -> tuple:
+          shape: tuple | None = None) -> PartitionSpec:
     """The mesh axes of each dimension of a tuple of logical axis names:
-    the reference's ``PartitionSpec`` as a tuple.
+    the reference's ``PartitionSpec``.
 
     ``mesh`` is anything with a ``shape`` mapping of axis names to sizes
     (a :class:`Mesh`); it defaults to the ambient one, ``rules`` to
@@ -252,21 +286,26 @@ def pspec(axes: tuple, rules: dict | None = None, mesh=None,
             continue
         used.update(ms)
         parts.append(ms if len(ms) > 1 else ms[0])
-    return tuple(parts)
+    return PartitionSpec(*parts)
 
 
 def constrain(x, *axes):
     """Sharding constraint by logical axes: ``x`` itself without an active
-    mesh or on a mesh of one slot.  On a mesh of more slots it raises
-    ``NotImplementedError``: a model runs on one device until model
-    parallelism is ported (ROADMAP.md, Queue 1 item 5.3)."""
-    mesh = active_mesh()
-    if mesh is None or math.prod(mesh.shape.values()) == 1:
+    mesh, on a mesh of one slot, and inside a :func:`shard_map_compat` slot
+    (the local view) whose mesh has no ``model`` axis of more than one.
+    Elsewhere it raises ``NotImplementedError``: a model runs on one device
+    until tensor parallelism is ported (ROADMAP.md, Queue 1 item 5.3)."""
+    group = _SLOT.group
+    mesh = group.mesh if group is not None else active_mesh()
+    if group is not None and mesh.shape.get("model", 1) == 1:
+        return x
+    if group is None and (mesh is None or math.prod(mesh.shape.values()) == 1):
         return x
     raise NotImplementedError(
-        f"constrain{pspec(tuple(axes), mesh=mesh, shape=tuple(x.shape))} on a mesh of "
-        f"{mesh.shape}: model parallelism over several slots is not ported "
-        f"(ROADMAP.md, Queue 1 item 5.3); run the model without a multi-slot mesh")
+        f"constrain{tuple(pspec(tuple(axes), mesh=mesh, shape=tuple(x.shape)))} on a mesh of "
+        f"{mesh.shape}: tensor parallelism over the 'model' axis is not ported (ROADMAP.md, "
+        f"Queue 1 item 5.3); run the model without a multi-slot mesh, or per slot under "
+        f"shard_map_compat on a mesh whose 'model' axis is 1")
 
 
 def axis_size(mesh: Mesh | None, axis: str = "data") -> int:
@@ -384,3 +423,468 @@ def _gather(parts):
     if isinstance(parts[0], tuple):
         return tuple(torch.cat(cols) for cols in zip(*parts))
     return torch.cat(parts)
+
+
+# ---------------------------------------------------------------------------
+# layouts over a mesh: the trainer's and the dry run's shardings
+# ---------------------------------------------------------------------------
+
+class AbstractMesh:
+    """A mesh that only names its axes' sizes: what :func:`pspec` and
+    :meth:`NamedSharding.shard_shape` read of a mesh, with no device (the
+    production meshes of ``launch/mesh.make_production_mesh``)."""
+
+    def __init__(self, shape, axis_names):
+        self.axis_names = tuple(axis_names)
+        sizes = tuple(int(n) for n in shape)
+        if len(sizes) != len(self.axis_names) or len(set(self.axis_names)) != len(sizes):
+            raise ValueError(f"one distinct axis name a dimension: {sizes}, {self.axis_names}")
+        self._sizes = sizes
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self._sizes))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def _axes_of(entry) -> tuple:
+    return () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+
+
+class NamedSharding:
+    """The layout of a tensor over ``mesh`` by ``spec`` (a
+    :class:`PartitionSpec` or a tuple, one entry a dimension; missing
+    trailing entries are ``None``).  A dimension split over mesh axes is
+    cut into equal contiguous blocks, one a slot in slot order (the first
+    axis outermost); over the other axes each block is a whole copy."""
+
+    def __init__(self, mesh, spec=()):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh.shape}, {self.spec!r})"
+
+    def _entries(self, ndim: int) -> list:
+        if len(self.spec) > ndim:
+            raise ValueError(f"{self.spec!r} has more entries than a tensor of {ndim} dimensions")
+        return [_axes_of(e) for e in self.spec] + [()] * (ndim - len(self.spec))
+
+    def shard_shape(self, global_shape) -> tuple:
+        """The shape of one shard of a tensor of ``global_shape``; raises
+        where a split dimension is not a multiple of its axes' product."""
+        sizes = self.mesh.shape
+        out = []
+        for dim, axes in zip(global_shape, self._entries(len(global_shape))):
+            n = math.prod(sizes[a] for a in axes)
+            if dim % n:
+                raise ValueError(f"dimension {dim} of {tuple(global_shape)} does not split over "
+                                 f"{axes} ({n} slots) by {self.spec!r}")
+            out.append(dim // n)
+        return tuple(out)
+
+    def block(self, index, global_shape) -> tuple:
+        """The slices of the block that the slot at ``index`` (an index
+        tuple of the mesh's devices) holds."""
+        sizes = self.mesh.shape
+        coord = dict(zip(self.mesh.axis_names, index))
+        local = self.shard_shape(global_shape)
+        out = []
+        for n, axes in zip(local, self._entries(len(global_shape))):
+            k = 0
+            for a in axes:
+                k = k * sizes[a] + coord[a]
+            out.append(slice(k * n, (k + 1) * n))
+        return tuple(out)
+
+    def place(self, tensor):
+        """One shard a slot: an object array shaped as the mesh's devices,
+        each entry a new contiguous tensor on its slot's device (a copy even
+        where the slot holds the whole tensor, so no two slots alias)."""
+        out = np.empty(self.mesh.devices.shape, dtype=object)
+        for index in np.ndindex(out.shape):
+            part = tensor[self.block(index, tuple(tensor.shape))]
+            shard = torch.empty(part.shape, dtype=tensor.dtype, device=self.mesh.devices[index])
+            out[index] = shard.copy_(part)
+        return out
+
+    def gather(self, shards, device=None) -> torch.Tensor:
+        """The global tensor of ``shards`` (as :meth:`place` gives them) on
+        ``device`` (default the mesh's first slot)."""
+        device = self.mesh.home if device is None else resolve_device(device)
+        first = shards.flat[0]
+        entries = self._entries(first.dim())
+        sizes = self.mesh.shape
+        shape = tuple(d * math.prod(sizes[a] for a in axes)
+                      for d, axes in zip(first.shape, entries))
+        split = {a for axes in entries for a in axes}
+        if not split and first.device == device:
+            return first
+        out = torch.empty(shape, dtype=first.dtype, device=device)
+        for index in np.ndindex(shards.shape):
+            coord = dict(zip(self.mesh.axis_names, index))
+            if all(coord[a] == 0 for a in self.mesh.axis_names if a not in split):
+                out[self.block(index, shape)].copy_(shards[index])
+        return out
+
+
+def named_sharding(axes: tuple, mesh=None, rules=None) -> NamedSharding:
+    """The layout of a tensor with logical ``axes`` over ``mesh`` (default
+    the ambient one, which must exist)."""
+    mesh = mesh or active_mesh()
+    if mesh is None:
+        raise ValueError("named_sharding needs a mesh")
+    return NamedSharding(mesh, pspec(tuple(axes), rules=rules, mesh=mesh))
+
+
+def param_shardings(spec_tree, mesh, rules=None):
+    """A :class:`NamedSharding` for each leaf of a parameter spec tree
+    (``models/params.P`` leaves, layers stacked), under ``rules`` over
+    :data:`DEFAULT_RULES`; the nested dict of the spec's paths."""
+    from repro_torch.models import params as pmod
+
+    rules = dict(DEFAULT_RULES, **(rules or {}))
+    flat = {path: NamedSharding(mesh, pspec(leaf.axes, rules=rules, mesh=mesh, shape=leaf.shape))
+            for path, leaf in pmod.tree_paths(spec_tree)}
+    return pmod._unflatten(flat)
+
+
+def tree_shardings(abstract_tree, axes_tree, mesh, rules=None):
+    """A :class:`NamedSharding` for each tensor of ``abstract_tree`` from
+    the :class:`Ax` leaf at the same place of ``axes_tree``."""
+    rules = dict(DEFAULT_RULES, **(rules or {}))
+
+    def one(t, ax):
+        if not isinstance(ax, Ax):
+            raise TypeError(f"an axes tree holds Ax leaves, got {ax!r}")
+        return NamedSharding(mesh, pspec(ax.axes, rules=rules, mesh=mesh, shape=tuple(t.shape)))
+
+    return tree_map(one, abstract_tree, axes_tree)
+
+
+# ---------------------------------------------------------------------------
+# trees: nested dicts, lists, tuples and NamedTuples of leaves
+# ---------------------------------------------------------------------------
+
+def _is_node(x) -> bool:
+    return isinstance(x, (dict, list)) or (isinstance(x, tuple)
+                                           and not isinstance(x, PartitionSpec))
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the leaves at the same places
+    of ``rest``, keeping the structure.  A leaf is anything but a dict, a
+    list or a tuple (a :class:`PartitionSpec` is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)])
+    if _is_node(tree):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in the reference's order (a dict's by sorted
+    key)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if _is_node(tree):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` (in :func:`tree_leaves` order)."""
+    it = iter(leaves)
+
+    def rebuild(node):
+        if isinstance(node, dict):
+            return {k: rebuild(node[k]) for k in sorted(node)}
+        if hasattr(node, "_fields"):
+            return type(node)(*[rebuild(v) for v in node])
+        if _is_node(node):
+            return type(node)(rebuild(v) for v in node)
+        return next(it)
+
+    return rebuild(tree)
+
+
+def _spec_tree(spec, tree):
+    """``spec`` (a :class:`PartitionSpec` or a tree of them, a prefix of
+    ``tree``) as one spec a leaf of ``tree``."""
+    if spec is None or isinstance(spec, PartitionSpec):
+        return tree_map(lambda _: PartitionSpec() if spec is None else spec, tree)
+    if isinstance(spec, dict):
+        return {k: _spec_tree(spec[k], v) for k, v in tree.items()}
+    return type(tree)(*[_spec_tree(s, v) for s, v in zip(spec, tree)]) \
+        if hasattr(tree, "_fields") else type(tree)(_spec_tree(s, v) for s, v in zip(spec, tree))
+
+
+# ---------------------------------------------------------------------------
+# shard_map_compat: one host thread a slot, collectives over named axes
+# ---------------------------------------------------------------------------
+
+class _Slot(threading.local):
+    group = None  # the running shard_map's _Group, inside a slot
+    index = None  # this slot's index tuple
+
+
+_SLOT = _Slot()
+
+
+class _Group:
+    """The state the slots of one :func:`shard_map_compat` call share."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.barrier = threading.Barrier(mesh.devices.size)
+        self.posted: dict = {}  # index -> (operand tree, event or None)
+        self.done: dict = {}  # index -> event or None
+
+    def members(self, index, axis) -> list:
+        """The index tuples of ``index``'s group along ``axis``, in order."""
+        a = self.mesh.axis_names.index(axis)
+        return [index[:a] + (k,) + index[a + 1:] for k in range(self.mesh.devices.shape[a])]
+
+
+def _current():
+    group, index = _SLOT.group, _SLOT.index
+    if group is None:
+        raise RuntimeError("a collective runs only inside a shard_map_compat slot")
+    return group, index
+
+
+def _record(dev):
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
+class _Operands:
+    """The operands of a collective's group, each fetched to this slot's
+    device at its first read: on the same card a view, its storage recorded
+    on this slot's stream; from another card a peer copy queued on this
+    thread's stream of that card behind the owner's event."""
+
+    def __init__(self, group, members, dev):
+        self._group, self._members, self._dev = group, members, dev
+        self._cache: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._members)
+
+    def __getitem__(self, k):
+        if k not in self._cache:
+            self._cache[k] = self.select(k, lambda tree: tree)
+        return self._cache[k]
+
+    def select(self, k, pick):
+        """``pick`` of the ``k``-th operand tree, fetched: only the tensors
+        (or views) that ``pick`` returns cross from another card."""
+        tree, ev = self._group.posted[self._members[k]]
+        return tree_map(lambda x: self._fetch(x, ev), pick(tree))
+
+    def _fetch(self, x, ev):
+        if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+            return x
+        stream = torch.cuda.current_stream(x.device)
+        stream.wait_event(ev)
+        x.record_stream(stream)
+        return x if x.device == self._dev else x.to(self._dev, non_blocking=True)
+
+
+def collective(tree, axis: str, combine):
+    """The building block of the collectives: inside a slot, hand in
+    ``tree`` (tensors on the slot's device) and return ``combine(ops)``,
+    computed on this slot, where ``ops[k]`` is the tree that the ``k``-th
+    slot of this slot's group along ``axis`` handed in (the group's slots
+    are those that differ only in ``axis``), and ``ops.select(k, pick)``
+    the part of it that ``pick`` takes (views of it: only those cross
+    cards).
+    ``combine`` must not write to the operands.  Every slot of the mesh
+    calls the same collectives in the same order."""
+    group, index = _current()
+    if axis not in group.mesh.shape:
+        raise ValueError(f"no axis {axis!r} in the mesh {group.mesh.shape}")
+    dev = group.mesh.devices[index]
+    group.posted[index] = (tree, _record(dev))
+    group.barrier.wait()
+    members = group.members(index, axis)
+    out = combine(_Operands(group, members, dev))
+    group.done[index] = _record(dev)
+    group.barrier.wait()
+    if dev.type == "cuda":  # no operand of this slot is written before its readers are done
+        stream = torch.cuda.current_stream(dev)
+        for j in members:
+            if j != index:
+                stream.wait_event(group.done[j])
+    return out
+
+
+def _ordered(fn):
+    def combine(ops):
+        acc = tree_map(lambda x: x.clone(), ops[0])
+        for k in range(1, len(ops)):
+            acc = tree_map(fn, acc, ops[k])
+        return acc
+    return combine
+
+
+def psum(x, axis: str):
+    """The sum of ``x`` (a tensor or a tree of them) over the slots of
+    ``axis``, added in slot order: every slot gets the same bits."""
+    return collective(x, axis, _ordered(lambda a, b: a.add_(b)))
+
+
+def pmax(x, axis: str):
+    """The elementwise maximum of ``x`` over the slots of ``axis``."""
+    return collective(x, axis, _ordered(torch.maximum))
+
+
+def axis_index(axis: str) -> int:
+    """This slot's index along ``axis``."""
+    group, index = _current()
+    return index[group.mesh.axis_names.index(axis)]
+
+
+def ppermute(x, axis: str, perm):
+    """``x`` sent along ``axis`` by ``perm``, pairs ``(source, destination)``
+    of axis indices: each slot gets a copy of its source's ``x``, or zeros
+    where no pair names it as a destination."""
+    me = axis_index(axis)
+    src = [s for s, d in perm if d == me]
+
+    def combine(ops):
+        if not src:
+            return tree_map(torch.zeros_like, x)
+        return tree_map(lambda t: t.clone(), ops[src[0]])
+
+    return collective(x, axis, combine)
+
+
+def _local_view(x, sharding, index, dev, ready):
+    """The slot's block of a global argument leaf on its device: a view on
+    the same card (its storage recorded on the slot's stream), a copy from
+    elsewhere, queued behind the caller's event on the source's stream."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    part = x[sharding.block(index, tuple(x.shape))]
+    if x.device.type == "cuda":
+        stream = torch.cuda.current_stream(x.device)
+        stream.wait_event(ready[x.device])
+        part.record_stream(stream)
+    if x.device == dev:
+        return part
+    return part.to(dev, non_blocking=x.device.type == "cuda")
+
+
+@contextlib.contextmanager
+def _slot_streams(mesh, index):
+    """On the card: the slot's device and stream current, and its link
+    stream current on the first device (the stream of its peer copies)."""
+    dev = mesh.devices[index]
+    if dev.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(dev), torch.cuda.stream(mesh.link(index)), \
+            torch.cuda.stream(mesh.stream(index)):
+        yield
+
+
+def shard_map_compat(f, mesh, in_specs, out_specs, check: bool = True):
+    """Counterpart of the reference's ``shard_map``: the returned function
+    runs ``f`` once a slot of ``mesh`` (a :class:`Mesh`), each in a host
+    thread of its own, on the slot's local view of each argument.
+
+    ``in_specs`` is a :class:`PartitionSpec` for every argument or a tuple
+    of one spec (or a tree of them, a prefix of the argument) an argument;
+    each tensor leaf is cut as :class:`NamedSharding` lays it out and its
+    block handed to the slot on the slot's device.  Inside ``f`` the
+    collectives (:func:`psum`, :func:`pmax`, :func:`ppermute`,
+    :func:`axis_index`, :func:`collective`) act over the mesh's named
+    axes, and :func:`constrain` sees the local view.  ``out_specs`` lays out
+    ``f``'s outputs in the same way: each output is rebuilt on the mesh's
+    first slot from the slots' blocks (a replicated output is the first
+    slot's).  On the card each slot runs on its own stream (see the module
+    docstring); the caller's current streams wait for every slot before
+    the outputs return.  Grad mode and the ambient rules carry into the
+    slots.  An exception in a slot stops the others at their next
+    collective and is re-raised here, after every thread has ended.
+    ``check`` is accepted for the reference's signature; the port does not
+    check that a replicated output is replicated.
+    """
+    del check
+
+    def mapped(*args):
+        specs = (in_specs,) * len(args) if isinstance(in_specs, PartitionSpec) else tuple(in_specs)
+        if len(specs) != len(args):
+            raise ValueError(f"{len(specs)} in_specs for {len(args)} arguments")
+        arg_sh = [tree_map(lambda s: NamedSharding(mesh, s), _spec_tree(s, a))
+                  for s, a in zip(specs, args)]
+        # every device's caller stream, so that a slot reads what the caller
+        # queued before this call (its arguments, a replica, a state)
+        devices = {x.device for x in tree_leaves(args) if isinstance(x, torch.Tensor)}
+        devices |= set(mesh.devices.flat)
+        ready = {d: _record(d) for d in devices if d.type == "cuda"}
+        group = _Group(mesh)
+        grad, rules = torch.is_grad_enabled(), _CTX.rules
+        indices = list(np.ndindex(mesh.devices.shape))
+        results: dict = {}
+        errors: list = []
+
+        def run(index):
+            _SLOT.group, _SLOT.index, _CTX.rules = group, index, rules
+            dev = mesh.devices[index]
+            try:
+                with torch.set_grad_enabled(grad), _slot_streams(mesh, index):
+                    if dev.type == "cuda":
+                        torch.cuda.current_stream(dev).wait_event(ready[dev])
+                        torch.cuda.current_stream(mesh.home).wait_event(ready[mesh.home])
+                    local = [tree_map(lambda x, sh: _local_view(x, sh, index, dev, ready), a, sh)
+                             for a, sh in zip(args, arg_sh)]
+                    out = f(*local)
+                    results[index] = (out, _record(dev))
+            except BaseException as e:  # re-raised in the caller
+                errors.append((index, e))
+                group.barrier.abort()
+            finally:
+                _SLOT.group = _SLOT.index = None
+
+        threads = [threading.Thread(target=run, args=(index,), name=f"slot{index}")
+                   for index in indices]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            real = [(i, e) for i, e in errors if not isinstance(e, threading.BrokenBarrierError)]
+            index, err = min(real or errors, key=lambda ie: ie[0])
+            err.add_note(f"in slot {index} of a shard_map_compat over {mesh.shape}")
+            raise err
+        for index, (out, ev) in results.items():
+            if ev is None:
+                continue
+            # the caller's streams go on after every slot's work
+            for d in {mesh.devices[index], mesh.home}:
+                torch.cuda.current_stream(d).wait_event(ev)
+            for x in tree_leaves(out):  # read by the caller's streams from here on
+                if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+                    torch.cuda.current_stream(x.device).wait_event(ev)
+                    x.record_stream(torch.cuda.current_stream(x.device))
+        outs = results[indices[0]][0]
+
+        def gather(spec, *leaves):
+            shards = np.empty(mesh.devices.shape, dtype=object)
+            for index, leaf in zip(indices, leaves):
+                shards[index] = leaf
+            return NamedSharding(mesh, spec).gather(shards, mesh.home)
+
+        per_slot = [results[i][0] for i in indices]
+        return tree_map(gather, _spec_tree(out_specs, outs), *per_slot)
+
+    return mapped

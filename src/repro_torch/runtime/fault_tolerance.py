@@ -16,9 +16,10 @@ need, without its JAX imports:
     includes the device work);
 
 and :func:`surviving_mesh`, the largest well-formed ``(data, model)``
-mesh (``parallel/sharding.Mesh``) of the cards that survive.  The
-reference's ``elastic_remesh`` restores a checkpoint of model parameters
-on such a mesh; it is not ported yet (``ROADMAP.md``, Queue 1 item 5.3).
+mesh (``parallel/sharding.Mesh``) of the cards that survive, and
+:func:`elastic_remesh`, which restores the latest checkpoint (of a
+training run, say) onto such a mesh, each leaf laid out by the
+shardings the caller gives for it.
 """
 from __future__ import annotations
 
@@ -139,6 +140,33 @@ def surviving_mesh(axis_names=("data", "model"), model_parallel: int = 1, device
         resolve_device("cuda")  # raises without a card
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return grid_mesh(devices, model_parallel, axis_names)
+
+
+def elastic_remesh(ckpt_manager, skeleton, make_shardings, *, devices=None,
+                   model_parallel: int = 1):
+    """Resume the latest checkpoint on a smaller (surviving) mesh.
+
+    Builds :func:`surviving_mesh` of ``devices`` (default every visible
+    card), restores the newest readable checkpoint of ``ckpt_manager`` (a
+    ``runtime/checkpoint.CheckpointManager``) into ``skeleton``'s structure
+    on the mesh's first slot, and lays each leaf out by the
+    ``parallel/sharding.NamedSharding`` at its place in
+    ``make_shardings(mesh)``: each leaf becomes the object array of its
+    shards (``NamedSharding.place``; ``NamedSharding.gather`` rebuilds it).
+    Returns ``(mesh, step, tree, extras)``, or ``None`` when no checkpoint
+    exists.  With ``train/trainer.checkpoint_shardings`` as
+    ``make_shardings``, a ``Trainer`` on the returned mesh trains on from
+    that tree: ``Trainer(..., mesh=mesh).train(restored=(step, tree))``.
+    """
+    from repro_torch.parallel.sharding import tree_map
+
+    mesh = surviving_mesh(model_parallel=model_parallel, devices=devices)
+    out = ckpt_manager.restore_latest(skeleton, device=mesh.home)
+    if out is None:
+        return None
+    step, tree, extras = out
+    placed = tree_map(lambda x, sh: sh.place(x), tree, make_shardings(mesh))
+    return mesh, step, placed, extras
 
 
 class StepTimer:

@@ -75,14 +75,18 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params, grads, state: OptState, lr, *, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.1, grad_clip=1.0):
+                 weight_decay=0.1, grad_clip=1.0, gnorm=None):
     """One AdamW step with global-norm clipping.
 
     ``params``, ``grads`` and the moments of ``state`` are mappings with
     the same names; the parameters and the moments are written in place.
-    Returns ``(params, state, gnorm)``, ``state`` with the new step.
+    ``gnorm`` is the gradients' global norm where ``grads`` are one shard
+    of them (a data-parallel slot's); by default :func:`global_norm` of
+    ``grads``.  Returns ``(params, state, gnorm)``, ``state`` with the new
+    step.
     """
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
              if grad_clip else 1.0)
     step = state.step + 1

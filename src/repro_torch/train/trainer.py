@@ -4,7 +4,14 @@ Counterpart of the reference's ``train/trainer.py``.  Wires together the
 train step (``train_step.make_train_step``), async atomic checkpointing
 with auto-resume (``runtime/checkpoint``), preemption (a SIGTERM writes a
 checkpoint and stops), straggler logging and JSONL metrics.  The model
-holds its parameters, on its own device.
+holds its parameters, on its own device.  Given a mesh of several slots,
+it trains over the mesh's ``data`` axis (``train_step.DataParallelStep``:
+a replica a slot, the moments laid out by the reference's parameter
+shardings); the checkpoint is gathered to the host all the same.  A
+resume over a mesh places the restored tree by
+:func:`checkpoint_shardings`, the layout in which
+``runtime/fault_tolerance.elastic_remesh`` hands a tree back, and trains
+from that placed tree (``train(restored=...)`` takes ``elastic_remesh``'s).
 
 The checkpoint tree is the reference's ``(params, opt_state)`` in the
 reference's layout: nested dicts of the spec's paths, the layers stacked
@@ -17,6 +24,7 @@ import json
 import math
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import RunConfig
@@ -26,6 +34,13 @@ from repro_torch.models.convert import (
     stack_named,
 )
 from repro_torch.models.params import abstract_params
+from repro_torch.parallel.sharding import PartitionSpec as P
+from repro_torch.parallel.sharding import (
+    NamedSharding,
+    param_shardings,
+    slot_device,
+    tree_map,
+)
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.fault_tolerance import (
     PreemptionHandler,
@@ -33,21 +48,42 @@ from repro_torch.runtime.fault_tolerance import (
     StragglerDetector,
 )
 from repro_torch.train import optimizer as opt
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import DataParallelStep, make_train_step
+
+
+def checkpoint_skeleton(model, moment_dtype=torch.float32):
+    """The checkpoint tree's shapes and dtypes, ``(params, OptState)`` in
+    the reference's layout, as ``meta`` tensors."""
+    spec = model.spec()
+    moments = abstract_params(spec, moment_dtype)
+    return (abstract_params(spec, model.param_dtype),
+            opt.OptState(torch.empty((), dtype=torch.int32, device="meta"), moments, moments))
+
+
+def checkpoint_shardings(model, mesh, rules=None):
+    """The layout of the checkpoint tree over ``mesh``: the parameters
+    and the moments by ``param_shardings`` of the model's spec (the
+    reference's FSDP layout), the step a copy on every slot.  Pass
+    ``lambda mesh: checkpoint_shardings(model, mesh)`` to
+    ``elastic_remesh`` for a tree that :meth:`Trainer.train` takes."""
+    p_sh = param_shardings(model.spec(), mesh, rules)
+    return p_sh, opt.OptState(NamedSharding(mesh, P()), p_sh, p_sh)
 
 
 class Trainer:
     """Trains ``model`` (a port model, float32 parameters on its device) on
     the batches of ``data_iter`` (dicts of tensors on that device), writing
     ``metrics.jsonl`` and checkpoints under ``workdir``.  ``mesh`` may be
-    ``None`` or a mesh of one slot; sharded training over more slots is not
-    ported and raises."""
+    ``None``, a mesh of one slot, or a mesh whose first slot is the model's
+    device and whose ``data`` axis alone is larger than one (``rules`` over
+    the reference's lay the moments out); a larger ``model`` axis raises
+    ``NotImplementedError``: tensor parallelism is not ported."""
 
     def __init__(self, model, run: RunConfig, data_iter, workdir, mesh=None, rules=None):
-        if mesh is not None and math.prod(mesh.shape.values()) > 1:
-            raise NotImplementedError(
-                f"training over a mesh of {mesh.shape} is not ported (ROADMAP.md, Queue 1 "
-                f"item 5.2(c)); pass mesh=None or one device")
+        if (mesh is not None and math.prod(mesh.shape.values()) > 1
+                and mesh.home != slot_device(model.device)):
+            raise ValueError(f"the mesh's first slot {mesh.home} is not the model's device "
+                             f"{model.device}")
         self.model = model
         self.run = run
         self.data_iter = data_iter
@@ -58,7 +94,8 @@ class Trainer:
         self.ckpt = CheckpointManager(self.workdir / "ckpt", keep=run.keep_checkpoints)
         self.straggler = StragglerDetector()
         self.metrics_path = self.workdir / "metrics.jsonl"
-        self.step_fn = make_train_step(model, run)
+        self.step_fn = make_train_step(model, run, mesh, rules)
+        self.sharded = isinstance(self.step_fn, DataParallelStep)
 
     # -- state --------------------------------------------------------------
     def init_state(self, seed=0):
@@ -67,40 +104,85 @@ class Trainer:
         name and zero moments."""
         self.model.init(torch.Generator(device=self.model.device).manual_seed(seed))
         params = dict(self.model.named_parameters())
+        if self.sharded:  # drawn on the first slot, then placed
+            self.step_fn.broadcast()
+            return params, self.step_fn.init_state()
         return params, opt.init_opt_state(params)
 
     def _checkpoint_tree(self, opt_state):
         """``(params, opt_state)`` in the reference's layout (tensors; the
-        stacked leaves are new tensors, the others the model's own)."""
+        stacked leaves are new tensors, the others the model's own; over a
+        mesh the moments gathered to the model's device first)."""
         m = self.model
+        if self.sharded:
+            opt_state = self.step_fn.gather(opt_state)
         return (stack_named(m, dict(m.named_parameters())),
                 opt.OptState(opt_state.step, stack_named(m, opt_state.m),
                              stack_named(m, opt_state.v)))
 
     def _skeleton(self, opt_state):
         """The checkpoint tree's shapes and dtypes as ``meta`` tensors."""
-        spec = self.model.spec()
-        moments = abstract_params(spec, next(iter(opt_state.m.values())).dtype)
-        return (abstract_params(spec, self.model.param_dtype),
-                opt.OptState(torch.empty((), dtype=torch.int32, device="meta"), moments,
-                             moments))
+        m = next(iter(opt_state.m.values()))
+        return checkpoint_skeleton(self.model, m.flat[0].dtype if self.sharded else m.dtype)
 
-    def resume_or_init(self, seed=0):
+    def resume_or_init(self, seed=0, restored=None):
+        """``(step, params, opt_state)``: from ``restored`` where given
+        (``(step, tree)``, the tree placed over this trainer's mesh by
+        :func:`checkpoint_shardings`, as ``elastic_remesh`` returns it),
+        else from the latest checkpoint, else drawn from ``seed``."""
+        if restored is not None and not self.sharded:
+            raise ValueError("a restored tree is one placed over a mesh of several slots")
         params, opt_state = self.init_state(seed)
-        out = self.ckpt.restore_latest(self._skeleton(opt_state), device=self.model.device)
-        if out is None:
-            return 0, params, opt_state
-        step, (ref_params, ref_opt), _ = out
-        params_from_reference(self.model, ref_params)
-        del ref_params
-        opt_state = opt_state_from_reference(self.model, ref_opt)
+        if restored is None:
+            out = self.ckpt.restore_latest(self._skeleton(opt_state), device=self.model.device)
+            if out is None:
+                return 0, params, opt_state
+            step, tree, _ = out
+            if self.sharded:
+                tree = tree_map(lambda x, sh: sh.place(x), tree,
+                                checkpoint_shardings(self.model, self.mesh, self.rules))
+        else:
+            step, tree = restored
+        del opt_state
+        if self.sharded:
+            opt_state = self._adopt(tree)
+        else:
+            params_from_reference(self.model, tree[0])
+            opt_state = opt_state_from_reference(self.model, tree[1])
+        del tree
         print(f"[trainer] resumed from step {step}")
         return step, params, opt_state
 
+    def _adopt(self, placed):
+        """The train step's state from a checkpoint tree placed over the
+        mesh: the parameters gathered into every replica, and each slot's
+        stacked moment shards unstacked into its blocks by name."""
+        mesh, step_fn = self.mesh, self.step_fn
+        p_sh, _ = checkpoint_shardings(self.model, mesh, self.rules)
+        p_placed, o_placed = placed
+        if o_placed.step.shape != mesh.devices.shape:
+            raise ValueError(f"a tree placed over {o_placed.step.shape} slots, not over the "
+                             f"trainer's mesh of {mesh.devices.shape}")
+        params_from_reference(self.model, tree_map(
+            lambda a, sh: sh.gather(a, self.model.device), p_placed, p_sh))
+        step_fn.broadcast()
+        shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+        m, v = {}, {}
+        for at in np.ndindex(mesh.devices.shape):
+            part = opt_state_from_reference(self.model, tree_map(lambda a: a[at], o_placed),
+                                            device=mesh.devices[at])
+            for out, named in ((m, part.m), (v, part.v)):
+                for n, t in named.items():
+                    if tuple(t.shape) != step_fn.shardings[n].shard_shape(shapes[n]):
+                        raise ValueError(f"{n}: a shard of {tuple(t.shape)}, not the train "
+                                         f"step's block of {shapes[n]}")
+                    out.setdefault(n, np.empty(mesh.devices.shape, dtype=object))[at] = t
+        return opt.OptState(o_placed.step, m, v)
+
     # -- loop ---------------------------------------------------------------
-    def train(self, steps=None, seed=0):
+    def train(self, steps=None, seed=0, restored=None):
         steps = steps or self.run.steps
-        start, params, opt_state = self.resume_or_init(seed)
+        start, params, opt_state = self.resume_or_init(seed, restored)
         preempt = PreemptionHandler().install()
         mfile = self.metrics_path.open("a")
         last = {}

@@ -46,7 +46,9 @@ def test_import_loads_no_jax_or_reference():
         "import repro_torch.serve.serve_step\n"
         "import repro_torch.train, repro_torch.train.optimizer, repro_torch.train.train_step\n"
         "import repro_torch.train.trainer, repro_torch.runtime.checkpoint\n"
-        "import repro_torch.launch.train\n"
+        "import repro_torch.launch.train, repro_torch.launch.dryrun\n"
+        "import repro_torch.parallel.compression, repro_torch.parallel.pipeline\n"
+        "import repro_torch.utils, repro_torch.utils.roofline\n"
         "from repro_torch.models.registry import ARCHS, get_config\n"
         "for name in ARCHS: get_config(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
@@ -148,3 +150,27 @@ def test_read_nifti_equals_reference(tmp_path, suffix, dtype, slope, inter):
     for a, b in zip(ours, theirs):
         np.testing.assert_array_equal(a, b)
         assert a.dtype == b.dtype
+
+
+def test_mesh_entry_points_raise_without_cuda_but_the_dry_run(tmp_path):
+    """Training over a mesh defaults to the card as every entry point
+    does; the dry run is the one exception: it lays cells out on ``meta``
+    and touches no device, as the reference's runs on forced host
+    devices."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.parallel.sharding import NamedSharding
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.fault_tolerance import elastic_remesh, surviving_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        surviving_mesh()
+    m = CheckpointManager(tmp_path)
+    m.save(1, {"x": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        elastic_remesh(m, {"x": torch.zeros(2)}, lambda mesh: {"x": NamedSharding(mesh)})
+    report, cell = dryrun.lower_cell("qwen3-1.7b", "train_4k", make_production_mesh())
+    assert report["n_chips"] == 256 and cell["params"][0]["embed"]["embedding"].is_meta

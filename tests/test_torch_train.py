@@ -516,11 +516,16 @@ def test_launcher_trains_and_resumes_on_cpu(tmp_path, capsys):
 
 
 def test_trainer_refuses_a_mesh_of_more_slots(tmp_path):
+    """A mesh whose 'model' axis holds more than one slot: tensor
+    parallelism is not ported.  A data axis of several slots trains
+    (tests/test_torch_dist.py), and so does one slot."""
     cfg = registry.get_config("qwen3-1.7b").reduced()
     model = registry.get_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="5.2"):
-        Trainer(model, RunConfig(), iter(()), tmp_path, mesh=Mesh(["cpu", "cpu"]))
+    wide = Mesh(np.array(["cpu"] * 2, dtype=object).reshape(1, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5.3"):
+        Trainer(model, RunConfig(), iter(()), tmp_path, mesh=wide)
     Trainer(model, RunConfig(), iter(()), tmp_path, mesh=Mesh(["cpu"]))  # one slot runs
+    Trainer(model, RunConfig(), iter(()), tmp_path, mesh=Mesh(["cpu", "cpu"]))  # data axis
 
 
 def test_training_entry_points_raise_without_cuda(tmp_path):
