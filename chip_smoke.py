@@ -336,12 +336,37 @@ Phases:
      repro_torch.launch.train --arch qwen3-1.7b --smoke --steps 4 over
      every card in a subprocess (exit 0, metrics.jsonl steps 0-3); the
      phase's seconds
-  16. the kernels line (each variant at block 256, as phase 5b); 17. the status line
+  16. (printed as [tp]) tensor parallelism over the 'model' axis, which
+     runs none of the kernels (their launch counts stay 0): (a) qwen3-1.7b
+     at full width and two layers, float32, TF32 off: one step over (1, 4)
+     and over (2, 2) slots of the card (each run in a thread, failed if it
+     has not ended in TP_HANG_S) against one slot on 4 x 65 tokens, as
+     phase 15b compares, the data rows equal, a second run's bitwise
+     equality printed; (b) qwen3-1.7b at two layers, float32: 8 greedy
+     tokens over (1, 4) == one slot's; at full width and depth, bf16, laid
+     out over (1, 4): the prefill fn on 4 prompts of 256, the prompts by
+     decode into a 512 cache, 64 greedy steps (finite logits, every token
+     below vocab_size, every slot's cache at 320), ms a step and tokens/s
+     beside 13c's one slot, each slot's bytes, a traced decode step;
+     (c) qwen3-1.7b at full width and four layers, bf16 compute, remat,
+     float32 master and moments, 8 steps of 4 x 257 tokens over (1, 4):
+     losses finite and falling, step ms and tokens/s against one slot, a
+     traced step's device items and busy share; (d) deepseek-moe-16b at
+     full width and two layers, one forward over (1, 4) on 2 x 512 tokens:
+     in float64 within TP_SHARE of one slot's largest logit, aux at rtol
+     TP_SHARE; in float32 (TF32 off) its error against the float64 forward
+     within TP_F32_BAND times one slot's own; in bf16 within
+     TP_MOE_BF16_REL (relative Frobenius) of one slot's bf16 logits, its
+     gap to the float32 forward printed beside one slot's; (e) with two cards or
+     more, python -m repro_torch.launch.train --model-parallel 2 in a
+     subprocess (exit 0, steps 0-3)
+  17. the kernels line (each variant at block 256, as phase 5b); 18. the status line
 """
 import collections
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -381,12 +406,13 @@ from repro_torch.kernels import glcm as gl  # noqa: E402
 from repro_torch.kernels import marching_cubes as mc  # noqa: E402
 from repro_torch.kernels import masked_range as mr  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import grid_mesh, make_host_mesh  # noqa: E402
 from repro_torch.launch.train import synthetic_data  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.convert import opt_state_to_reference, params_to_reference  # noqa: E402
 from repro_torch.models.encdec import enc_len_for  # noqa: E402
 from repro_torch.models.registry import get_config, get_model, list_archs  # noqa: E402
+from repro_torch.models.tensor_parallel import lay_out  # noqa: E402
 from repro_torch.parallel.sharding import Mesh, data_parallel_map  # noqa: E402
 from repro_torch.runtime import autotune, costmodel  # noqa: E402
 from repro_torch.runtime import roofline as rl  # noqa: E402
@@ -462,6 +488,20 @@ DIST_DEEP = (4, 257, 8, 4)  # 15c: rows x tokens, steps, layers at full width
 DIST_PIPE = (8, 256, 4)  # 15e: rows x tokens, microbatches (4 stages of 7 layers)
 DIST_PIPE_TOL = 5e-2  # 15e: whole batch against microbatched, relative Frobenius, bf16
 DIST_ELASTIC = (4, 32, 2, 4)  # 15f: rows, tokens (+1 label), run 1's steps, run 2's
+TP_SHAPES = ((1, 4), (2, 2))  # 16a: (data, model) meshes of 4 slots of the card
+TP_WIDE = (4, 65)  # 16a: rows x tokens at full width, 2 layers, float32
+TP_SERVE = (4, 256, 64, 512)  # 16b: as 13c: requests, prompt tokens, greedy steps, max_len
+TP_GREEDY = (4, 16, 8)  # 16b: 2 layers, float32: requests, prompt, greedy steps
+TP_DEEP = (4, 257, 8, 4)  # 16c: as 15c: rows x tokens, steps, layers at full width
+TP_MOE = (2, 512)  # 16d: deepseek-moe-16b's batch x tokens, as 13d
+TP_SHARE = 1e-4  # 16d: float64 logits over (1, 4) within this share of one slot's largest
+TP_F32_BAND = 2.0  # 16d: float32 logits over (1, 4) within this many times one slot's own
+# float32 error (both against the float64 forward; an H100 80GB HBM3 at 700 W read 3.20e-4
+# and 3.88e-4)
+TP_MOE_BF16_REL = 5e-2  # 16d: bf16 logits over (1, 4) from one slot's (relative Frobenius;
+# every run on an H100 80GB HBM3 at 700 W read 4.897e-2)
+TP_HANG_S = 600  # 16a: a step that has not ended by then hangs
+SERVE_ONE: dict = {}  # 13c's one-slot serving numbers, printed beside 16b's
 BF16_PEAK = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet, 700 W)
 # phase 10d's service traffic: clients x requests x cases a request
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCH, SERVE_HUGE_EVERY = 4, 6, 2, 16
@@ -2367,6 +2407,8 @@ def models_phase(smi):
           f"{cache['pos'].tolist()}; bf16 gap max|decode-filled last logits - prefill fn's| "
           f"{gap:.4f} (not gated), argmax agree {agree}; "
           f"max_memory_allocated {peak:,} B serving, {init_peak:,} B at init; card {smi}")
+    SERVE_ONE.update(prefill_ms=prefill_ms, step_ms=gen_s * 1e3 / gen, tokens_s=b * gen / gen_s,
+                     peak=peak, step_kernels=step_kernels)
     print(f"[models] 13c traced: a decode step {step_kernels} kernels, device "
           f"{step_us / 1e3:.3f} ms of {step_ms:.3f} ms wall (busy {ratio(step_us / 1e3, step_ms)}); "
           f"the prefill fn {pre_kernels} kernels, device {pre_us / 1e3:.3f} ms of "
@@ -3183,6 +3225,385 @@ def dist_phase(smi):
     launches = read_counts()
     check(not any(launches.values()), f"[dist] the phase launched a hand kernel: {launches}")
     print(f"[dist] the phase launched none of the hand kernels (rows 1-11, R); phase 15 took "
+          f"{time.perf_counter() - t_phase:.3f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: tensor parallelism over the 'model' axis
+# ---------------------------------------------------------------------------
+
+def tp_mesh(shape):
+    """A (data, model) mesh of slots of the first card."""
+    data, model = shape
+    return grid_mesh([torch.device("cuda", 0)] * (data * model), model)
+
+
+def ends(fn, limit, what):
+    """``fn()`` in a daemon thread, joined with a timeout: its result, or a
+    failed check where it has not ended by then (a hang)."""
+    out, err = [], []
+
+    def run():
+        try:
+            out.append(fn())
+        except BaseException as e:  # re-raised below
+            err.append(e)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(limit)
+    check(not t.is_alive(), f"{what}: did not end within {limit} s (a hang)")
+    if err:
+        raise err[0]
+    return out[0]
+
+
+def tp_mean_grads(step, model):
+    """The rows' gradients of a tensor-parallel step gathered whole by the
+    names of ``model``, added in row order over their count."""
+    rows = [rep.gathered_grads(model) for rep in step.replicas]
+    out = {}
+    for name, g in rows[0].items():
+        acc = g.clone()
+        for r in rows[1:]:
+            acc.add_(r[name])
+        out[name] = acc.div_(len(rows))
+    return out
+
+
+def slot_bytes(tensors_by_slot):
+    """Bytes of each slot's tensors."""
+    return [sum(t.numel() * t.element_size() for t in ts) for ts in tensors_by_slot]
+
+
+def tp_phase(smi):
+    """Phase 16: tensor parallelism over the 'model' axis (printed as [tp]):
+    a step over (1, 4) and (2, 2) against one slot, serving at full depth
+    over (1, 4), training over (1, 4), an MoE forward, and the launcher over
+    every card; fails on any check."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    check(not torch.backends.cuda.matmul.allow_tf32, "[tp] TF32 must be off")
+    zero_counts()
+
+    # (a) one step over (1, 4) and (2, 2) against one slot: full width, 2 layers, float32
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLM_SERVED), n_layers=2, dtype="float32")
+    one = get_model(cfg, device=dev)
+    batch = train_batch(cfg, *TP_WIDE, dev, seed=1)
+    ws = train_one_step(one, batch)
+    run = RunConfig(learning_rate=TRAIN_LR, warmup_steps=1)
+    lines = []
+    for shape in TP_SHAPES:
+        mod = get_model(cfg, device=dev)
+        step = make_train_step(mod, run, tp_mesh(shape))
+        check(isinstance(step, DataParallelStep) and step.n_model == shape[1],
+              f"[tp] 16a {shape}: not a tensor-parallel step")
+        t1 = time.perf_counter()
+        st, met = ends(lambda: step(step.init_state(), batch), TP_HANG_S, f"[tp] 16a {shape}")
+        met = {k: float(v) for k, v in met.items()}
+        cs = (step.gather(st), met, time.perf_counter() - t1)
+        grads = tp_mean_grads(step, mod)
+        step.collect()
+        for name, p in mod.named_parameters():
+            p.grad = grads[name]
+        del p  # a loop variable left bound keeps its tensors alive through 16b and 16c
+        gaps = train_compare(f"[tp] 16a {shape}", mod, one, cs, ws)
+        check(all(torch.equal(a, b) for rep in step.replicas[1:]
+                  for a, b in zip(rep.parameters(), step.replicas[0].parameters())),
+              f"[tp] 16a {shape}: the data rows' parameters differ after the step")
+        first = [t.detach().clone() for t in mod.parameters()] + \
+            [cs[0].m[n].clone() for n in cs[0].m] + [cs[0].v[n].clone() for n in cs[0].v]
+        del cs, grads
+        with torch.no_grad():
+            mod.load_state_dict(get_model(cfg, device=dev).state_dict())
+        step.broadcast()
+        st, _ = ends(lambda: step(step.init_state(), batch), TP_HANG_S, f"[tp] 16a {shape} rerun")
+        again = step.gather(st)
+        step.collect()
+        second = [t.detach() for t in mod.parameters()] + \
+            [again.m[n] for n in again.m] + [again.v[n] for n in again.v]
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        lines.append(f"{shape}: loss {met['loss']:.6f} (one slot {ws[1]['loss']:.6f}), "
+                     f"grad_norm {met['grad_norm']:.6f} ({ws[1]['grad_norm']:.6f}); largest "
+                     f"gap over the leaf's largest entry: gradient {gaps['grad']:.2e}, m "
+                     f"{gaps['m']:.2e}, v {gaps['v']:.2e}; parameters after max|tp - one| "
+                     f"{gaps['param']:.2e}; the data rows equal; run again from the same state "
+                     f"{'bitwise equal' if same else 'NOT bitwise equal'} (not gated)")
+        del first, second, again, step, st, mod
+        torch.cuda.empty_cache()
+    print(f"[tp] 16a {LLM_SERVED} full width ({cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_padded} padded), 2 layers, float32, TF32 off, "
+          f"{TP_WIDE[0]} x {TP_WIDE[1]} tokens: one step over 4 slots of the card against one "
+          f"slot, each ended within {TP_HANG_S} s: " + "; ".join(lines)
+          + f"; {time.perf_counter() - t0:.3f} s")
+    del one, ws
+    torch.cuda.empty_cache()
+
+    # (b) serving over (1, 4): full width and depth, bf16; greedy tokens at 2 layers, float32
+    t0 = time.perf_counter()
+    b, prompt, n_new = TP_GREEDY
+    cfg2 = dataclasses.replace(get_config(LLM_SERVED), n_layers=2, dtype="float32")
+    one = get_model(cfg2, device=dev)
+    laid = lay_out(get_model(cfg2, device=dev), tp_mesh((1, 4)))
+    toks, _ = llm_inputs(cfg2, b, prompt, seed=5)
+    runs = []
+    for served in (laid, one):
+        cache = served.init_cache(b, prompt + n_new, dtype=torch.float32)
+        llm_teacher_forced(served, cache, toks[:, :prompt - 1])
+        runs.append(llm_greedy(served, cfg2, cache, toks[:, prompt - 1:prompt], n_new))
+    del served, cache
+    (tp_toks, _), (one_toks, one_logits) = runs
+    check(top2_gap_ok(one_logits, 1e-4, 1e-4), "[tp] 16b: a near-tie decides a greedy step")
+    check(torch.equal(tp_toks, one_toks), f"[tp] 16b: greedy tokens over (1, 4) "
+                                          f"{tp_toks.tolist()} != one slot's {one_toks.tolist()}")
+    del one, laid, runs
+    torch.cuda.empty_cache()
+    greedy_s = time.perf_counter() - t0
+
+    cfg = get_config(LLM_SERVED)
+    # a remat step's graph can sit in a reference cycle (torch.utils.checkpoint's
+    # frames) until Python's collector runs: collect before measuring memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    laid = lay_out(get_model(cfg, device=dev, dtype=torch.bfloat16,
+                             generator=torch.Generator(device=dev).manual_seed(0)),
+                   tp_mesh((1, 4)))
+    laid.model = None  # the shards hold the weights; the whole copy is not served
+    torch.cuda.empty_cache()
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    b, prompt, gen, max_len = TP_SERVE
+    tokens, _ = llm_inputs(cfg, b, prompt, seed=2)
+    tokens = tokens.to(dev)
+    prefill = make_prefill_fn(laid)
+    prefill(tokens)  # the first call pays cuBLAS' set-up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        last = prefill(tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    prefill_ms = statistics.median(walls) * 1e3
+    cache = laid.init_cache(b, max_len, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    filled = llm_teacher_forced(laid, cache, tokens)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t1
+    dec_last = filled[:, -1:].float()
+    first = torch.where(torch.arange(cfg.vocab_padded, device=dev) < cfg.vocab_size,
+                        dec_last[:, -1], -1e30).argmax(dim=-1, keepdim=True)
+    t1 = time.perf_counter()
+    out, logits = llm_greedy(laid, cfg, cache, first, gen)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    held = slot_bytes([list(sl.parameters()) + [cache[k][0, m] for k in ("k", "v", "pos")]
+                       for m, sl in enumerate(laid.groups[0].slots)])
+    spare = laid.init_cache(b, max_len, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        step_items, step_busy, _, step_ms, _ = traced_union(
+            lambda: laid.decode_step(spare, tokens[:, :1]))
+    del spare
+    check(bool(torch.isfinite(last.float()).all() and torch.isfinite(dec_last).all()
+               and torch.isfinite(logits.float()).all()), "[tp] 16b: logits not finite")
+    check(int(out.max()) < cfg.vocab_size and int(first.max()) < cfg.vocab_size,
+          f"[tp] 16b: a token at or past vocab_size {cfg.vocab_size}")
+    pos = [p.tolist() for p in cache["pos"].flat]
+    check(all(p == [prompt + gen] * b for p in pos),
+          f"[tp] 16b: cache positions {pos} != {prompt + gen}")
+    one_ = SERVE_ONE
+    print(f"[tp] 16b {LLM_SERVED} full width and depth ({cfg.n_layers} layers), bf16, laid out "
+          f"over (1, 4) slots of the card, {b} requests: prefill fn over {b} x {prompt} tokens "
+          f"{prefill_ms:.3f} ms (median of 3; one slot, 13c: "
+          f"{one_.get('prefill_ms', float('nan')):.3f} ms); the prompts by decode into a "
+          f"max_len={max_len} cache {fill_s * 1e3 / prompt:.3f} ms a step; {gen} greedy serve "
+          f"steps {gen_s * 1e3 / gen:.3f} ms a step, {b * gen / gen_s:.1f} tokens/s (one slot, "
+          f"13c: {one_.get('step_ms', float('nan')):.3f} ms, "
+          f"{one_.get('tokens_s', float('nan')):.1f} tokens/s); cache pos {pos[0]} on every "
+          f"slot; each slot holds {held} B (parameters and cache); max_memory_allocated "
+          f"{peak:,} B serving on the card for the 4 slots, {init_peak:,} B laying out, "
+          f"{base:,} B held before (one slot, 13c: {one_.get('peak', 0):,} B serving); a "
+          f"traced decode step {step_items} "
+          f"device items (one "
+          f"slot, 13c: {one_.get('step_kernels', 0)} kernels), busy "
+          f"{step_busy / 1e3:.3f} of {step_ms:.3f} ms ({ratio(step_busy / 1e3, step_ms)}); "
+          f"at 2 layers, float32: {n_new} greedy tokens == one slot's ({greedy_s:.3f} s); "
+          f"card {smi}; {time.perf_counter() - t0:.3f} s")
+    del laid, prefill, cache, filled, last, logits
+    torch.cuda.empty_cache()
+
+    # (c) training over (1, 4): full width, 4 layers, bf16 compute, remat
+    t0 = time.perf_counter()
+    rows, toks_n, n_steps, n_layers = TP_DEEP
+    cfg = dataclasses.replace(get_config(LLM_SERVED), n_layers=n_layers)
+    check(cfg.remat and cfg.dtype == "bfloat16", f"[tp] 16c: remat {cfg.remat}, {cfg.dtype}")
+    batch = train_batch(cfg, rows, toks_n, dev, seed=4)
+    run = RunConfig(learning_rate=3e-4, warmup_steps=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    step = make_train_step(model, run, tp_mesh((1, 4)))
+    state = step.init_state()
+    losses, walls = [], []
+    for _ in range(n_steps):
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[tp] 16c: losses {losses} (finite, the last below the first)")
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], batch)
+
+    items, busy_us, sum_us, traced_ms, streams = traced_union(one_step)
+    del holder, state, step, model
+    torch.cuda.empty_cache()
+    one_model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    one = make_train_step(one_model, run)
+    ostate = opt.init_opt_state(dict(one_model.named_parameters()))
+    one_walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        ostate, m = one(ostate, batch)
+        float(m["loss"])
+        one_walls.append(time.perf_counter() - t1)
+    oh = [ostate]
+
+    def one_slot_step():
+        oh[0], _ = one(oh[0], batch)
+
+    o_items, o_busy, _, o_ms, _ = traced_union(one_slot_step)
+    del one_model, one, ostate, oh
+    torch.cuda.empty_cache()
+    med, one_med = statistics.median(walls[1:]), statistics.median(one_walls[1:])
+    tokens = rows * toks_n
+    print(f"[tp] 16c {LLM_SERVED} full width, {n_layers} layers, float32 master and moments, "
+          f"bf16 compute, remat, {rows} x {toks_n} tokens over (1, 4) slots of the card, lr "
+          f"3e-4: losses {[round(x, 4) for x in losses]}; step ms "
+          f"{[round(w * 1e3, 2) for w in walls]}, median after the first {med * 1e3:.3f} ms = "
+          f"{tokens / med:.1f} tokens/s; one slot on the same batch {one_med * 1e3:.3f} ms = "
+          f"{tokens / one_med:.1f} tokens/s (tp / one {med / one_med:.3f}x); "
+          f"max_memory_allocated {peak:,} B ({base:,} B held before); traced step: {items} "
+          f"device items on {streams} "
+          f"streams, busy (union) {busy_us / 1e3:.3f} ms (summed {sum_us / 1e3:.3f}) of "
+          f"{traced_ms:.3f} ms ({ratio(busy_us / 1e3, traced_ms)}); one slot {o_items} items, "
+          f"busy {o_busy / 1e3:.3f} of {o_ms:.3f} ms ({ratio(o_busy / 1e3, o_ms)}); card {smi}; "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    # (d) deepseek-moe-16b at full width, 2 layers: one forward over (1, 4)
+    # in float64 and float32 against one slot, then bf16 against one slot's
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=2)
+    model = get_model(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    b, s = TP_MOE
+    tokens, _ = llm_inputs(cfg, b, s, seed=3)
+    tokens = tokens.to(dev)
+    with torch.inference_mode():
+        want, want_aux = model.forward(tokens)
+        want = want.float()
+    # the same (bf16-rounded) weights in float64, then float32: one slot and
+    # laid out; float32's own error is this model's (~4e-4 of the largest
+    # logit on one slot), so the layout is held at TP_SHARE in float64
+    runs = {}
+    for name, dt in (("float64", torch.float64), ("float32", torch.float32)):
+        exact = get_model(dataclasses.replace(cfg, dtype=name), device=dev, dtype=dt)
+        exact.load_state_dict({k: v.to(dt) for k, v in model.state_dict().items()})
+        with torch.inference_mode():
+            one_logits, one_aux = exact.forward(tokens)
+        laid = lay_out(exact, tp_mesh((1, 4)))
+        with torch.inference_mode():
+            tp_logits, tp_aux = laid.forward(tokens)
+        runs[name] = (one_logits, one_aux, tp_logits, tp_aux)
+        del laid, exact
+        torch.cuda.empty_cache()
+
+    def share(a, b):  # max |a - b| over b's largest entry, in float64
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    one64, aux64, tp64, taux64 = runs["float64"]
+    exact_logits, exact_aux, got32, aux32 = runs["float32"]
+    del runs
+    share64 = share(tp64, one64)
+    aux_rel = abs(float(taux64) - float(aux64)) / abs(float(aux64))
+    err_one, err_tp = share(exact_logits, one64), share(got32, one64)
+    share32 = share(got32, exact_logits)
+    top1_32 = float((got32.argmax(-1) == exact_logits.argmax(-1)).float().mean())
+    del got32, tp64, one64
+    check(share64 <= TP_SHARE and aux_rel <= TP_SHARE,
+          f"[tp] 16d: float64 over (1, 4) max|tp - one| is {share64:.3e} of one slot's largest "
+          f"logit, aux {aux_rel:.3e} relative; bound {TP_SHARE}")
+    check(err_tp <= TP_F32_BAND * err_one,
+          f"[tp] 16d: float32 over (1, 4) is {err_tp:.3e} (of the largest logit) from the "
+          f"float64 forward, past {TP_F32_BAND} x one slot's own {err_one:.3e}")
+    band = float((want - exact_logits).norm() / exact_logits.norm())
+    laid = lay_out(model, tp_mesh((1, 4)))
+    with torch.inference_mode():
+        laid.forward(tokens)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got, aux = laid.forward(tokens)
+        torch.cuda.synchronize()
+        moe_ms = (time.perf_counter() - t1) * 1e3
+    got = got.float()
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(aux)), "[tp] 16d: not finite")
+    rel = float((got - want).norm() / want.norm())
+    off = float((got - exact_logits).norm() / exact_logits.norm())
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    check(rel <= TP_MOE_BF16_REL,
+          f"[tp] 16d: the bf16 logits over (1, 4) are {rel:.4g} (relative Frobenius) from one "
+          f"slot's bf16 logits, past {TP_MOE_BF16_REL}")
+    print(f"[tp] 16d deepseek-moe-16b full width, 2 layers, {b} x {s} tokens over (1, 4) slots "
+          f"(each slot {cfg.moe_d_ff // 4} of each expert's {cfg.moe_d_ff}): float64 "
+          f"max|tp - one| {share64:.3e} of one slot's largest logit, aux {aux_rel:.2e} relative "
+          f"(bound {TP_SHARE}); float32 (TF32 off) from the float64 forward {err_tp:.3e} "
+          f"against one slot's own {err_one:.3e} (bound {TP_F32_BAND}x), max|tp - one| "
+          f"{share32:.3e}, aux {float(aux32):.8f} (one slot {float(exact_aux):.8f}), top-1 "
+          f"agree {top1_32:.4f}; bf16 forward {moe_ms:.3f} ms, against one slot's bf16 "
+          f"logits {rel:.3e} relative Frobenius (bound {TP_MOE_BF16_REL}), max|tp - one| "
+          f"{float((got - want).abs().max()):.4f}, top-1 agree {top1:.4f}, aux {float(aux):.6f} "
+          f"(one slot {float(want_aux):.6f}); gap to the float32 forward of the same weights "
+          f"{off:.3e}, one slot's {band:.3e} (not gated); {time.perf_counter() - t0:.3f} s")
+    del model, laid, got, want, exact_logits
+    torch.cuda.empty_cache()
+
+    # (e) the launcher with --model-parallel over every card
+    if torch.cuda.device_count() > 1:
+        t0 = time.perf_counter()
+        work = Path(tempfile.mkdtemp(prefix="repro_tp_launch_"))
+        try:
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch", LLM_SERVED,
+                 "--smoke", "--steps", "4", "--model-parallel", "2", "--workdir", str(work)],
+                cwd=Path(__file__).resolve().parent, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                capture_output=True, text=True, timeout=600)
+            check(r.returncode == 0, f"[tp] 16e launcher exit {r.returncode}: "
+                                     f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+            recs = metrics_lines(work / "metrics.jsonl")
+            check([x["step"] for x in recs] == [0, 1, 2, 3]
+                  and all(np.isfinite(x["loss"]) for x in recs), f"[tp] 16e launcher {recs}")
+            head = [ln for ln in r.stdout.splitlines() if ln.startswith("[launch] arch")]
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(f"[tp] 16e python -m repro_torch.launch.train --arch {LLM_SERVED} --smoke --steps 4 "
+              f"--model-parallel 2 over every card ({head[0] if head else '?'}): exit 0, steps "
+              f"0-3, losses {[round(x['loss'], 4) for x in recs]}; "
+              f"{time.perf_counter() - t0:.3f} s")
+    else:
+        print("[tp] 16e the launcher with --model-parallel 2: one card here; it needs two or more")
+    launches = read_counts()
+    check(not any(launches.values()), f"[tp] the phase launched a hand kernel: {launches}")
+    print(f"[tp] the phase launched none of the hand kernels (rows 1-11, R); phase 16 took "
           f"{time.perf_counter() - t_phase:.3f} s")
 
 
@@ -4664,7 +5085,10 @@ def main():
     # -- 15. training over a mesh of slots (runs none of the kernels) ---------
     dist_phase(smi)
 
-    # -- 16. kernels line ---------------------------------------------------
+    # -- 16. tensor parallelism over the 'model' axis (runs none of the kernels)
+    tp_phase(smi)
+
+    # -- 17. kernels line ---------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -4710,7 +5134,7 @@ def main():
         for v in variants if v != "seqacc"
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 17. status -----------------------------------------------------------
+    # -- 18. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

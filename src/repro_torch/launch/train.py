@@ -1,11 +1,13 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 
 Builds a mesh where the reference does (more than one visible card under
-``--device cuda``), and drives the fault-tolerant ``Trainer`` on synthetic
-data: on such a machine it trains over every card's ``data`` axis
-(``--device cuda:0`` trains on one card).  ``--model-parallel`` above 1
-there raises: tensor parallelism is not ported (``ROADMAP.md``, Queue 1
-item 5.3).
+``--device cuda``: ``make_host_mesh(--model-parallel)``), and drives the
+fault-tolerant ``Trainer`` on synthetic data: on such a machine it trains
+over every card, ``--model-parallel`` cards a model group (tensor
+parallelism over the ``model`` axis for the dense, moe and vlm families)
+and the rest over ``data`` (``--device cuda:0`` trains on one card).  On
+one card, or with ``--device cpu``, ``--model-parallel N`` above 1 lays
+the model out over N slots of that device.
 
 Training over every card is today slower than on one card: the host
 holds it back (a thread a slot queues launches at half one slot's rate;
@@ -35,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.dispatcher import resolve_device
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import grid_mesh, make_host_mesh
 from repro_torch.models.encdec import enc_len_for
 from repro_torch.models.registry import get_config, get_model, list_archs
 from repro_torch.train.trainer import Trainer
@@ -81,7 +83,12 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     model = get_model(cfg, device=dev)
     multi = args.device == "cuda" and torch.cuda.device_count() > 1
-    mesh = make_host_mesh(args.model_parallel) if multi else None
+    if multi:
+        mesh = make_host_mesh(args.model_parallel)
+    elif args.model_parallel > 1:
+        mesh = grid_mesh([dev] * args.model_parallel, args.model_parallel)
+    else:
+        mesh = None
     run = RunConfig(steps=args.steps, microbatch=args.microbatch,
                     warmup_steps=max(2, args.steps // 10),
                     checkpoint_every=max(1, args.steps // 4))

@@ -11,7 +11,11 @@ gives the parameters' ``.grad`` the same way, and
 optimizer's moments and step.  Every round trip is exact.  The tests use
 them so that both packages compute with the same weights, and the trainer's
 checkpoint holds the reference's layout (:func:`stack_named`), so a
-checkpoint either package writes restores in the other.
+checkpoint either package writes restores in the other.  A model laid out
+over a mesh (``models/tensor_parallel.LaidOutModel``) goes through its
+whole model: :func:`params_from_reference` loads that and places it over
+the mesh, :func:`params_to_reference` gathers the first data row's blocks
+into it first, and the optimizer state's functions read its names.
 """
 from __future__ import annotations
 
@@ -19,6 +23,12 @@ import numpy as np
 import torch
 
 from repro_torch.models.params import STACKED, _unflatten, get_path, tree_paths
+from repro_torch.models.tensor_parallel import LaidOutModel
+
+
+def _whole(model):
+    """The whole model of a laid-out one; any other model itself."""
+    return model.model if isinstance(model, LaidOutModel) else model
 
 
 def _param_names(model, path: tuple) -> list:
@@ -33,6 +43,7 @@ def stack_named(model, named: dict) -> dict:
     """``named`` (parameter names to tensors, as the parameters, gradients
     or moments) as the reference's nested dict: the layers stacked on their
     leading axis (a new tensor), any other leaf the tensor itself."""
+    model = _whole(model)
     flat = {}
     for path, _ in tree_paths(model.spec()):
         names = _param_names(model, path)
@@ -45,6 +56,7 @@ def _unstack_named(model, tree: dict, device=None, dtype=None) -> dict:
     """The reference's nested dict (numpy arrays or tensors) as parameter
     names to new tensors on ``device`` (default the model's), in ``dtype``
     (default the leaf's own)."""
+    model = _whole(model)
     device = model.device if device is None else device
     out = {}
     for path, _ in tree_paths(model.spec()):
@@ -72,19 +84,24 @@ def _numpy(tree):
 def params_from_reference(model, tree: dict):
     """Copy every leaf of ``tree`` (the reference's nested dict, numpy
     arrays or tensors) into ``model``'s parameters, unstacking the layer
-    axes; every path of the model's spec must be there with its shape.
-    Returns ``model``."""
-    for path, _ in tree_paths(model.spec()):
+    axes; every path of the model's spec must be there with its shape (a
+    laid-out model: its whole model's, then placed).  Returns ``model``."""
+    whole = _whole(model)
+    for path, _ in tree_paths(whole.spec()):
         value = get_path(tree, path)
         if not isinstance(value, torch.Tensor):
             value = torch.from_numpy(np.asarray(value))
-        model.load_leaf(path, value)
+        whole.load_leaf(path, value)
+    if whole is not model:
+        model.place()
     return model
 
 
 def params_to_reference(model) -> dict:
     """``model``'s parameters as the reference's nested dict of numpy arrays,
-    the layers stacked on their leading axis; bf16 widens to float32."""
+    the layers stacked on their leading axis; bf16 widens to float32 (a
+    laid-out model's first data row gathered)."""
+    model = model.gather() if isinstance(model, LaidOutModel) else model
     return _numpy(stack_named(model, dict(model.named_parameters())))
 
 
@@ -111,6 +128,7 @@ def opt_state_from_reference(model, state, device=None, dtype=None):
     (default the model's), the moments in ``dtype`` (default their own)."""
     from repro_torch.train.optimizer import OptState  # train imports this module
 
+    model = _whole(model)
     device = model.device if device is None else device
     step = torch.as_tensor(np.asarray(state.step) if not isinstance(state.step, torch.Tensor)
                            else state.step).to(device=device, dtype=torch.int32, copy=True)

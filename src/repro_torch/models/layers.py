@@ -177,30 +177,40 @@ def attention_out(params, o, x_dtype):
     return torch.einsum("bshk,hkd->bsd", o, params["wo"].to(x_dtype))
 
 
-def self_attention(params, x, positions, cfg, *, window=0, block_k=512):
-    """Full training-mode self-attention (causal)."""
+def select_kv(t, kv_select):
+    """The kv heads (dimension 2) of ``t`` that a ``model`` slot's query
+    heads read: all of them (``None``) or a ``slice``."""
+    return t if kv_select is None else t[:, :, kv_select]
+
+
+def self_attention(params, x, positions, cfg, *, window=0, block_k=512, kv_select=None):
+    """Full training-mode self-attention (causal).  ``kv_select`` picks the
+    kv heads of the query heads in ``params`` (:func:`select_kv`), where a
+    ``model`` slot holds a block of the query heads and every kv head."""
     q, kv = attention_qkv(params, x, positions, cfg)
-    o = blockwise_attention(q, kv.k, kv.v, causal=True, window=window, block_k=block_k)
+    o = blockwise_attention(q, select_kv(kv.k, kv_select), select_kv(kv.v, kv_select),
+                            causal=True, window=window, block_k=block_k)
     return attention_out(params, o, x.dtype)
 
 
 def cached_attention(q, cache_k, cache_v, valid, cfg):
     """One query token against a cache: ``q`` (B, 1, H, D), ``cache_k/v``
-    (B, S, K, D), ``valid`` (B, S) the slots it may read.  Scores in float32,
-    the probabilities cast to the cache's dtype for the PV product.
+    (B, S, K, D), ``valid`` (B, S) the slots it may read; the head counts
+    are the tensors' (a ``model`` slot's block).  Scores in float32, the
+    probabilities cast to the cache's dtype for the PV product.
     Returns (B, 1, H, D)."""
-    b = q.shape[0]
-    kh, hd = cfg.n_kv_heads, cfg.head_dim
-    g = cfg.n_heads // kh
-    qg = (q / math.sqrt(hd)).reshape(b, 1, kh, g, hd)
+    b, _, h, hd = q.shape
+    kh = cache_k.shape[2]
+    qg = (q / math.sqrt(hd)).reshape(b, 1, kh, h // kh, hd)
     s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), cache_k.float())
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(cache_v.dtype)
     o = torch.einsum("bqkgs,bskd->bqkgd", p, cache_v)
-    return o.reshape(b, 1, cfg.n_heads, hd)
+    return o.reshape(b, 1, h, hd)
 
 
-def decode_attention(params, x, cache_k, cache_v, pos, cfg, *, window=0, uniform_pos=True):
+def decode_attention(params, x, cache_k, cache_v, pos, cfg, *, window=0, uniform_pos=True,
+                     kv_select=None):
     """Single-token decode against a KV cache, which it updates in place.
 
     x: (B, 1, d); cache_k/v: (B, S_max, K, D); pos: (B,) current lengths.
@@ -210,6 +220,8 @@ def decode_attention(params, x, cache_k, cache_v, pos, cfg, *, window=0, uniform
     same step) writes the new KV of every row at ``pos[0]``
     (``index_copy_``, no host sync); otherwise each row's slot is a one-hot
     blend at its own position, as the reference's ragged path.
+    ``kv_select`` picks the cache's kv heads that the query heads read
+    (:func:`select_kv`).
     """
     q, kv = attention_qkv(params, x, pos[:, None], cfg)
     if uniform_pos:
@@ -224,7 +236,8 @@ def decode_attention(params, x, cache_k, cache_v, pos, cfg, *, window=0, uniform
     valid = kpos <= pos[:, None]
     wthr = pos[:, None] - window if window > 0 else _FAR
     valid = valid & (kpos > wthr)
-    o = cached_attention(q, cache_k, cache_v, valid, cfg)
+    o = cached_attention(q, select_kv(cache_k, kv_select), select_kv(cache_v, kv_select),
+                         valid, cfg)
     return attention_out(params, o, x.dtype), cache_k, cache_v
 
 
@@ -277,6 +290,17 @@ def embed_spec(cfg):
 
 def embed(params, ids):
     return F.embedding(ids.long(), params["embedding"])
+
+
+def embed_block(params, ids, offset: int):
+    """A ``model`` slot's addend of a vocab-parallel embedding: the rows of
+    its block of the table (ids ``offset`` onwards), zeros for the ids
+    outside it."""
+    table = params["embedding"]
+    local = ids.long() - offset
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = F.embedding(local.clamp(0, table.shape[0] - 1), table)
+    return rows * inside[..., None].to(rows.dtype)
 
 
 def unembed_spec(cfg):

@@ -16,6 +16,7 @@ feeds the auxiliary loss.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -45,14 +46,22 @@ def _capacity(s_tokens: int, k: int, e: int, factor: float) -> int:
     return max(4, min(c, s_tokens))
 
 
-def moe_apply(params, x, cfg):
-    """x: (B, S, d) -> (out, aux_loss).
+class Routed(NamedTuple):
+    """The routing of one MoE layer's tokens (:func:`moe_route`)."""
 
-    Tokens are regrouped into dispatch groups of ``cfg.moe_group_size``
+    x: torch.Tensor  # (g, gs, d) the tokens in dispatch groups, the last padded
+    dispatch: torch.Tensor  # (g, gs, e, cap) one-hot token -> expert slot
+    combine: torch.Tensor  # (g, gs, e, cap) the gate of each token's slots
+    aux: torch.Tensor  # () the load-balancing loss (before router_aux_loss)
+    tokens: tuple  # (B, S) of the layer's input
+
+
+def moe_route(params, x, cfg) -> Routed:
+    """x: (B, S, d) regrouped into dispatch groups of ``cfg.moe_group_size``
     (the last padded with zero rows, which claim no slot and give no
-    output): the dense dispatch/combine einsums cost O(group_size) FLOPs
-    per token.
-    """
+    output; the dense dispatch/combine einsums cost O(group_size) FLOPs
+    per token), and routed: the router, top-k, the auxiliary loss and the
+    dispatch and combine tensors."""
     b_in, s_in, d = x.shape
     gs = min(cfg.moe_group_size, b_in * s_in)
     pad = (-(b_in * s_in)) % gs
@@ -95,7 +104,13 @@ def moe_apply(params, x, cfg):
     dispatch = torch.einsum("gske,gskec->gsec", onehot_x, slot_oh)
     combine = torch.einsum("gske,gskec->gsec", gate_vals.to(x.dtype)[..., None] * onehot_x,
                            slot_oh)
+    return Routed(x, dispatch, combine, aux, (b_in, s_in))
 
+
+def moe_experts(params, x, dispatch, combine, cfg):
+    """The experts (with the shared experts and the dense residual FFN) on
+    routed tokens: x (g, gs, d) -> (g, gs, d).  Over a ``model`` slot's
+    blocks of the ``mlp`` dimension, a partial sum."""
     xe = torch.einsum("gsec,gsd->gecd", dispatch, x)  # (g,e,cap,d)
     h = torch.einsum("gecd,edf->gecf", xe, params["wi"].to(x.dtype))
     gate = (torch.einsum("gecd,edf->gecf", xe, params["wg"].to(x.dtype))
@@ -108,7 +123,21 @@ def moe_apply(params, x, cfg):
         out = out + layers.mlp(params["shared"], x, cfg.mlp_act)
     if cfg.dense_residual_ff:
         out = out + layers.mlp(params["dense"], x, cfg.mlp_act)
-    out = out.reshape(-1, d)
-    if pad:
+    return out
+
+
+def moe_ungroup(out, tokens: tuple):
+    """The grouped output (g, gs, d) back as (B, S, d), the padding cut."""
+    b_in, s_in = tokens
+    out = out.reshape(-1, out.shape[-1])
+    if out.shape[0] != b_in * s_in:
         out = out[: b_in * s_in]
-    return out.reshape(b_in, s_in, d), aux * cfg.router_aux_loss
+    return out.reshape(b_in, s_in, -1)
+
+
+def moe_apply(params, x, cfg):
+    """x: (B, S, d) -> (out, aux_loss): :func:`moe_route`, then
+    :func:`moe_experts` and :func:`moe_ungroup`."""
+    r = moe_route(params, x, cfg)
+    out = moe_experts(params, r.x, r.dispatch, r.combine, cfg)
+    return moe_ungroup(out, r.tokens), r.aux * cfg.router_aux_loss

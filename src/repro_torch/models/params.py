@@ -14,6 +14,11 @@ A model's spec stacks its layers on a leading axis (``layers``,
 ``lax.scan`` reads them.  The port's modules hold one :class:`ParamTree`
 per layer instead, each leaf with the unstacked shape, in an
 ``nn.ModuleList``; :class:`SpecModule` maps between the two.
+
+A :class:`SpecModule` built with a :class:`ModelBlock` is one shard of the
+model: it holds one ``model``-axis slot's block of each leaf
+(:func:`model_shardings`: the reference's layout with every axis but
+``model`` dropped), drawn as the block of the whole model's draw.
 """
 from __future__ import annotations
 
@@ -36,6 +41,47 @@ class P(NamedTuple):
 
     def with_leading(self, n: int, axis_name: str | None = "layers"):
         return P((n, *self.shape), (axis_name, *self.axes), self.init)
+
+
+class ModelBlock(NamedTuple):
+    """One slot of a mesh's ``model`` axis: ``k``, its index along the axis,
+    under ``rules`` over the reference's."""
+
+    mesh: object
+    k: int
+    rules: dict | None = None
+
+
+def model_shardings(spec, mesh, rules=None) -> dict:
+    """For each path of ``spec``, the layout of its leaf over ``mesh``'s
+    ``model`` axis alone: ``parallel.sharding.param_shardings``'s spec with
+    every other mesh axis dropped (a dimension split over several axes
+    keeps ``model`` only where it is the outermost, so that the block holds
+    the finer blocks of the other axes)."""
+    from repro_torch.parallel import sharding
+
+    flat = {}
+    for path, leaf in tree_paths(spec):
+        full = sharding.pspec(leaf.axes, rules=dict(sharding.DEFAULT_RULES, **(rules or {})),
+                              mesh=mesh, shape=leaf.shape)
+        parts = []
+        for entry in full:
+            axes = sharding._axes_of(entry)
+            if "model" in axes[1:]:
+                raise NotImplementedError(f"{'/'.join(path)}: {full!r} splits a dimension over "
+                                          f"'model' inside another axis")
+            parts.append("model" if axes[:1] == ("model",) else None)
+        flat[path] = sharding.NamedSharding(mesh, sharding.PartitionSpec(*parts))
+    return flat
+
+
+def block_slices(spec, block: ModelBlock) -> dict:
+    """For each path of ``spec``, the slices of its whole leaf that the
+    ``model`` slot ``block`` holds."""
+    mesh = block.mesh
+    index = tuple(block.k if a == "model" else 0 for a in mesh.axis_names)
+    return {path: sh.block(index, tuple(get_path(spec, path).shape))
+            for path, sh in model_shardings(spec, mesh, block.rules).items()}
 
 
 def is_leaf(x):
@@ -158,15 +204,23 @@ class SpecModule(nn.Module):
     under ``cfg.remat`` a forward that records a gradient recomputes each
     layer's activations in the backward pass (``layers.remat``), and a
     forward without one (serving) is unchanged.
+
+    With ``block`` (a :class:`ModelBlock`) the module is that ``model``
+    slot's shard: :meth:`spec` gives the block shapes, each parameter holds
+    its block (``block_slices``), left unset (``torch.empty``) for its
+    caller to fill; :meth:`init` draws the whole model's leaves and keeps
+    the blocks.
     """
 
     build_spec = None
 
-    def __init__(self, cfg, device=None, dtype=torch.float32, generator=None):
+    def __init__(self, cfg, device=None, dtype=torch.float32, generator=None, block=None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.param_dtype = dtype
+        self.block = block
+        self.block_slices = None if block is None else block_slices(self.whole_spec(), block)
         for key, node in self.spec().items():
             if key in STACKED:
                 one = _unstacked(node)
@@ -175,19 +229,36 @@ class SpecModule(nn.Module):
                     ParamTree(one, self.device, dtype) for _ in range(n)))
             else:
                 self.add_module(key, ParamTree(node, self.device, dtype))
+        if block is not None:  # a shard: its caller fills it, or calls init
+            return
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.init(generator)
 
-    def spec(self) -> dict:
+    def whole_spec(self) -> dict:
+        """The reference's spec of the whole model (layers stacked)."""
         return self.build_spec(self.cfg)
+
+    def spec(self) -> dict:
+        """The spec of what this module holds: the whole model's, or one
+        ``model`` slot's blocks."""
+        whole = self.whole_spec()
+        if self.block is None:
+            return whole
+        return _unflatten({path: P(tuple(s.stop - s.start for s in self.block_slices[path]),
+                                   leaf.axes, leaf.init)
+                           for path, leaf in tree_paths(whole)})
 
     @torch.no_grad()
     def init(self, generator: torch.Generator):
         """Draw every parameter anew from ``generator`` (on the model's
-        device), leaf by leaf as :func:`init_params`; returns ``self``."""
-        for path, leaf in tree_paths(self.spec()):
-            self.load_leaf(path, _init_one(leaf, generator, self.param_dtype, self.device))
+        device), leaf by leaf as :func:`init_params` (a shard keeps its
+        blocks of the whole leaves); returns ``self``."""
+        for path, leaf in tree_paths(self.whole_spec()):
+            value = _init_one(leaf, generator, self.param_dtype, self.device)
+            if self.block is not None:
+                value = value[self.block_slices[path]]
+            self.load_leaf(path, value)
         return self
 
     def leaf(self, path: tuple):

@@ -132,7 +132,9 @@ class RWKV6(SpecModule):
 
     build_spec = staticmethod(rwkv6_spec)
 
-    def forward(self, tokens, prefix_embeds=None, ssm_chunk=64):
+    def forward(self, tokens, prefix_embeds=None, ssm_chunk=64, last_only=False):
+        """(logits (B, S_total, V), or the last position's with
+        ``last_only``; 0.0)."""
         cfg = self.cfg
         x = L.embed(self.embed, tokens).to(L.compute_dtype(cfg))
         if prefix_embeds is not None:
@@ -140,6 +142,8 @@ class RWKV6(SpecModule):
         x = constrain(x, "batch", "seq", "embed_act")
         for lp in self.layers:
             x = L.remat(cfg, _layer, lp, x, cfg, ssm_chunk)
+        if last_only:
+            x = x[:, -1:]
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = L.unembed(self.unembed, x)
         return constrain(logits, "batch", "seq", "vocab"), 0.0

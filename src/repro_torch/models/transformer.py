@@ -13,8 +13,16 @@ sliding-window layers keep ring-buffer caches of window size while the
 global layers keep full caches.
 
 Caches are preallocated tensors that ``decode_step`` writes in place.
+
+A dense, moe or vlm layer is one body over a ``parallel.sharding.
+ModelGroup`` (:func:`decoder_layer`, :func:`decode_layer`): the Decoder
+runs it over a group of one slot (:data:`ONE`, whose operators are
+identities), and ``models/tensor_parallel.DecoderGroup`` over a data row's
+``model`` slots, each holding its blocks of the weights.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,7 +32,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.params import P, SpecModule, stack_spec
-from repro_torch.parallel.sharding import Ax, constrain
+from repro_torch.parallel.sharding import Ax, ModelGroup, constrain
 
 
 # --------------------------------------------------------------------------
@@ -119,23 +127,112 @@ def decoder_spec(cfg):
     return spec
 
 
-def _ffn(params, h, cfg):
-    if cfg.n_experts:
-        return M.moe_apply(params["moe"], h, cfg)
-    return L.mlp(params["mlp"], h, cfg.mlp_act), 0.0
+class Split(NamedTuple):
+    """Which blocks of work a model group splits over its slots (the query
+    heads, the MLP's or experts' ``mlp`` dimension); ``tensor_parallel.
+    Layout`` answers for a laid-out model."""
+
+    heads: bool = False
+    ffn: bool = False
+
+
+WHOLE = Split()
+ONE = ModelGroup()  # one slot of a model that is not laid out
+
+
+def _stretch(group, cfg):
+    """How the body runs a stretch of one slot's work between two of the
+    group's operators: over a mesh's slots each stretch under ``cfg.remat``
+    on its own (its backward recomputes it on its own card's autograd
+    thread, where a checkpoint of a whole layer spanning cards would be
+    recomputed from two threads at once); one slot without a mesh as is,
+    its caller checkpointing the whole layer."""
+    if group.mesh is None:
+        return lambda fn, *args: fn(*args)
+    return lambda fn, *args: L.remat(cfg, fn, *args)
+
+
+def _attend(ap, h, pos, cfg, window, sel):
+    return L.self_attention(ap, h, pos, cfg, window=window, kv_select=sel)
+
+
+def _ffn(group, lps, hs, cfg, split=WHOLE):
+    """The MLP or MoE block over ``group``: (the outputs, one a slot; aux).
+    Where ``split.ffn`` the normed input is handed out and the slots'
+    partials reduced; an MoE layer routes on every slot (the same router
+    and groups on each, so the slots dispatch the same tokens)."""
+    run = _stretch(group, cfg)
+    if not cfg.n_experts:
+        mps = [lp["mlp"] for lp in lps]
+        if split.ffn:
+            hs = group.handout(hs)
+        out = group.each(lambda mp, h: run(L.mlp, mp, h, cfg.mlp_act), mps, hs)
+        return (group.reduce(out) if split.ffn else out), 0.0
+    mps = [lp["moe"] for lp in lps]
+    routed = group.each(lambda mp, h: run(M.moe_route, mp, h, cfg), mps, hs)
+    aux = group.first([r.aux * cfg.router_aux_loss for r in routed])
+    xg, comb = [r.x for r in routed], [r.combine for r in routed]
+    if split.ffn:
+        xg, comb = group.handout(xg), group.handout(comb)
+    out = group.each(lambda mp, x, r, c: run(M.moe_experts, mp, x, r.dispatch, c, cfg),
+                     mps, xg, routed, comb)
+    if split.ffn:
+        out = group.reduce(out)
+    return group.each(lambda o, r: M.moe_ungroup(o, r.tokens), out, routed), aux
+
+
+def decoder_layer(group, lps, xs, positions, cfg, window, split=WHOLE, kv_sel=(None,)):
+    """One dense, moe or vlm layer over ``group``: ``lps``, ``xs`` and
+    ``positions`` hold one entry a slot, ``kv_sel`` each slot's
+    ``layers.select_kv``.  Each block's partials are reduced before the
+    residual add.  Returns (the outputs, one a slot; aux)."""
+    run = _stretch(group, cfg)
+    hs = group.each(lambda lp, x: run(L.rmsnorm, lp["ln1"], x, cfg.norm_eps), lps, xs)
+    if split.heads:
+        hs = group.handout(hs)
+    attn = group.each(lambda lp, h, pos, sel: run(_attend, lp["attn"], h, pos, cfg, window, sel),
+                      lps, hs, positions, kv_sel)
+    if split.heads:
+        attn = group.reduce(attn)
+    xs = group.each(lambda x, a: constrain(x + a, "batch", "seq", "embed_act"), xs, attn)
+    hs = group.each(lambda lp, x: run(L.rmsnorm, lp["ln2"], x, cfg.norm_eps), lps, xs)
+    out, aux = _ffn(group, lps, hs, cfg, split)
+    xs = group.each(lambda x, o: constrain(x + o, "batch", "seq", "embed_act"), xs, out)
+    return xs, aux
+
+
+def decode_layer(group, lps, xs, caches, i, cfg, split=WHOLE, kv_sel=(None,)):
+    """Layer ``i`` of a dense, moe or vlm decode step over ``group``:
+    ``caches`` one ``{"k", "v", "pos"}`` a slot, layer ``i`` written in
+    place.  Returns the outputs, one a slot."""
+    hs = group.each(lambda lp, x: L.rmsnorm(lp["ln1"], x, cfg.norm_eps), lps, xs)
+    if split.heads:
+        hs = group.handout(hs)
+    attn = group.each(
+        lambda lp, h, c, sel: L.decode_attention(
+            lp["attn"], h, c["k"][i], c["v"][i], c["pos"], cfg, window=cfg.attn_window,
+            kv_select=sel)[0], lps, hs, caches, kv_sel)
+    if split.heads:
+        attn = group.reduce(attn)
+    xs = group.each(lambda x, a: x + a, xs, attn)
+    hs = group.each(lambda lp, x: L.rmsnorm(lp["ln2"], x, cfg.norm_eps), lps, xs)
+    out, _ = _ffn(group, lps, hs, cfg, split)
+    return group.each(lambda x, o: x + o, xs, out)
 
 
 def layer_apply(params, x, positions, cfg, window, ssm_chunk=64):
     """Training/prefill layer.  window: per-layer scalar (0 = full)."""
+    if cfg.family != "hybrid":
+        (x,), aux = decoder_layer(ONE, [params], [x], [positions], cfg, window)
+        return x, aux
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
     attn = L.self_attention(params["attn"], h, positions, cfg, window=window)
-    if cfg.family == "hybrid":
-        ssm_out, _ = ssd_apply(params["ssd"], h, cfg, chunk=ssm_chunk)
-        attn = (attn + ssm_out) * 0.5
+    ssm_out, _ = ssd_apply(params["ssd"], h, cfg, chunk=ssm_chunk)
+    attn = (attn + ssm_out) * 0.5
     x = x + attn
     x = constrain(x, "batch", "seq", "embed_act")
     h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
-    out, aux = _ffn(params, h, cfg)
+    (out,), aux = _ffn(ONE, [params], [h], cfg)
     x = x + out
     x = constrain(x, "batch", "seq", "embed_act")
     return x, aux
@@ -162,10 +259,11 @@ class Decoder(SpecModule):
         return np.asarray(w, np.int32)
 
     # ---- forward (train / full-sequence) ----
-    def forward(self, tokens, prefix_embeds=None):
+    def forward(self, tokens, prefix_embeds=None, last_only=False):
         """tokens: (B, S) integer; prefix_embeds: (B, P, d) or None.
 
-        Returns (logits (B, S_total, V), aux_loss).
+        Returns (logits (B, S_total, V), or the last position's (B, 1, V)
+        with ``last_only``; aux_loss).
         """
         cfg = self.cfg
         x = L.embed(self.embed, tokens).to(L.compute_dtype(cfg))
@@ -178,6 +276,8 @@ class Decoder(SpecModule):
         for lp, w in zip(self.layers, self.windows()):
             x, a = L.remat(cfg, layer_apply, lp, x, positions, cfg, int(w))
             aux = aux + a
+        if last_only:
+            x = x[:, -1:]
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = constrain(self._unembed(x), "batch", "seq", "vocab")
         return logits, aux
@@ -234,13 +334,7 @@ class Decoder(SpecModule):
                 x = self._hybrid_step(lp, x, lc, pos, int(w))
         else:
             for i, lp in enumerate(self.layers):
-                h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-                attn, _, _ = L.decode_attention(lp["attn"], h, cache["k"][i], cache["v"][i],
-                                                pos, cfg, window=cfg.attn_window)
-                x = x + attn
-                h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-                out, _ = _ffn(lp, h, cfg)
-                x = x + out
+                (x,) = decode_layer(ONE, [lp], [x], [cache], i, cfg)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = self._unembed(x)
         pos.add_(1)
@@ -273,5 +367,5 @@ class Decoder(SpecModule):
         lc["state"].copy_(nstate)
         x = x + (attn + ssm_out) * 0.5
         h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        out, _ = _ffn(lp, h2, cfg)
+        (out,), _ = _ffn(ONE, [lp], [h2], cfg)
         return x + out

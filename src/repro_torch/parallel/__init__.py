@@ -9,7 +9,9 @@
                    layouts over a mesh (``NamedSharding``, ``param_shardings``,
                    ``tree_shardings``, ``AbstractMesh``) and
                    ``shard_map_compat``, a thread a slot with ``psum``,
-                   ``pmax``, ``ppermute`` and ``axis_index`` over named axes
+                   ``pmax``, ``ppermute`` and ``axis_index`` over named
+                   axes; ``ModelGroup``, a data row's ``model`` slots as one
+                   autograd graph (``reduce``, ``handout``, ``first``)
     compression -- int8 error-feedback gradient reduction
                    (``compressed_psum_tree``)
     pipeline    -- GPipe over the ``pod`` axis (``pipeline_forward``)

@@ -70,11 +70,25 @@ every reader before it goes on, so no slot overwrites an operand that
 another still reads.  An exception in any slot breaks the barrier; it is
 re-raised in the caller once every thread has ended.
 
-The model runs on one device: outside a slot, :func:`constrain` is a no-op
-without a mesh or on a mesh of one slot, and raises on a mesh of more.
-Inside a slot it sees the slot's local view and is a no-op, unless the
-mesh's ``model`` axis is larger than one: tensor parallelism over the
-``model`` axis is not ported (ROADMAP.md, Queue 1 item 5.3).
+Tensor parallelism over the ``model`` axis is a :class:`ModelGroup`: the
+slots of one data row, driven by one host thread as one autograd graph.
+A value the group holds replicated is a list of one copy a slot; a
+partial sum is a list of one addend a slot.  :meth:`ModelGroup.reduce`
+adds the partials in slot order onto every slot (its backward hands each
+slot its own copy's gradient), :meth:`ModelGroup.handout` hands replicated
+copies to the slots' blocks of work (the identity; its backward adds the
+slots' gradients in slot order), and :meth:`ModelGroup.first` takes the
+first slot's copy (its backward hands the gradient to every copy): the two
+operators of Megatron-LM's tensor parallelism and the pick of a replicated
+scalar.  No barrier sits in any backward, so autograd's one worker thread
+a card runs every slot's backward.  A model laid out over a mesh
+(``models/tensor_parallel.lay_out``) runs each data row's group so.
+
+:func:`constrain` is a no-op without a mesh, on a mesh of one slot, inside
+a :func:`shard_map_compat` slot of a mesh whose ``model`` axis is 1 (the
+local view) and inside a :class:`ModelGroup` slot (the slot's block,
+checked).  A model that is not laid out, run under a mesh of more slots,
+makes it raise ``NotImplementedError`` with how to lay it out.
 """
 from __future__ import annotations
 
@@ -291,10 +305,25 @@ def pspec(axes: tuple, rules: dict | None = None, mesh=None,
 
 def constrain(x, *axes):
     """Sharding constraint by logical axes: ``x`` itself without an active
-    mesh, on a mesh of one slot, and inside a :func:`shard_map_compat` slot
-    (the local view) whose mesh has no ``model`` axis of more than one.
-    Elsewhere it raises ``NotImplementedError``: a model runs on one device
-    until tensor parallelism is ported (ROADMAP.md, Queue 1 item 5.3)."""
+    mesh, on a mesh of one slot, inside a :func:`shard_map_compat` slot (the
+    local view) whose mesh has no ``model`` axis of more than one, and
+    inside a :class:`ModelGroup` slot, where each dimension whose logical
+    axis has a whole size in the group's ``sizes`` must be the slot's block
+    of it (the whole where ``pspec`` does not split it over ``model``).
+    Elsewhere a model that is not laid out runs on a mesh of several slots:
+    ``NotImplementedError``, saying how to lay it out."""
+    group = _MODEL_SLOT.group
+    if group is not None:
+        for i, name in enumerate(axes):
+            whole = group.sizes.get(name)
+            if whole is None:
+                continue
+            over = "model" in _axes_of(pspec((name,), mesh=group.mesh, shape=(whole,))[0])
+            if x.shape[i] != (whole // group.size if over else whole):
+                raise ValueError(f"constrain: dimension {i} ({name}) of {tuple(x.shape)} is "
+                                 f"not a slot's block of {whole} over a {group.size}-slot "
+                                 f"model axis")
+        return x
     group = _SLOT.group
     mesh = group.mesh if group is not None else active_mesh()
     if group is not None and mesh.shape.get("model", 1) == 1:
@@ -303,9 +332,10 @@ def constrain(x, *axes):
         return x
     raise NotImplementedError(
         f"constrain{tuple(pspec(tuple(axes), mesh=mesh, shape=tuple(x.shape)))} on a mesh of "
-        f"{mesh.shape}: tensor parallelism over the 'model' axis is not ported (ROADMAP.md, "
-        f"Queue 1 item 5.3); run the model without a multi-slot mesh, or per slot under "
-        f"shard_map_compat on a mesh whose 'model' axis is 1")
+        f"{mesh.shape} of a model that is not laid out: lay it out over the mesh with "
+        f"repro_torch.models.tensor_parallel.lay_out(model, mesh) (the dense, moe and vlm "
+        f"families; hybrid, ssm and encdec are ROADMAP.md Queue 1 item 5.3(b)), or run it "
+        f"without a multi-slot mesh")
 
 
 def axis_size(mesh: Mesh | None, axis: str = "data") -> int:
@@ -683,19 +713,22 @@ class _Operands:
             self._cache[k] = self.select(k, lambda tree: tree)
         return self._cache[k]
 
-    def select(self, k, pick):
-        """``pick`` of the ``k``-th operand tree, fetched: only the tensors
-        (or views) that ``pick`` returns cross from another card."""
+    def select(self, k, pick, device=None):
+        """``pick`` of the ``k``-th operand tree, fetched to ``device``
+        (default this slot's): only the tensors (or views) that ``pick``
+        returns cross from another card."""
         tree, ev = self._group.posted[self._members[k]]
-        return tree_map(lambda x: self._fetch(x, ev), pick(tree))
+        dev = self._dev if device is None else device
+        return tree_map(lambda x: self._fetch(x, ev, dev), pick(tree))
 
-    def _fetch(self, x, ev):
+    @staticmethod
+    def _fetch(x, ev, dev):
         if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
             return x
         stream = torch.cuda.current_stream(x.device)
         stream.wait_event(ev)
         x.record_stream(stream)
-        return x if x.device == self._dev else x.to(self._dev, non_blocking=True)
+        return x if x.device == dev else x.to(dev, non_blocking=True)
 
 
 def collective(tree, axis: str, combine):
@@ -888,3 +921,190 @@ def shard_map_compat(f, mesh, in_specs, out_specs, check: bool = True):
         return tree_map(gather, _spec_tree(out_specs, outs), *per_slot)
 
     return mapped
+
+
+# ---------------------------------------------------------------------------
+# model groups: tensor parallelism over the 'model' axis
+# ---------------------------------------------------------------------------
+
+class _ModelSlot(threading.local):
+    group = None  # the ModelGroup whose slot runs, inside ModelGroup.slot
+    k = None  # that slot's index along 'model'
+
+
+_MODEL_SLOT = _ModelSlot()
+
+
+def _ordered_sum(parts, device):
+    """``parts`` added in slot order into a new tensor on ``device``; a
+    half-precision sum is taken in float32 and rounded once, as one GEMM
+    over the whole contraction accumulates."""
+    dtype = parts[0].dtype
+    wide = torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+    acc = parts[0].to(device=device, dtype=wide, copy=True)
+    for p in parts[1:]:
+        acc.add_(p.to(device, non_blocking=True))
+    return acc if wide == dtype else acc.to(dtype)
+
+
+class _Reduce(torch.autograd.Function):
+    """Partials in, their sum on every slot out; each partial's gradient is
+    its own slot's copy's (Megatron-LM's ``g``)."""
+
+    @staticmethod
+    def forward(ctx, devices, *parts):
+        return tuple(_ordered_sum(parts, d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *grads)
+
+
+class _Handout(torch.autograd.Function):
+    """Replicated copies in, the same copies out to the slots' blocks of
+    work; each copy's gradient is every slot's gradient added in slot order
+    (Megatron-LM's ``f``)."""
+
+    @staticmethod
+    def forward(ctx, devices, *xs):
+        ctx.devices = devices
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *(_ordered_sum(grads, d) for d in ctx.devices))
+
+
+class _First(torch.autograd.Function):
+    """Replicated copies in, the first slot's out; every copy's gradient is
+    the output's."""
+
+    @staticmethod
+    def forward(ctx, devices, *xs):
+        ctx.devices = devices
+        return xs[0].view_as(xs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, g, *(g.to(d, copy=True) for d in ctx.devices[1:]))
+
+
+class ModelGroup:
+    """The slots of one row of ``mesh`` along its ``model`` axis: the model
+    group of one data slot, driven by one host thread.
+
+    ``row`` is an index tuple of the mesh's devices (default the first);
+    the group is the slots that differ from it only along ``model``, in
+    order (one slot on a mesh without that axis).  Without a mesh the group
+    is one slot of a model that is not laid out (``transformer.Decoder``):
+    its operators are identities and :func:`constrain` sees the whole
+    model, as outside any group.  ``sizes`` maps logical
+    axes to their whole sizes, which :func:`constrain` checks a slot's
+    blocks against.  A replicated value is a
+    list of one copy a slot, a partial sum a list of one addend a slot,
+    each on its slot's device.  :meth:`each` runs a function once a slot in
+    slot order; the operators below are ``torch.autograd.Function``s, so a
+    group's forward and backward are one autograd graph, and no barrier
+    sits in its backward.  On the card each slot's work is queued on its
+    device's current stream (the slots of one card share it); a copy
+    between cards is ordered on both cards' current streams by PyTorch.
+    """
+
+    def __init__(self, mesh=None, row=None, sizes=None):
+        self.mesh = mesh
+        self.sizes = dict(sizes or {})
+        if mesh is None:
+            self.indices, self.devices = [()], (None,)
+            return
+        row = (0,) * mesh.devices.ndim if row is None else tuple(row)
+        if "model" in mesh.shape:
+            a = mesh.axis_names.index("model")
+            self.indices = [row[:a] + (m,) + row[a + 1:] for m in range(mesh.shape["model"])]
+        else:
+            self.indices = [row]
+        self.devices = tuple(mesh.devices[i] for i in self.indices)
+
+    @property
+    def size(self) -> int:
+        return len(self.indices)
+
+    @property
+    def home(self) -> torch.device:
+        return self.devices[0]
+
+    def __repr__(self) -> str:
+        return f"ModelGroup({self.indices}, devices={[str(d) for d in self.devices]})"
+
+    @contextlib.contextmanager
+    def slot(self, k: int):
+        """Inside: slot ``k`` runs (:func:`constrain` checks its blocks)."""
+        old = (_MODEL_SLOT.group, _MODEL_SLOT.k)
+        _MODEL_SLOT.group, _MODEL_SLOT.k = self, k
+        try:
+            yield self.devices[k]
+        finally:
+            _MODEL_SLOT.group, _MODEL_SLOT.k = old
+
+    def each(self, fn, *lists) -> list:
+        """``[fn(a[k], b[k], ...) for each slot k]``, each inside
+        :meth:`slot`."""
+        if self.mesh is None:
+            return [fn(*(a[0] for a in lists))]
+        out = []
+        for k in range(self.size):
+            with self.slot(k):
+                out.append(fn(*(a[k] for a in lists)))
+        return out
+
+    def copies(self, x) -> list:
+        """A tensor that needs no gradient (an input) on every slot: ``x``
+        itself on its own device, a copy elsewhere."""
+        return [x if x.device == d else x.to(d, non_blocking=True) for d in self.devices]
+
+    def reduce(self, parts) -> list:
+        """The sum of the partials, added in slot order on every slot.
+        Without autograd recording (serving) the slots of one device share
+        one sum."""
+        if self.size == 1:
+            return list(parts)
+        if torch.is_grad_enabled():
+            return list(_Reduce.apply(self.devices, *parts))
+        sums: dict = {}
+        return [sums[d] if d in sums else sums.setdefault(d, _ordered_sum(parts, d))
+                for d in self.devices]
+
+    def handout(self, xs) -> list:
+        """Replicated copies handed to the slots' blocks of work: the same
+        values; in the backward every slot's gradient, added in slot order."""
+        if self.size == 1 or not torch.is_grad_enabled():
+            return list(xs)
+        return list(_Handout.apply(self.devices, *xs))
+
+    def first(self, xs):
+        """The first slot's copy of a replicated value, used once (a loss
+        term); in the backward every copy gets its gradient."""
+        if self.size == 1 or not torch.is_grad_enabled():
+            return xs[0]
+        return _First.apply(self.devices, *xs)
+
+    def gather(self, parts, dim: int, device=None) -> torch.Tensor:
+        """The slots' blocks of a tensor split along ``dim``, concatenated
+        in slot order on ``device`` (default the first slot's)."""
+        device = self.home if device is None else device
+        if self.size == 1:
+            return parts[0] if parts[0].device == device else parts[0].to(device)
+        return torch.cat([p.to(device, non_blocking=True) for p in parts], dim)
+
+    @torch.no_grad()
+    def pmax(self, xs) -> list:
+        """The elementwise maximum over the slots, on every slot (no
+        gradient)."""
+        if self.size == 1:
+            return list(xs)
+        out = []
+        for d in self.devices:
+            acc = xs[0].to(d, copy=True)
+            for x in xs[1:]:
+                torch.maximum(acc, x.to(d, non_blocking=True), out=acc)
+            out.append(acc)
+        return out

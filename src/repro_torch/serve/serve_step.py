@@ -8,7 +8,12 @@ Counterpart of the reference's ``serve/serve_step.py``.
 with greedy or temperature sampling; padded-vocab logit slots are masked.
 The cache is written in place.  Sampling draws from an explicit
 ``torch.Generator`` on the model's device (Gumbel-max, as
-``jax.random.categorical``; the draws cannot equal JAX's).
+``jax.random.categorical``; the draws cannot equal JAX's).  A model laid
+out over a mesh (``models/tensor_parallel.LaidOutModel``) gathers the last
+position's logits, B x ``vocab_padded``, onto the mesh's first slot, and
+samples there: greedy and Gumbel draws are one slot's, and a tie goes to
+the first maximum as on one device.  The prefill asks every decoder-only
+model for the last position's logits alone (``last_only``).
 """
 from __future__ import annotations
 
@@ -45,9 +50,9 @@ def make_prefill_fn(model):
         if cfg.family in ("audio", "encdec"):
             logits, _ = model.forward(tokens, extra[0])
         elif cfg.frontend_tokens:
-            logits, _ = model.forward(tokens, prefix_embeds=extra[0])
+            logits, _ = model.forward(tokens, prefix_embeds=extra[0], last_only=True)
         else:
-            logits, _ = model.forward(tokens)
+            logits, _ = model.forward(tokens, last_only=True)
         return logits[:, -1:]
 
     return prefill

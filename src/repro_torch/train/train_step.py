@@ -23,18 +23,22 @@ import torch
 import torch.profiler
 import torch.utils.checkpoint
 
+from repro_torch.models.tensor_parallel import DecoderGroup, Layout, VocabShards
 from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import PartitionSpec as P
-from repro_torch.parallel.sharding import active_mesh
+from repro_torch.parallel.sharding import ModelGroup, active_mesh, axis_size
 from repro_torch.train import optimizer as opt
 
 
 def cross_entropy(logits, labels, vocab_size, zloss=0.0, chunk=512, weights=None):
     """Mean next-token CE, chunked over sequence to bound logit memory.
 
-    logits: (B, S, Vp) (padded vocab); labels: (B, S) (already shifted);
-    weights: optional (B, S) loss mask (0 = ignore position).
+    logits: (B, S, Vp) (padded vocab), or a ``VocabShards`` of a model
+    group (:func:`_sharded_cross_entropy`); labels: (B, S) (already
+    shifted); weights: optional (B, S) loss mask (0 = ignore position).
     """
+    if isinstance(logits, VocabShards):
+        return _sharded_cross_entropy(logits, labels, vocab_size, zloss, chunk, weights)
     b, s, vp = logits.shape
     chunk = min(chunk, s)
     n = s // chunk if s % chunk == 0 else 1
@@ -56,6 +60,56 @@ def cross_entropy(logits, labels, vocab_size, zloss=0.0, chunk=512, weights=None
         # it times 1 with zeros, the same value, without a (B, chunk, Vp)
         # one-hot that autograd would save
         gold = torch.gather(x, -1, labels[:, sl, None])[..., 0]
+        w = weights[:, sl]
+        ce = torch.sum((lse - gold) * w)
+        zl = torch.sum(torch.square(lse) * w) * zloss
+        total = total + ce + zl
+    return total / torch.clamp(torch.sum(weights), min=1.0)
+
+
+def _sharded_cross_entropy(shards, labels, vocab_size, zloss, chunk, weights):
+    """:func:`cross_entropy` over logits split over the vocabulary, one
+    block a slot of a model group, as the reference's contraction reduces
+    over a vocab-sharded axis instead of gathering: the maximum over the
+    slots (no gradient: the log-sum-exp's gradient through it is zero),
+    then each slot's sum of exponentials and its share of the gold logit
+    (zero where the label lies in another slot's block), each added over
+    the slots in slot order on the first slot.  The padded vocabulary is
+    masked at each slot's global offset.  Logits whole on every slot are
+    the first slot's."""
+    group = shards.group
+    if not shards.split:
+        return cross_entropy(group.first(shards.parts), labels, vocab_size, zloss, chunk,
+                             weights)
+    b, s, width = shards.parts[0].shape
+    chunk = min(chunk, s)
+    n = s // chunk if s % chunk == 0 else 1
+    if s % chunk:
+        chunk = s
+    home = group.home
+    if weights is None:
+        weights = torch.ones((b, s), dtype=torch.float32, device=home)
+    weights = weights.to(device=home, dtype=torch.float32)
+    labs = group.copies(labels.long())
+    offsets = [k * width for k in range(group.size)]
+    valid = group.each(lambda off, p: off + torch.arange(width, device=p.device) < vocab_size,
+                       offsets, shards.parts)
+    total = torch.zeros((), dtype=torch.float32, device=home)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        xs = group.each(lambda p, ok: torch.where(ok, p[:, sl].to(torch.float32), -1e30),
+                        shards.parts, valid)
+        m = group.pmax(group.each(lambda x: torch.amax(x.detach(), dim=-1, keepdim=True), xs))
+        se = group.each(lambda x, mk: torch.sum(torch.exp(x - mk), dim=-1), xs, m)
+
+        def gold_share(x, lab, off):
+            local = lab[:, sl] - off
+            inside = (local >= 0) & (local < width)
+            g = torch.gather(x, -1, local.clamp(0, width - 1)[..., None])[..., 0]
+            return torch.where(inside, g, 0.0)
+
+        gold = group.first(group.reduce(group.each(gold_share, xs, labs, offsets)))
+        lse = torch.log(group.first(group.reduce(se))) + m[0][..., 0]
         w = weights[:, sl]
         ce = torch.sum((lse - gold) * w)
         zl = torch.sum(torch.square(lse) * w) * zloss
@@ -94,13 +148,15 @@ def make_loss_fn(model, run):
 def _replicate_over_data(model, params):
     """The reference constrains every parameter to a data-replicated layout
     here, once before the microbatch loop.  Without a mesh, on a mesh of
-    one slot, or inside a data-parallel slot (where the replica holds every
-    parameter whole), there is nothing to place: ``params`` as given."""
+    one slot, or inside a data row of a mesh step (where each slot holds
+    its ``model`` blocks whole over ``data``), there is nothing to place:
+    ``params`` as given."""
     mesh = active_mesh()
     if mesh is None or math.prod(mesh.shape.values()) == 1:
         return params
-    raise NotImplementedError("a train step over a mesh runs through make_train_step(mesh=), "
-                              "one replica a data slot")
+    raise NotImplementedError(f"a train step over a mesh of {mesh.shape} runs through "
+                              f"make_train_step(model, run, mesh), which lays the model out "
+                              f"over it; not under an ambient mesh")
 
 
 def _grads(model, loss_fn, run, batch):
@@ -149,7 +205,7 @@ def make_train_step(model, run, mesh=None, rules=None):
     the single-batch path, ``ce`` and ``aux``.  The model's parameters must
     be float32, as the reference's are (``cfg.dtype`` sets the compute).
     With a ``mesh`` of more than one slot the step is a
-    :class:`DataParallelStep` over its ``data`` axis."""
+    :class:`DataParallelStep` over its ``data`` and ``model`` axes."""
     if mesh is not None and math.prod(mesh.shape.values()) > 1:
         return DataParallelStep(model, run, mesh, rules)
     if model.param_dtype != torch.float32:
@@ -178,69 +234,97 @@ def make_train_step(model, run, mesh=None, rules=None):
 
 
 class DataParallelStep:
-    """The train step over the ``data`` axis of a mesh: the reference's
-    data-parallel train step, its moments laid out as its FSDP lays them.
+    """The train step over the ``data`` and ``model`` axes of a mesh: the
+    reference's train step under its FSDP and tensor-parallel layout.
 
-    Each data slot holds a replica of the model on its device (the first
-    slot's is ``model`` itself) and runs the forward and backward of its
-    contiguous shard of the batch, under ``parallel.sharding.
-    shard_map_compat``.  Each parameter has its reference layout
-    (``param_shardings`` of the model's spec, a stacked leaf's spec without
-    its layer entry): a slot owns one block of each sharded parameter, and
-    its float32 moments are that block's.  A step then
+    Each data row runs the forward and backward of its contiguous shard of
+    the batch under ``parallel.sharding.shard_map_compat``, a host thread a
+    row.  With a ``model`` axis of one a row is a replica of the model on
+    its slot's device (the first row's is ``model`` itself).  With more, a
+    row is a ``models/tensor_parallel.DecoderGroup``: a shard of the model
+    a slot of the row, driven by the row's thread as one autograd graph
+    (no barrier in its backward), whose whole leaves read inside a block of
+    work have their partial gradients added over the row
+    (``sum_region_grads``).  Each parameter has its reference layout over
+    the whole mesh (``param_shardings`` of the model's spec, a stacked
+    leaf's spec without its layer entry): a slot owns one block of each
+    leaf, within its shard, and its float32 moments are that block's.  A
+    step then
 
-      * reduces the gradients: each slot adds its blocks of every slot's
-        gradient in slot order and divides by the slots that ran, so every
-        slot holds the bits any other would;
-      * takes the global norm from each slot's owned blocks (a replicated
-        leaf counted on the first slot), a ``psum`` over the slots;
-      * runs AdamW on each slot's blocks, and copies every other slot's
-        updated blocks into its replica, so the replicas stay equal.
+      * reduces the gradients over ``data``: each slot adds its blocks of
+        every row's gradient (the same ``model`` slot's) in row order and
+        divides by the rows that ran, so every row holds the bits any
+        other would;
+      * takes the global norm from each slot's owned blocks, a leaf counted
+        on one slot of each axis that does not split it (the first), a sum
+        over the row's slots in slot order and a ``psum`` over the rows;
+      * runs AdamW on each slot's blocks, and copies every other row's
+        updated blocks into its shard, so the rows stay equal.
 
-    The mean over slots equals the global batch's mean loss only while each
+    The mean over rows equals the global batch's mean loss only while each
     shard weighs the same token count: every shard has the same rows and
     the loss masks one position a row (``make_loss_fn``), which the step
     checks.  A batch the data axis does not divide is not padded: as the
-    reference's ``pspec`` replicates it, the first slot runs it whole and
+    reference's ``pspec`` replicates it, the first row runs it whole and
     the others run no forward.  An MoE model forms its dispatch groups over
-    a slot's tokens, so a shard matches the global batch's groups only when
-    the tokens a slot routes at once are a multiple of ``moe_group_size``;
+    a row's tokens, so a shard matches the global batch's groups only when
+    the tokens a row routes at once are a multiple of ``moe_group_size``;
     elsewhere the step raises ``ValueError``.
 
     The state is an ``OptState`` over the mesh, in the layout of
     ``parallel.sharding.NamedSharding.place``: each of its leaves (the step
     and each parameter's m and v) an object array shaped as the mesh's
     devices, each entry the slot's shard on its device (:meth:`init_state`
-    and :meth:`gather` go through ``state_shardings``).
-    After the model's parameters are set outside a step, :meth:`broadcast`
-    copies them into the replicas.  A mesh whose ``model`` axis (or any
-    axis but ``data``) is larger than one raises ``NotImplementedError``:
-    tensor parallelism is not ported.
+    and :meth:`gather` go through ``state_shardings``).  After the model's
+    parameters are set outside a step, :meth:`broadcast` copies them into
+    the rows; :meth:`collect` copies the first row's back into the model
+    (a no-op where the first row is the model).  A mesh with another axis
+    larger than one (``pod``), or a ``model`` axis larger than one for a
+    family whose layout is not ported, raises ``NotImplementedError``
+    (ROADMAP.md, Queue 1 item 5.3(b)).
     """
 
     def __init__(self, model, run, mesh, rules=None):
-        wide = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
+        wide = {a: n for a, n in mesh.shape.items() if a not in ("data", "model") and n > 1}
         if wide or "data" not in mesh.shape:
             raise NotImplementedError(
-                f"training over a mesh of {mesh.shape}: only the 'data' axis may be larger "
-                f"than one; tensor parallelism over the 'model' axis is not ported (ROADMAP.md, "
-                f"Queue 1 item 5.3)")
+                f"training over a mesh of {mesh.shape}: the step runs over the 'data' and "
+                f"'model' axes; a 'pod' axis (GPipe aside) is ROADMAP.md Queue 1 item 5.3(b)")
         if model.param_dtype != torch.float32:
             raise ValueError(f"training keeps float32 parameters, not {model.param_dtype}")
         self.model, self.run, self.mesh = model, run, mesh
-        self.slots = mesh.slots("data")
+        self.n_model = axis_size(mesh, "model")
+        self.slots = mesh.slots("data")  # each row's first slot
         self.n = len(self.slots)
-        self.replicas = [model] + [self._replica(mesh.devices[i]) for i in self.slots[1:]]
+        self.rows = [ModelGroup(mesh, at).indices for at in self.slots]
+        if self.n_model == 1:
+            self.replicas = [model] + [self._replica(mesh.devices[i]) for i in self.slots[1:]]
+            self._row_mesh = mesh
+        else:
+            layout = Layout(model.cfg, mesh, rules)
+            self.replicas = [DecoderGroup(model.cfg, layout, at) for at in self.slots]
+            row_devices = np.empty(self.n, dtype=object)
+            row_devices[:] = [mesh.devices[at] for at in self.slots]
+            self._row_mesh = sharding.Mesh(row_devices, ("data",))
+            self.broadcast()
         self.shardings = self._shardings(model, mesh, rules)
         self.state_shardings = opt.OptState(sharding.NamedSharding(mesh, P()),
                                             self.shardings, self.shardings)
         shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-        self._blocks = [{n: sh.block(self.slots[k], shapes[n])
-                         for n, sh in self.shardings.items()} for k in range(self.n)]
-        # a leaf is split where a slot's block is smaller than the leaf: a
-        # spec that names only axes of size one leaves every slot the whole
-        self._split_names = {n for n, sh in self.shardings.items()
-                             if sh.shard_shape(shapes[n]) != shapes[n]}
+        # each row's slots' parameters by the whole model's names, and the
+        # block each slot owns as slices of its own parameter
+        self._params = [[dict(self._slot_module(d, m).named_parameters())
+                         for m in range(self.n_model)] for d in range(self.n)]
+        self._blocks = [[{n: self._owned(n, d, m, shapes[n]) for n in shapes}
+                         for m in range(self.n_model)] for d in range(self.n)]
+        # a leaf is split over data where a slot owns less than its shard
+        first = self._params[0][0]
+        self._split_names = {n for n, b in self._blocks[0][0].items()
+                             if tuple(s.stop - s.start for s in b) != tuple(first[n].shape)}
+        by_model = {n for n in shapes if tuple(first[n].shape) != shapes[n]}
+        self._counted = [[{n for n in shapes if (d == 0 or n in self._split_names)
+                           and (m == 0 or n in by_model)} for m in range(self.n_model)]
+                         for d in range(self.n)]
         self.loss_fns = [make_loss_fn(r, run) for r in self.replicas]
         self.schedule = opt.make_schedule(run)
 
@@ -250,6 +334,19 @@ class DataParallelStep:
                       generator=torch.Generator(device=device).manual_seed(0))
         rep.load_state_dict(m.state_dict())
         return rep
+
+    def _slot_module(self, d, m):
+        rep = self.replicas[d]
+        return rep if self.n_model == 1 else rep.slots[m]
+
+    def _owned(self, name, d, m, shape):
+        """The block of ``name`` that slot (row ``d``, model slot ``m``)
+        owns, as slices of the slot's parameter."""
+        full = self.shardings[name].block(self.rows[d][m], shape)
+        if self.n_model == 1:
+            return full
+        base = self.replicas[d].slices(m, name)
+        return tuple(slice(f.start - b.start, f.stop - b.start) for f, b in zip(full, base))
 
     @staticmethod
     def _shardings(model, mesh, rules):
@@ -269,19 +366,27 @@ class DataParallelStep:
                 out[name] = sh
         return out
 
-    def _block(self, name, k):
-        """The slices of the block of parameter ``name`` that data slot
-        ``k`` owns."""
-        return self._blocks[k][name]
-
     # -- state ---------------------------------------------------------------
     @torch.no_grad()
     def broadcast(self):
-        """Copy the model's parameters into every other replica."""
+        """Copy the model's parameters into every other replica, or every
+        row's model slots."""
+        if self.n_model > 1:
+            for rep in self.replicas:
+                rep.load_from(self.model)
+            return
         src = dict(self.model.named_parameters())
         for rep in self.replicas[1:]:
             for name, p in rep.named_parameters():
                 p.copy_(src[name])
+
+    def collect(self):
+        """Copy the first row's model slots back into the model's whole
+        parameters (the first replica is the model itself on a ``model``
+        axis of one); returns the model."""
+        if self.n_model > 1:
+            self.replicas[0].gather_into(self.model)
+        return self.model
 
     def init_state(self, dtype=torch.float32) -> opt.OptState:
         """Zero moments in ``dtype`` and step 0, laid out over the slots
@@ -328,71 +433,93 @@ class DataParallelStep:
         spec = P("data") if sharded else P()
         steps = np.empty(state.step.shape, dtype=object)
         step = sharding.shard_map_compat(
-            lambda b: self._slot(state, steps, b, sharded), self.mesh, (spec,), P())
+            lambda b: self._slot(state, steps, b, sharded), self._row_mesh, (spec,), P())
         metrics = step(batch)
         return opt.OptState(steps, state.m, state.v), metrics
 
     def _slot(self, state, steps, batch, sharded):
-        k = sharding.axis_index("data")
-        at = self.slots[k]
-        rep = self.replicas[k]
-        params = dict(rep.named_parameters())
-        active = sharded or k == 0
+        d = sharding.axis_index("data")
+        rep, at, params = self.replicas[d], self.rows[d], self._params[d]
+        devs = self._row_devices(d)
+        active = sharded or d == 0
         with torch.profiler.record_function("train_step.grad"):
             if active:
-                loss, metrics = _grads(rep, self.loss_fns[k], self.run, batch)
-            grads = {n: p.grad for n, p in params.items()} if active else None
+                loss, metrics = _grads(rep, self.loss_fns[d], self.run, batch)
+                if self.n_model > 1:
+                    rep.sum_region_grads()
+            grads = [{n: p.grad for n, p in ps.items()} for ps in params] if active else None
             n_active = self.n if sharded else 1
+            _join(devs)
             owned = sharding.collective(grads, "data",
-                                        lambda ops: self._reduce(ops, k, n_active))
+                                        lambda ops: self._reduce(ops, d, n_active))
+            _fork(devs)
         with torch.profiler.record_function("train_step.adamw"):
-            mine = [torch.sum(torch.square(g.float())) for n, g in owned.items()
-                    if k == 0 or n in self._split_names]
-            part = (torch.sum(torch.stack(mine)) if mine else
-                    torch.zeros((), dtype=torch.float32, device=rep.device))
+            part = None
+            for m, got in enumerate(owned):
+                mine = [torch.sum(torch.square(g.float())) for n, g in got.items()
+                        if n in self._counted[d][m]]
+                pm = (torch.sum(torch.stack(mine)) if mine else
+                      torch.zeros((), dtype=torch.float32, device=devs[m]))
+                part = pm if part is None else part + pm.to(devs[0], non_blocking=True)
             gnorm = torch.sqrt(sharding.psum(part, "data"))
-            lr = self.schedule(state.step[at])
+            lrs, split = [], []
             with torch.no_grad():
-                blocks = {n: p[self._block(n, k)] for n, p in params.items()}
-                _, new, _ = opt.adamw_update(
-                    blocks, owned, opt.OptState(state.step[at],
-                                                {n: a[at] for n, a in state.m.items()},
-                                                {n: a[at] for n, a in state.v.items()}), lr,
-                    weight_decay=self.run.weight_decay, grad_clip=self.run.grad_clip,
-                    gnorm=gnorm)
-                split = {n: b for n, b in blocks.items() if n in self._split_names}
-                sharding.collective(split, "data", lambda ops: self._fill(ops, params, k))
-            steps[at] = new.step
+                for m, i in enumerate(at):
+                    lr = self.schedule(state.step[i])
+                    blocks = {n: p[self._blocks[d][m][n]] for n, p in params[m].items()}
+                    _, new, _ = opt.adamw_update(
+                        blocks, owned[m], opt.OptState(state.step[i],
+                                                       {n: a[i] for n, a in state.m.items()},
+                                                       {n: a[i] for n, a in state.v.items()}),
+                        lr, weight_decay=self.run.weight_decay, grad_clip=self.run.grad_clip,
+                        gnorm=gnorm if m == 0 else gnorm.to(devs[m], non_blocking=True))
+                    steps[i] = new.step
+                    lrs.append(lr)
+                    split.append({n: b for n, b in blocks.items() if n in self._split_names})
+                _join(devs)
+                sharding.collective(split, "data", lambda ops: self._fill(ops, d))
+                _fork(devs)
             vals = {"loss": loss.detach()} if active else {}
             if active:
                 vals.update({n: v.detach() for n, v in metrics.items()})
             mean = sharding.collective(vals, "data", lambda ops: self._mean(ops, n_active))
-        return {"loss": mean["loss"], "lr": lr, "grad_norm": gnorm,
+        _join(devs)
+        return {"loss": mean["loss"], "lr": lrs[0], "grad_norm": gnorm,
                 **{n: mean[n] for n in mean if n != "loss"}}
 
-    def _reduce(self, ops, k, n_active):
-        """This slot's blocks of the mean gradient: the blocks of every
-        slot that ran, added in slot order."""
-        blocks = self._blocks[k]
+    def _reduce(self, ops, d, n_active):
+        """Row ``d``'s slots' blocks of the mean gradient, one dict a model
+        slot: the blocks of every row that ran, added in row order."""
+        out = []
+        for m, blocks in enumerate(self._blocks[d]):
+            def mine(tree, m=m, blocks=blocks):
+                return None if tree is None else {n: tree[m][n][b] for n, b in blocks.items()}
 
-        def mine(tree):
-            return None if tree is None else {n: tree[n][b] for n, b in blocks.items()}
+            acc = None
+            for j in range(len(ops)):
+                g = ops.select(j, mine, device=self.mesh.devices[self.rows[d][m]])
+                if g is None:  # a row that ran no forward
+                    continue
+                acc = {n: x.clone() for n, x in g.items()} if acc is None else \
+                    {n: a.add_(g[n]) for n, a in acc.items()}
+            out.append({n: a.div_(n_active) for n, a in acc.items()} if n_active > 1 else acc)
+        _join(self._row_devices(d))  # the reads on the row's other cards are done with the row
+        return out
 
-        acc = None
+    def _row_devices(self, d) -> list:
+        return [self.mesh.devices[i] for i in self.rows[d]]
+
+    def _fill(self, ops, d):
+        """Copy every other row's updated blocks into row ``d``'s slots."""
         for j in range(len(ops)):
-            g = ops.select(j, mine)
-            if g is None:  # a slot that ran no forward
+            if j == d:
                 continue
-            acc = {n: x.clone() for n, x in g.items()} if acc is None else \
-                {n: a.add_(g[n]) for n, a in acc.items()}
-        return {n: a.div_(n_active) for n, a in acc.items()} if n_active > 1 else acc
-
-    def _fill(self, ops, params, k):
-        """Copy every other slot's updated blocks into this replica."""
-        for j in range(len(ops)):
-            if j != k:
-                for name, b in ops[j].items():
-                    params[name].data[self._block(name, j)].copy_(b)
+            for m, params in enumerate(self._params[d]):
+                got = ops.select(j, lambda tree, m=m: tree[m],
+                                 device=self.mesh.devices[self.rows[d][m]])
+                for name, b in got.items():
+                    params[name].data[self._blocks[j][m][name]].copy_(b)
+        _join(self._row_devices(d))
 
     @staticmethod
     def _mean(ops, n_active):
@@ -406,6 +533,32 @@ class DataParallelStep:
                     acc = acc.add_(ops[j][n])
             out[n] = acc.div_(n_active) if n_active > 1 else acc
         return out
+
+
+def _join(devs):
+    """On the card: the first device's current stream waits for the other
+    cards' current streams of a row (so an event it records covers the
+    row)."""
+    home = devs[0]
+    if home.type != "cuda":
+        return
+    for dev in {d for d in devs[1:] if d != home}:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        torch.cuda.current_stream(home).wait_event(ev)
+
+
+def _fork(devs):
+    """On the card: the row's other cards' current streams wait for the
+    first device's."""
+    home = devs[0]
+    others = {d for d in devs[1:] if d != home}
+    if home.type != "cuda" or not others:
+        return
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(home))
+    for dev in others:
+        torch.cuda.current_stream(dev).wait_event(ev)
 
 
 def make_eval_step(model, run):

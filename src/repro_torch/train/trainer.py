@@ -5,9 +5,12 @@ train step (``train_step.make_train_step``), async atomic checkpointing
 with auto-resume (``runtime/checkpoint``), preemption (a SIGTERM writes a
 checkpoint and stops), straggler logging and JSONL metrics.  The model
 holds its parameters, on its own device.  Given a mesh of several slots,
-it trains over the mesh's ``data`` axis (``train_step.DataParallelStep``:
-a replica a slot, the moments laid out by the reference's parameter
-shardings); the checkpoint is gathered to the host all the same.  A
+it trains over the mesh's ``data`` and ``model`` axes
+(``train_step.DataParallelStep``: a replica a data row, or over a
+``model`` axis larger than one a group of the model's shards a row, the
+moments laid out by the reference's parameter shardings); the
+checkpoint is the gathered tree all the same, and the model's own
+parameters are brought up to date at each checkpoint and at the end.  A
 resume over a mesh places the restored tree by
 :func:`checkpoint_shardings`, the layout in which
 ``runtime/fault_tolerance.elastic_remesh`` hands a tree back, and trains
@@ -74,10 +77,12 @@ class Trainer:
     """Trains ``model`` (a port model, float32 parameters on its device) on
     the batches of ``data_iter`` (dicts of tensors on that device), writing
     ``metrics.jsonl`` and checkpoints under ``workdir``.  ``mesh`` may be
-    ``None``, a mesh of one slot, or a mesh whose first slot is the model's
-    device and whose ``data`` axis alone is larger than one (``rules`` over
-    the reference's lay the moments out); a larger ``model`` axis raises
-    ``NotImplementedError``: tensor parallelism is not ported."""
+    ``None``, a mesh of one slot, or a ``(data, model)`` mesh whose first
+    slot is the model's device (``rules`` over the reference's lay the
+    parameters and moments out); a ``model`` axis larger than one lays a
+    model of the dense, moe and vlm families out over it, and raises
+    ``NotImplementedError`` for the others and for a ``pod`` axis
+    (ROADMAP.md, Queue 1 item 5.3(b))."""
 
     def __init__(self, model, run: RunConfig, data_iter, workdir, mesh=None, rules=None):
         if (mesh is not None and math.prod(mesh.shape.values()) > 1
@@ -115,6 +120,7 @@ class Trainer:
         mesh the moments gathered to the model's device first)."""
         m = self.model
         if self.sharded:
+            self.step_fn.collect()
             opt_state = self.step_fn.gather(opt_state)
         return (stack_named(m, dict(m.named_parameters())),
                 opt.OptState(opt_state.step, stack_named(m, opt_state.m),
@@ -223,5 +229,7 @@ class Trainer:
             self.ckpt.wait()
             mfile.close()
             preempt.uninstall()
+        if self.sharded:
+            self.step_fn.collect()
         return params, opt_state, last
 

@@ -33,7 +33,8 @@ slots of the card.  Held:
   another size and in the reference's ``Trainer``; the tree that
   ``elastic_remesh`` returns trains on in a ``Trainer`` on the surviving
   mesh, bitwise as a resume from the checkpoint; a ``model`` axis of more
-  than one raises.
+  than one is laid out for the decoder families and raises for the others
+  (tensor parallelism itself: ``tests/test_torch_tp.py``).
 """
 import functools
 import threading
@@ -166,6 +167,10 @@ def test_a_slot_exception_is_reraised_and_no_thread_is_left():
 
 
 def test_constrain_inside_a_slot_sees_the_local_view():
+    """Inside a slot of a data mesh and inside a model group's slot,
+    ``constrain`` sees the local view; a model that is not laid out, run
+    per slot of a mesh whose ``model`` axis is larger than one, is told how
+    to lay it out."""
     x = torch.ones(2, 3)
 
     def f(a):
@@ -174,8 +179,14 @@ def test_constrain_inside_a_slot_sees_the_local_view():
     got = shard_map_compat(f, _cpu_mesh(2), P("data"), P("data"))(torch.ones(4, 3))
     assert torch.equal(got, torch.full((4, 3), 2.0))
     wide = Mesh(np.array(["cpu"] * 2, dtype=object).reshape(1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5.3"):
+    with pytest.raises(NotImplementedError, match=r"lay_out\(model, mesh\)"):
         shard_map_compat(f, wide, P(), P())(x)
+    group = sharding.ModelGroup(wide, sizes={"vocab": 512})
+    logits = [torch.ones(2, 3, 256)] * 2  # each slot's block of a 512-wide vocab
+    assert group.each(lambda t: sharding.constrain(t, "batch", "seq", "vocab"), logits) == logits
+    with pytest.raises(ValueError, match="not a slot's block of 512"):
+        group.each(lambda t: sharding.constrain(t, "batch", "seq", "vocab"),
+                   [torch.ones(2, 3, 512)] * 2)
 
 
 # ------------------------------------------------------------ compression --
@@ -575,14 +586,21 @@ def _assert_np_equal(a, b):
         assert np.array_equal(np.asarray(x), np.asarray(y))
 
 
-def test_trainer_refuses_a_model_axis(tmp_path):
+def test_trainer_takes_a_model_axis_for_decoders_only(tmp_path):
+    """A ``model`` axis larger than one is laid out for qwen3 (and the
+    dense, moe and vlm families); rwkv6, hymba and seamless raise naming
+    ROADMAP item 5.3(b), and so does a ``pod`` axis."""
+    wide = grid_mesh(["cpu"] * 4, model_parallel=2)
     cfg = registry.get_config("qwen3-1.7b").reduced()
     model = registry.get_model(cfg, device="cpu")
-    wide = grid_mesh(["cpu"] * 4, model_parallel=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5.3"):
-        Trainer(model, RunConfig(), iter(()), tmp_path, mesh=wide)
+    t = Trainer(model, RunConfig(), iter(()), tmp_path, mesh=wide)
+    assert t.sharded and t.step_fn.n_model == 2 and len(t.step_fn.replicas) == 2
+    for name in ("rwkv6-1.6b", "hymba-1.5b", "seamless-m4t-large-v2"):
+        other = registry.get_model(registry.get_config(name).reduced(), device="cpu")
+        with pytest.raises(NotImplementedError, match=r"5\.3\(b\)"):
+            Trainer(other, RunConfig(), iter(()), tmp_path, mesh=wide)
     pod = Mesh(np.array(["cpu"] * 2, dtype=object).reshape(2, 1), ("pod", "data"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=r"'pod' axis .* 5\.3\(b\)"):
         Trainer(model, RunConfig(), iter(()), tmp_path, mesh=pod)
     Trainer(model, RunConfig(), iter(()), tmp_path, mesh=grid_mesh(["cpu"] * 2))
 

@@ -263,10 +263,11 @@ def test_rules_and_constrain():
         assert sharding.constrain(x, "batch", "embed") is x  # one slot: no-op
     assert sharding.active_rules() == sharding.DEFAULT_RULES == jax_sharding.DEFAULT_RULES
     model = registry.get_model(registry.get_config("qwen3-1.7b").reduced(), device="cpu")
-    with use_mesh(Mesh(["cpu", "cpu"])):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5.3"):
+    with use_mesh(Mesh(["cpu", "cpu"])):  # a model not laid out: told how to lay it out
+        with pytest.raises(NotImplementedError, match=r"lay_out\(model, mesh\)"):
             sharding.constrain(x, "batch", "embed")
-        with pytest.raises(NotImplementedError), torch.no_grad():
+        with pytest.raises(NotImplementedError, match=r"lay_out\(model, mesh\)"), \
+                torch.no_grad():
             model.forward(torch.zeros((1, 4), dtype=torch.long))
 
 

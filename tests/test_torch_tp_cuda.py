@@ -1,0 +1,176 @@
+"""Tensor parallelism over the ``model`` axis on the card, against one slot.
+
+On 4 slots of the first card (a ``(1, 4)`` or ``(2, 2)`` mesh of
+``parallel/sharding.Mesh``), float32 with TF32 off:
+
+* one ``DataParallelStep`` step of qwen3-1.7b reduced over ``(1, 4)`` --
+  four model slots, every slot's backward on autograd's one worker thread
+  for the card -- ends within a time limit (run in a thread, joined with a
+  timeout: a hang fails), and equals one ``make_train_step`` step on one
+  slot: loss and grad_norm at rtol 1e-4, the gradient (the rows' gathered
+  gradients added in row order over their count) and the moments at 1e-4
+  of each leaf's largest entry, the parameters after within 2 lr; also
+  over ``(2, 2)``;
+* the prefill fn and 8 greedy serve steps over ``(1, 4)`` give one slot's
+  tokens;
+* the step queues its work without a host sync (CUDA sync debug mode
+  ``'error'``);
+* with two cards or more, a step over ``make_host_mesh(2)`` (a model
+  group across two cards) against one slot.
+
+Skipped without a CUDA device: the fixtures decide, not the import.  Run on
+the card with ``PYTHONPATH=src python -m pytest -q
+tests/test_torch_tp_cuda.py``.
+"""
+import threading
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import RunConfig  # noqa: E402
+from repro_torch.launch.mesh import grid_mesh, make_host_mesh  # noqa: E402
+from repro_torch.models import registry  # noqa: E402
+from repro_torch.models.tensor_parallel import lay_out  # noqa: E402
+from repro_torch.serve.serve_step import make_prefill_fn, make_serve_step  # noqa: E402
+from repro_torch.train import optimizer as opt  # noqa: E402
+from repro_torch.train.train_step import make_train_step  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+RTOL = 1e-4
+GRAD_SHARE = 1e-4
+LR = 1e-2
+HANG_S = 300  # a step of the reduced model takes well under a second
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _mesh(dev, shape):
+    return grid_mesh([dev] * (shape[0] * shape[1]), shape[1])
+
+
+def _batch(cfg, device, rows=4, seq=17):
+    rng = np.random.default_rng(0)
+    return {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (rows, seq)).astype(np.int32)).to(device)}
+
+
+def _ends(fn):
+    """``fn()`` in a thread, joined with a timeout: its result, or a failed
+    test where it does not end."""
+    out, err = [], []
+
+    def run():
+        try:
+            out.append(fn())
+        except BaseException as e:  # re-raised in the test
+            err.append(e)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(HANG_S)
+    if t.is_alive():
+        pytest.fail(f"the step did not end within {HANG_S} s: a hang")
+    if err:
+        raise err[0]
+    return out[0]
+
+
+def _tp_vs_one(dev, shape):
+    cfg = registry.get_config("qwen3-1.7b").reduced()
+    run = RunConfig(learning_rate=LR, warmup_steps=1)
+    one = registry.get_model(cfg, device=dev)
+    model = registry.get_model(cfg, device=dev)
+    batch = _batch(cfg, dev)
+    s1, m1 = make_train_step(one, run)(opt.init_opt_state(dict(one.named_parameters())), batch)
+    step = make_train_step(model, run, _mesh(dev, shape))
+    assert step.n_model == shape[1]
+    state, metrics = _ends(lambda: step(step.init_state(), batch))
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(metrics[k]), float(m1[k]), rtol=RTOL, err_msg=k)
+    got = step.gather(state)
+    rows = [rep.gathered_grads(model) for rep in step.replicas]
+    step.collect()
+    for name, p in one.named_parameters():
+        mean = rows[0][name].clone()
+        for r in rows[1:]:
+            mean.add_(r[name])
+        mean.div_(len(rows))
+        for what, a, b in (("grad", mean, p.grad), ("m", got.m[name], s1.m[name]),
+                           ("v", got.v[name], s1.v[name])):
+            top = float(b.abs().max())
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=RTOL,
+                                       atol=GRAD_SHARE * top, err_msg=f"{what} {name}")
+        np.testing.assert_allclose(model.get_parameter(name).detach().cpu().numpy(),
+                                   p.detach().cpu().numpy(), rtol=0, atol=2 * LR, err_msg=name)
+    return step, state, batch
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_tp_step_ends_and_matches_one_slot(dev, shape):
+    _tp_vs_one(dev, shape)
+
+
+def test_every_card_tp_step_matches_one_slot(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one card: a model group across cards needs two or more")
+    cfg = registry.get_config("qwen3-1.7b").reduced()
+    run = RunConfig(learning_rate=LR, warmup_steps=1)
+    one = registry.get_model(cfg, device=dev)
+    model = registry.get_model(cfg, device=dev)
+    batch = _batch(cfg, dev)
+    s1, m1 = make_train_step(one, run)(opt.init_opt_state(dict(one.named_parameters())), batch)
+    step = make_train_step(model, run, make_host_mesh(2))
+    state, metrics = _ends(lambda: step(step.init_state(), batch))
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(metrics[k]), float(m1[k]), rtol=RTOL, err_msg=k)
+    got = step.gather(state)
+    for name in s1.m:
+        for what, a, b in (("m", got.m[name], s1.m[name]), ("v", got.v[name], s1.v[name])):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=RTOL,
+                                       atol=GRAD_SHARE * float(b.abs().max()),
+                                       err_msg=f"{what} {name}")
+
+
+def test_tp_step_makes_no_host_sync(dev):
+    step, state, batch = _tp_vs_one(dev, (1, 4))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = _ends(lambda: step(state, batch))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [int(s) for s in state.step.flat] == [2] * 4 and np.isfinite(float(metrics["loss"]))
+
+
+def test_tp_prefill_and_greedy_tokens_equal_one_slot(dev):
+    cfg = registry.get_config("qwen3-1.7b").reduced()
+    one = registry.get_model(cfg, device=dev)
+    lo = lay_out(registry.get_model(cfg, device=dev), _mesh(dev, (1, 4)))
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))).to(dev)
+    runs = []
+    for model in (lo, one):
+        last = make_prefill_fn(model)(prompt)
+        cache = model.init_cache(4, 24, dtype=torch.float32)
+        with torch.inference_mode():
+            for t in range(15):
+                model.decode_step(cache, prompt[:, t:t + 1])
+        step = make_serve_step(model)
+        nxt, toks = prompt[:, 15:16], []
+        for _ in range(8):
+            nxt, _, cache = step(cache, nxt)
+            toks.append(nxt)
+        runs.append((last.float().cpu(), torch.cat(toks, 1).cpu()))
+    (tp_last, tp_toks), (one_last, one_toks) = runs
+    np.testing.assert_allclose(tp_last.numpy(), one_last.numpy(), rtol=1e-4, atol=1e-4)
+    assert torch.equal(tp_toks, one_toks)
