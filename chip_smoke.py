@@ -360,7 +360,30 @@ Phases:
      gap to the float32 forward printed beside one slot's; (e) with two cards or
      more, python -m repro_torch.launch.train --model-parallel 2 in a
      subprocess (exit 0, steps 0-3)
-  17. the kernels line (each variant at block 256, as phase 5b); 18. the status line
+  17. (printed as [tp2]) tensor parallelism over 'model' for the hybrid,
+     ssm and encoder-decoder families, and the train step's 'pod' axis,
+     which run none of the kernels (their launch counts stay 0): (a)
+     hymba-1.5b (over (1, 4) and (1, 2)), rwkv6-1.6b and
+     seamless-m4t-large-v2 (2 encoder layers) at full width and two
+     layers, float32, TF32 off, over (1, 4) slots of the card against one
+     slot: the forward in float32 and float64, max|tp - one| beside one
+     slot's own float32 error from the float64 forward (the float64 layout
+     within TP_SHARE of one slot's largest logit; the float32 within it too,
+     or within TP_F32_BAND times one slot's own error), 8 greedy tokens ==
+     one slot's (each step's top-2 gap above the float32 forward's gap),
+     one train step as 16a's (loss and grad_norm at 1e-4, gradient, m and v
+     within TP2_GRAD_SHARE of the leaf's largest entry; where float32
+     misses, as 16d: the laid-out float64 gradients within TP_SHARE of one
+     slot's, the float32 ones within TP_F32_BAND times one slot's own error
+     from them); (b) hymba-1.5b at full
+     width and depth, bf16, over (1, 4): the prefill fn on 4 prompts of
+     256 (ms, median of 3) and 64 greedy steps into a 512 cache, against
+     one slot in the same run, each slot's bytes, max_memory_allocated, a
+     traced decode step's device items and busy share, finite logits and
+     every token below vocab_size; (c) DataParallelStep of qwen3-1.7b at
+     full width and two layers over a (2, 1, 2) ('pod', 'data', 'model')
+     mesh of 4 slots == the step over (2, 2) ('data', 'model'), bitwise
+  18. the kernels line (each variant at block 256, as phase 5b); 19. the status line
 """
 import collections
 import contextlib
@@ -441,7 +464,7 @@ from repro_torch.parallel.pipeline import pipeline_forward  # noqa: E402
 from repro_torch.parallel.sharding import AbstractMesh  # noqa: E402
 from repro_torch.parallel.sharding import PartitionSpec as P  # noqa: E402
 from repro_torch.runtime.fault_tolerance import elastic_remesh  # noqa: E402
-from repro_torch.train.train_step import DataParallelStep  # noqa: E402
+from repro_torch.train.train_step import DataParallelStep, make_loss_fn  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM bandwidth
 # and float32 outside the tensor cores (the cost model's default profile).
@@ -502,6 +525,15 @@ TP_MOE_BF16_REL = 5e-2  # 16d: bf16 logits over (1, 4) from one slot's (relative
 # every run on an H100 80GB HBM3 at 700 W read 4.897e-2)
 TP_HANG_S = 600  # 16a: a step that has not ended by then hangs
 SERVE_ONE: dict = {}  # 13c's one-slot serving numbers, printed beside 16b's
+# phase 17: tensor parallelism for the hybrid, ssm and encoder-decoder families, pods
+TP2_MODELS = {"hymba-1.5b": ((1, 4), (1, 2)), "rwkv6-1.6b": ((1, 4),),
+              "seamless-m4t-large-v2": ((1, 4),)}  # 17a: each at 2 layers over these meshes
+TP2_FWD = (4, 64)  # 17a: forward rows x tokens (seamless: 128 frames)
+TP2_WIDE = (4, 65)  # 17a: train-step rows x tokens
+TP2_GREEDY = (4, 16, 8)  # 17a: requests, prompt, greedy steps
+TP2_GRAD_SHARE = 1e-5  # 17a: gradient, m and v within this share of the leaf's largest entry
+TP2_SERVE = (4, 256, 64, 512)  # 17b: hymba-1.5b requests, prompt tokens, greedy steps, max_len
+TP2_POD = ((2, 1, 2), (2, 2))  # 17c: ('pod', 'data', 'model') against ('data', 'model')
 BF16_PEAK = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet, 700 W)
 # phase 10d's service traffic: clients x requests x cases a request
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCH, SERVE_HUGE_EVERY = 4, 6, 2, 16
@@ -3607,6 +3639,301 @@ def tp_phase(smi):
           f"{time.perf_counter() - t_phase:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor parallelism for the hybrid, ssm and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+def logits_share(a, b):
+    """max |a - b| over b's largest entry, in float64."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def raw_forward(model, tokens, extra):
+    """``forward``'s logits on the model's device in its own dtype."""
+    with torch.inference_mode():
+        return model.forward(tokens, *extra)[0]
+
+
+def tp2_config(name, dtype="float32"):
+    over = {"n_encoder_layers": 2} if get_config(name).n_encoder_layers else {}
+    return dataclasses.replace(get_config(name), n_layers=2, dtype=dtype, **over)
+
+
+def tp2_grads64(model, one64, batch):
+    """The float64 gradients of ``model`` (``one64`` itself, or a group of
+    shards of it) on ``batch``, by ``one64``'s names, and the loss."""
+    b64 = {k: (v.double() if v.is_floating_point() else v) for k, v in batch.items()}
+    model.zero_grad(set_to_none=True)
+    loss, _ = make_loss_fn(model, RunConfig())(b64)
+    loss.backward()
+    if model is one64:
+        out = {n: p.grad for n, p in one64.named_parameters()}
+    else:
+        model.sum_region_grads()
+        out = model.gathered_grads(one64)
+    model.zero_grad(set_to_none=True)
+    return out, float(loss.detach())
+
+
+def grads_gap(got, want) -> float:
+    """The largest max|got - want| over the leaf's largest |want|."""
+    return max(float((got[n].double() - w.double()).abs().max() / max(float(w.abs().max()), 1e-300))
+               for n, w in want.items())
+
+
+def tp2_family(name, dev):
+    """Phase 17a for one architecture: the forward, greedy tokens and a
+    train step over each of its meshes against one slot."""
+    t0 = time.perf_counter()
+    cfg = tp2_config(name)
+    one = get_model(cfg, device=dev)
+    cfg64 = tp2_config(name, "float64")
+    one64 = get_model(cfg64, device=dev, dtype=torch.float64)
+    one64.load_state_dict({k: v.double() for k, v in one.state_dict().items()})
+    tokens, extra = llm_inputs(cfg, *TP2_FWD, seed=6)
+    tokens, extra = tokens.to(dev), [e.to(dev) for e in extra]
+    one32, f64 = raw_forward(one, tokens, extra), raw_forward(one64, tokens, extra)
+    err_one = logits_share(one32, f64)
+    b, prompt, n_new = TP2_GREEDY
+    toks, gextra = llm_inputs(cfg, b, prompt + n_new, seed=8)
+    runs = []  # one slot's greedy run, then each mesh's: (the laid-out model, tokens, logits)
+    for served in [one] + [lay_out(one, tp_mesh(s)) for s in TP2_MODELS[name]]:
+        cache = llm_cache(served, cfg, b, prompt + n_new, gextra)
+        llm_teacher_forced(served, cache, toks[:, :prompt - 1])
+        runs.append((served, *llm_greedy(served, cfg, cache, toks[:, prompt - 1:prompt], n_new)))
+        del cache
+    _, one_toks, one_logits = runs.pop(0)
+    top2 = one_logits.float().topk(2, dim=-1).values
+    min_gap = float((top2[..., 0] - top2[..., 1]).min())
+    batch = train_batch(cfg, *TP2_WIDE, dev, seed=9)
+    g64, loss64 = tp2_grads64(one64, one64, batch)
+    ws = train_one_step(one, batch)
+    lines = []
+    for (laid, tp_toks, _), shape in zip(runs, TP2_MODELS[name]):
+        label = f"[tp2] 17a {name} {shape}"
+        tp32 = raw_forward(laid, tokens, extra)
+        tp64 = raw_forward(lay_out(one64, tp_mesh(shape)), tokens, extra)
+        share32, share64 = logits_share(tp32, one32), logits_share(tp64, f64)
+        err_tp = logits_share(tp32, f64)
+        gap32 = float((tp32.float() - one32.float()).abs().max())
+        del tp32, tp64, laid
+        check(share64 <= TP_SHARE, f"{label}: float64 max|tp - one| is {share64:.3e} of one "
+                                   f"slot's largest logit; bound {TP_SHARE}")
+        check(share32 <= TP_SHARE or err_tp <= TP_F32_BAND * err_one,
+              f"{label}: float32 max|tp - one| {share32:.3e}, {err_tp:.3e} from the float64 "
+              f"forward against one slot's own {err_one:.3e} (bound {TP_F32_BAND}x)")
+        check(min_gap > gap32, f"{label}: a greedy step's top-2 gap {min_gap:.3e} is not above "
+                               f"the float32 forward's gap {gap32:.3e}")
+        check(torch.equal(tp_toks, one_toks), f"{label}: greedy tokens {tp_toks.tolist()} != "
+                                              f"one slot's {one_toks.tolist()}")
+        mod = get_model(cfg, device=dev)
+        step = make_train_step(mod, RunConfig(learning_rate=TRAIN_LR, warmup_steps=1),
+                               tp_mesh(shape))
+        check(isinstance(step, DataParallelStep) and step.n_model == shape[1],
+              f"{label}: not a tensor-parallel step")
+        t1 = time.perf_counter()
+        st, met = ends(lambda: step(step.init_state(), batch), TP_HANG_S, label)
+        met = {k: float(v) for k, v in met.items()}
+        cs = (step.gather(st), met, time.perf_counter() - t1)
+        grads = tp_mean_grads(step, mod)
+        step.collect()
+        for pname, p in mod.named_parameters():
+            p.grad = grads[pname]
+        del p, grads, st
+        miss = None
+        try:
+            gaps = train_compare(label, mod, one, cs, ws)
+            check(max(gaps["grad"], gaps["m"], gaps["v"]) <= TP2_GRAD_SHARE,
+                  f"{label}: gradient {gaps['grad']:.2e}, m {gaps['m']:.2e}, v {gaps['v']:.2e} "
+                  f"of the leaf's largest entry; bound {TP2_GRAD_SHARE}")
+            held = (f"gradient {gaps['grad']:.2e}, m {gaps['m']:.2e}, v {gaps['v']:.2e} of the "
+                    f"leaf's largest entry, parameters after max|tp - one| {gaps['param']:.2e}")
+        except AssertionError as e:
+            miss = str(e)[:300]
+        # each float32 step's gradients against one slot's float64 ones
+        gerr_one = grads_gap({n: p.grad for n, p in one.named_parameters()}, g64)
+        gerr_tp = grads_gap({n: p.grad for n, p in mod.named_parameters()}, g64)
+        if miss is not None:  # float32's own error: hold the layout in float64, as 16d does
+            tp64, l64 = tp2_grads64(lay_out(one64, tp_mesh(shape)).groups[0], one64, batch)
+            share = grads_gap(tp64, g64)
+            del tp64
+            check(share <= TP_SHARE and abs(l64 - loss64) <= 1e-6 * abs(loss64)
+                  and gerr_tp <= TP_F32_BAND * gerr_one,
+                  f"{label}: float32 missed ({miss}); in float64 the laid-out gradients are "
+                  f"{share:.3e} of the leaf's largest entry (bound {TP_SHARE}), losses {l64!r} "
+                  f"{loss64!r}; float32 {gerr_tp:.3e} from the float64 gradients against one "
+                  f"slot's own {gerr_one:.3e} (bound {TP_F32_BAND}x)")
+            held = (f"float32 missed ({miss}); held in float64: the laid-out gradients "
+                    f"{share:.3e} of the leaf's largest entry, loss {l64:.12f} (one slot "
+                    f"{loss64:.12f})")
+        held += (f"; float32 gradients from one slot's float64 ones {gerr_tp:.3e}, one slot's "
+                 f"own {gerr_one:.3e}")
+        del cs, step, mod
+        torch.cuda.empty_cache()
+        lines.append(f"{shape}: float64 max|tp - one| {share64:.3e} of the largest logit; "
+                     f"float32 max|tp - one| {share32:.3e} ({gap32:.3e} absolute), from the "
+                     f"float64 forward {err_tp:.3e} against one slot's own {err_one:.3e}; "
+                     f"{n_new} greedy tokens == one slot's (smallest top-2 gap {min_gap:.3e}); "
+                     f"step loss {met['loss']:.6f} (one slot {ws[1]['loss']:.6f}), grad_norm "
+                     f"{met['grad_norm']:.6f} ({ws[1]['grad_norm']:.6f}); {held}")
+    del one, one64, ws, one32, f64, runs, g64
+    torch.cuda.empty_cache()
+    print(f"[tp2] 17a {name} full width ({cfg.d_model} wide, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded} padded), 2 layers"
+          f"{', 2 encoder layers' if cfg.n_encoder_layers else ''}, float32, TF32 off: "
+          + "; ".join(lines) + f"; {time.perf_counter() - t0:.3f} s")
+
+
+def tp2_serve(served, cfg, tokens, gen, max_len):
+    """The prefill fn (ms, median of 3 after a warm-up; its logits) and
+    ``gen`` greedy steps from its token into an empty ``max_len`` cache
+    (every step reads every slot of the cache): (prefill ms, the last
+    logits, ms a step, the tokens, their logits, the cache)."""
+    prefill = make_prefill_fn(served)
+    prefill(tokens)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        last = prefill(tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    first = torch.where(torch.arange(cfg.vocab_padded, device=last.device) < cfg.vocab_size,
+                        last[:, -1].float(), -1e30).argmax(dim=-1, keepdim=True)
+    cache = served.init_cache(len(tokens), max_len, dtype=torch.bfloat16)
+    llm_greedy(served, cfg, cache, first, 2)  # warm-up
+    cache = served.init_cache(len(tokens), max_len, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, logits = llm_greedy(served, cfg, cache, first, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3 / gen
+    return statistics.median(walls) * 1e3, last, step_ms, out, logits, cache
+
+
+def tp_families_phase(smi):
+    """Phase 17: tensor parallelism over 'model' for hymba, rwkv6 and
+    seamless at full width, hymba served at full depth over (1, 4), and
+    the train step over a 'pod' axis (printed as [tp2]); fails on any
+    check."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    check(not torch.backends.cuda.matmul.allow_tf32, "[tp2] TF32 must be off")
+    zero_counts()
+
+    # (a) full width, 2 layers, float32: each family over (1, 4) against one slot
+    for name in TP2_MODELS:
+        tp2_family(name, dev)
+
+    # (b) hymba-1.5b at full width and depth, bf16, served over (1, 4) and on one slot
+    t0 = time.perf_counter()
+    cfg = get_config("hymba-1.5b")
+    b, prompt, gen, max_len = TP2_SERVE
+    tokens, _ = llm_inputs(cfg, b, prompt, seed=10)
+    tokens = tokens.to(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = get_model(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    exact = get_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    exact.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    f32 = make_prefill_fn(exact)(tokens).float()
+    del exact
+    torch.cuda.empty_cache()
+    one = tp2_serve(model, cfg, tokens, gen, max_len)
+    with torch.inference_mode():
+        o_items, o_busy, _, o_ms, _ = traced_union(lambda: model.decode_step(one[5], tokens[:, :1]))
+    one = one[:5]
+    torch.cuda.reset_peak_memory_stats()
+    laid = lay_out(model, tp_mesh((1, 4)))
+    laid.model = None  # the shards hold the weights; the whole copy is not served
+    split_heads = laid.layout.heads
+    del model
+    torch.cuda.empty_cache()
+    prefill_ms, last, step_ms, out, logits, cache = tp2_serve(laid, cfg, tokens, gen, max_len)
+    peak = torch.cuda.max_memory_allocated()
+    held = slot_bytes([list(sl.parameters()) + [a[0, m] for a in sharding.tree_leaves(cache)]
+                       for m, sl in enumerate(laid.groups[0].slots)])
+    check(bool(torch.isfinite(last.float()).all() and torch.isfinite(logits.float()).all()),
+          "[tp2] 17b: logits not finite")
+
+    def rel(a, b):  # relative Frobenius
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    # a random hymba's bf16 prefill is far from its float32 one on one slot too
+    # (the CPU's 8-layer twins: 0.57-0.87): the layout's may be at most
+    # TP_F32_BAND times as far
+    gap_tp, gap_one, gap_pair = rel(last, f32), rel(one[1], f32), rel(last, one[1])
+    check(gap_tp <= TP_F32_BAND * gap_one,
+          f"[tp2] 17b: the bf16 prefill logits over (1, 4) are {gap_tp:.4g} (relative Frobenius) "
+          f"from the float32 ones, past {TP_F32_BAND} x one slot's bf16 {gap_one:.4g}")
+    check(int(out.max()) < cfg.vocab_size, f"[tp2] 17b: a token at or past vocab_size "
+                                           f"{cfg.vocab_size}")
+    check(all(p.tolist() == [gen] * b for p in cache["pos"].flat),
+          f"[tp2] 17b: cache positions {[p.tolist() for p in cache['pos'].flat]} != {gen}")
+    with torch.inference_mode():
+        items, busy, _, traced_ms, _ = traced_union(lambda: laid.decode_step(cache, tokens[:, :1]))
+    agree = float((out == one[3]).float().mean())
+    print(f"[tp2] 17b hymba-1.5b full width and depth ({cfg.n_layers} layers, attention "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads {'split' if split_heads else 'whole on every slot'}"
+          f", SSD columns {cfg.ssm_expand * cfg.d_model // 4} a slot), "
+          f"bf16, over (1, 4) slots of the card, {b} requests: prefill fn over {b} x {prompt} "
+          f"tokens {prefill_ms:.3f} ms (median of 3; one slot {one[0]:.3f} ms); {gen} greedy "
+          f"serve steps into a max_len={max_len} cache {step_ms:.3f} ms a step, "
+          f"{b * 1e3 / step_ms:.1f} tokens/s (one slot {one[2]:.3f} ms, "
+          f"{b * 1e3 / one[2]:.1f} tokens/s; tp / one {step_ms / one[2]:.3f}x); the bf16 prefill "
+          f"logits from the float32 ones {gap_tp:.4f} relative Frobenius, one slot's {gap_one:.4f} "
+          f"(bound {TP_F32_BAND}x), from one slot's bf16 {gap_pair:.4f}; greedy tokens agree with "
+          f"one slot's bf16 run {agree:.4f} (not gated); each slot holds {held} B (parameters "
+          f"and cache); max_memory_allocated {peak:,} B serving laid out ({base:,} B held "
+          f"before); a traced decode step {items} device items, busy {busy / 1e3:.3f} of "
+          f"{traced_ms:.3f} ms ({ratio(busy / 1e3, traced_ms)}); one slot {o_items} items, busy "
+          f"{o_busy / 1e3:.3f} of {o_ms:.3f} ms ({ratio(o_busy / 1e3, o_ms)}); card {smi}; "
+          f"{time.perf_counter() - t0:.3f} s")
+    del laid, cache, last, logits, one, f32
+    torch.cuda.empty_cache()
+
+    # (c) the train step over ('pod', 'data', 'model') (2, 1, 2) == over (2, 2), bitwise
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLM_SERVED), n_layers=2, dtype="float32")
+    batch = train_batch(cfg, *TP2_WIDE, dev, seed=11)
+    run = RunConfig(learning_rate=TRAIN_LR, warmup_steps=1)
+    outs = []
+    for shape in TP2_POD:
+        devices = np.empty(4, dtype=object)
+        devices[:] = [dev] * 4
+        names = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+        mod = get_model(cfg, device=dev)
+        step = make_train_step(mod, run, Mesh(devices.reshape(shape), names))
+        check(step.mesh.shape == {"data": 2, "model": 2}, f"[tp2] 17c {shape}: {step.mesh}")
+        st, met = ends(lambda: step(step.init_state(), batch), TP_HANG_S, f"[tp2] 17c {shape}")
+        got = step.gather(st)
+        step.collect()
+        outs.append(([p.detach().clone() for p in mod.parameters()]
+                     + [got.m[n] for n in got.m] + [got.v[n] for n in got.v],
+                     {k: float(v) for k, v in met.items()}))
+        del step, st, got, mod
+        torch.cuda.empty_cache()
+    (pod_t, pod_m), (dm_t, dm_m) = outs
+    same = len(pod_t) == len(dm_t) and all(torch.equal(a, b) for a, b in zip(pod_t, dm_t))
+    check(same and pod_m == dm_m, f"[tp2] 17c: the step over {TP2_POD[0]} ('pod', 'data', "
+                                  f"'model') is not bitwise the step over {TP2_POD[1]}: metrics "
+                                  f"{pod_m} against {dm_m}")
+    del outs, pod_t, dm_t
+    torch.cuda.empty_cache()
+    print(f"[tp2] 17c {LLM_SERVED} full width, 2 layers, float32, {TP2_WIDE[0]} x {TP2_WIDE[1]} "
+          f"tokens: a DataParallelStep over a {TP2_POD[0]} ('pod', 'data', 'model') mesh of 4 "
+          f"slots of the card (pod folded into 2 data rows) == the step over {TP2_POD[1]} "
+          f"('data', 'model'), bitwise: parameters, m, v and the metrics (loss "
+          f"{pod_m['loss']:.6f}, grad_norm {pod_m['grad_norm']:.6f}); "
+          f"{time.perf_counter() - t0:.3f} s")
+    launches = read_counts()
+    check(not any(launches.values()), f"[tp2] the phase launched a hand kernel: {launches}")
+    print(f"[tp2] the phase launched none of the hand kernels (rows 1-11, R); phase 17 took "
+          f"{time.perf_counter() - t_phase:.3f} s")
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
@@ -5088,7 +5415,10 @@ def main():
     # -- 16. tensor parallelism over the 'model' axis (runs none of the kernels)
     tp_phase(smi)
 
-    # -- 17. kernels line ---------------------------------------------------
+    # -- 17. the same for the hybrid, ssm and encdec families; pods ---------
+    tp_families_phase(smi)
+
+    # -- 18. kernels line ---------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -5134,7 +5464,7 @@ def main():
         for v in variants if v != "seqacc"
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 18. status -----------------------------------------------------------
+    # -- 19. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ model from the zoo, the prompt batch teacher-forced through the serve step
 loop.  Works for every family -- attention KV caches, RWKV6's constant-size
 state and Hymba's hybrid window+SSM cache -- because each model implements
 ``init_cache`` / ``decode_step`` behind the same interface.
-``--model-parallel N`` lays a model of the dense, moe or vlm family out
-over N slots of the device (``models/tensor_parallel.lay_out``).
+``--model-parallel N`` lays the model out over N slots of the device
+(``models/tensor_parallel.lay_out``, every family; rwkv6's reduced config
+has one head of 64 columns, which two slots would split, and raises).
 
     PYTHONPATH=src python examples/serve_lm_torch.py --arch rwkv6-1.6b --tokens 32
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu --model-parallel 2

@@ -4,8 +4,9 @@ Builds a mesh where the reference does (more than one visible card under
 ``--device cuda``: ``make_host_mesh(--model-parallel)``), and drives the
 fault-tolerant ``Trainer`` on synthetic data: on such a machine it trains
 over every card, ``--model-parallel`` cards a model group (tensor
-parallelism over the ``model`` axis for the dense, moe and vlm families)
-and the rest over ``data`` (``--device cuda:0`` trains on one card).  On
+parallelism over the ``model`` axis, every family; a layout that would
+split one of rwkv6's 64-column heads raises) and the rest over ``data``
+(``--device cuda:0`` trains on one card).  On
 one card, or with ``--device cpu``, ``--model-parallel N`` above 1 lays
 the model out over N slots of that device.
 

@@ -15,6 +15,15 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.params import P, SpecModule, stack_spec
+from repro_torch.models.transformer import (
+    ONE,
+    WHOLE,
+    _attend,
+    _ffn,
+    block,
+    decoder_layer,
+    stretch,
+)
 from repro_torch.parallel.sharding import Ax, constrain
 
 
@@ -60,33 +69,68 @@ def _cross_kv(params, enc_out):
     return k, v
 
 
-def _cross_attend(params, x, ck, cv):
+def _cross_attend(params, x, ck, cv, sel=None):
+    """Cross-attention of the query heads of ``params`` to the cross K/V
+    (``sel`` picks the kv heads they read: ``layers.select_kv``)."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
-    o = L.blockwise_attention(q, ck, cv, causal=False)
+    o = L.blockwise_attention(q, L.select_kv(ck, sel), L.select_kv(cv, sel), causal=False)
     return torch.einsum("bshk,hkd->bsd", o, params["wo"].to(x.dtype))
 
 
+def _cross(params, x, enc_out, sel):
+    return _cross_attend(params, x, *_cross_kv(params, enc_out), sel)
+
+
+def encoder_layer(group, lps, xs, positions, cfg, split=WHOLE, kv_sel=(None,)):
+    """One encoder layer over ``group``: ``transformer.decoder_layer``,
+    non-causal and without a window."""
+    return decoder_layer(group, lps, xs, positions, cfg, 0, split, kv_sel, causal=False)[0]
+
+
+def cross_decoder_layer(group, lps, xs, enc_outs, positions, cfg, split=WHOLE, kv_sel=(None,),
+                        caches=None, i=None):
+    """One decoder layer over ``group`` (``lps``, ``xs`` one entry a slot):
+    self-attention, cross-attention, MLP, each a block of work where its
+    dimension splits.  Teacher-forced, the cross K/V are projected from
+    ``enc_outs`` (the replicated encoder output, handed out to each layer's
+    projection); a decode step (``caches`` one a slot, layer ``i`` written
+    in place) reads them from the cache."""
+    run = stretch(group, cfg)
+    hs = group.each(lambda lp, x: run(L.rmsnorm, lp["ln1"], x, cfg.norm_eps), lps, xs)
+    if caches is None:
+        attn = block(group, split.heads,
+                     lambda lp, h, pos, sel: run(_attend, lp["attn"], h, pos, cfg, 0, sel),
+                     lps, hs, positions, kv_sel)
+    else:
+        attn = block(group, split.heads,
+                     lambda lp, h, c, sel: L.decode_attention(
+                         lp["attn"], h, c["k"][i], c["v"][i], c["pos"], cfg,
+                         kv_select=sel)[0], lps, hs, caches, kv_sel)
+    xs = group.each(lambda x, a: x + a, xs, attn)
+    hs = group.each(lambda lp, x: run(L.rmsnorm, lp["ln_x"], x, cfg.norm_eps), lps, xs)
+    if caches is None:
+        es = group.handout(enc_outs) if split.heads else enc_outs
+        cross = block(group, split.heads,
+                      lambda lp, h, e, sel: run(_cross, lp["cross"], h, e, sel),
+                      lps, hs, es, kv_sel)
+    else:
+        cross = block(group, split.heads,
+                      lambda lp, h, c, sel: _cross_attend(lp["cross"], h, c["cross_k"][i],
+                                                          c["cross_v"][i], sel),
+                      lps, hs, caches, kv_sel)
+    xs = group.each(lambda x, a: x + a, xs, cross)
+    hs = group.each(lambda lp, x: run(L.rmsnorm, lp["ln2"], x, cfg.norm_eps), lps, xs)
+    out, _ = _ffn(group, lps, hs, cfg, split)
+    return group.each(lambda x, o: constrain(x + o, "batch", "seq", "embed_act"), xs, out)
+
+
 def _encoder_layer(lp, x, positions, cfg):
-    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, kv = L.attention_qkv(lp["attn"], h, positions, cfg)
-    o = L.blockwise_attention(q, kv.k, kv.v, causal=False)
-    x = x + L.attention_out(lp["attn"], o, x.dtype)
-    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    x = x + L.mlp(lp["mlp"], h, cfg.mlp_act)
-    return constrain(x, "batch", "seq", "embed_act")
+    return encoder_layer(ONE, [lp], [x], [positions], cfg)[0]
 
 
 def _decoder_layer(lp, x, enc_out, positions, cfg):
-    """One teacher-forced decoder layer: self-attention, cross-attention to
-    ``enc_out``, MLP."""
-    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    x = x + L.self_attention(lp["attn"], h, positions, cfg)
-    h = L.rmsnorm(lp["ln_x"], x, cfg.norm_eps)
-    ck, cv = _cross_kv(lp["cross"], enc_out)
-    x = x + _cross_attend(lp["cross"], h, ck, cv)
-    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    x = x + L.mlp(lp["mlp"], h, cfg.mlp_act)
-    return constrain(x, "batch", "seq", "embed_act")
+    """One teacher-forced decoder layer of a model that is not laid out."""
+    return cross_decoder_layer(ONE, [lp], [x], [enc_out], [positions], cfg)[0]
 
 
 class EncDec(SpecModule):
@@ -95,10 +139,10 @@ class EncDec(SpecModule):
     ``unembed``; see :class:`SpecModule` for ``device``, ``dtype`` and
     ``generator``."""
 
-    def __init__(self, cfg, device=None, dtype=torch.float32, generator=None):
+    def __init__(self, cfg, device=None, dtype=torch.float32, generator=None, block=None):
         if cfg.n_encoder_layers <= 0:
             raise ValueError(f"{cfg.name}: an encoder-decoder needs n_encoder_layers > 0")
-        super().__init__(cfg, device, dtype, generator)
+        super().__init__(cfg, device, dtype, generator, block)
 
     build_spec = staticmethod(encdec_spec)
 
@@ -127,11 +171,11 @@ class EncDec(SpecModule):
         logits = L.unembed(self.unembed, x)
         return constrain(logits, "batch", "seq", "vocab"), 0.0
 
-    def init_cache(self, batch, max_len, dtype=torch.bfloat16, enc_len=None):
+    def init_cache(self, batch, max_len, dtype=torch.bfloat16, enc_len=None, device=None):
         """Zeroed caches (self-attention for ``max_len`` tokens, cross K/V for
-        ``enc_len`` frames), on the model's device."""
+        ``enc_len`` frames), on ``device`` (default the model's)."""
         cfg = self.cfg
-        dev = self.device
+        dev = self.device if device is None else device
         kvh, hd = cfg.n_kv_heads, cfg.head_dim
         se = enc_len or enc_len_for(max_len)
         lkv = (cfg.n_layers, batch, max_len, kvh, hd)
@@ -162,17 +206,9 @@ class EncDec(SpecModule):
         """tokens: (B, 1) -> (logits (B, 1, V), cache), written in place."""
         cfg = self.cfg
         x = L.embed(self.embed, tokens).to(L.compute_dtype(cfg))
-        pos = cache["pos"]
         for i, lp in enumerate(self.decoder):
-            h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            attn, _, _ = L.decode_attention(lp["attn"], h, cache["k"][i], cache["v"][i], pos,
-                                            cfg)
-            x = x + attn
-            h = L.rmsnorm(lp["ln_x"], x, cfg.norm_eps)
-            x = x + _cross_attend(lp["cross"], h, cache["cross_k"][i], cache["cross_v"][i])
-            h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp(lp["mlp"], h, cfg.mlp_act)
+            (x,) = cross_decoder_layer(ONE, [lp], [x], None, None, cfg, caches=[cache], i=i)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = L.unembed(self.unembed, x)
-        pos.add_(1)
+        cache["pos"].add_(1)
         return logits, cache

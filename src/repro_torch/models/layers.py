@@ -183,13 +183,15 @@ def select_kv(t, kv_select):
     return t if kv_select is None else t[:, :, kv_select]
 
 
-def self_attention(params, x, positions, cfg, *, window=0, block_k=512, kv_select=None):
-    """Full training-mode self-attention (causal).  ``kv_select`` picks the
-    kv heads of the query heads in ``params`` (:func:`select_kv`), where a
-    ``model`` slot holds a block of the query heads and every kv head."""
+def self_attention(params, x, positions, cfg, *, window=0, block_k=512, kv_select=None,
+                   causal=True):
+    """Full training-mode self-attention (causal unless an encoder's).
+    ``kv_select`` picks the kv heads of the query heads in ``params``
+    (:func:`select_kv`), where a ``model`` slot holds a block of the query
+    heads and every kv head."""
     q, kv = attention_qkv(params, x, positions, cfg)
     o = blockwise_attention(q, select_kv(kv.k, kv_select), select_kv(kv.v, kv_select),
-                            causal=True, window=window, block_k=block_k)
+                            causal=causal, window=window, block_k=block_k)
     return attention_out(params, o, x.dtype)
 
 

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.params import P, SpecModule, stack_spec
+from repro_torch.models.transformer import ONE, WHOLE, block, stretch
 from repro_torch.parallel.sharding import Ax, constrain
 
 HEAD_SIZE = 64
@@ -72,8 +73,21 @@ def _lerp(x, xprev, mu):
     return x + (xprev - x) * torch.sigmoid(mu).to(x.dtype)
 
 
-def _time_mix_project(p, x, xprev, cfg):
-    nh = cfg.d_model // HEAD_SIZE
+def _shift(x):
+    """(B, S, d) -> previous-token tensor (zero for t=0)."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _prev(h, prev):
+    """The previous token's normed input: the shift of ``h``, or a decode
+    step's cached one."""
+    return _shift(h) if prev is None else prev.to(h.dtype)
+
+
+def _time_mix_project(p, x, xprev):
+    """r, k, v, g and the decay of the heads of ``p`` (a ``model`` slot's
+    block: ``wr`` ... ``ww`` by columns, ``w0`` by ``heads``)."""
+    nh = p["wr"].shape[-1] // HEAD_SIZE
     mu = p["mu"]
     xr, xk, xv, xw, xg = (_lerp(x, xprev, mu[i]) for i in range(5))
     shp = (*x.shape[:-1], nh, HEAD_SIZE)
@@ -85,50 +99,102 @@ def _time_mix_project(p, x, xprev, cfg):
     return r, k, v, g, logw
 
 
-def _time_mix_out(p, wkv, g, cfg, x_dtype):
-    """Per-head group norm, gate, output projection."""
+def _time_mix_out(p, wkv, g, x_dtype):
+    """Per-head group norm, gate, output projection (``wo``'s rows of the
+    heads: a slot's partial)."""
     y = wkv.float()
     var = torch.mean(y * y, dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + 1e-5)
-    y = y.reshape(*y.shape[:-2], cfg.d_model) * p["ln_x"].float()
+    y = y.reshape(*y.shape[:-2], -1) * p["ln_x"].float()
     y = y.to(x_dtype) * g.to(x_dtype)
     return y @ p["wo"].to(x_dtype)
 
 
-def _channel_mix(p, x, xprev, cfg):
-    xk = _lerp(x, xprev, p["mu"][0])
-    xr = _lerp(x, xprev, p["mu"][1])
-    k = torch.square(F.relu(xk @ p["wk"].to(x.dtype)))
-    kv = k @ p["wv"].to(x.dtype)
-    r = torch.sigmoid(xr @ p["wr"].to(x.dtype))
-    return r.to(x.dtype) * kv
+def _time_mix(p, h, chunk):
+    """The full-sequence time mix of the heads of ``p``."""
+    r, k, v, g, logw = _time_mix_project(p, h, _shift(h))
+    wkv, _ = S.chunked_decay_attention(r, k, v, logw, u=p["u"], chunk=chunk, inclusive=False)
+    return _time_mix_out(p, wkv, g, h.dtype)
 
 
-def _shift(x):
-    """(B, S, d) -> previous-token tensor (zero for t=0)."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _time_mix_step(p, h, prev, state):
+    """One token's time mix, h (B, d): (out, the heads' new state)."""
+    r, k, v, g, logw = _time_mix_project(p, h, prev.to(h.dtype))
+    wkv, state = S.decay_attention_step(r, k, v, logw, p["u"], state)
+    return _time_mix_out(p, wkv, g, h.dtype), state
+
+
+def _cm_gate(p, h, prev=None):
+    """The channel mix's receptance, ``wr`` whole: from the replicated
+    input, outside any block of work."""
+    return torch.sigmoid(_lerp(h, _prev(h, prev), p["mu"][1]) @ p["wr"].to(h.dtype))
+
+
+def _cm_value(p, h, prev=None):
+    """The channel mix's squared-ReLU FFN over ``p``'s ``mlp`` block (a
+    slot's partial)."""
+    k = torch.square(F.relu(_lerp(h, _prev(h, prev), p["mu"][0]) @ p["wk"].to(h.dtype)))
+    return k @ p["wv"].to(h.dtype)
+
+
+def _channel_mix(group, lps, hs, prevs, split, run):
+    """The channel mix over ``group``: the gate whole on every slot, the
+    FFN a block of work where ``split.ffn``."""
+    r = group.each(lambda lp, h, pv: run(_cm_gate, lp["cm"], h, pv), lps, hs, prevs)
+    kv = block(group, split.ffn, lambda lp, h, pv: run(_cm_value, lp["cm"], h, pv),
+               lps, hs, prevs)
+    return group.each(lambda a, b: a.to(b.dtype) * b, r, kv)
+
+
+def layer(group, lps, xs, cfg, split=WHOLE, chunk=64):
+    """One full-sequence layer over ``group`` (``lps``, ``xs`` one entry a
+    slot): the time mix, a block of work over ``heads`` where ``split.
+    heads`` (each slot's heads whole: its group norm and decay state are
+    its own), then the channel mix."""
+    run = stretch(group, cfg)
+    hs = group.each(lambda lp, x: run(L.rmsnorm, lp["ln1"], x, cfg.norm_eps), lps, xs)
+    tm = block(group, split.heads, lambda lp, h: run(_time_mix, lp["tm"], h, chunk), lps, hs)
+    xs = group.each(lambda x, t: x + t, xs, tm)
+    hs = group.each(lambda lp, x: run(L.rmsnorm, lp["ln2"], x, cfg.norm_eps), lps, xs)
+    cm = _channel_mix(group, lps, hs, [None] * group.size, split, run)
+    return group.each(lambda x, c: constrain(x + c, "batch", "seq", "embed_act"), xs, cm)
+
+
+def decode_layer(group, lps, xs, caches, i, cfg, split=WHOLE):
+    """Layer ``i`` of a decode step over ``group``, xs (B, d) one a slot:
+    ``caches`` one a slot (the shifts whole, ``state`` the slot's heads),
+    layer ``i`` written in place; each layer's normed inputs become the
+    next step's shifts."""
+    hs = group.each(lambda lp, x: L.rmsnorm(lp["ln1"], x, cfg.norm_eps), lps, xs)
+    hh = group.handout(hs) if split.heads else hs
+    res = group.each(lambda lp, h, c: _time_mix_step(lp["tm"], h, c["tm_shift"][i],
+                                                     c["state"][i]), lps, hh, caches)
+    tm = [r[0] for r in res]
+    xs = group.each(lambda x, t: x + t, xs, group.reduce(tm) if split.heads else tm)
+    hs2 = group.each(lambda lp, x: L.rmsnorm(lp["ln2"], x, cfg.norm_eps), lps, xs)
+    cm = _channel_mix(group, lps, hs2, [c["cm_shift"][i] for c in caches], split,
+                      stretch(group, cfg))
+    xs = group.each(lambda x, c: x + c, xs, cm)
+    for c, h, h2, r in zip(caches, hs, hs2, res):
+        c["tm_shift"][i].copy_(h)
+        c["cm_shift"][i].copy_(h2)
+        c["state"][i].copy_(r[1])
+    return xs
 
 
 def _layer(lp, x, cfg, ssm_chunk):
-    """One full-sequence layer: time-mix, then channel-mix."""
-    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    r, k, v, g, logw = _time_mix_project(lp["tm"], h, _shift(h), cfg)
-    wkv, _ = S.chunked_decay_attention(r, k, v, logw, u=lp["tm"]["u"], chunk=ssm_chunk,
-                                       inclusive=False)
-    x = x + _time_mix_out(lp["tm"], wkv, g, cfg, x.dtype)
-    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    x = x + _channel_mix(lp["cm"], h, _shift(h), cfg)
-    return constrain(x, "batch", "seq", "embed_act")
+    """One full-sequence layer of a model that is not laid out."""
+    return layer(ONE, [lp], [x], cfg, chunk=ssm_chunk)[0]
 
 
 class RWKV6(SpecModule):
     """Parameters: ``embed``, ``layers``, ``final_norm``, ``unembed``; see
     :class:`SpecModule` for ``device``, ``dtype`` and ``generator``."""
 
-    def __init__(self, cfg, device=None, dtype=torch.float32, generator=None):
+    def __init__(self, cfg, device=None, dtype=torch.float32, generator=None, block=None):
         if cfg.d_model % HEAD_SIZE:
             raise ValueError(f"d_model {cfg.d_model} is not a multiple of {HEAD_SIZE}")
-        super().__init__(cfg, device, dtype, generator)
+        super().__init__(cfg, device, dtype, generator, block)
 
     build_spec = staticmethod(rwkv6_spec)
 
@@ -148,11 +214,11 @@ class RWKV6(SpecModule):
         logits = L.unembed(self.unembed, x)
         return constrain(logits, "batch", "seq", "vocab"), 0.0
 
-    def init_cache(self, batch, max_len, dtype=torch.bfloat16):
+    def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
         """Zeroed decode state for ``batch`` rows (``max_len`` does not size
-        it), on the model's device."""
+        it), on ``device`` (default the model's)."""
         cfg = self.cfg
-        dev = self.device
+        dev = self.device if device is None else device
         nh = cfg.d_model // HEAD_SIZE
         lshape = (cfg.n_layers, batch)
         return {
@@ -177,16 +243,7 @@ class RWKV6(SpecModule):
         cfg = self.cfg
         x = L.embed(self.embed, tokens).to(L.compute_dtype(cfg))[:, 0]  # (B, d)
         for i, lp in enumerate(self.layers):
-            tm_s, cm_s, st = cache["tm_shift"][i], cache["cm_shift"][i], cache["state"][i]
-            h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            r, k, v, g, logw = _time_mix_project(lp["tm"], h, tm_s.to(h.dtype), cfg)
-            wkv, st2 = S.decay_attention_step(r, k, v, logw, lp["tm"]["u"], st)
-            x = x + _time_mix_out(lp["tm"], wkv, g, cfg, x.dtype)
-            h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + _channel_mix(lp["cm"], h2, cm_s.to(h2.dtype), cfg)
-            tm_s.copy_(h)
-            cm_s.copy_(h2)
-            st.copy_(st2)
+            (x,) = decode_layer(ONE, [lp], [x], [cache], i, cfg)
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = L.unembed(self.unembed, x[:, None])
         cache["pos"].add_(1)

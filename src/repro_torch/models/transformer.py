@@ -14,11 +14,14 @@ global layers keep full caches.
 
 Caches are preallocated tensors that ``decode_step`` writes in place.
 
-A dense, moe or vlm layer is one body over a ``parallel.sharding.
-ModelGroup`` (:func:`decoder_layer`, :func:`decode_layer`): the Decoder
-runs it over a group of one slot (:data:`ONE`, whose operators are
-identities), and ``models/tensor_parallel.DecoderGroup`` over a data row's
-``model`` slots, each holding its blocks of the weights.
+A layer is one body over a ``parallel.sharding.ModelGroup``
+(:func:`decoder_layer`, :func:`decode_layer`; an encoder-decoder's
+encoder layers too): the Decoder runs it over a group of one slot
+(:data:`ONE`, whose operators are identities), and ``models/
+tensor_parallel.DecoderGroup`` over a data row's ``model`` slots, each
+holding its blocks of the weights.  Over several slots the SSD branch's
+``d_inner`` columns may split a head (:class:`SSDSel`); its RMS norm over
+the whole ``d_inner`` then adds each slot's sum of squares.
 """
 from __future__ import annotations
 
@@ -56,44 +59,95 @@ def ssd_spec(cfg):
     }
 
 
-def _ssd_project(params, x, cfg):
-    di = cfg.ssm_expand * cfg.d_model
-    nh = di // cfg.head_dim
+class SSDSel(NamedTuple):
+    """What a ``model`` slot computes of the SSD branch: the heads of its
+    ``wb``/``wc``/``wdt`` block that its columns of ``d_inner`` fall in
+    (``None``: every head of the block), and ``pad``, the columns of those
+    heads before and after its own.  A v-column's recurrence reads only its
+    head's b, c and decay (the state is (n, head_dim) a head), so a slot
+    whose columns split a head runs the heads they touch with the other
+    columns zero, and keeps its own."""
+
+    heads: slice | None = None
+    pad: tuple = (0, 0)
+
+
+WHOLE_SSD = SSDSel()
+
+
+def _ssd_project(params, x, cfg, sel=WHOLE_SSD):
+    hd = cfg.head_dim
     xv = x @ params["wx"].to(x.dtype)
     z = x @ params["wz"].to(x.dtype)
-    bts = torch.einsum("bsd,dhn->bshn", x, params["wb"].to(x.dtype))
-    cts = torch.einsum("bsd,dhn->bshn", x, params["wc"].to(x.dtype))
-    dt = x @ params["wdt"].to(x.dtype)
-    logw = -F.softplus(dt.float() + params["dt0"].float())
-    v = xv.reshape(*xv.shape[:-1], nh, cfg.head_dim)
+    heads = slice(None) if sel.heads is None else sel.heads
+    wb, wc = params["wb"][:, heads], params["wc"][:, heads]
+    bts = torch.einsum("bsd,dhn->bshn", x, wb.to(x.dtype))
+    cts = torch.einsum("bsd,dhn->bshn", x, wc.to(x.dtype))
+    dt = x @ params["wdt"][:, heads].to(x.dtype)
+    logw = -F.softplus(dt.float() + params["dt0"][heads].float())
+    if sel.pad != (0, 0):
+        xv = F.pad(xv, sel.pad)
+    v = xv.reshape(*xv.shape[:-1], xv.shape[-1] // hd, hd)
     return v, z, bts, cts, logw
 
 
-def _ssd_out(params, y, z, cfg, x_dtype):
-    di = cfg.ssm_expand * cfg.d_model
-    y = y.reshape(*y.shape[:-2], di)
-    yn = y.float()
-    yn = yn * torch.rsqrt(torch.mean(yn * yn, dim=-1, keepdim=True) + 1e-5)
+def _ssd_columns(y, sel):
+    """The scan's output (..., heads, head_dim) as the slot's columns."""
+    y = y.reshape(*y.shape[:-2], -1)
+    lo, hi = sel.pad
+    return y[..., lo:y.shape[-1] - hi] if lo or hi else y
+
+
+def ssd_scan(params, x, cfg, sel=WHOLE_SSD, chunk=64):
+    """Full-sequence SSD recurrence of a slot's columns: (y (B, S, cols)
+    float32, z, final state)."""
+    v, z, bts, cts, logw = _ssd_project(params, x, cfg, sel)
+    out, state = S.chunked_decay_attention(cts, bts, v, logw[..., None], u=None,
+                                           chunk=chunk, inclusive=True)
+    return _ssd_columns(out, sel), z, state
+
+
+def ssd_scan_step(params, x, cfg, state, sel=WHOLE_SSD):
+    """Single-token decode of a slot's columns, x (B, 1, d): (y (B, 1,
+    cols), z, new state)."""
+    v, z, bts, cts, logw = _ssd_project(params, x, cfg, sel)
+    out, state = S.decay_attention_step(
+        cts[:, 0], bts[:, 0], v[:, 0],
+        torch.broadcast_to(logw[:, 0, :, None], bts[:, 0].shape), None, state)
+    return _ssd_columns(out[:, None], sel), z, state
+
+
+def ssd_finish(params, y, ms, z, x_dtype):
+    """The RMS norm of ``y`` by its mean square ``ms`` over the whole
+    ``d_inner``, the gate, the output projection (a slot's partial)."""
+    yn = y.float() * torch.rsqrt(ms + 1e-5)
     y = (yn * params["norm"].float()).to(x_dtype)
     y = y * F.silu(z).to(x_dtype)
     return y @ params["wo"].to(x_dtype)
 
 
-def ssd_apply(params, x, cfg, state0=None, chunk=64):
-    """Full-sequence SSD branch.  Returns (out, final_state)."""
-    v, z, bts, cts, logw = _ssd_project(params, x, cfg)
-    out, state = S.chunked_decay_attention(cts, bts, v, logw[..., None], u=None,
-                                           state0=state0, chunk=chunk, inclusive=True)
-    return _ssd_out(params, out, z, cfg, x.dtype), state
-
-
-def ssd_step(params, x, cfg, state):
-    """Single-token decode.  x: (B,1,d)."""
-    v, z, bts, cts, logw = _ssd_project(params, x, cfg)
-    out, state = S.decay_attention_step(
-        cts[:, 0], bts[:, 0], v[:, 0],
-        torch.broadcast_to(logw[:, 0, :, None], bts[:, 0].shape), None, state)
-    return _ssd_out(params, out[:, None], z, cfg, x.dtype), state
+def _ssd(group, lps, hs, cfg, split, sels, scan, states):
+    """The SSD branch over ``group`` (``scan(params, h, sel, state)`` a
+    slot's recurrence); where ``split`` its columns are a block of work:
+    the input handed out, each slot's sum of squares reduced (and handed
+    back out, so each slot's share of the norm's gradient reaches every
+    slot), the partials reduced.  Returns (outputs, states), one a slot."""
+    run = stretch(group, cfg)
+    if split:
+        hs = group.handout(hs)
+    scanned = group.each(lambda lp, h, sel, st: run(scan, lp["ssd"], h, sel, st),
+                         lps, hs, sels, states)
+    ys = [s[0] for s in scanned]
+    if split:
+        di = cfg.ssm_expand * cfg.d_model
+        ss = group.handout(group.reduce(
+            group.each(lambda y: torch.sum(y * y, dim=-1, keepdim=True), ys)))
+        ms = group.each(lambda s: s / di, ss)
+    else:
+        ms = group.each(lambda y: torch.mean(y * y, dim=-1, keepdim=True), ys)
+    out = group.each(lambda lp, y, m, s, h: run(ssd_finish, lp["ssd"], y, m, s[1], h.dtype),
+                     lps, ys, ms, scanned, hs)
+    return (group.reduce(out) if split else out), [s[2] for s in scanned]
 
 
 # --------------------------------------------------------------------------
@@ -129,18 +183,20 @@ def decoder_spec(cfg):
 
 class Split(NamedTuple):
     """Which blocks of work a model group splits over its slots (the query
-    heads, the MLP's or experts' ``mlp`` dimension); ``tensor_parallel.
-    Layout`` answers for a laid-out model."""
+    heads, the MLP's or experts' ``mlp`` dimension, the hybrid SSD
+    branch's ``mlp`` columns); ``tensor_parallel.Layout`` answers for a
+    laid-out model."""
 
     heads: bool = False
     ffn: bool = False
+    ssd: bool = False
 
 
 WHOLE = Split()
 ONE = ModelGroup()  # one slot of a model that is not laid out
 
 
-def _stretch(group, cfg):
+def stretch(group, cfg):
     """How the body runs a stretch of one slot's work between two of the
     group's operators: over a mesh's slots each stretch under ``cfg.remat``
     on its own (its backward recomputes it on its own card's autograd
@@ -152,8 +208,19 @@ def _stretch(group, cfg):
     return lambda fn, *args: L.remat(cfg, fn, *args)
 
 
-def _attend(ap, h, pos, cfg, window, sel):
-    return L.self_attention(ap, h, pos, cfg, window=window, kv_select=sel)
+def block(group, split, fn, lps, hs, *rest):
+    """``fn(lp, h, *rest)`` on each slot of ``group``: where ``split`` a
+    block of work (the replicated input ``hs`` handed out, the slots'
+    partials reduced), else whole on every slot.  ``rest`` holds further
+    lists, one entry a slot."""
+    if split:
+        hs = group.handout(hs)
+    out = group.each(fn, lps, hs, *rest)
+    return group.reduce(out) if split else out
+
+
+def _attend(ap, h, pos, cfg, window, sel, causal=True):
+    return L.self_attention(ap, h, pos, cfg, window=window, kv_select=sel, causal=causal)
 
 
 def _ffn(group, lps, hs, cfg, split=WHOLE):
@@ -161,13 +228,10 @@ def _ffn(group, lps, hs, cfg, split=WHOLE):
     Where ``split.ffn`` the normed input is handed out and the slots'
     partials reduced; an MoE layer routes on every slot (the same router
     and groups on each, so the slots dispatch the same tokens)."""
-    run = _stretch(group, cfg)
+    run = stretch(group, cfg)
     if not cfg.n_experts:
-        mps = [lp["mlp"] for lp in lps]
-        if split.ffn:
-            hs = group.handout(hs)
-        out = group.each(lambda mp, h: run(L.mlp, mp, h, cfg.mlp_act), mps, hs)
-        return (group.reduce(out) if split.ffn else out), 0.0
+        return block(group, split.ffn, lambda lp, h: run(L.mlp, lp["mlp"], h, cfg.mlp_act),
+                     lps, hs), 0.0
     mps = [lp["moe"] for lp in lps]
     routed = group.each(lambda mp, h: run(M.moe_route, mp, h, cfg), mps, hs)
     aux = group.first([r.aux * cfg.router_aux_loss for r in routed])
@@ -181,60 +245,91 @@ def _ffn(group, lps, hs, cfg, split=WHOLE):
     return group.each(lambda o, r: M.moe_ungroup(o, r.tokens), out, routed), aux
 
 
-def decoder_layer(group, lps, xs, positions, cfg, window, split=WHOLE, kv_sel=(None,)):
-    """One dense, moe or vlm layer over ``group``: ``lps``, ``xs`` and
-    ``positions`` hold one entry a slot, ``kv_sel`` each slot's
-    ``layers.select_kv``.  Each block's partials are reduced before the
-    residual add.  Returns (the outputs, one a slot; aux)."""
-    run = _stretch(group, cfg)
+def _residual(group, xs, adds):
+    return group.each(lambda x, a: constrain(x + a, "batch", "seq", "embed_act"), xs, adds)
+
+
+def _hybrid(group, attn, ssd):
+    """The hybrid layer's two branches averaged."""
+    return group.each(lambda a, s: (a + s) * 0.5, attn, ssd)
+
+
+def decoder_layer(group, lps, xs, positions, cfg, window, split=WHOLE, kv_sel=(None,),
+                  ssd_sel=(WHOLE_SSD,), causal=True):
+    """One layer over ``group``: ``lps``, ``xs`` and ``positions`` hold one
+    entry a slot, ``kv_sel`` each slot's ``layers.select_kv`` and
+    ``ssd_sel`` its :class:`SSDSel`.  Attention (non-causal for an
+    encoder's layer), in a hybrid layer averaged with the SSD branch on
+    the same normed input, then the MLP or MoE; each block's partials are
+    reduced before the residual add.  Returns (the outputs, one a slot;
+    aux)."""
+    run = stretch(group, cfg)
     hs = group.each(lambda lp, x: run(L.rmsnorm, lp["ln1"], x, cfg.norm_eps), lps, xs)
-    if split.heads:
-        hs = group.handout(hs)
-    attn = group.each(lambda lp, h, pos, sel: run(_attend, lp["attn"], h, pos, cfg, window, sel),
-                      lps, hs, positions, kv_sel)
-    if split.heads:
-        attn = group.reduce(attn)
-    xs = group.each(lambda x, a: constrain(x + a, "batch", "seq", "embed_act"), xs, attn)
+    attn = block(group, split.heads,
+                 lambda lp, h, pos, sel: run(_attend, lp["attn"], h, pos, cfg, window, sel,
+                                             causal), lps, hs, positions, kv_sel)
+    if cfg.family == "hybrid":
+        ssd, _ = _ssd(group, lps, hs, cfg, split.ssd, ssd_sel,
+                      lambda p, h, sel, st: ssd_scan(p, h, cfg, sel), [None] * group.size)
+        attn = _hybrid(group, attn, ssd)
+    xs = _residual(group, xs, attn)
     hs = group.each(lambda lp, x: run(L.rmsnorm, lp["ln2"], x, cfg.norm_eps), lps, xs)
     out, aux = _ffn(group, lps, hs, cfg, split)
-    xs = group.each(lambda x, o: constrain(x + o, "batch", "seq", "embed_act"), xs, out)
-    return xs, aux
+    return _residual(group, xs, out), aux
 
 
-def decode_layer(group, lps, xs, caches, i, cfg, split=WHOLE, kv_sel=(None,)):
-    """Layer ``i`` of a dense, moe or vlm decode step over ``group``:
-    ``caches`` one ``{"k", "v", "pos"}`` a slot, layer ``i`` written in
-    place.  Returns the outputs, one a slot."""
+def _ring_attention(ap, h, lc, pos, cfg, window, sel):
+    """A hybrid layer's single-token attention against its ring-buffer
+    cache ``lc`` (written in place), attending by the stored absolute
+    positions."""
+    q, kv = L.attention_qkv(ap, h, pos[:, None], cfg)
+    slots = lc["k"].shape[1]
+    oh = F.one_hot(pos % slots, slots)  # (B, slots)
+    ohk = oh.to(lc["k"].dtype)[..., None, None]
+    lc["k"].copy_(lc["k"] * (1 - ohk) + ohk * kv.k)
+    lc["v"].copy_(lc["v"] * (1 - ohk) + ohk * kv.v)
+    kpos = lc["kpos"]
+    kpos.copy_(torch.where(oh > 0, pos[:, None], kpos))
+    valid = (kpos >= 0) & (kpos <= pos[:, None])
+    if window:
+        valid = valid & (kpos > pos[:, None] - window)
+    o = L.cached_attention(q, L.select_kv(lc["k"], sel), L.select_kv(lc["v"], sel), valid, cfg)
+    return L.attention_out(ap, o, h.dtype)
+
+
+def decode_layer(group, lps, xs, caches, i, cfg, window, split=WHOLE, kv_sel=(None,),
+                 ssd_sel=(WHOLE_SSD,)):
+    """Layer ``i`` of a decode step over ``group``: ``caches`` one cache a
+    slot (``{"k", "v", "pos"}``; a hybrid's ``{"layers", "pos"}``, each
+    layer's ring buffer and SSD state), layer ``i`` written in place.
+    Returns the outputs, one a slot."""
     hs = group.each(lambda lp, x: L.rmsnorm(lp["ln1"], x, cfg.norm_eps), lps, xs)
-    if split.heads:
-        hs = group.handout(hs)
-    attn = group.each(
-        lambda lp, h, c, sel: L.decode_attention(
-            lp["attn"], h, c["k"][i], c["v"][i], c["pos"], cfg, window=cfg.attn_window,
-            kv_select=sel)[0], lps, hs, caches, kv_sel)
-    if split.heads:
-        attn = group.reduce(attn)
+    if cfg.family == "hybrid":
+        layer = [c["layers"][i] for c in caches]
+        attn = block(group, split.heads,
+                     lambda lp, h, lc, c, sel: _ring_attention(lp["attn"], h, lc, c["pos"], cfg,
+                                                               window, sel),
+                     lps, hs, layer, caches, kv_sel)
+        ssd, states = _ssd(group, lps, hs, cfg, split.ssd, ssd_sel,
+                           lambda p, h, sel, st: ssd_scan_step(p, h, cfg, st, sel),
+                           [lc["state"] for lc in layer])
+        for lc, st in zip(layer, states):
+            lc["state"].copy_(st)
+        attn = _hybrid(group, attn, ssd)
+    else:
+        attn = block(group, split.heads,
+                     lambda lp, h, c, sel: L.decode_attention(
+                         lp["attn"], h, c["k"][i], c["v"][i], c["pos"], cfg, window=window,
+                         kv_select=sel)[0], lps, hs, caches, kv_sel)
     xs = group.each(lambda x, a: x + a, xs, attn)
     hs = group.each(lambda lp, x: L.rmsnorm(lp["ln2"], x, cfg.norm_eps), lps, xs)
     out, _ = _ffn(group, lps, hs, cfg, split)
     return group.each(lambda x, o: x + o, xs, out)
 
 
-def layer_apply(params, x, positions, cfg, window, ssm_chunk=64):
+def layer_apply(params, x, positions, cfg, window):
     """Training/prefill layer.  window: per-layer scalar (0 = full)."""
-    if cfg.family != "hybrid":
-        (x,), aux = decoder_layer(ONE, [params], [x], [positions], cfg, window)
-        return x, aux
-    h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
-    attn = L.self_attention(params["attn"], h, positions, cfg, window=window)
-    ssm_out, _ = ssd_apply(params["ssd"], h, cfg, chunk=ssm_chunk)
-    attn = (attn + ssm_out) * 0.5
-    x = x + attn
-    x = constrain(x, "batch", "seq", "embed_act")
-    h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
-    (out,), aux = _ffn(ONE, [params], [h], cfg)
-    x = x + out
-    x = constrain(x, "batch", "seq", "embed_act")
+    (x,), aux = decoder_layer(ONE, [params], [x], [positions], cfg, window)
     return x, aux
 
 
@@ -283,11 +378,11 @@ class Decoder(SpecModule):
         return logits, aux
 
     # ---- decode ----
-    def init_cache(self, batch, max_len, dtype=torch.bfloat16):
+    def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
         """Zeroed caches for ``batch`` rows of up to ``max_len`` tokens, on
-        the model's device."""
+        ``device`` (default the model's)."""
         cfg = self.cfg
-        dev = self.device
+        dev = self.device if device is None else device
         kvh, hd = cfg.n_kv_heads, cfg.head_dim
         pos = torch.zeros((batch,), dtype=torch.int64, device=dev)
         if cfg.family == "hybrid":
@@ -328,44 +423,14 @@ class Decoder(SpecModule):
         cfg = self.cfg
         x = L.embed(self.embed, tokens).to(L.compute_dtype(cfg))
         x = constrain(x, "batch", "seq", "embed_act")
-        pos = cache["pos"]
-        if cfg.family == "hybrid":
-            for lp, lc, w in zip(self.layers, cache["layers"], self.windows()):
-                x = self._hybrid_step(lp, x, lc, pos, int(w))
-        else:
-            for i, lp in enumerate(self.layers):
-                (x,) = decode_layer(ONE, [lp], [x], [cache], i, cfg)
+        for i, (lp, w) in enumerate(zip(self.layers, self.windows())):
+            (x,) = decode_layer(ONE, [lp], [x], [cache], i, cfg, int(w))
         x = L.rmsnorm(self.final_norm, x, cfg.norm_eps)
         logits = self._unembed(x)
-        pos.add_(1)
+        cache["pos"].add_(1)
         return logits, cache
 
     def _unembed(self, x):
         if self.cfg.tie_embeddings:
             return x @ self.embed["embedding"].to(x.dtype).T
         return L.unembed(self.unembed, x)
-
-    def _hybrid_step(self, lp, x, lc, pos, window):
-        """One hybrid layer, single token, ring-buffer SWA cache."""
-        cfg = self.cfg
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        q, kv = L.attention_qkv(lp["attn"], h, pos[:, None], cfg)
-        slots = lc["k"].shape[1]
-        oh = F.one_hot(pos % slots, slots)  # (B, slots)
-        ohk = oh.to(lc["k"].dtype)[..., None, None]
-        lc["k"].copy_(lc["k"] * (1 - ohk) + ohk * kv.k)
-        lc["v"].copy_(lc["v"] * (1 - ohk) + ohk * kv.v)
-        kpos = lc["kpos"]
-        kpos.copy_(torch.where(oh > 0, pos[:, None], kpos))
-        # attend over the ring buffer by the stored absolute positions
-        valid = (kpos >= 0) & (kpos <= pos[:, None])
-        if window:
-            valid = valid & (kpos > pos[:, None] - window)
-        o = L.cached_attention(q, lc["k"], lc["v"], valid, cfg)
-        attn = L.attention_out(lp["attn"], o, x.dtype)
-        ssm_out, nstate = ssd_step(lp["ssd"], h, cfg, lc["state"])
-        lc["state"].copy_(nstate)
-        x = x + (attn + ssm_out) * 0.5
-        h2 = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        (out,), _ = _ffn(ONE, [lp], [h2], cfg)
-        return x + out

@@ -333,8 +333,7 @@ def constrain(x, *axes):
     raise NotImplementedError(
         f"constrain{tuple(pspec(tuple(axes), mesh=mesh, shape=tuple(x.shape)))} on a mesh of "
         f"{mesh.shape} of a model that is not laid out: lay it out over the mesh with "
-        f"repro_torch.models.tensor_parallel.lay_out(model, mesh) (the dense, moe and vlm "
-        f"families; hybrid, ssm and encdec are ROADMAP.md Queue 1 item 5.3(b)), or run it "
+        f"repro_torch.models.tensor_parallel.lay_out(model, mesh) (every family), or run it "
         f"without a multi-slot mesh")
 
 

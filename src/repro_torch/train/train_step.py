@@ -23,7 +23,7 @@ import torch
 import torch.profiler
 import torch.utils.checkpoint
 
-from repro_torch.models.tensor_parallel import DecoderGroup, Layout, VocabShards
+from repro_torch.models.tensor_parallel import Layout, VocabShards, model_group
 from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import PartitionSpec as P
 from repro_torch.parallel.sharding import ModelGroup, active_mesh, axis_size
@@ -241,15 +241,20 @@ class DataParallelStep:
     the batch under ``parallel.sharding.shard_map_compat``, a host thread a
     row.  With a ``model`` axis of one a row is a replica of the model on
     its slot's device (the first row's is ``model`` itself).  With more, a
-    row is a ``models/tensor_parallel.DecoderGroup``: a shard of the model
-    a slot of the row, driven by the row's thread as one autograd graph
-    (no barrier in its backward), whose whole leaves read inside a block of
-    work have their partial gradients added over the row
-    (``sum_region_grads``).  Each parameter has its reference layout over
-    the whole mesh (``param_shardings`` of the model's spec, a stacked
-    leaf's spec without its layer entry): a slot owns one block of each
-    leaf, within its shard, and its float32 moments are that block's.  A
-    step then
+    row is a ``models/tensor_parallel`` group of shards (any family): a
+    shard of the model a slot of the row, driven by the row's thread as one
+    autograd graph (no barrier in its backward), whose whole leaves read
+    inside a block of work have their partial gradients added over the row
+    (``sum_region_grads``).  A ``pod`` axis is folded into the data rows,
+    outermost (row = pod x n_data + data), as the reference's ``batch ->
+    ('pod', 'data')`` lays out the batch: the step runs on that
+    ``(pod x data, model)`` mesh (``self.mesh``), so its moments' FSDP
+    blocks span the pods too, where the reference's ``embed -> data``
+    replicates them over pods (ROADMAP.md, Queue 3).  Each parameter has
+    its reference layout over the (folded) mesh (``param_shardings`` of
+    the model's spec, a stacked leaf's spec without its layer entry): a
+    slot owns one block of each leaf, within its shard, and its float32
+    moments are that block's.  A step then
 
       * reduces the gradients over ``data``: each slot adds its blocks of
         every row's gradient (the same ``model`` slot's) in row order and
@@ -271,25 +276,21 @@ class DataParallelStep:
     the tokens a row routes at once are a multiple of ``moe_group_size``;
     elsewhere the step raises ``ValueError``.
 
-    The state is an ``OptState`` over the mesh, in the layout of
+    The state is an ``OptState`` over the (folded) mesh, in the layout of
     ``parallel.sharding.NamedSharding.place``: each of its leaves (the step
-    and each parameter's m and v) an object array shaped as the mesh's
+    and each parameter's m and v) an object array shaped as that mesh's
     devices, each entry the slot's shard on its device (:meth:`init_state`
     and :meth:`gather` go through ``state_shardings``).  After the model's
     parameters are set outside a step, :meth:`broadcast` copies them into
     the rows; :meth:`collect` copies the first row's back into the model
-    (a no-op where the first row is the model).  A mesh with another axis
-    larger than one (``pod``), or a ``model`` axis larger than one for a
-    family whose layout is not ported, raises ``NotImplementedError``
-    (ROADMAP.md, Queue 1 item 5.3(b)).
+    (a no-op where the first row is the model).  A mesh with an axis other
+    than ``pod``, ``data`` and ``model`` larger than one raises
+    ``NotImplementedError``: the reference's train step lays nothing else
+    out (GPipe's stages are ``parallel/pipeline.py``'s).
     """
 
     def __init__(self, model, run, mesh, rules=None):
-        wide = {a: n for a, n in mesh.shape.items() if a not in ("data", "model") and n > 1}
-        if wide or "data" not in mesh.shape:
-            raise NotImplementedError(
-                f"training over a mesh of {mesh.shape}: the step runs over the 'data' and "
-                f"'model' axes; a 'pod' axis (GPipe aside) is ROADMAP.md Queue 1 item 5.3(b)")
+        mesh = fold_pods(mesh)
         if model.param_dtype != torch.float32:
             raise ValueError(f"training keeps float32 parameters, not {model.param_dtype}")
         self.model, self.run, self.mesh = model, run, mesh
@@ -302,7 +303,7 @@ class DataParallelStep:
             self._row_mesh = mesh
         else:
             layout = Layout(model.cfg, mesh, rules)
-            self.replicas = [DecoderGroup(model.cfg, layout, at) for at in self.slots]
+            self.replicas = [model_group(model.cfg, layout, at) for at in self.slots]
             row_devices = np.empty(self.n, dtype=object)
             row_devices[:] = [mesh.devices[at] for at in self.slots]
             self._row_mesh = sharding.Mesh(row_devices, ("data",))
@@ -533,6 +534,27 @@ class DataParallelStep:
                     acc = acc.add_(ops[j][n])
             out[n] = acc.div_(n_active) if n_active > 1 else acc
         return out
+
+
+def fold_pods(mesh):
+    """``mesh`` as the train step's ``('data', 'model')`` mesh: a ``pod``
+    axis folded into ``data``, outermost (row = pod x n_data + data); a
+    mesh without one as it is.  Raises ``NotImplementedError`` for any
+    other axis larger than one, and for a mesh without ``data``."""
+    wide = {a: n for a, n in mesh.shape.items()
+            if a not in ("pod", "data", "model") and n > 1}
+    if wide or "data" not in mesh.shape:
+        raise NotImplementedError(
+            f"training over a mesh of {mesh.shape}: the step runs over the 'pod', 'data' and "
+            f"'model' axes, as the reference's lays the batch over ('pod', 'data') and the "
+            f"weights over 'model'; GPipe's stages are parallel/pipeline.py's")
+    if "pod" not in mesh.shape:
+        return mesh
+    order = [mesh.axis_names.index(a) for a in ("pod", "data", "model") if a in mesh.shape]
+    rest = [i for i in range(len(mesh.axis_names)) if i not in order]  # each of size 1
+    rows = mesh.shape["pod"] * mesh.shape["data"]
+    devices = mesh.devices.transpose(order + rest).reshape(rows, mesh.shape.get("model", 1))
+    return sharding.Mesh(devices, ("data", "model"))
 
 
 def _join(devs):

@@ -5,10 +5,11 @@ train step (``train_step.make_train_step``), async atomic checkpointing
 with auto-resume (``runtime/checkpoint``), preemption (a SIGTERM writes a
 checkpoint and stops), straggler logging and JSONL metrics.  The model
 holds its parameters, on its own device.  Given a mesh of several slots,
-it trains over the mesh's ``data`` and ``model`` axes
+it trains over the mesh's ``pod``, ``data`` and ``model`` axes
 (``train_step.DataParallelStep``: a replica a data row, or over a
-``model`` axis larger than one a group of the model's shards a row, the
-moments laid out by the reference's parameter shardings); the
+``model`` axis larger than one a group of the model's shards a row, a
+``pod`` axis folded into the rows, the moments laid out by the
+reference's parameter shardings over the step's mesh); the
 checkpoint is the gathered tree all the same, and the model's own
 parameters are brought up to date at each checkpoint and at the end.  A
 resume over a mesh places the restored tree by
@@ -77,12 +78,13 @@ class Trainer:
     """Trains ``model`` (a port model, float32 parameters on its device) on
     the batches of ``data_iter`` (dicts of tensors on that device), writing
     ``metrics.jsonl`` and checkpoints under ``workdir``.  ``mesh`` may be
-    ``None``, a mesh of one slot, or a ``(data, model)`` mesh whose first
-    slot is the model's device (``rules`` over the reference's lay the
-    parameters and moments out); a ``model`` axis larger than one lays a
-    model of the dense, moe and vlm families out over it, and raises
-    ``NotImplementedError`` for the others and for a ``pod`` axis
-    (ROADMAP.md, Queue 1 item 5.3(b))."""
+    ``None``, a mesh of one slot, or a ``(data, model)`` or ``(pod, data,
+    model)`` mesh whose first slot is the model's device (``rules`` over
+    the reference's lay the parameters and moments out); a ``model`` axis
+    larger than one lays the model out over it (any family).  Over a mesh,
+    ``self.mesh`` is the train step's (``DataParallelStep.mesh``: a
+    ``pod`` axis folded into ``data``), over which a checkpoint is
+    placed."""
 
     def __init__(self, model, run: RunConfig, data_iter, workdir, mesh=None, rules=None):
         if (mesh is not None and math.prod(mesh.shape.values()) > 1
@@ -101,6 +103,8 @@ class Trainer:
         self.metrics_path = self.workdir / "metrics.jsonl"
         self.step_fn = make_train_step(model, run, mesh, rules)
         self.sharded = isinstance(self.step_fn, DataParallelStep)
+        if self.sharded:
+            self.mesh = self.step_fn.mesh
 
     # -- state --------------------------------------------------------------
     def init_state(self, seed=0):

@@ -30,8 +30,8 @@ subprocess is needed.  Held, for qwen3-1.7b, deepseek-moe-16b (groups of
   no-mesh port ``Trainer``, in the reference's ``Trainer`` and over
   ``(1, 2)``, then trained on to step 6; ``elastic_remesh`` from
   ``(2, 2)`` onto ``(1, 2)``; the launcher's ``--model-parallel``;
-* rwkv6, hymba and seamless under a ``model`` axis raise naming ROADMAP
-  item 5.3(b); ``examples/serve_lm_torch.py`` runs laid out on the CPU.
+* ``examples/serve_lm_torch.py`` runs laid out on the CPU (the hybrid,
+  ssm and encoder-decoder families: ``tests/test_torch_tp_families.py``).
 """
 import functools
 import os
@@ -62,7 +62,7 @@ from repro_torch.models.convert import (  # noqa: E402
     params_from_reference,
     params_to_reference,
 )
-from repro_torch.models.tensor_parallel import LaidOutModel, lay_out  # noqa: E402
+from repro_torch.models.tensor_parallel import lay_out  # noqa: E402
 from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.runtime.fault_tolerance import elastic_remesh  # noqa: E402
@@ -217,8 +217,8 @@ def test_layout_of_the_reduced_configs():
     uneven = registry.get_model(cfg.reduced(n_heads=12, n_kv_heads=6, head_dim=8), device="cpu")
     with pytest.raises(NotImplementedError, match="unevenly"):  # slot 0 reads kv heads 0, 0, 1
         lay_out(uneven, _mesh((1, 4)))
-    assert set(lo.layout.region_whole) == {("attn", "wk"), ("attn", "wv"), ("attn", "q_norm"),
-                                           ("attn", "k_norm")}
+    assert {path for _, path, _ in lo.layout.region} == {
+        ("attn", "wk"), ("attn", "wv"), ("attn", "q_norm"), ("attn", "k_norm")}
     shard = lo.groups[0].slots[3]
     assert tuple(shard.layers[0]["attn"]["wq"].shape) == (64, 1, 16)
     assert tuple(shard.layers[0]["attn"]["wk"].shape) == (64, 2, 16)
@@ -492,23 +492,7 @@ def test_launcher_trains_over_a_model_axis_on_cpu(tmp_path, capsys):
     assert len((tmp_path / "metrics.jsonl").read_text().splitlines()) == 2
 
 
-# ------------------------------------------------------------ refusals --
-
-@pytest.mark.parametrize("name", ["rwkv6-1.6b", "hymba-1.5b", "seamless-m4t-large-v2"])
-def test_other_families_raise_naming_the_next_item(name):
-    model = registry.get_model(registry.get_config(name).reduced(), device="cpu")
-    mesh = _mesh((1, 2))
-    with pytest.raises(NotImplementedError, match=r"5\.3\(b\)"):
-        lay_out(model, mesh)
-    with pytest.raises(NotImplementedError, match=r"5\.3\(b\)"):
-        make_train_step(model, RunConfig(), mesh)
-    with sharding.use_mesh(mesh), torch.no_grad(), \
-            pytest.raises(NotImplementedError, match=r"5\.3\(b\)"):
-        model.forward(torch.zeros((1, 4), dtype=torch.long),
-                      *((torch.zeros((1, 4, model.cfg.d_model)),)
-                        if model.cfg.family == "audio" else ()))
-    assert not isinstance(model, LaidOutModel)
-
+# ------------------------------------------------------------ entry points --
 
 def test_serve_example_runs_laid_out_on_cpu():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

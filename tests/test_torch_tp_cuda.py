@@ -16,7 +16,12 @@ On 4 slots of the first card (a ``(1, 4)`` or ``(2, 2)`` mesh of
 * the step queues its work without a host sync (CUDA sync debug mode
   ``'error'``);
 * with two cards or more, a step over ``make_host_mesh(2)`` (a model
-  group across two cards) against one slot.
+  group across two cards) against one slot;
+* one layout each of the hybrid, ssm and encoder-decoder families
+  (``tests/test_torch_tp_families.py``'s configs) against the same layout
+  on CPU slots: the forward at rtol/atol 1e-4, one train step's loss at
+  1e-4 and grad_norm, m and v at 1e-4 (rwkv6-d256 at 1e-3, float32's own
+  spread there), 8 greedy tokens equal.
 
 Skipped without a CUDA device: the fixtures decide, not the import.  Run on
 the card with ``PYTHONPATH=src python -m pytest -q
@@ -32,6 +37,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.launch.mesh import grid_mesh, make_host_mesh  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
+from repro_torch.models.encdec import enc_len_for  # noqa: E402
 from repro_torch.models.tensor_parallel import lay_out  # noqa: E402
 from repro_torch.serve.serve_step import make_prefill_fn, make_serve_step  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
@@ -174,3 +180,60 @@ def test_tp_prefill_and_greedy_tokens_equal_one_slot(dev):
     (tp_last, tp_toks), (one_last, one_toks) = runs
     np.testing.assert_allclose(tp_last.numpy(), one_last.numpy(), rtol=1e-4, atol=1e-4)
     assert torch.equal(tp_toks, one_toks)
+
+
+FAMILY_CASES = [  # (architecture, reduced() overrides, (data, model), step tolerance)
+    ("hymba-1.5b", {"d_model": 40}, (1, 4), 1e-4),
+    ("rwkv6-1.6b", {"d_model": 256}, (2, 2), 1e-3),
+    ("seamless-m4t-large-v2", {}, (1, 2), 1e-4),
+]
+
+
+def _family_run(cfg, device, shape, batch):
+    """One layout's forward, one train step and 8 greedy tokens after a
+    15-token prompt, on ``device``'s slots."""
+    cpu = {k: v.to(device) for k, v in batch.items()}
+    extra = (cpu["frames"],) if "frames" in cpu else ()
+    model = registry.get_model(cfg, device=device)
+    model.load_state_dict(registry.get_model(cfg, device="cpu").state_dict())  # the CPU's draw
+    lo = lay_out(model, _mesh(device, shape))
+    with torch.no_grad():
+        logits, _ = lo.forward(cpu["tokens"], *extra)
+    kw = {"enc_len": enc_len_for(24)} if extra else {}
+    cache = lo.init_cache(4, 24, dtype=torch.float32, **kw)
+    with torch.inference_mode():
+        if extra:
+            lo.prefill_encoder(cache, extra[0])
+        for t in range(15):
+            lo.decode_step(cache, cpu["tokens"][:, t:t + 1])
+    serve = make_serve_step(lo)
+    nxt, toks = cpu["tokens"][:, 15:16], []
+    for _ in range(8):
+        nxt, _, cache = serve(cache, nxt)
+        toks.append(nxt.cpu())
+    step = make_train_step(model, RunConfig(learning_rate=LR, warmup_steps=1), lo.mesh)
+    state, metrics = _ends(lambda: step(step.init_state(), cpu))
+    return logits.cpu(), torch.cat(toks, 1), step.gather(state, torch.device("cpu")), \
+        {k: float(v) for k, v in metrics.items()}
+
+
+@pytest.mark.parametrize("name,over,shape,tol", FAMILY_CASES)
+def test_family_layout_matches_the_cpu_path(dev, name, over, shape, tol):
+    cfg = registry.get_config(name).reduced(**over)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 24)))}
+    if cfg.n_encoder_layers:
+        batch["frames"] = torch.from_numpy(
+            (0.1 + 0.01 * rng.standard_normal((4, enc_len_for(24), cfg.d_model)))
+            .astype(np.float32))
+    card = _family_run(cfg, dev, shape, batch)
+    host = _family_run(cfg, torch.device("cpu"), shape, batch)
+    np.testing.assert_allclose(card[0].numpy(), host[0].numpy(), rtol=1e-4, atol=1e-4)
+    assert torch.equal(card[1], host[1])
+    np.testing.assert_allclose(card[3]["loss"], host[3]["loss"], rtol=RTOL)
+    np.testing.assert_allclose(card[3]["grad_norm"], host[3]["grad_norm"], rtol=tol)
+    for name_ in host[2].m:
+        for what, a, b in (("m", card[2].m[name_], host[2].m[name_]),
+                           ("v", card[2].v[name_], host[2].v[name_])):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol,
+                                       atol=tol * float(b.abs().max()), err_msg=f"{what} {name_}")

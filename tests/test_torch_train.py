@@ -518,14 +518,15 @@ def test_launcher_trains_and_resumes_on_cpu(tmp_path, capsys):
 def test_trainer_lays_a_model_axis_out(tmp_path):
     """A mesh whose 'model' axis holds more than one slot lays qwen3 out
     over it (tensor parallelism: tests/test_torch_tp.py) and refuses rwkv6
-    (ROADMAP item 5.3(b)).  A data axis of several slots trains
+    ``reduced()``, whose one head of 64 columns two slots would split
+    (tests/test_torch_tp_families.py).  A data axis of several slots trains
     (tests/test_torch_dist.py), and so does one slot."""
     cfg = registry.get_config("qwen3-1.7b").reduced()
     model = registry.get_model(cfg, device="cpu")
     wide = Mesh(np.array(["cpu"] * 2, dtype=object).reshape(1, 2), ("data", "model"))
     assert Trainer(model, RunConfig(), iter(()), tmp_path, mesh=wide).step_fn.n_model == 2
     rwkv = registry.get_model(registry.get_config("rwkv6-1.6b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"5\.3\(b\)"):
+    with pytest.raises(NotImplementedError, match="give each slot 32 columns, splitting a head"):
         Trainer(rwkv, RunConfig(), iter(()), tmp_path, mesh=wide)
     Trainer(model, RunConfig(), iter(()), tmp_path, mesh=Mesh(["cpu"]))  # one slot runs
     Trainer(model, RunConfig(), iter(()), tmp_path, mesh=Mesh(["cpu", "cpu"]))  # data axis
