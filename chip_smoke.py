@@ -343,8 +343,9 @@ Phases:
      has not ended in TP_HANG_S) against one slot on 4 x 65 tokens, as
      phase 15b compares, the data rows equal, a second run's bitwise
      equality printed; (b) qwen3-1.7b at two layers, float32: 8 greedy
-     tokens over (1, 4) == one slot's; at full width and depth, bf16, laid
-     out over (1, 4): the prefill fn on 4 prompts of 256, the prompts by
+     tokens over (1, 4) == one slot's; at full width and TP_SERVE_LAYERS
+     of its 28 layers (full depth over (1, 4) is served by 17b and 18b),
+     bf16, laid out over (1, 4): the prefill fn on 4 prompts of 256, the prompts by
      decode into a 512 cache, 64 greedy steps (finite logits, every token
      below vocab_size, every slot's cache at 320), ms a step and tokens/s
      beside 13c's one slot, each slot's bytes, a traced decode step;
@@ -383,7 +384,32 @@ Phases:
      every token below vocab_size; (c) DataParallelStep of qwen3-1.7b at
      full width and two layers over a (2, 1, 2) ('pod', 'data', 'model')
      mesh of 4 slots == the step over (2, 2) ('data', 'model'), bitwise
-  18. the kernels line (each variant at block 256, as phase 5b); 19. the status line
+  18. (printed as [tp3]) a model laid out over 'model' from its own blocks,
+     with no whole copy on the card, which runs none of the kernels (their
+     launch counts stay 0): (a) internvl2-26b at full width and two
+     layers, float32, TF32 off, laid out over (1, 4) slots of the card
+     from a meta model and seed 0: every slot's blocks == the whole seed-0
+     draw's, the forward on 2 x (1024 prefix embeddings + 64 tokens)
+     bitwise lay_out(whole)'s, both builds' seconds; (b) internvl2-26b at
+     full width and depth, bf16, built from the seed over (1, 4):
+     the bytes requested from the allocator after the build == the
+     slots' blocks (1 MiB; memory_allocated, with the allocator's slack,
+     printed beside), the build's peak within the blocks + the largest
+     float32 draw + 1 GiB;
+     the prefill fn on 2 requests of 1024 patch embeddings + 128 tokens
+     (ms, median of 3), 16 greedy steps into a 1280 cache (ms a step,
+     tokens/s), finite logits, every token below vocab_size; (c) the
+     Trainer of qwen3-1.7b at full width and two layers, float32, over
+     (1, 4) from a meta model: the bytes requested after init_state ==
+     the blocks + the owned moments (1 MiB), today's figure (a whole model
+     laid out and kept) beside it; 2 steps, losses and parameters bitwise
+     today's path's; the checkpoint's peak within the held bytes + one
+     block; resumed over (1, 4) and on one slot, parameters and moments
+     bitwise the saved ones, the third step bitwise the uninterrupted
+     one; (d) with 4 cards or more, nemotron-4-15b at full width and
+     depth, float32, one step over (1, 4) cards from a meta model, each
+     card's max_memory_allocated (printed, not gated)
+  19. the kernels line (each variant at block 256, as phase 5b); 20. the status line
 """
 import collections
 import contextlib
@@ -434,7 +460,13 @@ from repro_torch.launch.train import synthetic_data  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.convert import opt_state_to_reference, params_to_reference  # noqa: E402
 from repro_torch.models.encdec import enc_len_for  # noqa: E402
-from repro_torch.models.registry import get_config, get_model, list_archs  # noqa: E402
+from repro_torch.models.registry import (  # noqa: E402
+    get_config,
+    get_model,
+    list_archs,
+    model_class,
+)
+from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.models.tensor_parallel import lay_out  # noqa: E402
 from repro_torch.parallel.sharding import Mesh, data_parallel_map  # noqa: E402
 from repro_torch.runtime import autotune, costmodel  # noqa: E402
@@ -514,6 +546,7 @@ DIST_ELASTIC = (4, 32, 2, 4)  # 15f: rows, tokens (+1 label), run 1's steps, run
 TP_SHAPES = ((1, 4), (2, 2))  # 16a: (data, model) meshes of 4 slots of the card
 TP_WIDE = (4, 65)  # 16a: rows x tokens at full width, 2 layers, float32
 TP_SERVE = (4, 256, 64, 512)  # 16b: as 13c: requests, prompt tokens, greedy steps, max_len
+TP_SERVE_LAYERS = 7  # 16b: a quarter of qwen3-1.7b's depth; 17b and 18b serve at full depth
 TP_GREEDY = (4, 16, 8)  # 16b: 2 layers, float32: requests, prompt, greedy steps
 TP_DEEP = (4, 257, 8, 4)  # 16c: as 15c: rows x tokens, steps, layers at full width
 TP_MOE = (2, 512)  # 16d: deepseek-moe-16b's batch x tokens, as 13d
@@ -534,6 +567,14 @@ TP2_GREEDY = (4, 16, 8)  # 17a: requests, prompt, greedy steps
 TP2_GRAD_SHARE = 1e-5  # 17a: gradient, m and v within this share of the leaf's largest entry
 TP2_SERVE = (4, 256, 64, 512)  # 17b: hymba-1.5b requests, prompt tokens, greedy steps, max_len
 TP2_POD = ((2, 1, 2), (2, 2))  # 17c: ('pod', 'data', 'model') against ('data', 'model')
+# phase 18: a model laid out over 'model' from its own blocks
+TP3_MODEL = "internvl2-26b"  # 18a at 2 layers, float32; 18b at full depth, bf16
+TP3_FWD = (2, 64)  # 18a: rows x tokens after the 1024 prefix embeddings
+TP3_SERVE = (2, 128, 16, 1280)  # 18b: requests, prompt tokens, greedy steps, max_len
+TP3_TRAIN = (4, 65)  # 18c: rows x tokens, qwen3-1.7b at 2 layers, float32
+TP3_BIG = "nemotron-4-15b"  # 18d, with 4 cards: full width and depth, float32
+TP3_BIG_BATCH = (1, 65)  # 18d: rows x tokens
+MIB, GIB = 1 << 20, 1 << 30
 BF16_PEAK = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet, 700 W)
 # phase 10d's service traffic: clients x requests x cases a request
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_BATCH, SERVE_HUGE_EVERY = 4, 6, 2, 16
@@ -2688,7 +2729,11 @@ def train_phase(smi):
           + f"; kernels by device time: " + ", ".join(
               f"{k[:48]} {us / 1e3:.3f} ms x{n}" for k, us, n in spans["top"]))
     del model, step, state, holder, batch
+    held = torch.cuda.memory_allocated()
+    gc.collect()  # anything 14c left in a reference cycle
     torch.cuda.empty_cache()
+    print(f"[train] 14c held after its names are dropped: {held:,} B, "
+          f"{torch.cuda.memory_allocated():,} B after a collection")
 
     # (d) the Trainer at full width (the launcher runs in phase 15f, over every card)
     t0 = time.perf_counter()
@@ -2709,25 +2754,34 @@ def train_phase(smi):
         trainer = Trainer(model, run, synthetic_data(cfg, rows, seq, device=dev), work / "run")
         timed = {"snapshot": [], "write": []}
         ckpt = trainer.ckpt
-        write, save_async = ckpt._write, ckpt.save_async
+        write, save_async, checkpoint_tree = ckpt._write, ckpt.save_async, \
+            trainer._checkpoint_tree
 
         def timed_write(*a):
             t = time.perf_counter()
             write(*a)
             timed["write"].append(time.perf_counter() - t)
 
-        def timed_save_async(*a, **k):
+        def timed_checkpoint_tree(*a):  # the host copy: the tree assembled on the host ...
+            t = time.perf_counter()
+            out = checkpoint_tree(*a)
+            timed["snapshot"].append(time.perf_counter() - t)
+            return out
+
+        def timed_save_async(*a, **k):  # ... and handed to the writer's thread
             t = time.perf_counter()
             save_async(*a, **k)
             timed["snapshot"].append(time.perf_counter() - t)
 
         ckpt._write, ckpt.save_async = timed_write, timed_save_async
+        trainer._checkpoint_tree = timed_checkpoint_tree
         _, state, last = trainer.train(steps=first)
         run1_s = time.perf_counter() - t1
         check(ckpt.latest_step() == first and np.isfinite(last["loss"]),
               f"[train] 14d run 1: latest {ckpt.latest_step()}, last {last}")
         saved = (params_to_reference(model), opt_state_to_reference(model, state))
         del trainer, model, state, ckpt
+        gc.collect()  # the timing wrappers tie the trainer into a cycle
         torch.cuda.empty_cache()
 
         t1 = time.perf_counter()
@@ -2976,6 +3030,11 @@ def dist_phase(smi):
     dev = torch.device("cuda")
     check(not torch.backends.cuda.matmul.allow_tf32, "[dist] TF32 must be off")
     zero_counts()
+    held = torch.cuda.memory_allocated()
+    gc.collect()  # what earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    print(f"[dist] held at the phase's start: {held:,} B, {torch.cuda.memory_allocated():,} B "
+          f"after a collection")
     mesh = card_slots(MESH_SLOTS)
 
     # (a) the dry run
@@ -3334,9 +3393,9 @@ def tp_phase(smi):
         t1 = time.perf_counter()
         st, met = ends(lambda: step(step.init_state(), batch), TP_HANG_S, f"[tp] 16a {shape}")
         met = {k: float(v) for k, v in met.items()}
-        cs = (step.gather(st), met, time.perf_counter() - t1)
+        cs = (step.gather(st, dev), met, time.perf_counter() - t1)
         grads = tp_mean_grads(step, mod)
-        step.collect()
+        mod = step.collect(dev)  # the first row's blocks gathered, for the comparison
         for name, p in mod.named_parameters():
             p.grad = grads[name]
         del p  # a loop variable left bound keeps its tensors alive through 16b and 16c
@@ -3346,13 +3405,11 @@ def tp_phase(smi):
               f"[tp] 16a {shape}: the data rows' parameters differ after the step")
         first = [t.detach().clone() for t in mod.parameters()] + \
             [cs[0].m[n].clone() for n in cs[0].m] + [cs[0].v[n].clone() for n in cs[0].v]
-        del cs, grads
-        with torch.no_grad():
-            mod.load_state_dict(get_model(cfg, device=dev).state_dict())
-        step.broadcast()
+        del cs, grads, mod
+        step.laid.init(0)  # get_model's seed-0 draw, block by block
         st, _ = ends(lambda: step(step.init_state(), batch), TP_HANG_S, f"[tp] 16a {shape} rerun")
-        again = step.gather(st)
-        step.collect()
+        again = step.gather(st, dev)
+        mod = step.collect(dev)
         second = [t.detach() for t in mod.parameters()] + \
             [again.m[n] for n in again.m] + [again.v[n] for n in again.v]
         same = all(torch.equal(a, b) for a, b in zip(first, second))
@@ -3377,7 +3434,7 @@ def tp_phase(smi):
     b, prompt, n_new = TP_GREEDY
     cfg2 = dataclasses.replace(get_config(LLM_SERVED), n_layers=2, dtype="float32")
     one = get_model(cfg2, device=dev)
-    laid = lay_out(get_model(cfg2, device=dev), tp_mesh((1, 4)))
+    laid = lay_out(get_model(cfg2, device="meta"), tp_mesh((1, 4)))
     toks, _ = llm_inputs(cfg2, b, prompt, seed=5)
     runs = []
     for served in (laid, one):
@@ -3393,17 +3450,14 @@ def tp_phase(smi):
     torch.cuda.empty_cache()
     greedy_s = time.perf_counter() - t0
 
-    cfg = get_config(LLM_SERVED)
+    cfg = dataclasses.replace(get_config(LLM_SERVED), n_layers=TP_SERVE_LAYERS)
     # a remat step's graph can sit in a reference cycle (torch.utils.checkpoint's
     # frames) until Python's collector runs: collect before measuring memory
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    laid = lay_out(get_model(cfg, device=dev, dtype=torch.bfloat16,
-                             generator=torch.Generator(device=dev).manual_seed(0)),
-                   tp_mesh((1, 4)))
-    laid.model = None  # the shards hold the weights; the whole copy is not served
+    laid = lay_out(get_model(cfg, device="meta", dtype=torch.bfloat16), tp_mesh((1, 4)), seed=0)
     torch.cuda.empty_cache()
     init_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3449,13 +3503,14 @@ def tp_phase(smi):
     check(all(p == [prompt + gen] * b for p in pos),
           f"[tp] 16b: cache positions {pos} != {prompt + gen}")
     one_ = SERVE_ONE
-    print(f"[tp] 16b {LLM_SERVED} full width and depth ({cfg.n_layers} layers), bf16, laid out "
+    print(f"[tp] 16b {LLM_SERVED} full width, {cfg.n_layers} of "
+          f"{get_config(LLM_SERVED).n_layers} layers, bf16, laid out "
           f"over (1, 4) slots of the card, {b} requests: prefill fn over {b} x {prompt} tokens "
-          f"{prefill_ms:.3f} ms (median of 3; one slot, 13c: "
+          f"{prefill_ms:.3f} ms (median of 3; one slot at full depth, 13c: "
           f"{one_.get('prefill_ms', float('nan')):.3f} ms); the prompts by decode into a "
           f"max_len={max_len} cache {fill_s * 1e3 / prompt:.3f} ms a step; {gen} greedy serve "
-          f"steps {gen_s * 1e3 / gen:.3f} ms a step, {b * gen / gen_s:.1f} tokens/s (one slot, "
-          f"13c: {one_.get('step_ms', float('nan')):.3f} ms, "
+          f"steps {gen_s * 1e3 / gen:.3f} ms a step, {b * gen / gen_s:.1f} tokens/s (one slot "
+          f"at full depth, 13c: {one_.get('step_ms', float('nan')):.3f} ms, "
           f"{one_.get('tokens_s', float('nan')):.1f} tokens/s); cache pos {pos[0]} on every "
           f"slot; each slot holds {held} B (parameters and cache); max_memory_allocated "
           f"{peak:,} B serving on the card for the 4 slots, {init_peak:,} B laying out, "
@@ -3480,7 +3535,7 @@ def tp_phase(smi):
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    model = get_model(cfg, device="meta")  # each slot draws its seed-0 blocks
     step = make_train_step(model, run, tp_mesh((1, 4)))
     state = step.init_state()
     losses, walls = [], []
@@ -3734,9 +3789,9 @@ def tp2_family(name, dev):
         t1 = time.perf_counter()
         st, met = ends(lambda: step(step.init_state(), batch), TP_HANG_S, label)
         met = {k: float(v) for k, v in met.items()}
-        cs = (step.gather(st), met, time.perf_counter() - t1)
+        cs = (step.gather(st, dev), met, time.perf_counter() - t1)
         grads = tp_mean_grads(step, mod)
-        step.collect()
+        mod = step.collect(dev)  # the first row's blocks gathered, for the comparison
         for pname, p in mod.named_parameters():
             p.grad = grads[pname]
         del p, grads, st
@@ -3784,18 +3839,19 @@ def tp2_family(name, dev):
           + "; ".join(lines) + f"; {time.perf_counter() - t0:.3f} s")
 
 
-def tp2_serve(served, cfg, tokens, gen, max_len):
-    """The prefill fn (ms, median of 3 after a warm-up; its logits) and
-    ``gen`` greedy steps from its token into an empty ``max_len`` cache
-    (every step reads every slot of the cache): (prefill ms, the last
-    logits, ms a step, the tokens, their logits, the cache)."""
+def tp2_serve(served, cfg, tokens, gen, max_len, extra=()):
+    """The prefill fn on ``tokens`` (and ``extra``: a VLM's prefix
+    embeddings) (ms, median of 3 after a warm-up; its logits) and ``gen``
+    greedy steps from its token into an empty ``max_len`` cache (every step
+    reads every slot of the cache): (prefill ms, the last logits, ms a
+    step, the tokens, their logits, the cache)."""
     prefill = make_prefill_fn(served)
-    prefill(tokens)
+    prefill(tokens, *extra)
     torch.cuda.synchronize()
     walls = []
     for _ in range(3):
         t1 = time.perf_counter()
-        last = prefill(tokens)
+        last = prefill(tokens, *extra)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
     first = torch.where(torch.arange(cfg.vocab_padded, device=last.device) < cfg.vocab_size,
@@ -3846,8 +3902,7 @@ def tp_families_phase(smi):
         o_items, o_busy, _, o_ms, _ = traced_union(lambda: model.decode_step(one[5], tokens[:, :1]))
     one = one[:5]
     torch.cuda.reset_peak_memory_stats()
-    laid = lay_out(model, tp_mesh((1, 4)))
-    laid.model = None  # the shards hold the weights; the whole copy is not served
+    laid = lay_out(model, tp_mesh((1, 4)))  # its blocks copied: dropping model frees it
     split_heads = laid.layout.heads
     del model
     torch.cuda.empty_cache()
@@ -3908,8 +3963,8 @@ def tp_families_phase(smi):
         step = make_train_step(mod, run, Mesh(devices.reshape(shape), names))
         check(step.mesh.shape == {"data": 2, "model": 2}, f"[tp2] 17c {shape}: {step.mesh}")
         st, met = ends(lambda: step(step.init_state(), batch), TP_HANG_S, f"[tp2] 17c {shape}")
-        got = step.gather(st)
-        step.collect()
+        got = step.gather(st, dev)
+        mod = step.collect(dev)
         outs.append(([p.detach().clone() for p in mod.parameters()]
                      + [got.m[n] for n in got.m] + [got.v[n] for n in got.v],
                      {k: float(v) for k, v in met.items()}))
@@ -3931,6 +3986,337 @@ def tp_families_phase(smi):
     launches = read_counts()
     check(not any(launches.values()), f"[tp2] the phase launched a hand kernel: {launches}")
     print(f"[tp2] the phase launched none of the hand kernels (rows 1-11, R); phase 17 took "
+          f"{time.perf_counter() - t_phase:.3f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: a model laid out over 'model' from its own blocks
+# ---------------------------------------------------------------------------
+
+def param_bytes(modules) -> int:
+    """Bytes of the parameters of ``modules``."""
+    return sum(p.numel() * p.element_size() for m in modules for p in m.parameters())
+
+
+def largest_draw_bytes(cfg) -> int:
+    """Bytes of the largest leaf's float32 draw: the one transient a build
+    from a seed holds beside the blocks."""
+    spec = model_class(cfg).build_spec(cfg)
+    return max(4 * int(np.prod(leaf.shape)) for _, leaf in tree_paths(spec)
+               if leaf.init == "normal")
+
+
+def state_bytes(state) -> list:
+    """Bytes of each tensor of an ``OptState`` laid out over a mesh."""
+    return [t.numel() * t.element_size() for a in sharding.tree_leaves(state) for t in a.flat]
+
+
+def requested_bytes() -> int:
+    """The bytes the live tensors asked the card's caching allocator for:
+    ``memory_allocated`` less the allocator's slack (a block past a
+    request by up to 1 MiB is handed out whole, and counted so)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def live_allocations() -> int:
+    """The caching allocator's live allocations on the card."""
+    return torch.cuda.memory_stats()["allocation.all.current"]
+
+
+# the most a live allocation holds past its request: a request is rounded
+# up to 512 B, and a block whose remainder is at most 1 MiB is not split
+ALLOC_SLACK = MIB + 512
+
+
+def check_slack(label, held, held_req, n_alloc):
+    """Fails unless ``held`` (``memory_allocated``) is within the allocator's
+    slack of ``held_req`` (the bytes requested) over ``n_alloc`` live
+    allocations."""
+    check(0 <= held - held_req <= n_alloc * ALLOC_SLACK,
+          f"{label}: memory_allocated {held:,} B is past the {held_req:,} B requested by more "
+          f"than {n_alloc:,} live allocations x {ALLOC_SLACK:,} B")
+
+
+def tp_blocks_phase(smi):
+    """Phase 18: a model laid out over 'model' from its own blocks, with no
+    whole copy on the card (printed as [tp3]): the block draw against the
+    whole draw, internvl2-26b served at full width and depth over (1, 4),
+    the model-parallel Trainer's held bytes, steps, checkpoint and resumes;
+    fails on any check."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    check(not torch.backends.cuda.matmul.allow_tf32, "[tp3] TF32 must be off")
+    zero_counts()
+    mesh = tp_mesh((1, 4))
+
+    # (a) internvl2-26b at full width, 2 layers, float32: the blocks are the whole draw's
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TP3_MODEL), n_layers=2, dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    laid = lay_out(get_model(cfg, device="meta"), mesh, seed=0)
+    torch.cuda.synchronize()
+    meta_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    whole = get_model(cfg, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    twin = lay_out(whole, mesh)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t1
+    params = dict(whole.named_parameters())
+    n_blocks = 0
+    for k, sl in enumerate(laid.groups[0].slots):
+        for name, p in sl.named_parameters():
+            check(torch.equal(p, params[name][laid.groups[0].slices(k, name)]),
+                  f"[tp3] 18a: slot {k}'s {name} is not its block of the whole seed-0 draw")
+            n_blocks += 1
+    del params, whole, p
+    torch.cuda.empty_cache()
+    b, s = TP3_FWD
+    tokens, extra = llm_inputs(cfg, b, s, seed=12)
+    tokens, pre = tokens.to(dev), extra[0].to(dev)
+    with torch.inference_mode():
+        got, aux = laid.forward(tokens, prefix_embeds=pre)
+        want, want_aux = twin.forward(tokens, prefix_embeds=pre)
+    check(bool(torch.isfinite(got).all()), "[tp3] 18a: logits not finite")
+    check(torch.equal(got, want) and float(aux) == float(want_aux),
+          f"[tp3] 18a: the forward of the seed's blocks is not bitwise lay_out(whole)'s: "
+          f"max|gap| {float((got - want).abs().max()):.3e}")
+    shape = tuple(got.shape)
+    del laid, twin, got, want
+    torch.cuda.empty_cache()
+    print(f"[tp3] 18a {TP3_MODEL} full width ({cfg.d_model} wide, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded} padded), 2 layers, "
+          f"float32, TF32 off, over (1, 4) slots of the card from a meta model and seed 0: "
+          f"{n_blocks} blocks == the whole seed-0 draw's, bitwise; the forward on {b} x "
+          f"({cfg.frontend_tokens} prefix embeddings + {s} tokens), logits {shape}, bitwise "
+          f"lay_out(whole)'s; built in {meta_s:.3f} s (lay_out(whole) {whole_s:.3f} s after "
+          f"the whole draw's {draw_s:.3f} s); {time.perf_counter() - t0:.3f} s")
+
+    # (b) internvl2-26b at full width and depth, bf16, served over (1, 4), built from the seed
+    t0 = time.perf_counter()
+    cfg = get_config(TP3_MODEL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base, base_req, base_n = torch.cuda.memory_allocated(), requested_bytes(), live_allocations()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    laid = lay_out(get_model(cfg, device="meta", dtype=torch.bfloat16), mesh, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    gc.collect()
+    held, held_req = torch.cuda.memory_allocated() - base, requested_bytes() - base_req
+    n_alloc = live_allocations() - base_n
+    build_peak = torch.cuda.max_memory_allocated() - base
+    blocks = param_bytes(laid.shards())
+    draw = largest_draw_bytes(cfg)
+    check(abs(held_req - blocks) <= MIB,
+          f"[tp3] 18b: {held_req:,} B requested after the build ({held:,} B allocated), the "
+          f"slots' blocks are {blocks:,} B (bound 1 MiB apart)")
+    check_slack("[tp3] 18b", held, held_req, n_alloc)
+    check(build_peak <= blocks + draw + GIB,
+          f"[tp3] 18b: the build's peak {build_peak:,} B is past the blocks {blocks:,} B + the "
+          f"largest float32 draw {draw:,} B + 1 GiB")
+    b, prompt, gen, max_len = TP3_SERVE
+    tokens, extra = llm_inputs(cfg, b, prompt, seed=13)
+    tokens, pre = tokens.to(dev), extra[0].to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, last, step_ms, out, logits, cache = tp2_serve(laid, cfg, tokens, gen, max_len,
+                                                              (pre,))
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(last.float()).all() and torch.isfinite(logits.float()).all()),
+          "[tp3] 18b: logits not finite")
+    check(int(out.max()) < cfg.vocab_size, f"[tp3] 18b: a token at or past vocab_size "
+                                           f"{cfg.vocab_size}")
+    check(all(p.tolist() == [gen] * b for p in cache["pos"].flat),
+          f"[tp3] 18b: cache positions {[p.tolist() for p in cache['pos'].flat]} != {gen}")
+    n_params = sum(int(np.prod(leaf.shape)) for _, leaf in
+                   tree_paths(model_class(cfg).build_spec(cfg)))
+    print(f"[tp3] 18b {TP3_MODEL} full width and depth ({cfg.n_layers} layers, "
+          f"{n_params:,} parameters), bf16, laid out over (1, 4) slots of the card from a "
+          f"meta model and seed 0 in {build_s:.3f} s: after the build {held_req:,} B requested "
+          f"from the allocator against the slots' blocks {blocks:,} B ({blocks / 1e9:.2f} GB; "
+          f"bound 1 MiB apart), memory_allocated {held:,} B (the allocator's slack "
+          f"{held - held_req:,} B over {n_alloc:,} live allocations, bound "
+          f"{n_alloc * ALLOC_SLACK:,} B); the build's max_memory_allocated {build_peak:,} B "
+          f"against the blocks + the largest float32 draw {draw:,} B + 1 GiB = "
+          f"{blocks + draw + GIB:,} B (a whole "
+          f"model laid out needs the whole model beside its blocks, >= {2 * blocks:,} B); "
+          f"{b} requests of {cfg.frontend_tokens} patch embeddings + {prompt} tokens: prefill "
+          f"fn {prefill_ms:.3f} ms (median of 3), {gen} greedy steps into a max_len={max_len} "
+          f"cache {step_ms:.3f} ms a step, {b * 1e3 / step_ms:.1f} tokens/s; finite logits, "
+          f"every token below vocab_size, tokens not gated (bf16 at this depth); "
+          f"max_memory_allocated {peak:,} B serving ({base:,} B held before the phase's build); "
+          f"card {smi}; {time.perf_counter() - t0:.3f} s")
+    del laid, cache, last, logits, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the model-parallel Trainer: qwen3-1.7b at full width, 2 layers, float32 over (1, 4)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLM_SERVED), n_layers=2, dtype="float32")
+    run = RunConfig(steps=3, checkpoint_every=2, warmup_steps=1, learning_rate=TRAIN_LR,
+                    async_checkpoint=False)
+    batches = [train_batch(cfg, *TP3_TRAIN, dev, seed=20 + i) for i in range(3)]
+    work = Path(tempfile.mkdtemp(prefix="repro_tp3_"))
+    try:
+        # today's path: the whole seed-0 model drawn on the card and laid out, stepped by hand
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        whole = get_model(cfg, device=dev)
+        step = make_train_step(whole, run, mesh)
+        st = step.init_state()
+        today = torch.cuda.memory_allocated() - base
+        want = []
+        for i, bt in enumerate(batches):
+            st, met = step(st, bt)
+            want.append(float(met["loss"]))
+            if i == 1:
+                want_p = [p.detach().clone() for p in step.laid.groups[0].parameters()]
+        want_p3 = [p.detach().clone() for p in step.laid.groups[0].parameters()]
+        del whole, step, st, met
+        gc.collect()
+        torch.cuda.empty_cache()
+        base, base_req, base_n = (torch.cuda.memory_allocated(), requested_bytes(),
+                                  live_allocations())
+        trainer = Trainer(get_model(cfg, device="meta"), run, iter(batches[:2]), work,
+                          mesh=mesh)
+        _, state = trainer.init_state(0)
+        held, held_req = torch.cuda.memory_allocated() - base, requested_bytes() - base_req
+        n_alloc = live_allocations() - base_n
+        blocks = param_bytes(trainer.step_fn.laid.shards())
+        moments = state_bytes(state)
+        check(abs(held_req - blocks - sum(moments)) <= MIB,
+              f"[tp3] 18c: {held_req:,} B requested after init_state ({held:,} B allocated) "
+              f"against the blocks {blocks:,} B + the owned moments {sum(moments):,} B (bound "
+              f"1 MiB apart)")
+        check_slack("[tp3] 18c", held, held_req, n_alloc)
+        one_block = max([p.numel() * p.element_size()
+                         for sl in trainer.step_fn.laid.shards() for p in sl.parameters()]
+                        + moments)
+        del state
+        peaks = {}
+        checkpoint_tree = trainer._checkpoint_tree
+
+        def measured(state):
+            torch.cuda.synchronize()
+            peaks["held"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            tree = checkpoint_tree(state)
+            peaks["save"] = torch.cuda.max_memory_allocated()
+            peaks["copy_s"] = time.perf_counter() - t1
+            return tree
+
+        trainer._checkpoint_tree = measured
+        _, state, _ = trainer.train(steps=2)
+        losses = [json.loads(line)["loss"] for line in
+                  (work / "metrics.jsonl").read_text().splitlines()]
+        check(losses == want[:2], f"[tp3] 18c: losses {losses} != today's path's {want[:2]}")
+        check(all(torch.equal(a, b) for a, b in zip(trainer.step_fn.laid.groups[0].parameters(),
+                                                    want_p)),
+              "[tp3] 18c: the parameters after step 2 are not bitwise today's path's")
+        check(peaks["save"] <= peaks["held"] + one_block,
+              f"[tp3] 18c: the save's peak {peaks['save']:,} B is past the held "
+              f"{peaks['held']:,} B + one block {one_block:,} B")
+        saved = CheckpointManager(work / "ckpt").restore(
+            2, checkpoint_skeleton(trainer.model), mmap=True)[0]
+        saved = sharding.tree_map(np.array, saved)
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def same_as_saved(label, params, moments):
+            flat = list(zip(sharding.tree_leaves((params, moments.m, moments.v)),
+                            sharding.tree_leaves((saved[0], saved[1].m, saved[1].v))))
+            check(all(np.array_equal(a, b) for a, b in flat) and
+                  int(moments.step) == int(saved[1].step) == 2,
+                  f"[tp3] 18c: {label}: the resumed parameters or moments are not the saved "
+                  f"ones")
+
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        again = Trainer(get_model(cfg, device="meta"), run, iter(batches[2:]), work, mesh=mesh)
+        start, _, s2 = again.resume_or_init()
+        restore_s = time.perf_counter() - t1
+        restore_peak = torch.cuda.max_memory_allocated() - base
+        restore_held = torch.cuda.memory_allocated() - base
+        check(start == 2, f"[tp3] 18c: resumed at {start}")
+        same_as_saved("(1, 4)", params_to_reference(again.step_fn.collect()),
+                      opt_state_to_reference(again.model, again.step_fn.gather(s2)))
+        one = Trainer(get_model(cfg, device=dev), run, iter(()), work)
+        start1, _, s1 = one.resume_or_init()
+        check(start1 == 2, f"[tp3] 18c: one slot resumed at {start1}")
+        same_as_saved("one slot", params_to_reference(one.model),
+                      opt_state_to_reference(one.model, s1))
+        del one, s1
+        gc.collect()
+        torch.cuda.empty_cache()
+        s2, met = again.step_fn(s2, batches[2])  # the third step, from the resumed state
+        loss3 = float(met["loss"])
+        check(loss3 == want[2] and all(
+            torch.equal(a, b) for a, b in zip(again.step_fn.laid.groups[0].parameters(),
+                                              want_p3)),
+              f"[tp3] 18c: the resumed third step (loss {loss3!r}) is not bitwise the "
+              f"uninterrupted one ({want[2]!r})")
+        del again, s2, met, want_p, want_p3
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[tp3] 18c {LLM_SERVED} full width, 2 layers, float32 master and moments, TF32 off, "
+          f"{TP3_TRAIN[0]} x {TP3_TRAIN[1]} tokens, a Trainer over (1, 4) slots of the card from "
+          f"a meta model: after init_state {held_req:,} B requested (memory_allocated "
+          f"{held:,} B, within {n_alloc:,} live allocations x {ALLOC_SLACK:,} B) == the blocks "
+          f"{blocks:,} B + the owned moments {sum(moments):,} B "
+          f"(bound 1 MiB; a whole model laid out and kept by its caller, today's path, held "
+          f"{today:,} B); 2 steps, losses {losses} "
+          f"bitwise today's path's, the parameters after too; the checkpoint at step 2 copied "
+          f"to the host in {peaks['copy_s']:.3f} s with max_memory_allocated {peaks['save']:,} "
+          f"B against {peaks['held']:,} B held + one block {one_block:,} B; resumed over (1, 4) "
+          f"in {restore_s:.3f} s with max_memory_allocated {restore_peak:,} B ({restore_held:,} "
+          f"B held after; held + one block {restore_held + one_block:,} B), and on one slot, "
+          f"parameters and moments bitwise the saved ones; the third step after the resume "
+          f"bitwise the uninterrupted one (loss {want[2]:.6f}); {time.perf_counter() - t0:.3f} s")
+
+    # (d) with 4 cards or more: nemotron-4-15b at full width and depth, float32, over (1, 4) cards
+    if torch.cuda.device_count() >= 4:
+        t0 = time.perf_counter()
+        cfg = get_config(TP3_BIG)
+        cards = [torch.device("cuda", i) for i in range(4)]
+        try:
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+            step = make_train_step(get_model(cfg, device="meta"),
+                                   RunConfig(learning_rate=3e-4, warmup_steps=1),
+                                   grid_mesh(cards, 4))
+            st, met = step(step.init_state(), train_batch(cfg, *TP3_BIG_BATCH, cards[0], seed=30))
+            loss = float(met["loss"])
+            peaks_d = [torch.cuda.max_memory_allocated(c) for c in cards]
+            outcome = (f"loss {loss:.6f}; max_memory_allocated a card "
+                       f"{[f'{x:,}' for x in peaks_d]} B")
+            del step, st, met
+        except torch.OutOfMemoryError as e:  # printed, not gated: the driver has one card
+            outcome = f"out of memory ({str(e)[:200]})"
+        gc.collect()
+        for c in cards:
+            with torch.cuda.device(c):
+                torch.cuda.empty_cache()
+        print(f"[tp3] 18d {TP3_BIG} full width and depth ({cfg.n_params:,} parameters), "
+              f"float32, one step over (1, 4) cards from a meta model on {TP3_BIG_BATCH[0]} x "
+              f"{TP3_BIG_BATCH[1]} tokens (not gated): {outcome}; "
+              f"{time.perf_counter() - t0:.3f} s")
+    else:
+        print(f"[tp3] 18d skipped: {torch.cuda.device_count()} card(s), it needs 4")
+    launches = read_counts()
+    check(not any(launches.values()), f"[tp3] the phase launched a hand kernel: {launches}")
+    print(f"[tp3] the phase launched none of the hand kernels (rows 1-11, R); phase 18 took "
           f"{time.perf_counter() - t_phase:.3f} s")
 
 
@@ -5418,7 +5804,10 @@ def main():
     # -- 17. the same for the hybrid, ssm and encdec families; pods ---------
     tp_families_phase(smi)
 
-    # -- 18. kernels line ---------------------------------------------------
+    # -- 18. a model laid out from its own blocks: no whole copy on the card --
+    tp_blocks_phase(smi)
+
+    # -- 19. kernels line ---------------------------------------------------
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -5464,7 +5853,7 @@ def main():
         for v in variants if v != "seqacc"
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 19. status -----------------------------------------------------------
+    # -- 20. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

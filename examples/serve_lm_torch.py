@@ -8,7 +8,9 @@ state and Hymba's hybrid window+SSM cache -- because each model implements
 ``init_cache`` / ``decode_step`` behind the same interface.
 ``--model-parallel N`` lays the model out over N slots of the device
 (``models/tensor_parallel.lay_out``, every family; rwkv6's reduced config
-has one head of 64 columns, which two slots would split, and raises).
+has one head of 64 columns, which two slots would split, and raises):
+the model is built on ``meta`` and each slot draws only its blocks of the
+seed-0 weights, the same bits as the whole model's.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --arch rwkv6-1.6b --tokens 32
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu --model-parallel 2
@@ -46,9 +48,11 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
-    model = get_model(cfg, device=dev)
     if args.model_parallel > 1:
-        model = lay_out(model, grid_mesh([dev] * args.model_parallel, args.model_parallel))
+        model = lay_out(get_model(cfg, device="meta"),
+                        grid_mesh([dev] * args.model_parallel, args.model_parallel), seed=0)
+    else:
+        model = get_model(cfg, device=dev)
     B, P = args.batch, args.prompt_len
     max_len = P + args.tokens
 

@@ -8,7 +8,9 @@ parallelism over the ``model`` axis, every family; a layout that would
 split one of rwkv6's 64-column heads raises) and the rest over ``data``
 (``--device cuda:0`` trains on one card).  On
 one card, or with ``--device cpu``, ``--model-parallel N`` above 1 lays
-the model out over N slots of that device.
+the model out over N slots of that device.  With N above 1 the model is
+built on ``meta`` and each slot draws only its blocks from the seed, so
+no card holds a whole copy of it.
 
 Training over every card is today slower than on one card: the host
 holds it back (a thread a slot queues launches at half one slot's rate;
@@ -82,7 +84,8 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    model = get_model(cfg, device=dev)
+    # over a model axis the Trainer draws each slot's blocks: no whole model on a card
+    model = get_model(cfg, device="meta" if args.model_parallel > 1 else dev)
     multi = args.device == "cuda" and torch.cuda.device_count() > 1
     if multi:
         mesh = make_host_mesh(args.model_parallel)

@@ -18,7 +18,11 @@ per layer instead, each leaf with the unstacked shape, in an
 A :class:`SpecModule` built with a :class:`ModelBlock` is one shard of the
 model: it holds one ``model``-axis slot's block of each leaf
 (:func:`model_shardings`: the reference's layout with every axis but
-``model`` dropped), drawn as the block of the whole model's draw.
+``model`` dropped), drawn as the block of the whole model's draw
+(:func:`draw_blocks`).  A :class:`SpecModule` on the ``meta`` device holds
+no parameters: its config, spec, names and shapes stand for the model, as
+the reference's stateless model object does, where a model is laid out
+over a mesh (``models/tensor_parallel.lay_out``) or trained over one.
 """
 from __future__ import annotations
 
@@ -108,16 +112,52 @@ def stack_spec(one: dict, n: int) -> dict:
     return _unflatten({path: leaf.with_leading(n) for path, leaf in tree_paths(one)})
 
 
-def _init_one(leaf: P, generator: torch.Generator, dtype, device):
-    if leaf.init == "zeros":
-        return torch.zeros(leaf.shape, dtype=dtype, device=device)
-    if leaf.init == "ones":
-        return torch.ones(leaf.shape, dtype=dtype, device=device)
-    # the reference's law: normal / sqrt(fan_in), fan_in from the stacked leaf
+def model_device(device) -> torch.device:
+    """A model's device: ``meta`` (a model that holds no parameters), else
+    ``resolve_device``'s (default ``'cuda'``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+def _draw(leaf: P, generator: torch.Generator, device):
+    """The whole leaf's float32 draw on ``device`` (the reference's law:
+    normal / sqrt(fan_in), fan_in from the stacked leaf); ``None`` for a
+    constant leaf, which draws nothing."""
+    if leaf.init in ("zeros", "ones"):
+        return None
     fan_in = leaf.shape[-2] if len(leaf.shape) >= 2 else leaf.shape[-1]
     std = 1.0 / math.sqrt(max(1, fan_in))
     x = torch.randn(leaf.shape, generator=generator, dtype=torch.float32, device=device)
-    return x.mul_(std).to(dtype)
+    return x.mul_(std)
+
+
+def _init_one(leaf: P, generator: torch.Generator, dtype, device):
+    x = _draw(leaf, generator, device)
+    if x is None:
+        return torch.full(leaf.shape, float(leaf.init == "ones"), dtype=dtype, device=device)
+    return x.to(dtype)
+
+
+@torch.no_grad()
+def draw_blocks(modules: list, seed: int):
+    """Draw the whole model's leaves from ``seed`` into ``modules`` (whole
+    models or shards of one config, each keeping its block): each device
+    draws every leaf once, in :func:`tree_paths` order, from a generator on
+    it seeded ``seed``, as :meth:`SpecModule.init` does, and every module on
+    that device copies its block of the float32 draw, cast to its dtype.
+    The draw is freed before the next leaf, so a device's peak is what its
+    modules hold plus one leaf's float32 draw."""
+    by_device: dict = {}
+    for m in modules:
+        by_device.setdefault(m.device, []).append(m)
+    gens = {dev: torch.Generator(device=dev).manual_seed(seed) for dev in by_device}
+    for path, leaf in tree_paths(modules[0].whole_spec()):
+        for dev, mods in by_device.items():
+            x = _draw(leaf, gens[dev], dev)
+            for m in mods:
+                m.fill_leaf(path, leaf, x)
+            del x
 
 
 def init_params(spec, generator: torch.Generator, dtype=torch.float32, device=None):
@@ -198,7 +238,9 @@ class SpecModule(nn.Module):
     layer with the unstacked shapes.  Parameters are stored in ``dtype``
     (default float32, as the reference's ``init``) on ``device`` (default
     ``'cuda'``; ``'cpu'`` on request) and drawn from ``generator`` (default:
-    one seeded 0 on that device); compute runs in ``cfg.dtype``.  The
+    one seeded 0 on that device); compute runs in ``cfg.dtype``.  On
+    ``'meta'`` the module holds no parameters and draws nothing: it stands
+    for the model where one is laid out or trained over a mesh.  The
     layers run in a Python loop over the ``ModuleList``, the counterpart of
     the reference's ``scan_or_unroll``, so ``cfg.scan_layers`` is ignored;
     under ``cfg.remat`` a forward that records a gradient recomputes each
@@ -208,8 +250,8 @@ class SpecModule(nn.Module):
     With ``block`` (a :class:`ModelBlock`) the module is that ``model``
     slot's shard: :meth:`spec` gives the block shapes, each parameter holds
     its block (``block_slices``), left unset (``torch.empty``) for its
-    caller to fill; :meth:`init` draws the whole model's leaves and keeps
-    the blocks.
+    caller to fill; :meth:`init` (or :func:`draw_blocks`, once a device
+    for many shards) draws the whole model's leaves and keeps the blocks.
     """
 
     build_spec = None
@@ -217,7 +259,7 @@ class SpecModule(nn.Module):
     def __init__(self, cfg, device=None, dtype=torch.float32, generator=None, block=None):
         super().__init__()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = model_device(device)
         self.param_dtype = dtype
         self.block = block
         self.block_slices = None if block is None else block_slices(self.whole_spec(), block)
@@ -229,11 +271,24 @@ class SpecModule(nn.Module):
                     ParamTree(one, self.device, dtype) for _ in range(n)))
             else:
                 self.add_module(key, ParamTree(node, self.device, dtype))
-        if block is not None:  # a shard: its caller fills it, or calls init
+        if block is not None or self.device.type == "meta":  # filled by its caller
             return
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self.init(generator)
+
+    @classmethod
+    def empty(cls, cfg, device=None, dtype=torch.float32):
+        """A whole model with its parameters allocated on ``device`` and
+        left unset, for its caller to fill."""
+        model = cls(cfg, device="meta", dtype=dtype).to_empty(device=resolve_device(device))
+        model.device = resolve_device(device)
+        return model
+
+    def meta(self):
+        """A model of the same config, dtype and block on ``meta``: the
+        names and shapes, no parameters."""
+        return type(self)(self.cfg, device="meta", dtype=self.param_dtype, block=self.block)
 
     def whole_spec(self) -> dict:
         """The reference's spec of the whole model (layers stacked)."""
@@ -253,13 +308,23 @@ class SpecModule(nn.Module):
     def init(self, generator: torch.Generator):
         """Draw every parameter anew from ``generator`` (on the model's
         device), leaf by leaf as :func:`init_params` (a shard keeps its
-        blocks of the whole leaves); returns ``self``."""
+        blocks of the whole leaves, sliced from the float32 draw before the
+        cast); returns ``self``."""
         for path, leaf in tree_paths(self.whole_spec()):
-            value = _init_one(leaf, generator, self.param_dtype, self.device)
-            if self.block is not None:
-                value = value[self.block_slices[path]]
-            self.load_leaf(path, value)
+            self.fill_leaf(path, leaf, _draw(leaf, generator, self.device))
         return self
+
+    @torch.no_grad()
+    def fill_leaf(self, path: tuple, leaf: P, draw):
+        """Set the parameter(s) at ``path`` from ``draw``, the whole
+        (stacked) leaf's float32 draw, or from ``leaf``'s constant where
+        ``draw`` is ``None``; a shard takes its block."""
+        if draw is None:
+            target = self.leaf(path)
+            for p in target if isinstance(target, list) else [target]:
+                p.fill_(float(leaf.init == "ones"))
+            return
+        self.load_leaf(path, draw if self.block is None else draw[self.block_slices[path]])
 
     def leaf(self, path: tuple):
         """The parameter at a spec path; for a stacked path the list of the

@@ -52,5 +52,8 @@ def model_spec(cfg: ModelConfig) -> dict:
 def get_model(cfg: ModelConfig, device=None, dtype=torch.float32, generator=None):
     """``cfg``'s model with its parameters in ``dtype`` on ``device``
     (default ``'cuda'``; raises without a card unless ``device='cpu'``),
-    drawn from ``generator`` (default: one seeded 0 on that device)."""
+    drawn from ``generator`` (default: one seeded 0 on that device).  On
+    ``device='meta'`` it holds no parameters: the model to lay out over a
+    mesh from a seed or a checkpoint (``models/tensor_parallel.lay_out``,
+    ``train/trainer.Trainer``)."""
     return model_class(cfg)(cfg, device=device, dtype=dtype, generator=generator)

@@ -53,7 +53,15 @@ block) or equal on every slot (a replicated leaf).
 split over the rows) with ``forward``, ``init_cache`` and ``decode_step``
 (an encoder-decoder's ``prefill_encoder`` too), which
 ``serve/serve_step.py`` serves; ``train/train_step.DataParallelStep``
-trains a group a row.
+trains a group a row.  The cards hold only the slots' blocks, as the
+reference's GSPMD layout holds only each device's shards: a model on
+``meta`` is laid out from a seed (each device draws each whole leaf once,
+in float32, and its slots keep their blocks, bit for bit those of the
+whole model's draw), from a checkpoint (``train/trainer.Trainer``, each
+block read from the files) or from the reference's arrays
+(``convert.blocks_from_reference``); a whole model's blocks are copied and
+the model itself is not kept.  :meth:`LaidOutModel.gather` builds a whole
+model, by default on the CPU, only on request.
 """
 from __future__ import annotations
 
@@ -64,7 +72,14 @@ from torch import nn
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as R
-from repro_torch.models.params import STACKED, ModelBlock, SpecModule, model_shardings, tree_paths
+from repro_torch.models.params import (
+    STACKED,
+    ModelBlock,
+    SpecModule,
+    draw_blocks,
+    model_shardings,
+    tree_paths,
+)
 from repro_torch.models.registry import model_class, model_spec
 from repro_torch.models.transformer import WHOLE_SSD, SSDSel, decode_layer, decoder_layer
 from repro_torch.parallel.sharding import ModelGroup, axis_size, constrain, tree_map, tree_shardings
@@ -220,7 +235,7 @@ class ModelShards(nn.Module):
     """The model slots of one data row (``row``, an index tuple of the
     layout's mesh): ``slots`` holds a shard of the model a slot of
     ``group`` (a ``parallel.sharding.ModelGroup``), each on its slot's
-    device, not drawn: :meth:`load_from` fills them.  Parameter names are
+    device, not drawn: :meth:`load` fills them.  Parameter names are
     ``slots.<k>.<the whole model's name>``.  A family's subclass runs the
     forward and the decode step."""
 
@@ -254,13 +269,14 @@ class ModelShards(nn.Module):
         return self.slots[k].block_slices[tuple(parts)]
 
     @torch.no_grad()
-    def load_from(self, model):
-        """Copy each slot's blocks of ``model``'s parameters (a whole
-        model of the same config) into the slot's shard."""
-        whole = dict(model.named_parameters())
+    def load(self, read):
+        """Fill each slot's shard with ``read(name, slices, device)``: the
+        block ``slices`` of the whole parameter ``name`` (a tensor on any
+        device, best the slot's ``device``, in any float dtype: it is
+        copied and cast into the slot)."""
         for k, sl in enumerate(self.slots):
             for name, p in sl.named_parameters():
-                p.copy_(whole[name][self.slices(k, name)])
+                p.copy_(read(name, self.slices(k, name), p.device))
 
     @torch.no_grad()
     def gather_into(self, model):
@@ -273,7 +289,8 @@ class ModelShards(nn.Module):
     @torch.no_grad()
     def gathered_grads(self, model) -> dict:
         """The slots' gradients as whole tensors by the names of ``model``
-        (a whole model of the same config), on the first slot's device."""
+        (a model of the same config, on ``meta`` too), on the first slot's
+        device."""
         out = {n: torch.zeros(p.shape, dtype=p.dtype, device=self.device)
                for n, p in model.named_parameters()}
         for k, sl in enumerate(self.slots):
@@ -478,11 +495,18 @@ def model_group(cfg, layout: Layout, row=None, dtype=torch.float32) -> ModelShar
 # a model laid out over (data, model)
 # --------------------------------------------------------------------------
 
-def lay_out(model, mesh, rules=None) -> "LaidOutModel":
-    """``model`` (a whole port model of any family) laid out over ``mesh``:
-    a group of shards a data row, each slot holding its blocks of
-    ``model``'s current parameters."""
-    return LaidOutModel(model, mesh, rules)
+def lay_out(model, mesh, rules=None, seed=0) -> "LaidOutModel":
+    """``model`` (a port model of any family) laid out over ``mesh``: a
+    group of shards a data row (the same weights on every row).  A model
+    on ``meta`` is drawn from ``seed``: each slot holds its blocks of the
+    model that ``get_model`` draws from a generator seeded ``seed`` on the
+    slot's device (:func:`params.draw_blocks`: one float32 draw of each
+    leaf a device, freed before the next); with ``seed=None`` its blocks
+    are left unset for the caller to fill (:meth:`LaidOutModel.init`,
+    :meth:`LaidOutModel.load`).  A whole model's current
+    parameters are copied block by block; the laid-out model keeps no
+    reference to it, so a caller that drops it frees it."""
+    return LaidOutModel(model, mesh, rules, seed)
 
 
 def _rows(t, rows):
@@ -492,43 +516,65 @@ def _rows(t, rows):
 class LaidOutModel:
     """A model over a ``(data, model)`` mesh: ``groups`` holds one group
     of shards (:func:`model_group`) a data row (the same weights on every
-    row).
+    row); the cards hold the slots' blocks and nothing whole.
 
     ``forward``, ``init_cache``, ``prefill_encoder`` and ``decode_step``
     take the whole model's arguments on the mesh's first device and split
     the batch over the data rows where :meth:`rows` says so; else the first
     row runs it whole (and holds the whole cache; the other rows' caches
-    are empty).  The logits come back whole on that device.  ``model`` is
-    the whole model laid out, kept on its device: :meth:`gather` copies the
-    first row's blocks back into it, :meth:`place` copies its parameters
-    into every row.  So a model is laid out only where its whole
-    parameters fit on that device (ROADMAP.md Queue 1 item 5.3(c)).
+    are empty).  The logits come back whole on that device.  :meth:`init`
+    draws the blocks anew from a seed, :meth:`load` reads them from a
+    source of whole parameters (a model, the reference's arrays, a
+    checkpoint's files), and :meth:`gather` builds a whole model from the
+    first row's blocks.
     """
 
-    def __init__(self, model, mesh, rules=None):
+    def __init__(self, model, mesh, rules=None, seed=0):
         if not isinstance(model, SpecModule) or model.block is not None:
             raise TypeError(f"lay_out takes a whole port model, not {type(model).__name__}")
-        self.model, self.cfg, self.mesh, self.rules = model, model.cfg, mesh, rules
+        self.cfg, self.mesh, self.rules = model.cfg, mesh, rules
+        self.param_dtype = model.param_dtype
         self.layout = Layout(model.cfg, mesh, rules)
         rows = mesh.slots("data") if "data" in mesh.shape else [None]
         self.groups = [model_group(model.cfg, self.layout, row, model.param_dtype)
                        for row in rows]
-        self.place()
+        if model.device.type == "meta":
+            if seed is not None:
+                self.init(seed)
+        else:
+            whole = dict(model.named_parameters())
+            self.load(lambda name, cut, _device: whole[name][cut])
 
     @property
     def device(self) -> torch.device:
         return self.mesh.home
 
-    def place(self):
-        """Copy ``model``'s parameters into every row's slots."""
-        for g in self.groups:
-            g.load_from(self.model)
+    def shards(self) -> list:
+        """Every slot's shard, row by row."""
+        return [sl for g in self.groups for sl in g.slots]
+
+    def init(self, seed=0):
+        """Draw every slot's blocks anew from ``seed``
+        (:func:`params.draw_blocks`); returns ``self``."""
+        draw_blocks(self.shards(), seed)
         return self
 
-    def gather(self):
-        """``model`` with the first row's blocks copied back in."""
-        self.groups[0].gather_into(self.model)
-        return self.model
+    def load(self, read):
+        """Fill every row's slots with ``read(name, slices, device)``, the block
+        ``slices`` of the whole parameter ``name`` (``ModelShards.load``);
+        returns ``self``."""
+        for g in self.groups:
+            g.load(read)
+        return self
+
+    def gather(self, device="cpu"):
+        """A new whole model on ``device`` (default the CPU) holding the
+        first row's blocks: for reading the weights out
+        (``convert.params_to_reference``), never on a serving or training
+        path."""
+        whole = model_class(self.cfg).empty(self.cfg, device, self.param_dtype)
+        self.groups[0].gather_into(whole)
+        return whole
 
     def rows(self, batch: int, seq: int) -> int:
         """How many data rows run ``batch`` rows of ``seq`` tokens: every

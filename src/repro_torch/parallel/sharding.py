@@ -528,15 +528,60 @@ class NamedSharding:
             out.append(slice(k * n, (k + 1) * n))
         return tuple(out)
 
-    def place(self, tensor):
+    def place(self, tensor, dtype=None):
         """One shard a slot: an object array shaped as the mesh's devices,
         each entry a new contiguous tensor on its slot's device (a copy even
-        where the slot holds the whole tensor, so no two slots alias)."""
+        where the slot holds the whole tensor, so no two slots alias), in
+        ``dtype`` (default the tensor's).  A numpy array (a memory-mapped
+        one too) is sliced on the host, so each slot reads its block
+        alone."""
         out = np.empty(self.mesh.devices.shape, dtype=object)
         for index in np.ndindex(out.shape):
             part = tensor[self.block(index, tuple(tensor.shape))]
-            shard = torch.empty(part.shape, dtype=tensor.dtype, device=self.mesh.devices[index])
+            if not isinstance(part, torch.Tensor):
+                part = torch.from_numpy(np.array(part))
+            shard = torch.empty(part.shape, dtype=dtype or part.dtype,
+                                device=self.mesh.devices[index])
             out[index] = shard.copy_(part)
+        return out
+
+    def global_shape(self, shards) -> tuple:
+        """The shape of the global tensor of ``shards``."""
+        first = shards.flat[0]
+        sizes = self.mesh.shape
+        return tuple(d * math.prod(sizes[a] for a in axes)
+                     for d, axes in zip(first.shape, self._entries(first.dim())))
+
+    def pieces(self, shards) -> list:
+        """``(slices of the global tensor, shard)`` for each distinct block
+        of ``shards`` (as :meth:`place` gives them): the slots at index 0
+        of the axes that do not split the tensor."""
+        first = shards.flat[0]
+        shape = self.global_shape(shards)
+        split = {a for axes in self._entries(first.dim()) for a in axes}
+        out = []
+        for index in np.ndindex(shards.shape):
+            coord = dict(zip(self.mesh.axis_names, index))
+            if not any(coord[a] for a in self.mesh.axis_names if a not in split):
+                out.append((self.block(index, shape), shards[index]))
+        return out
+
+    def read(self, shards, cut, device=None) -> torch.Tensor:
+        """The region ``cut`` (a slice a dimension, with start and stop, of
+        the global tensor) of ``shards`` (as :meth:`place` gives them), as a
+        new tensor on ``device`` (default the mesh's first slot): each piece
+        copied from the one shard that holds it (:meth:`pieces`)."""
+        device = self.mesh.home if device is None else resolve_device(device)
+        first = shards.flat[0]
+        out = torch.empty(tuple(c.stop - c.start for c in cut), dtype=first.dtype,
+                          device=device)
+        for blk, shard in self.pieces(shards):
+            lo = [max(b.start, c.start) for b, c in zip(blk, cut)]
+            hi = [min(b.stop, c.stop) for b, c in zip(blk, cut)]
+            if any(a >= b for a, b in zip(lo, hi)):
+                continue
+            out[tuple(slice(a - c.start, b - c.start) for a, b, c in zip(lo, hi, cut))].copy_(
+                shard[tuple(slice(a - k.start, b - k.start) for a, b, k in zip(lo, hi, blk))])
         return out
 
     def gather(self, shards, device=None) -> torch.Tensor:
@@ -544,19 +589,9 @@ class NamedSharding:
         ``device`` (default the mesh's first slot)."""
         device = self.mesh.home if device is None else resolve_device(device)
         first = shards.flat[0]
-        entries = self._entries(first.dim())
-        sizes = self.mesh.shape
-        shape = tuple(d * math.prod(sizes[a] for a in axes)
-                      for d, axes in zip(first.shape, entries))
-        split = {a for axes in entries for a in axes}
-        if not split and first.device == device:
+        if not any(self._entries(first.dim())) and first.device == device:
             return first
-        out = torch.empty(shape, dtype=first.dtype, device=device)
-        for index in np.ndindex(shards.shape):
-            coord = dict(zip(self.mesh.axis_names, index))
-            if all(coord[a] == 0 for a in self.mesh.axis_names if a not in split):
-                out[self.block(index, shape)].copy_(shards[index])
-        return out
+        return self.read(shards, tuple(slice(0, n) for n in self.global_shape(shards)), device)
 
 
 def named_sharding(axes: tuple, mesh=None, rules=None) -> NamedSharding:

@@ -11,13 +11,18 @@ its layout, so either package reads the other's checkpoints:
   * **atomicity** -- writes go to ``step_X.tmp-<pid>`` and are renamed into
     place after the commit marker; a crashed writer never corrupts the
     latest checkpoint (``latest_step`` ignores uncommitted dirs);
-  * **async** -- ``save_async`` copies the tree to host memory at once and
-    writes it on a worker thread, one write in flight.  The copy is made
-    on every device: on the CPU a tensor's ``.numpy()`` shares its storage,
-    and the next in-place optimizer step would change the arrays being
-    written;
+  * **async** -- ``save_async`` copies the tree's tensors to host memory
+    at once and writes it on a worker thread, one write in flight.  The
+    copy is made on every device: on the CPU a tensor's ``.numpy()``
+    shares its storage, and the next in-place optimizer step would change
+    the arrays being written.  A numpy leaf is taken as it is, as the
+    reference's ``device_get`` takes one: the caller hands it over (the
+    Trainer's tree is assembled on the host for the write);
   * **restore onto a device** -- ``restore`` takes ``device=`` where the
-    reference takes target shardings;
+    reference takes target shardings, or with ``mmap=True`` hands back the
+    files' arrays memory-mapped, so a caller copies each device only its
+    block of each leaf (a model laid out over a mesh,
+    ``train/trainer.Trainer``);
   * **retention** -- ``keep`` newest k checkpoints are preserved.
 
 A tree is nested dicts, lists, tuples and NamedTuples whose leaves are
@@ -89,11 +94,12 @@ def _map_leaves(fn, tree, *rest):
 
 
 def _host_copy(x) -> np.ndarray:
-    """A numpy copy of a leaf that shares no storage with it."""
+    """A leaf on the host: a tensor copied (sharing no storage with it), a
+    numpy array taken as it is, as the caller hands it over."""
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu", copy=True)
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return np.array(x, copy=True)
+    return np.asarray(x)
 
 
 def _restored(arr: np.ndarray, skel, device):
@@ -121,7 +127,7 @@ class CheckpointManager:
         self._write(step, _map_leaves(_host_copy, tree), extras or {})
 
     def save_async(self, step: int, tree, extras: dict | None = None):
-        """Copy to the host now, write on a background thread."""
+        """Copy the tensors to the host now, write on a background thread."""
         self.wait()  # one in-flight write at a time
         host = _map_leaves(_host_copy, tree)
         self._thread = threading.Thread(
@@ -174,25 +180,29 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, skeleton, device=None):
+    def restore(self, step: int, skeleton, device=None, mmap: bool = False):
         """Load a checkpoint into the structure of ``skeleton``.
 
         Every leaf becomes a tensor on ``device`` (``'cuda'`` raises without
         a card), else on its skeleton leaf's device (the CPU for an array or
         a ``meta`` tensor), in the skeleton leaf's dtype where that leaf is
-        a tensor.  Returns (tree, extras).
+        a tensor.  With ``mmap``, every leaf is the file's numpy array,
+        memory-mapped read-only and in the file's dtype (a bf16 leaf's
+        float32), read only where it is sliced.  Returns (tree, extras).
         """
         device = None if device is None else resolve_device(device)
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "MANIFEST.json").read_text())
         flat = {}
         for key, meta in manifest["leaves"].items():
-            flat[key] = np.load(d / meta["file"])
+            flat[key] = np.load(d / meta["file"], mmap_mode="r" if mmap else None)
         tree = _unflatten_into(skeleton, flat)
+        if mmap:
+            return tree, manifest["extras"]
         return _map_leaves(lambda a, s: _restored(a, s, device), tree, skeleton), \
             manifest["extras"]
 
-    def restore_latest(self, skeleton, device=None):
+    def restore_latest(self, skeleton, device=None, mmap: bool = False):
         """Load the newest readable checkpoint, walking back over torn ones.
 
         The ``_COMMITTED`` marker already screens out checkpoints whose
@@ -206,7 +216,7 @@ class CheckpointManager:
         last_err = None
         for step in reversed(self.all_steps()):
             try:
-                tree, extras = self.restore(step, skeleton, device)
+                tree, extras = self.restore(step, skeleton, device, mmap)
                 return step, tree, extras
             except (OSError, ValueError, KeyError, json.JSONDecodeError,
                     EOFError) as e:

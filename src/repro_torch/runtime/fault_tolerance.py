@@ -147,25 +147,31 @@ def elastic_remesh(ckpt_manager, skeleton, make_shardings, *, devices=None,
     """Resume the latest checkpoint on a smaller (surviving) mesh.
 
     Builds :func:`surviving_mesh` of ``devices`` (default every visible
-    card), restores the newest readable checkpoint of ``ckpt_manager`` (a
+    card), reads the newest readable checkpoint of ``ckpt_manager`` (a
     ``runtime/checkpoint.CheckpointManager``) into ``skeleton``'s structure
-    on the mesh's first slot, and lays each leaf out by the
+    memory-mapped on the host, and lays each leaf out by the
     ``parallel/sharding.NamedSharding`` at its place in
-    ``make_shardings(mesh)``: each leaf becomes the object array of its
-    shards (``NamedSharding.place``; ``NamedSharding.gather`` rebuilds it).
+    ``make_shardings(mesh)``, in the skeleton leaf's dtype: each leaf
+    becomes the object array of its shards (``NamedSharding.place``, each
+    slot copying only its block of the file; ``NamedSharding.gather``
+    rebuilds it), so no whole leaf is made on a card.
     Returns ``(mesh, step, tree, extras)``, or ``None`` when no checkpoint
     exists.  With ``train/trainer.checkpoint_shardings`` as
     ``make_shardings``, a ``Trainer`` on the returned mesh trains on from
     that tree: ``Trainer(..., mesh=mesh).train(restored=(step, tree))``.
     """
+    import torch
+
     from repro_torch.parallel.sharding import tree_map
 
     mesh = surviving_mesh(model_parallel=model_parallel, devices=devices)
-    out = ckpt_manager.restore_latest(skeleton, device=mesh.home)
+    out = ckpt_manager.restore_latest(skeleton, mmap=True)
     if out is None:
         return None
     step, tree, extras = out
-    placed = tree_map(lambda x, sh: sh.place(x), tree, make_shardings(mesh))
+    placed = tree_map(lambda x, skel, sh: sh.place(x, skel.dtype if torch.is_tensor(skel)
+                                                   else None),
+                      tree, skeleton, make_shardings(mesh))
     return mesh, step, placed, extras
 
 

@@ -23,7 +23,7 @@ import torch
 import torch.profiler
 import torch.utils.checkpoint
 
-from repro_torch.models.tensor_parallel import Layout, VocabShards, model_group
+from repro_torch.models.tensor_parallel import VocabShards, lay_out
 from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import PartitionSpec as P
 from repro_torch.parallel.sharding import ModelGroup, active_mesh, axis_size
@@ -199,15 +199,20 @@ def _grads(model, loss_fn, run, batch):
     return loss, metrics
 
 
-def make_train_step(model, run, mesh=None, rules=None):
+def make_train_step(model, run, mesh=None, rules=None, seed=0):
     """Returns ``train_step(opt_state, batch) -> (opt_state, metrics)``:
     ``metrics`` holds 0-d tensors ``loss``, ``lr``, ``grad_norm`` and, on
     the single-batch path, ``ce`` and ``aux``.  The model's parameters must
     be float32, as the reference's are (``cfg.dtype`` sets the compute).
     With a ``mesh`` of more than one slot the step is a
-    :class:`DataParallelStep` over its ``data`` and ``model`` axes."""
+    :class:`DataParallelStep` over its ``data`` and ``model`` axes, which
+    also takes a model on ``meta``, drawn from ``seed`` (``None``: left
+    unset, for the caller to draw or restore)."""
     if mesh is not None and math.prod(mesh.shape.values()) > 1:
-        return DataParallelStep(model, run, mesh, rules)
+        return DataParallelStep(model, run, mesh, rules, seed)
+    if model.device.type == "meta":
+        raise ValueError("a model on meta holds no parameters: train it over a mesh of several "
+                         "slots, which lays it out, or build it on a device")
     if model.param_dtype != torch.float32:
         raise ValueError(f"training keeps float32 parameters, not {model.param_dtype}")
     loss_fn = make_loss_fn(model, run)
@@ -240,13 +245,19 @@ class DataParallelStep:
     Each data row runs the forward and backward of its contiguous shard of
     the batch under ``parallel.sharding.shard_map_compat``, a host thread a
     row.  With a ``model`` axis of one a row is a replica of the model on
-    its slot's device (the first row's is ``model`` itself).  With more, a
-    row is a ``models/tensor_parallel`` group of shards (any family): a
-    shard of the model a slot of the row, driven by the row's thread as one
-    autograd graph (no barrier in its backward), whose whole leaves read
-    inside a block of work have their partial gradients added over the row
-    (``sum_region_grads``).  A ``pod`` axis is folded into the data rows,
-    outermost (row = pod x n_data + data), as the reference's ``batch ->
+    its slot's device (the first row's is ``model`` itself, ``self.model``;
+    a model on ``meta`` is drawn on the first slot from ``seed``, or left
+    unset with ``None``).
+    With more, a row is a ``models/tensor_parallel`` group of shards (any
+    family) of ``self.laid`` (``lay_out(model, mesh, seed=seed)``: a model
+    on ``meta`` drawn from ``seed`` block by block, or left unset for the
+    caller with ``None``; a whole model's blocks copied and the model not
+    kept, so no card holds a whole copy of a leaf that ``model`` splits):
+    a shard of the model a slot of the row, driven by the row's thread as
+    one autograd graph (no barrier in its backward), whose whole leaves
+    read inside a block of work have their partial gradients added over
+    the row (``sum_region_grads``).  A ``pod`` axis is folded into the
+    data rows, outermost (row = pod x n_data + data), as the reference's ``batch ->
     ('pod', 'data')`` lays out the batch: the step runs on that
     ``(pod x data, model)`` mesh (``self.mesh``), so its moments' FSDP
     blocks span the pods too, where the reference's ``embed -> data``
@@ -280,38 +291,48 @@ class DataParallelStep:
     ``parallel.sharding.NamedSharding.place``: each of its leaves (the step
     and each parameter's m and v) an object array shaped as that mesh's
     devices, each entry the slot's shard on its device (:meth:`init_state`
-    and :meth:`gather` go through ``state_shardings``).  After the model's
-    parameters are set outside a step, :meth:`broadcast` copies them into
-    the rows; :meth:`collect` copies the first row's back into the model
-    (a no-op where the first row is the model).  A mesh with an axis other
-    than ``pod``, ``data`` and ``model`` larger than one raises
+    makes each slot's zeros in place; :meth:`gather` goes through
+    ``state_shardings``).  After the first row's parameters are set outside
+    a step, :meth:`broadcast` copies them into the other rows;
+    :meth:`collect` gives the parameters as a whole model (the first
+    replica, or the first row's blocks gathered on the CPU).  ``abstract``
+    is the model on ``meta``: its names and shapes.  A mesh with an axis
+    other than ``pod``, ``data`` and ``model`` larger than one raises
     ``NotImplementedError``: the reference's train step lays nothing else
     out (GPipe's stages are ``parallel/pipeline.py``'s).
     """
 
-    def __init__(self, model, run, mesh, rules=None):
+    def __init__(self, model, run, mesh, rules=None, seed=0):
         mesh = fold_pods(mesh)
         if model.param_dtype != torch.float32:
             raise ValueError(f"training keeps float32 parameters, not {model.param_dtype}")
-        self.model, self.run, self.mesh = model, run, mesh
+        self.cfg, self.run, self.mesh = model.cfg, run, mesh
+        self.abstract = model if model.device.type == "meta" else model.meta()
         self.n_model = axis_size(mesh, "model")
         self.slots = mesh.slots("data")  # each row's first slot
         self.n = len(self.slots)
         self.rows = [ModelGroup(mesh, at).indices for at in self.slots]
         if self.n_model == 1:
+            if model.device.type == "meta":  # drawn on the first slot, or left unset
+                model = (type(model).empty(model.cfg, mesh.home, model.param_dtype)
+                         if seed is None else
+                         type(model)(model.cfg, device=mesh.home, dtype=model.param_dtype,
+                                     generator=torch.Generator(device=mesh.home).manual_seed(seed)))
+            self.model = model
             self.replicas = [model] + [self._replica(mesh.devices[i]) for i in self.slots[1:]]
             self._row_mesh = mesh
         else:
-            layout = Layout(model.cfg, mesh, rules)
-            self.replicas = [model_group(model.cfg, layout, at) for at in self.slots]
+            self.laid = lay_out(model, mesh, rules, seed)
+            self.replicas = self.laid.groups
             row_devices = np.empty(self.n, dtype=object)
             row_devices[:] = [mesh.devices[at] for at in self.slots]
             self._row_mesh = sharding.Mesh(row_devices, ("data",))
-            self.broadcast()
-        self.shardings = self._shardings(model, mesh, rules)
+        del model  # a whole model's blocks are copied: the step keeps no reference to it
+        self.shardings = self._shardings(self.abstract, mesh, rules)
         self.state_shardings = opt.OptState(sharding.NamedSharding(mesh, P()),
                                             self.shardings, self.shardings)
-        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        # the whole parameters' shapes by name
+        self.shapes = shapes = {n: tuple(p.shape) for n, p in self.abstract.named_parameters()}
         # each row's slots' parameters by the whole model's names, and the
         # block each slot owns as slices of its own parameter
         self._params = [[dict(self._slot_module(d, m).named_parameters())
@@ -331,8 +352,7 @@ class DataParallelStep:
 
     def _replica(self, device):
         m = self.model
-        rep = type(m)(m.cfg, device=device, dtype=m.param_dtype,
-                      generator=torch.Generator(device=device).manual_seed(0))
+        rep = type(m).empty(m.cfg, device, m.param_dtype)
         rep.load_state_dict(m.state_dict())
         return rep
 
@@ -370,41 +390,44 @@ class DataParallelStep:
     # -- state ---------------------------------------------------------------
     @torch.no_grad()
     def broadcast(self):
-        """Copy the model's parameters into every other replica, or every
-        row's model slots."""
-        if self.n_model > 1:
-            for rep in self.replicas:
-                rep.load_from(self.model)
-            return
-        src = dict(self.model.named_parameters())
+        """Copy the first row's parameters (its replica, or its model
+        slots' blocks) into every other row."""
+        src = dict(self.replicas[0].named_parameters())
         for rep in self.replicas[1:]:
             for name, p in rep.named_parameters():
                 p.copy_(src[name])
 
-    def collect(self):
-        """Copy the first row's model slots back into the model's whole
-        parameters (the first replica is the model itself on a ``model``
-        axis of one); returns the model."""
-        if self.n_model > 1:
-            self.replicas[0].gather_into(self.model)
-        return self.model
+    def collect(self, device="cpu"):
+        """The parameters as a whole model: on a ``model`` axis of one the
+        first replica itself (``self.model``, up to date after every step);
+        else a new model on ``device`` (default the CPU) holding the first
+        row's blocks (``LaidOutModel.gather``), for reading the weights
+        out."""
+        return self.model if self.n_model == 1 else self.laid.gather(device)
+
+    def _zeros(self, shape, dtype) -> np.ndarray:
+        """An object array shaped as the mesh's devices: each slot's zeros
+        of ``shape`` made on its device."""
+        devices = self.mesh.devices
+        out = np.empty(devices.shape, dtype=object)
+        for i in np.ndindex(devices.shape):
+            out[i] = torch.zeros(shape, dtype=dtype, device=devices[i])
+        return out
 
     def init_state(self, dtype=torch.float32) -> opt.OptState:
-        """Zero moments in ``dtype`` and step 0, laid out over the slots
-        (each leaf made whole on the first slot, then placed)."""
-        home = self.mesh.home
-        shapes = {n: p.shape for n, p in self.model.named_parameters()}
-
+        """Zero moments in ``dtype`` and step 0, laid out over the slots:
+        each slot's blocks made in place on its device."""
         def zeros():
-            return {n: self.shardings[n].place(torch.zeros(shape, dtype=dtype, device=home))
-                    for n, shape in shapes.items()}
+            return {n: self._zeros(self.shardings[n].shard_shape(shape), dtype)
+                    for n, shape in self.shapes.items()}
 
-        return opt.OptState(self.state_shardings.step.place(
-            torch.zeros((), dtype=torch.int32, device=home)), zeros(), zeros())
+        return opt.OptState(self._zeros((), torch.int32), zeros(), zeros())
 
     def gather(self, state, device=None) -> opt.OptState:
-        """The whole ``OptState`` on ``device`` (default the model's)."""
-        device = self.model.device if device is None else device
+        """The whole ``OptState`` on ``device`` (default the model's on a
+        ``model`` axis of one, else the CPU)."""
+        if device is None:
+            device = self.model.device if self.n_model == 1 else "cpu"
         return sharding.tree_map(lambda a, sh: sh.gather(a, device), state,
                                  self.state_shardings)
 
@@ -416,7 +439,7 @@ class DataParallelStep:
         per = rows // self.n
         if per * self.n != rows:  # the mean over slots needs equal shards
             raise RuntimeError(f"{rows} rows do not split into {self.n} equal shards")
-        cfg = self.model.cfg
+        cfg = self.cfg
         if cfg.n_experts:
             mb = self.run.microbatch if self.run.microbatch and self.run.microbatch > 1 else 1
             seq = batch["tokens"].shape[1] + (batch["prefix"].shape[1] if "prefix" in batch else 0)

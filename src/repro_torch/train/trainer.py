@@ -3,24 +3,29 @@
 Counterpart of the reference's ``train/trainer.py``.  Wires together the
 train step (``train_step.make_train_step``), async atomic checkpointing
 with auto-resume (``runtime/checkpoint``), preemption (a SIGTERM writes a
-checkpoint and stops), straggler logging and JSONL metrics.  The model
-holds its parameters, on its own device.  Given a mesh of several slots,
-it trains over the mesh's ``pod``, ``data`` and ``model`` axes
-(``train_step.DataParallelStep``: a replica a data row, or over a
+checkpoint and stops), straggler logging and JSONL metrics.  Without a
+mesh the model holds its parameters, on its own device.  Given a mesh of
+several slots, it trains over the mesh's ``pod``, ``data`` and ``model``
+axes (``train_step.DataParallelStep``: a replica a data row, or over a
 ``model`` axis larger than one a group of the model's shards a row, a
 ``pod`` axis folded into the rows, the moments laid out by the
-reference's parameter shardings over the step's mesh); the
-checkpoint is the gathered tree all the same, and the model's own
-parameters are brought up to date at each checkpoint and at the end.  A
-resume over a mesh places the restored tree by
+reference's parameter shardings over the step's mesh).  Over a ``model``
+axis larger than one no card holds a whole copy of a leaf that the axis
+splits, as under the reference's GSPMD: the model may be given on
+``meta``, :meth:`Trainer.init_state` draws each slot's blocks from the
+seed (bit for bit the blocks of the whole draw), a checkpoint is
+assembled leaf by leaf on the host from the slots that own each block,
+and a resume copies each slot only its blocks of the memory-mapped files.
+A resume over a mesh may also start from a tree placed by
 :func:`checkpoint_shardings`, the layout in which
-``runtime/fault_tolerance.elastic_remesh`` hands a tree back, and trains
-from that placed tree (``train(restored=...)`` takes ``elastic_remesh``'s).
+``runtime/fault_tolerance.elastic_remesh`` hands a tree back
+(``train(restored=...)``).
 
 The checkpoint tree is the reference's ``(params, opt_state)`` in the
 reference's layout: nested dicts of the spec's paths, the layers stacked
 on a leading axis, and ``OptState(step, m, v)``.  So a checkpoint that
-either package's trainer writes restores in the other's, leaf for leaf.
+either package's trainer writes restores in the other's, leaf for leaf,
+over any mesh.
 """
 from __future__ import annotations
 
@@ -33,17 +38,18 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models.convert import (
+    host_tree,
+    leaf_reader,
     opt_state_from_reference,
     params_from_reference,
-    stack_named,
+    whole,
 )
-from repro_torch.models.params import abstract_params
+from repro_torch.models.params import abstract_params, get_path, tree_paths
 from repro_torch.parallel.sharding import PartitionSpec as P
 from repro_torch.parallel.sharding import (
     NamedSharding,
     param_shardings,
     slot_device,
-    tree_map,
 )
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.fault_tolerance import (
@@ -79,19 +85,32 @@ class Trainer:
     the batches of ``data_iter`` (dicts of tensors on that device), writing
     ``metrics.jsonl`` and checkpoints under ``workdir``.  ``mesh`` may be
     ``None``, a mesh of one slot, or a ``(data, model)`` or ``(pod, data,
-    model)`` mesh whose first slot is the model's device (``rules`` over
-    the reference's lay the parameters and moments out); a ``model`` axis
-    larger than one lays the model out over it (any family).  Over a mesh,
-    ``self.mesh`` is the train step's (``DataParallelStep.mesh``: a
-    ``pod`` axis folded into ``data``), over which a checkpoint is
-    placed."""
+    model)`` mesh (``rules`` over the reference's lay the parameters and
+    moments out).  Over a ``model`` axis of one, ``model`` may hold its
+    parameters on the mesh's first slot (it is the first replica) or be on
+    ``meta``; over a ``model`` axis larger than one (any family) it must be
+    on ``meta`` (``get_model(cfg, device='meta')``), as the reference's
+    stateless model: the step holds each slot's blocks alone, which
+    :meth:`init_state` or a resume fills, and ``self.step_fn.collect()``
+    reads the weights out (a model holding parameters raises
+    ``ValueError``: its weights would be drawn anew or restored over, and
+    would go stale beside the blocks).  Over a mesh, ``self.mesh`` is the
+    train step's (``DataParallelStep.mesh``: a ``pod`` axis folded into
+    ``data``), over which a checkpoint is placed, and ``self.model`` the
+    step's model: the first replica over a ``model`` axis of one, else the
+    model on ``meta`` (its names and shapes)."""
 
     def __init__(self, model, run: RunConfig, data_iter, workdir, mesh=None, rules=None):
-        if (mesh is not None and math.prod(mesh.shape.values()) > 1
-                and mesh.home != slot_device(model.device)):
-            raise ValueError(f"the mesh's first slot {mesh.home} is not the model's device "
-                             f"{model.device}")
-        self.model = model
+        if mesh is not None and math.prod(mesh.shape.values()) > 1 and model.device.type != "meta":
+            if mesh.shape.get("model", 1) > 1:
+                raise ValueError(
+                    f"over a 'model' axis of {mesh.shape['model']} the Trainer holds each "
+                    f"slot's blocks alone: give it the model on meta (get_model(cfg, "
+                    f"device='meta')); init_state or a resume fills the blocks, and "
+                    f"step_fn.collect() reads the weights out")
+            if mesh.home != slot_device(model.device):
+                raise ValueError(f"the mesh's first slot {mesh.home} is not the model's device "
+                                 f"{model.device}")
         self.run = run
         self.data_iter = data_iter
         self.workdir = Path(workdir)
@@ -101,59 +120,85 @@ class Trainer:
         self.ckpt = CheckpointManager(self.workdir / "ckpt", keep=run.keep_checkpoints)
         self.straggler = StragglerDetector()
         self.metrics_path = self.workdir / "metrics.jsonl"
-        self.step_fn = make_train_step(model, run, mesh, rules)
+        # a model on meta over a mesh: left unset, init_state or a resume fills it
+        self.step_fn = make_train_step(model, run, mesh, rules, seed=None)
         self.sharded = isinstance(self.step_fn, DataParallelStep)
+        self.model = model
         if self.sharded:
             self.mesh = self.step_fn.mesh
+            if self.step_fn.n_model == 1:
+                self.model = self.step_fn.model
+        self.laid_out = self.sharded and self.step_fn.n_model > 1
 
     # -- state --------------------------------------------------------------
+    def _params(self) -> dict:
+        """The parameters by name: the model's, or over a ``model`` axis
+        larger than one the first data row's slots' (``slots.<k>.<name>``)."""
+        held = self.step_fn.replicas[0] if self.laid_out else self.model
+        return dict(held.named_parameters())
+
     def init_state(self, seed=0):
-        """Draws the model's parameters anew from ``seed`` (a generator on
-        its device) and returns ``(params, opt_state)``: the parameters by
-        name and zero moments."""
+        """Draws the parameters anew from ``seed`` and returns ``(params,
+        opt_state)``: the parameters by name (:meth:`_params`) and zero
+        moments.  Without a ``model`` axis larger than one the model is
+        drawn on its device (a generator there) and copied into the other
+        replicas; with one each device draws every leaf once and each slot
+        keeps its blocks (``LaidOutModel.init``), the same bits."""
+        if self.laid_out:
+            self.step_fn.laid.init(seed)
+            return self._params(), self.step_fn.init_state()
         self.model.init(torch.Generator(device=self.model.device).manual_seed(seed))
-        params = dict(self.model.named_parameters())
-        if self.sharded:  # drawn on the first slot, then placed
+        params = self._params()
+        if self.sharded:  # drawn on the first slot, then copied into the rows
             self.step_fn.broadcast()
             return params, self.step_fn.init_state()
         return params, opt.init_opt_state(params)
 
     def _checkpoint_tree(self, opt_state):
-        """``(params, opt_state)`` in the reference's layout (tensors; the
-        stacked leaves are new tensors, the others the model's own; over a
-        mesh the moments gathered to the model's device first)."""
-        m = self.model
-        if self.sharded:
-            self.step_fn.collect()
-            opt_state = self.step_fn.gather(opt_state)
-        return (stack_named(m, dict(m.named_parameters())),
-                opt.OptState(opt_state.step, stack_named(m, opt_state.m),
-                             stack_named(m, opt_state.v)))
+        """``(params, opt_state)`` in the reference's layout as numpy arrays
+        assembled on the host (``convert.host_tree``), sharing nothing with
+        the state: the model's tensors, or over a mesh the parameters from
+        the first data row (over a ``model`` axis larger than one each
+        slot's blocks) and each moment from the slots that own its blocks,
+        so no whole leaf is made on a card."""
+        if self.laid_out:
+            first = self.step_fn.replicas[0]
 
-    def _skeleton(self, opt_state):
-        """The checkpoint tree's shapes and dtypes as ``meta`` tensors."""
-        m = next(iter(opt_state.m.values()))
-        return checkpoint_skeleton(self.model, m.flat[0].dtype if self.sharded else m.dtype)
+            def params(name):
+                return [(first.slices(k, name), sl.get_parameter(name))
+                        for k, sl in enumerate(first.slots)]
+        else:
+            params = whole(self._params())
+        if self.sharded:
+            def moments(named):
+                return lambda name: self.step_fn.shardings[name].pieces(named[name])
+        else:
+            moments = whole
+        step = opt_state.step.flat[0] if self.sharded else opt_state.step
+        m = self.model
+        return (host_tree(m, params),
+                opt.OptState(step.detach().cpu().numpy().copy(),
+                             host_tree(m, moments(opt_state.m)),
+                             host_tree(m, moments(opt_state.v))))
 
     def resume_or_init(self, seed=0, restored=None):
         """``(step, params, opt_state)``: from ``restored`` where given
         (``(step, tree)``, the tree placed over this trainer's mesh by
         :func:`checkpoint_shardings`, as ``elastic_remesh`` returns it),
-        else from the latest checkpoint, else drawn from ``seed``."""
+        else from the latest checkpoint (over a mesh its files memory-mapped,
+        each slot reading its blocks), else drawn from ``seed``."""
         if restored is not None and not self.sharded:
             raise ValueError("a restored tree is one placed over a mesh of several slots")
-        params, opt_state = self.init_state(seed)
         if restored is None:
-            out = self.ckpt.restore_latest(self._skeleton(opt_state), device=self.model.device)
+            out = self.ckpt.restore_latest(
+                checkpoint_skeleton(self.model),
+                **({"mmap": True} if self.sharded else {"device": self.model.device}))
             if out is None:
+                params, opt_state = self.init_state(seed)
                 return 0, params, opt_state
             step, tree, _ = out
-            if self.sharded:
-                tree = tree_map(lambda x, sh: sh.place(x), tree,
-                                checkpoint_shardings(self.model, self.mesh, self.rules))
         else:
             step, tree = restored
-        del opt_state
         if self.sharded:
             opt_state = self._adopt(tree)
         else:
@@ -161,33 +206,55 @@ class Trainer:
             opt_state = opt_state_from_reference(self.model, tree[1])
         del tree
         print(f"[trainer] resumed from step {step}")
-        return step, params, opt_state
+        return step, self._params(), opt_state
 
-    def _adopt(self, placed):
-        """The train step's state from a checkpoint tree placed over the
-        mesh: the parameters gathered into every replica, and each slot's
-        stacked moment shards unstacked into its blocks by name."""
+    def _adopt(self, tree):
+        """The train step's state from a checkpoint tree, each slot reading
+        only its blocks: the parameters into every data row, each moment's
+        owned blocks, the step on every slot.  ``tree`` holds host arrays in
+        the reference's layout (the memory-mapped files) or shards placed
+        over the mesh by :func:`checkpoint_shardings` (``elastic_remesh``'s
+        tree)."""
         mesh, step_fn = self.mesh, self.step_fn
-        p_sh, _ = checkpoint_shardings(self.model, mesh, self.rules)
-        p_placed, o_placed = placed
-        if o_placed.step.shape != mesh.devices.shape:
-            raise ValueError(f"a tree placed over {o_placed.step.shape} slots, not over the "
+        p_tree, o_tree = tree
+        placed = isinstance(o_tree.step, np.ndarray) and o_tree.step.dtype == object
+        if placed and o_tree.step.shape != mesh.devices.shape:
+            raise ValueError(f"a tree placed over {o_tree.step.shape} slots, not over the "
                              f"trainer's mesh of {mesh.devices.shape}")
-        params_from_reference(self.model, tree_map(
-            lambda a, sh: sh.gather(a, self.model.device), p_placed, p_sh))
-        step_fn.broadcast()
-        shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+        p_sh, _ = checkpoint_shardings(self.model, mesh, self.rules)
+        for path, leaf in tree_paths(self.model.spec()):
+            for part in (p_tree, o_tree.m, o_tree.v):
+                x = get_path(part, path)
+                got = tuple(get_path(p_sh, path).global_shape(x) if placed else x.shape)
+                if got != tuple(leaf.shape):
+                    raise ValueError(f"{'/'.join(path)}: {got} in the checkpoint, not the "
+                                     f"model's {tuple(leaf.shape)}")
+        # a placed tree's region is read from the shards that hold it
+        take = (lambda path, leaf, cut, dev: get_path(p_sh, path).read(leaf, cut, dev)) \
+            if placed else None
+        read = leaf_reader(p_tree, take)
+        for rep in step_fn.replicas:
+            if self.laid_out:
+                rep.load(read)
+            else:
+                with torch.no_grad():
+                    for name, p in rep.named_parameters():
+                        p.copy_(read(name, tuple(slice(0, n) for n in p.shape), p.device))
+        shapes = step_fn.shapes
         m, v = {}, {}
+        reads = [(m, leaf_reader(o_tree.m, take)), (v, leaf_reader(o_tree.v, take))]
         for at in np.ndindex(mesh.devices.shape):
-            part = opt_state_from_reference(self.model, tree_map(lambda a: a[at], o_placed),
-                                            device=mesh.devices[at])
-            for out, named in ((m, part.m), (v, part.v)):
-                for n, t in named.items():
-                    if tuple(t.shape) != step_fn.shardings[n].shard_shape(shapes[n]):
-                        raise ValueError(f"{n}: a shard of {tuple(t.shape)}, not the train "
-                                         f"step's block of {shapes[n]}")
-                    out.setdefault(n, np.empty(mesh.devices.shape, dtype=object))[at] = t
-        return opt.OptState(o_placed.step, m, v)
+            dev = mesh.devices[at]
+            for out, read in reads:
+                for n, shape in shapes.items():
+                    block = read(n, step_fn.shardings[n].block(at, shape), dev)
+                    out.setdefault(n, np.empty(mesh.devices.shape, dtype=object))[at] = \
+                        block.to(device=dev, dtype=torch.float32)
+        steps = np.empty(mesh.devices.shape, dtype=object)
+        for at in np.ndindex(mesh.devices.shape):
+            s = o_tree.step[at] if placed else torch.from_numpy(np.array(o_tree.step))
+            steps[at] = s.to(device=mesh.devices[at], dtype=torch.int32, copy=True).reshape(())
+        return opt.OptState(steps, m, v)
 
     # -- loop ---------------------------------------------------------------
     def train(self, steps=None, seed=0, restored=None):
@@ -220,7 +287,7 @@ class Trainer:
                     or preempt.requested
                 )
                 if do_ckpt:
-                    tree = self._checkpoint_tree(opt_state)
+                    tree = self._checkpoint_tree(opt_state)  # host arrays of its own
                     if self.run.async_checkpoint and not preempt.requested:
                         self.ckpt.save_async(step + 1, tree)
                     else:
@@ -233,7 +300,5 @@ class Trainer:
             self.ckpt.wait()
             mfile.close()
             preempt.uninstall()
-        if self.sharded:
-            self.step_fn.collect()
         return params, opt_state, last
 

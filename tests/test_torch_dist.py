@@ -596,10 +596,10 @@ def test_trainer_takes_a_model_axis_for_decoders_only(tmp_path):
     cfg = registry.get_config("qwen3-1.7b").reduced()
     model = registry.get_model(cfg, device="cpu")
     for name in ("qwen3-1.7b", "hymba-1.5b", "seamless-m4t-large-v2"):
-        one = registry.get_model(registry.get_config(name).reduced(), device="cpu")
+        one = registry.get_model(registry.get_config(name).reduced(), device="meta")
         t = Trainer(one, RunConfig(), iter(()), tmp_path, mesh=wide)
         assert t.sharded and t.step_fn.n_model == 2 and len(t.step_fn.replicas) == 2
-    rwkv = registry.get_model(registry.get_config("rwkv6-1.6b").reduced(), device="cpu")
+    rwkv = registry.get_model(registry.get_config("rwkv6-1.6b").reduced(), device="meta")
     with pytest.raises(NotImplementedError, match="give each slot 32 columns, splitting a head"):
         Trainer(rwkv, RunConfig(), iter(()), tmp_path, mesh=wide)
     pod = Mesh(np.array(["cpu"] * 2, dtype=object).reshape(2, 1), ("pod", "data"))

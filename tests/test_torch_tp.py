@@ -225,9 +225,10 @@ def test_layout_of_the_reduced_configs():
     assert tuple(shard.embed["embedding"].shape) == (cfg.vocab_padded // 4, 64)
     assert len(four.groups) == 2 and four.groups[1].group.indices == [(1, 0), (1, 1)]
     back = four.gather()
-    assert back is model  # the whole model, the first row's blocks copied back
+    assert back is not model and back.device == torch.device("cpu")  # built on request
+    assert all(torch.equal(a, b) for a, b in zip(back.parameters(), model.parameters()))
     # a shard draws the blocks of the whole model's seed-0 draw
-    fresh = lay_out(registry.get_model(cfg, device="cpu"), _mesh((1, 4)))
+    fresh = lay_out(registry.get_model(cfg, device="meta"), _mesh((1, 4)))
     own = type(shard)(cfg, device="cpu", block=shard.block).init(torch.Generator().manual_seed(0))
     assert all(torch.equal(a, b) for a, b in zip(own.parameters(),
                                                  fresh.groups[0].slots[3].parameters()))
@@ -347,9 +348,10 @@ def _check_step(model, step, state, metrics, want, keys):
     _close(got.m, o_want.m, GRAD_SHARE, what="m ")
     _close(got.v, o_want.v, 2 * GRAD_SHARE, rtol=2 * RTOL, what="v ")
     rows = []
-    for rep in step.replicas[::-1]:  # every data row's gathered parameters, the first last
-        rep.gather_into(model)
-        rows.insert(0, params_to_reference(model))
+    for rep in step.replicas:  # every data row's parameters gathered on the CPU
+        whole = registry.model_class(model.cfg).empty(model.cfg, "cpu")
+        rep.gather_into(whole)
+        rows.append(params_to_reference(whole))
     for other in rows[1:]:
         _assert_np_equal(other, rows[0])
     for (path, w), g, mm in zip(jax.tree_util.tree_flatten_with_path(p_want)[0],
@@ -364,12 +366,15 @@ def _check_step(model, step, state, metrics, want, keys):
 
 def _step(name, shape, **kw):
     run_kw = {k: kw.pop(k) for k in ("microbatch",) if k in kw}
-    cfg, lo, ref = _laid_out(name, shape, **kw)
-    step = make_train_step(lo.model, RunConfig(learning_rate=LR, warmup_steps=1, **run_kw),
-                           lo.mesh)
+    ref = _reference(name)
+    cfg = _configs(name, **kw)[1]
+    model = params_from_reference(registry.get_model(cfg, device="cpu"), ref["tree"])
+    step = make_train_step(model, RunConfig(learning_rate=LR, warmup_steps=1, **run_kw),
+                           _mesh(shape))
     assert isinstance(step, DataParallelStep) and step.n_model == shape[1]
+    assert not hasattr(step, "model")  # the whole model's blocks copied, the model not kept
     state, metrics = step(step.init_state(), _torch(ref["batch"]))
-    return lo.model, step, state, metrics
+    return step.abstract, step, state, metrics
 
 
 @pytest.mark.parametrize("shape", MESHES)
@@ -424,20 +429,21 @@ def test_trainer_over_data_and_model_resumes_everywhere(tmp_path):
     run = RunConfig(**_run_kwargs())
     plain = Trainer(registry.get_model(cfg, device="cpu"), run, _data(cfg, 0), tmp_path / "x")
     p0, _ = plain.init_state(seed=3)
-    model = registry.get_model(cfg, device="cpu")
+    model = registry.get_model(cfg, device="meta")
     trainer = Trainer(model, run, _data(cfg, 0), tmp_path / "run", mesh=_mesh((2, 2)))
     trainer.init_state(seed=3)
-    trainer.step_fn.collect()
-    assert all(torch.equal(p0[k], v) for k, v in model.named_parameters())  # the no-mesh init
+    drawn = trainer.step_fn.collect()
+    assert all(torch.equal(p0[k], v) for k, v in drawn.named_parameters())  # the no-mesh init
     _, state, last = trainer.train(steps=4)
     assert trainer.ckpt.latest_step() == 4 and np.isfinite(last["loss"])
-    want_p = params_to_reference(model)  # the trainer brought the model up to date
+    want_p = params_to_reference(trainer.step_fn.collect())  # the first row's blocks
     want_o = opt_state_to_reference(model, trainer.step_fn.gather(state))
 
     def check(start, m, state):
         assert start == 4
         got = opt_state_to_reference(m, state)
-        _assert_np_equal(params_to_reference(m), want_p)
+        _assert_np_equal(params_to_reference(m if m.device.type == "cpu" else t3.step_fn.collect()),
+                         want_p)
         _assert_np_equal((got.m, got.v), (want_o.m, want_o.v))
         assert int(got.step) == 4
 
@@ -451,7 +457,7 @@ def test_trainer_over_data_and_model_resumes_everywhere(tmp_path):
     assert start == 4 and int(jopt.step) == 4
     _assert_np_equal(jax.tree.map(np.asarray, jparams), want_p)
     _assert_np_equal(jax.tree.map(np.asarray, (jopt.m, jopt.v)), (want_o.m, want_o.v))
-    m3 = registry.get_model(cfg, device="cpu")  # over (1, 2): placed again, trains on
+    m3 = registry.get_model(cfg, device="meta")  # over (1, 2): placed again, trains on
     t3 = Trainer(m3, run, _data(cfg, 1), tmp_path / "run", mesh=_mesh((1, 2)))
     start, _, s3 = t3.resume_or_init()
     check(start, m3, t3.step_fn.gather(s3))
@@ -466,20 +472,21 @@ def test_elastic_remesh_onto_a_model_axis(tmp_path):
     on bitwise as a resume from the checkpoint on that mesh."""
     cfg = registry.get_config("qwen3-1.7b").reduced()
     run = RunConfig(**_run_kwargs())
-    model = registry.get_model(cfg, device="cpu")
+    model = registry.get_model(cfg, device="meta")
     Trainer(model, run, _data(cfg, 0), tmp_path / "run", mesh=_mesh((2, 2))).train(steps=4)
     ckpt = CheckpointManager(tmp_path / "run" / "ckpt")
     mesh, step, tree, _ = elastic_remesh(ckpt, checkpoint_skeleton(model),
                                          lambda m: checkpoint_shardings(model, m),
                                          devices=["cpu"] * 2, model_parallel=2)
     assert step == 4 and mesh.shape == {"data": 1, "model": 2}
-    m2 = registry.get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    m2 = registry.get_model(cfg, device="meta")
     t2 = Trainer(m2, run, _data(cfg, 1), tmp_path / "elastic", mesh=mesh)
     _, s2, _ = t2.train(steps=6, restored=(step, tree))
-    m3 = registry.get_model(cfg, device="cpu")
+    m3 = registry.get_model(cfg, device="meta")
     t3 = Trainer(m3, run, _data(cfg, 1), tmp_path / "run", mesh=_mesh((1, 2)))
     _, s3, _ = t3.train(steps=6)
-    _assert_np_equal(params_to_reference(m2), params_to_reference(m3))
+    _assert_np_equal(params_to_reference(t2.step_fn.collect()),
+                     params_to_reference(t3.step_fn.collect()))
     _assert_np_equal(*(opt_state_to_reference(m, t.step_fn.gather(s))
                        for m, t, s in ((m2, t2, s2), (m3, t3, s3))))
 

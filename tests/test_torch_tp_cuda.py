@@ -21,7 +21,11 @@ On 4 slots of the first card (a ``(1, 4)`` or ``(2, 2)`` mesh of
   (``tests/test_torch_tp_families.py``'s configs) against the same layout
   on CPU slots: the forward at rtol/atol 1e-4, one train step's loss at
   1e-4 and grad_norm, m and v at 1e-4 (rwkv6-d256 at 1e-3, float32's own
-  spread there), 8 greedy tokens equal.
+  spread there), 8 greedy tokens equal;
+* a model on ``meta`` laid out over ``(1, 4)`` from a seed: every slot's
+  blocks are the whole draw's on the card, bitwise, and the card then
+  holds the blocks' bytes alone; the model-parallel ``Trainer``'s
+  checkpoint copies to the host within the held bytes plus one block.
 
 Skipped without a CUDA device: the fixtures decide, not the import.  Run on
 the card with ``PYTHONPATH=src python -m pytest -q
@@ -42,6 +46,7 @@ from repro_torch.models.tensor_parallel import lay_out  # noqa: E402
 from repro_torch.serve.serve_step import make_prefill_fn, make_serve_step  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
+from repro_torch.train.trainer import Trainer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -105,7 +110,7 @@ def _tp_vs_one(dev, shape):
         np.testing.assert_allclose(float(metrics[k]), float(m1[k]), rtol=RTOL, err_msg=k)
     got = step.gather(state)
     rows = [rep.gathered_grads(model) for rep in step.replicas]
-    step.collect()
+    after = step.collect()  # the first row's blocks, gathered on the CPU
     for name, p in one.named_parameters():
         mean = rows[0][name].clone()
         for r in rows[1:]:
@@ -116,7 +121,7 @@ def _tp_vs_one(dev, shape):
             top = float(b.abs().max())
             np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=RTOL,
                                        atol=GRAD_SHARE * top, err_msg=f"{what} {name}")
-        np.testing.assert_allclose(model.get_parameter(name).detach().cpu().numpy(),
+        np.testing.assert_allclose(after.get_parameter(name).detach().numpy(),
                                    p.detach().cpu().numpy(), rtol=0, atol=2 * LR, err_msg=name)
     return step, state, batch
 
@@ -237,3 +242,55 @@ def test_family_layout_matches_the_cpu_path(dev, name, over, shape, tol):
                            ("v", card[2].v[name_], host[2].v[name_])):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=tol,
                                        atol=tol * float(b.abs().max()), err_msg=f"{what} {name_}")
+
+
+# ------------------------------------------------------------ from its own blocks --
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "internvl2-26b"])
+def test_block_draw_on_the_card_is_the_whole_draws(dev, name):
+    cfg = registry.get_config(name).reduced()
+    whole = dict(registry.get_model(cfg, device=dev).named_parameters())
+    lo = lay_out(registry.get_model(cfg, device="meta"), _mesh(dev, (1, 4)), seed=0)
+    g = lo.groups[0]
+    for k, sl in enumerate(g.slots):
+        for pname, p in sl.named_parameters():
+            assert p.device == dev and torch.equal(p, whole[pname][g.slices(k, pname)]), pname
+
+
+def test_lay_out_from_a_seed_holds_the_blocks_alone(dev):
+    cfg = registry.get_config("internvl2-26b").reduced()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    lo = lay_out(registry.get_model(cfg, device="meta", dtype=torch.bfloat16),
+                 _mesh(dev, (1, 4)), seed=0)
+    held = torch.cuda.memory_allocated() - base
+    blocks = sum(p.numel() * p.element_size() for sl in lo.shards() for p in sl.parameters())
+    n = sum(1 for sl in lo.shards() for _ in sl.parameters())
+    assert blocks <= held <= blocks + 512 * n  # the allocator rounds each block to 512 B
+
+
+def test_trainer_checkpoint_peak_within_held_plus_one_block(dev, tmp_path):
+    cfg = registry.get_config("qwen3-1.7b").reduced()
+    batch = _batch(cfg, dev)
+    run = RunConfig(steps=2, checkpoint_every=2, warmup_steps=1, async_checkpoint=False)
+    trainer = Trainer(registry.get_model(cfg, device="meta"), run, iter([batch] * 2), tmp_path,
+                      mesh=_mesh(dev, (1, 4)))
+    peaks = {}
+    tree_of = trainer._checkpoint_tree
+
+    def measured(state):
+        torch.cuda.synchronize()
+        peaks["held"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tree = tree_of(state)
+        peaks["save"] = torch.cuda.max_memory_allocated()
+        return tree
+
+    trainer._checkpoint_tree = measured
+    _, state, _ = trainer.train(steps=2)
+    one_block = max([p.numel() * p.element_size()
+                     for sl in trainer.step_fn.laid.shards() for p in sl.parameters()]
+                    + [t.numel() * t.element_size() for a in state.m.values() for t in a.flat])
+    assert trainer.ckpt.latest_step() == 2
+    assert peaks["save"] <= peaks["held"] + one_block

@@ -348,7 +348,7 @@ def _pod_mesh():
 
 def test_hymba_trainer_over_data_and_model_resumes_on_one_slot(tmp_path):
     cfg = registry.get_config("hymba-1.5b").reduced(d_model=40)
-    model = registry.get_model(cfg, device="cpu")
+    model = registry.get_model(cfg, device="meta")
     trainer = Trainer(model, _run(), _data(cfg, 0), tmp_path / "run", mesh=_mesh((2, 2)))
     _, state, last = trainer.train(steps=4)
     assert trainer.ckpt.latest_step() == 4 and np.isfinite(last["loss"])
@@ -356,7 +356,7 @@ def test_hymba_trainer_over_data_and_model_resumes_on_one_slot(tmp_path):
     one = registry.get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
     start, _, got = Trainer(one, _run(), _data(cfg, 1), tmp_path / "run").resume_or_init()
     assert start == 4 and int(got.step) == 4
-    _assert_np_equal(params_to_reference(one), params_to_reference(model))
+    _assert_np_equal(params_to_reference(one), params_to_reference(trainer.step_fn.collect()))
     got = opt_state_to_reference(one, got)
     _assert_np_equal((got.m, got.v), (want_o.m, want_o.v))
 
@@ -366,20 +366,21 @@ def test_elastic_remesh_of_hymba_onto_a_model_axis(tmp_path):
     columns) through ``elastic_remesh`` onto 2 survivors at
     ``model_parallel=2``: trained on bitwise as a resume on that mesh."""
     cfg = registry.get_config("hymba-1.5b").reduced(d_model=40)
-    model = registry.get_model(cfg, device="cpu")
+    model = registry.get_model(cfg, device="meta")
     Trainer(model, _run(), _data(cfg, 0), tmp_path / "run", mesh=_mesh((2, 2))).train(steps=4)
     mesh, step, tree, _ = elastic_remesh(CheckpointManager(tmp_path / "run" / "ckpt"),
                                          checkpoint_skeleton(model),
                                          lambda m: checkpoint_shardings(model, m),
                                          devices=["cpu"] * 2, model_parallel=2)
     assert step == 4 and mesh.shape == {"data": 1, "model": 2}
-    m2 = registry.get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    m2 = registry.get_model(cfg, device="meta")
     t2 = Trainer(m2, _run(), _data(cfg, 1), tmp_path / "elastic", mesh=mesh)
     _, s2, _ = t2.train(steps=6, restored=(step, tree))
-    m3 = registry.get_model(cfg, device="cpu")
+    m3 = registry.get_model(cfg, device="meta")
     t3 = Trainer(m3, _run(), _data(cfg, 1), tmp_path / "run", mesh=_mesh((1, 2)))
     _, s3, _ = t3.train(steps=6)
-    _assert_np_equal(params_to_reference(m2), params_to_reference(m3))
+    _assert_np_equal(params_to_reference(t2.step_fn.collect()),
+                     params_to_reference(t3.step_fn.collect()))
     _assert_np_equal(*(opt_state_to_reference(m, t.step_fn.gather(s))
                        for m, t, s in ((m2, t2, s2), (m3, t3, s3))))
 
@@ -399,8 +400,8 @@ def test_pod_axis_step_is_bitwise_the_data_step():
         assert step.mesh.shape == {"data": 2, "model": 2} and len(step.replicas) == 2
         state, metrics = step(step.init_state(), batch)
         state, metrics = step(state, batch)
-        step.collect()
-        outs.append((params_to_reference(model), opt_state_to_reference(model, step.gather(state)),
+        outs.append((params_to_reference(step.collect()),
+                     opt_state_to_reference(model, step.gather(state)),
                      {k: float(v) for k, v in metrics.items()}))
     (p1, o1, m1), (p2, o2, m2) = outs
     _assert_np_equal(p1, p2)
@@ -414,17 +415,17 @@ def test_pod_axis_step_is_bitwise_the_data_step():
 
 def test_trainer_over_a_pod_mesh_resumes(tmp_path):
     cfg = registry.get_config("hymba-1.5b").reduced()
-    model = registry.get_model(cfg, device="cpu")
+    model = registry.get_model(cfg, device="meta")
     trainer = Trainer(model, _run(), _data(cfg, 0), tmp_path / "run", mesh=_pod_mesh())
     assert trainer.mesh.shape == {"data": 2, "model": 2}
     _, state, _ = trainer.train(steps=4)
     want_o = opt_state_to_reference(model, trainer.step_fn.gather(state))
-    m2 = registry.get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    m2 = registry.get_model(cfg, device="meta")
     t2 = Trainer(m2, _run(), _data(cfg, 1), tmp_path / "run", mesh=_pod_mesh())
     start, _, s2 = t2.resume_or_init()
     assert start == 4
-    t2.step_fn.collect()
-    _assert_np_equal(params_to_reference(m2), params_to_reference(model))
+    _assert_np_equal(params_to_reference(t2.step_fn.collect()),
+                     params_to_reference(trainer.step_fn.collect()))
     got = opt_state_to_reference(m2, t2.step_fn.gather(s2))
     _assert_np_equal((got.m, got.v), (want_o.m, want_o.v))
     _, s2, last = t2.train(steps=6)

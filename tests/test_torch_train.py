@@ -524,8 +524,9 @@ def test_trainer_lays_a_model_axis_out(tmp_path):
     cfg = registry.get_config("qwen3-1.7b").reduced()
     model = registry.get_model(cfg, device="cpu")
     wide = Mesh(np.array(["cpu"] * 2, dtype=object).reshape(1, 2), ("data", "model"))
-    assert Trainer(model, RunConfig(), iter(()), tmp_path, mesh=wide).step_fn.n_model == 2
-    rwkv = registry.get_model(registry.get_config("rwkv6-1.6b").reduced(), device="cpu")
+    laid = Trainer(model.meta(), RunConfig(), iter(()), tmp_path, mesh=wide)
+    assert laid.step_fn.n_model == 2
+    rwkv = registry.get_model(registry.get_config("rwkv6-1.6b").reduced(), device="meta")
     with pytest.raises(NotImplementedError, match="give each slot 32 columns, splitting a head"):
         Trainer(rwkv, RunConfig(), iter(()), tmp_path, mesh=wide)
     Trainer(model, RunConfig(), iter(()), tmp_path, mesh=Mesh(["cpu"]))  # one slot runs
