@@ -22,7 +22,9 @@ serving path (every architecture reduced, qwen3-1.7b served at full width
 and depth) and its training path (four families reduced, qwen3-1.7b trained
 at full width and depth, a checkpoint written and resumed), and training over a mesh of
 slots (the dry run, a data-parallel step, int8 gradient compression,
-GPipe, elastic resume, the launcher over every card) -- checks
+GPipe, elastic resume, the launcher over every card), tensor
+parallelism over 'model', and the six architectures served at full width
+and depth -- checks
 the features against the port's CPU path or the in-core path, and prints the kernels
 line and a last JSON status line.  The autotune cache is a fresh
 temporary file, so no run reads another run's winners; an untimed pass
@@ -82,7 +84,14 @@ Phases:
      against the 0.97-1.03 band (all of them where the parent's
      diameter.cu is this tree's); the masked tile kernels' SASS counts and
      instruction-rate ceilings; nvidia-smi's SM clock and power over the
-     timed window
+     timed window; with a parent checkout, this tree's normal diameter
+     library's SASS == the parent's, kernel for kernel; then (printed as
+     [work]) diameter.cu built with its work counter (DIAMETER_COUNT_WORK,
+     started beside phase 1's build) and bound to this tree's wrapper:
+     every variant at blocks 256 and 512 on 00001-1's unpruned list and the
+     largest pass-2b stack, 3 normal and 3 traced launches, each one's
+     pairs == kernels/diameter.computed_pairs (x 4 for 'naive'), its
+     maxima bitwise the normal build's
   5c. (run after 8b, whose inputs it shares with phases 5, 7 and 8b) the
      compaction, GLCM, first-order and MC kernels against the parent's:
      the -Xptxas -v lines of this tree's kernels (without spills) and the
@@ -237,7 +246,8 @@ Phases:
      lost or duplicated, windows B + C <= A + 1, one retry in A whose
      window's rows == a clean run of its cases bitwise, window 7 flagged,
      no prep or pass-1 fetch; (c) examples/cluster_pipeline_torch.py
-     --cases 160 --window 20 --schedule static --prep hint in two
+     --cases 80 (the soak's first 80) --window 20 --schedule static
+     --prep hint in two
      subprocesses at once on the warm cache, one sent SIGTERM and one
      SIGKILL once its manifest holds 2 windows of lines, each run again to
      the end: both manifests == the uninterrupted in-process run's
@@ -346,8 +356,8 @@ Phases:
      tokens over (1, 4) == one slot's; at full width and TP_SERVE_LAYERS
      of its 28 layers (full depth over (1, 4) is served by 17b and 18b),
      bf16, laid out over (1, 4): the prefill fn on 4 prompts of 256, the prompts by
-     decode into a 512 cache, 64 greedy steps (finite logits, every token
-     below vocab_size, every slot's cache at 320), ms a step and tokens/s
+     decode into a 512 cache, 32 greedy steps (finite logits, every token
+     below vocab_size, every slot's cache at 288), ms a step and tokens/s
      beside 13c's one slot, each slot's bytes, a traced decode step;
      (c) qwen3-1.7b at full width and four layers, bf16 compute, remat,
      float32 master and moments, 8 steps of 4 x 257 tokens over (1, 4):
@@ -378,7 +388,7 @@ Phases:
      slot's, the float32 ones within TP_F32_BAND times one slot's own error
      from them); (b) hymba-1.5b at full
      width and depth, bf16, over (1, 4): the prefill fn on 4 prompts of
-     256 (ms, median of 3) and 64 greedy steps into a 512 cache, against
+     256 (ms, median of 3) and 16 greedy steps into a 512 cache, against
      one slot in the same run, each slot's bytes, max_memory_allocated, a
      traced decode step's device items and busy share, finite logits and
      every token below vocab_size; (c) DataParallelStep of qwen3-1.7b at
@@ -409,13 +419,46 @@ Phases:
      one; (d) with 4 cards or more, nemotron-4-15b at full width and
      depth, float32, one step over (1, 4) cards from a meta model, each
      card's max_memory_allocated (printed, not gated)
-  19. the kernels line (each variant at block 256, as phase 5b); 20. the status line
+  19. (printed as [serve_full]) the six registry architectures not served
+     at full size before -- rwkv6-1.6b, seamless-m4t-large-v2,
+     granite-3-2b, minicpm-2b, nemotron-4-15b, deepseek-moe-16b -- from
+     seed 0, smallest first, garbage collected and memory_allocated
+     printed before each build, which run none of the kernels (their
+     launch counts stay 0): (a) float32, TF32 off, at full width and depth
+     or, where the float32 parameters, the largest leaf's float32 draw and
+     1 GiB do not fit in the card's free bytes, the deepest depth that
+     does (printed); 2 prompts of 16 (seamless: 128 stub frames): finite
+     logits; the prompt decoded and 8 greedy tokens served as a user runs
+     them, then, with teacher forcing at every layer (LayerForcing) under
+     one forward over the prompt and those tokens, every layer's decode
+     output within SERVE_FULL_TOL of the forward's largest entry, the
+     decode's and the serve steps' logits == the forward's at
+     SERVE_FULL_TOL and their tokens == its argmax where the top-2 gap
+     clears it; the unforced gap printed beside the forward's own
+     sensitivity to a one-rounding change of its embedding rows (a random
+     stack of the reference's init amplifies each rounding layer by
+     layer); an MoE model at capacity 8, and its own 1.25 printed; (b)
+     bf16 at full width and depth, as 13c: the build's peak within the
+     bytes before + held + the largest float32 draw + its cast, the
+     prefill fn on 4 prompts of 256 (ms, median of 3), their first
+     SERVE_FULL_FILL tokens by decode into a 512 cache, 32 greedy steps and
+     twice 32 sampled steps at temperature 0.8 from copies of the cache and
+     one torch.Generator seed, bitwise equal; finite logits, every token
+     below vocab_size, every cache at SERVE_FULL_FILL + 32; ms a step,
+     tokens/s, max_memory_allocated, a traced
+     decode step's kernels and busy share; (c) examples/serve_clients_torch.py
+     in-process on the card with sweeps off: each tenant's rows and
+     deadline errors, the cohort's rows bitwise run's
+  20. the kernels line (each variant at block 256, as phase 5b), after the
+     script's seconds; 21. the status line
 """
 import collections
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
 import gc
+import importlib.util
 import io
 import json
 import os
@@ -427,6 +470,9 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from unittest import mock
+
+T_START = time.perf_counter()  # the script's seconds, printed before the kernels line
 
 SRC = Path(__file__).resolve().parent / "src"
 if not (SRC / "repro_torch").is_dir():
@@ -457,7 +503,7 @@ from repro_torch.kernels import masked_range as mr  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.launch.mesh import grid_mesh, make_host_mesh  # noqa: E402
 from repro_torch.launch.train import synthetic_data  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import encdec, moe, rwkv6, transformer  # noqa: E402
 from repro_torch.models.convert import opt_state_to_reference, params_to_reference  # noqa: E402
 from repro_torch.models.encdec import enc_len_for  # noqa: E402
 from repro_torch.models.registry import (  # noqa: E402
@@ -545,8 +591,8 @@ DIST_PIPE_TOL = 5e-2  # 15e: whole batch against microbatched, relative Frobeniu
 DIST_ELASTIC = (4, 32, 2, 4)  # 15f: rows, tokens (+1 label), run 1's steps, run 2's
 TP_SHAPES = ((1, 4), (2, 2))  # 16a: (data, model) meshes of 4 slots of the card
 TP_WIDE = (4, 65)  # 16a: rows x tokens at full width, 2 layers, float32
-TP_SERVE = (4, 256, 64, 512)  # 16b: as 13c: requests, prompt tokens, greedy steps, max_len
-TP_SERVE_LAYERS = 7  # 16b: a quarter of qwen3-1.7b's depth; 17b and 18b serve at full depth
+TP_SERVE = (4, 256, 32, 512)  # 16b: as 13c: requests, prompt tokens, greedy steps, max_len
+TP_SERVE_LAYERS = 4  # 16b: a seventh of qwen3-1.7b's depth; 17b and 18b serve at full depth
 TP_GREEDY = (4, 16, 8)  # 16b: 2 layers, float32: requests, prompt, greedy steps
 TP_DEEP = (4, 257, 8, 4)  # 16c: as 15c: rows x tokens, steps, layers at full width
 TP_MOE = (2, 512)  # 16d: deepseek-moe-16b's batch x tokens, as 13d
@@ -565,7 +611,7 @@ TP2_FWD = (4, 64)  # 17a: forward rows x tokens (seamless: 128 frames)
 TP2_WIDE = (4, 65)  # 17a: train-step rows x tokens
 TP2_GREEDY = (4, 16, 8)  # 17a: requests, prompt, greedy steps
 TP2_GRAD_SHARE = 1e-5  # 17a: gradient, m and v within this share of the leaf's largest entry
-TP2_SERVE = (4, 256, 64, 512)  # 17b: hymba-1.5b requests, prompt tokens, greedy steps, max_len
+TP2_SERVE = (4, 256, 16, 512)  # 17b: hymba-1.5b requests, prompt tokens, greedy steps, max_len
 TP2_POD = ((2, 1, 2), (2, 2))  # 17c: ('pod', 'data', 'model') against ('data', 'model')
 # phase 18: a model laid out over 'model' from its own blocks
 TP3_MODEL = "internvl2-26b"  # 18a at 2 layers, float32; 18b at full depth, bf16
@@ -588,8 +634,11 @@ SOAK_FAULTS = dict(seed=20261017, load_error_rate=0.02, poison_nan_rate=0.02,
                    poison_empty_rate=0.02, fail_windows=(3,), straggle_windows=(7,),
                    straggle_seconds=0.25)
 SOAK_SPIN_MS = 3000  # phase 11b's spin ahead of the abandoned window's copies
-# phase 11c's cluster job (examples/cluster_pipeline_torch.py) and its flags
-CLUSTER = ["examples/cluster_pipeline_torch.py", "--cases", str(SOAK_CASES), "--window",
+# phase 11c's cluster job (examples/cluster_pipeline_torch.py) and its flags:
+# the soak's first CLUSTER_CASES cases, killed after two windows (a SIGTERM'd
+# job drains its window in flight, so two more remain to resume)
+CLUSTER_CASES = 80
+CLUSTER = ["examples/cluster_pipeline_torch.py", "--cases", str(CLUSTER_CASES), "--window",
            str(STREAM_WINDOW), "--schedule", "static", "--prep", "hint"]
 # the tuner's diameter candidates before 'tri_prefetch' rejoined them
 OLD_DIAMETER_VARIANTS = ("seqacc", "nomask")
@@ -803,6 +852,28 @@ def fmnmx_per_pair(fn):
     return 1 if m and int(m.group(1)) < 4 else 4
 
 
+def sass_by_kernel(lib_path):
+    """``{mangled kernel name: its SASS}`` of a library (``cuobjdump -sass``),
+    the anonymous namespace's per-file hash taken out of every name (it
+    differs between checkouts); None where cuobjdump is missing."""
+    import re
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    sass = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_[0-9a-f]{8}(?=\d)", "_GLOBAL__N_", sass)
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = []
+        elif cur is not None:
+            funcs[cur].append(line)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
 def sass_loop_counts(lib_path, name):
     """Per kernel whose mangled name holds ``name``: the opcode counts of
     its hot loop in the SASS (``cuobjdump -sass``), the backward-branch
@@ -810,30 +881,22 @@ def sass_loop_counts(lib_path, name):
     runs :func:`fmnmx_per_pair` FMNMX in that kernel).  None where
     cuobjdump is missing."""
     import re
-    tool = Path("/usr/local/cuda/bin/cuobjdump")
-    if not tool.exists():
+    sass = sass_by_kernel(lib_path)
+    if sass is None:
         return None
-    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True).stdout
-    funcs, cur = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            cur = m.group(1) if name in m.group(1) else None
-            if cur:
-                funcs[cur] = {"ins": [], "labels": {}}
-            continue
-        if cur is None:
-            continue
-        lab = re.match(r"\s*(\.L_x_\d+):", line)
-        if lab:
-            funcs[cur]["labels"][lab.group(1)] = len(funcs[cur]["ins"])
-            continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
-        if m:
-            text = m.group(2).strip()
-            op = text.split()[1] if text.startswith("@") else text.split()[0]
-            funcs[cur]["ins"].append((int(m.group(1), 16), op.split(".")[0], text))
+    funcs = {}
+    for fn in (fn for fn in sass if name in fn):
+        d = funcs[fn] = {"ins": [], "labels": {}}
+        for line in sass[fn].splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                d["labels"][lab.group(1)] = len(d["ins"])
+                continue
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if m:
+                text = m.group(2).strip()
+                op = text.split()[1] if text.startswith("@") else text.split()[0]
+                d["ins"].append((int(m.group(1), 16), op.split(".")[0], text))
     result = {}
     for fn, d in funcs.items():
         ins, addr_at = d["ins"], {a: k for k, (a, _, _) in enumerate(d["ins"])}
@@ -887,6 +950,95 @@ def build_parent_libs(parent, signatures):
             getattr(lib, entry).restype = ctypes.c_int
         libs[name] = (lib, log)
     return libs
+
+
+# the diameter work question (ROADMAP.md, Queue 3): diameter.cu built with
+# its work counter (DIAMETER_COUNT_WORK) into a library of its own, bound to
+# this tree's wrapper; every variant's count held to computed_pairs at these
+# blocks (256: the A/B's; 512: where a traced turn read tri_prefetch below
+# its instruction ceiling, PERF.md)
+COUNT_BLOCKS = (256, 512)
+COUNT_TURNS = 3  # normal and traced turns of each launch
+
+
+def start_counting_build():
+    """Starts ``nvcc`` on this tree's ``csrc/diameter.cu`` with the work
+    counter compiled in, into a library of its own beside the normal ones
+    (the normal library is built without it): ``(process, library path)``."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "diameter_count_work.so"
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-DDIAMETER_COUNT_WORK",
+                             "-o", str(out), str(_build.CSRC / "diameter.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def load_counting_diameter(started):
+    """Waits for :func:`start_counting_build`'s build and loads it with this
+    tree's C entries and ``diameter_work_take``."""
+    proc, out = started
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"the counting build of diameter.cu failed:\n{log}")
+    lib = ctypes.CDLL(str(out))
+    for entry, argtypes in {**dm._SIGNATURES,
+                            "diameter_work_take": [ctypes.POINTER(ctypes.c_ulonglong)]}.items():
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = ctypes.c_int
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def work_taken(lib) -> int:
+    """The pairs the counting library's launches computed since the last
+    call (after they finished); the counter is reset."""
+    torch.cuda.synchronize()
+    n = ctypes.c_ulonglong(0)
+    _build.check(lib, lib.diameter_work_take(ctypes.byref(n)), "diameter_work_take")
+    return n.value
+
+
+def diameter_work_check(lib, inputs, blocks=COUNT_BLOCKS, turns=COUNT_TURNS):
+    """Every diameter variant through the counting library on ``inputs``
+    (``(label, verts, masks)``), at each of ``blocks``: ``turns`` normal and
+    ``turns`` traced launches, each one's count of pairs equal to
+    ``dm.computed_pairs`` summed over the lists (x 4 for 'naive's four
+    launches), and its maxima bitwise the normal library's.  Returns rows
+    ``(label, variant, block, pairs, traced device us of each turn)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    work_taken(lib)
+    for label, x, m in inputs:
+        for block in blocks:
+            for variant in dm.VARIANTS:
+                if variant in ("seqacc", "nomask"):  # raises the kernel's shared-memory limit
+                    n = ctypes.c_int(0)
+                    _build.check(lib, lib.diameter_sweep_resident(
+                        block, int(variant == "nomask"), ctypes.byref(n)), "resident")
+                want = sum(dm.computed_pairs(x.shape[1], block, variant, mask=m[b])
+                           for b in range(len(x))) * (4 if variant == "naive" else 1)
+                launch = with_lib("diameter", lib, lambda: dm.batch_launcher(
+                    x, m, block=block, variant=variant))()
+                normal = dm.batch_launcher(x, m, block=block, variant=variant)()
+                counts, traced_us = [], []
+                for _ in range(turns):
+                    got = launch()
+                    counts.append(work_taken(lib))
+                    check(torch.equal(got, normal), f"[work] {variant}/{block} on {label}: the "
+                                                    f"counting build's maxima differ")
+                for _ in range(turns):
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        launch()
+                        torch.cuda.synchronize()
+                    counts.append(work_taken(lib))
+                    traced_us.append(sum(e.device_time_total for e in prof.key_averages()
+                                         if e.device_time_total > 0))
+                check(all(c == want for c in counts),
+                      f"[work] {variant}/{block} on {label}: pairs counted {counts} (normal "
+                      f"turns, then traced) != computed_pairs {want}")
+                rows.append((label, variant, block, want, traced_us))
+    return rows
 
 
 # The variants whose kernels this tree redesigned against the parent
@@ -2026,14 +2178,15 @@ def soak(out, stream, spin_at=None, spin_cycles=0):
 
 def cluster_reference(out, stream):
     """Phase 11c's uninterrupted in-process run: the cluster job's own
-    configuration (its default variant and retries) over ``stream``, the
-    cases the job streams; returns its manifest rows."""
+    configuration (its default variant and retries) over the first
+    ``CLUSTER_CASES`` of ``stream``, the cases the job streams; returns its
+    manifest rows."""
     ext = BatchedExtractor(variant="seqacc", schedule="static", prep="hint",
                            retry=RetryPolicy(max_retries=2))
     man = RunManifest(out / "cluster_ref.jsonl")
-    rep = ResilientRunner(ext, man, window=STREAM_WINDOW).run(stream)
+    rep = ResilientRunner(ext, man, window=STREAM_WINDOW).run(stream[:CLUSTER_CASES])
     man.close()
-    check(rep.status == "complete" and rep.processed == SOAK_CASES,
+    check(rep.status == "complete" and rep.processed == CLUSTER_CASES,
           f"the uninterrupted cluster run: {rep}")
     return man.rows()
 
@@ -2046,6 +2199,17 @@ def warm_resilience(out, stream):
     run's rows)``."""
     runs, _ = soak(out / "warm", stream)
     return runs["B"][0].windows, cluster_reference(out, stream)
+
+
+def soak_cases(threads=8):
+    """``list(stream_cases(SOAK_CASES, seed=0))``, phase 11's cases, made on
+    ``threads`` threads (numpy and scipy leave the GIL for most of a case):
+    case i is the stream's i-th, the names before it skipped."""
+    def case(i):
+        return next(stream_cases(1, seed=0, skip={f"case-{j:05d}" for j in range(i)}))
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(case, range(SOAK_CASES)))
 
 
 def spawn_cluster(root, manifest, cache_file):
@@ -2285,13 +2449,13 @@ def llm_forward(model, cfg, tokens, extra, text_only=False):
     return out[0].float().cpu(), float(out[1])
 
 
-def llm_cache(model, cfg, batch, max_len, extra):
-    """A float32 cache, the encoder's cross K/V written where there is one."""
+def llm_cache(model, cfg, batch, max_len, extra, dtype=torch.float32):
+    """A cache in ``dtype``, the encoder's cross K/V written where there is one."""
     if cfg.n_encoder_layers:
-        cache = model.init_cache(batch, max_len, dtype=torch.float32, enc_len=extra[0].shape[1])
+        cache = model.init_cache(batch, max_len, dtype=dtype, enc_len=extra[0].shape[1])
         with torch.inference_mode():
             return model.prefill_encoder(cache, extra[0].to(model.device))
-    return model.init_cache(batch, max_len, dtype=torch.float32)
+    return model.init_cache(batch, max_len, dtype=dtype)
 
 
 def llm_teacher_forced(model, cache, tokens):
@@ -2306,10 +2470,12 @@ def llm_teacher_forced(model, cache, tokens):
     return torch.stack(out, dim=1)
 
 
-def llm_greedy(model, cfg, cache, first, steps):
-    """``steps`` greedy serve steps from the tokens ``first`` (B, 1): the
-    tokens (B, steps) and their masked logits (B, steps, vocab_size)."""
-    step = make_serve_step(model)
+def llm_greedy(model, cfg, cache, first, steps, **sampling):
+    """``steps`` greedy serve steps from the tokens ``first`` (B, 1), or
+    sampled ones where ``sampling`` gives ``make_serve_step`` a
+    ``temperature`` and a ``generator``: the tokens (B, steps) and their
+    logits (B, steps, vocab_size)."""
+    step = make_serve_step(model, **sampling)
     nxt, toks, logits = first.to(model.device), [], []
     for _ in range(steps):
         nxt, lg, cache = step(cache, nxt)
@@ -2334,9 +2500,22 @@ def traced_launches(fn):
     return (sum(e.count for e in events), sum(e.device_time_total for e in events), wall_ms)
 
 
-def top2_gap_ok(logits, rtol, atol):
+def gap_clears(logits, rtol, atol):
+    """Where the top-2 gap of ``logits`` (..., vocab) clears ``atol + rtol
+    |top1|``: where no near-tie decides the argmax."""
     top2 = logits.float().topk(2, dim=-1).values
-    return bool(((top2[..., 0] - top2[..., 1]) > atol + rtol * top2[..., 0].abs()).all())
+    return (top2[..., 0] - top2[..., 1]) > atol + rtol * top2[..., 0].abs()
+
+
+def top2_gap_ok(logits, rtol, atol):
+    return bool(gap_clears(logits, rtol, atol).all())
+
+
+def masked_argmax(logits, cfg):
+    """Each row's greedy token over ``logits`` (..., vocab_padded), the
+    padded slots masked as the serve step masks them."""
+    valid = torch.arange(logits.shape[-1], device=logits.device) < cfg.vocab_size
+    return torch.where(valid, logits.float(), -1e30).argmax(dim=-1)
 
 
 def llm_reduced_check(name, capacity, dev):
@@ -2448,8 +2627,7 @@ def models_phase(smi):
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t1
     dec_last = filled[:, -1:].float()
-    first = torch.where(torch.arange(cfg.vocab_padded, device=dev) < cfg.vocab_size,
-                        dec_last[:, -1], -1e30).argmax(dim=-1, keepdim=True)
+    first = masked_argmax(dec_last[:, -1], cfg)[:, None]
     t1 = time.perf_counter()
     out, logits = llm_greedy(model, cfg, cache, first, gen)
     torch.cuda.synchronize()
@@ -3481,8 +3659,7 @@ def tp_phase(smi):
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t1
     dec_last = filled[:, -1:].float()
-    first = torch.where(torch.arange(cfg.vocab_padded, device=dev) < cfg.vocab_size,
-                        dec_last[:, -1], -1e30).argmax(dim=-1, keepdim=True)
+    first = masked_argmax(dec_last[:, -1], cfg)[:, None]
     t1 = time.perf_counter()
     out, logits = llm_greedy(laid, cfg, cache, first, gen)
     torch.cuda.synchronize()
@@ -3854,8 +4031,7 @@ def tp2_serve(served, cfg, tokens, gen, max_len, extra=()):
         last = prefill(tokens, *extra)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
-    first = torch.where(torch.arange(cfg.vocab_padded, device=last.device) < cfg.vocab_size,
-                        last[:, -1].float(), -1e30).argmax(dim=-1, keepdim=True)
+    first = masked_argmax(last[:, -1], cfg)[:, None]
     cache = served.init_cache(len(tokens), max_len, dtype=torch.bfloat16)
     llm_greedy(served, cfg, cache, first, 2)  # warm-up
     cache = served.init_cache(len(tokens), max_len, dtype=torch.bfloat16)
@@ -4320,6 +4496,387 @@ def tp_blocks_phase(smi):
           f"{time.perf_counter() - t_phase:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: every architecture one card holds, served at full width and depth
+# ---------------------------------------------------------------------------
+
+# the registry architectures not served at full depth before, smallest
+# first; arctic-480b needs more cards than one
+SERVE_FULL = ("rwkv6-1.6b", "seamless-m4t-large-v2", "granite-3-2b", "minicpm-2b",
+              "nemotron-4-15b", "deepseek-moe-16b")
+SERVE_FULL_F32 = (2, 16, 8)  # 19a: prompts, prompt tokens, greedy steps, float32
+SERVE_FULL_BF16 = (4, 256, 32, 512)  # 19b: prompts, prompt tokens, greedy and sampled steps, max_len
+# 19b: the tokens of each prompt decoded into the cache before serving.  A
+# decode step reads every slot of the max_len cache whatever it holds, so
+# its cost does not depend on this; all 256 took 147 s of the phase for the
+# six models (an NVIDIA H100 80GB HBM3 at 700 W)
+SERVE_FULL_FILL = 64
+SERVE_FULL_TEMP = 0.8  # 19b: the sampled runs' temperature
+SERVE_FULL_TOL = 2e-3  # 19a: decode against forward, as 13a-b (the reference's own)
+SERVE_FULL_ROOM = GIB  # 19a: free bytes kept for the run beside the parameters and the draw
+# 19c: the two-tenant radiomics service example, small
+SERVE_CLIENTS_ARGS = ["--viewer-cases", "4", "--cohort-cases", "8", "--cohort-batch", "4"]
+
+
+def fresh_card() -> int:
+    """Collects garbage and empties the card's cache: the bytes still
+    allocated after."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def spec_bytes(cfg, itemsize=4) -> int:
+    """Bytes of ``cfg``'s parameters at ``itemsize`` bytes an entry."""
+    spec = model_class(cfg).build_spec(cfg)
+    return itemsize * sum(int(np.prod(leaf.shape)) for _, leaf in tree_paths(spec))
+
+
+def deepest_f32(cfg, free) -> int:
+    """The most layers of ``cfg`` whose float32 parameters, their largest
+    leaf's float32 draw and ``SERVE_FULL_ROOM`` fit in ``free`` bytes."""
+    for n in range(cfg.n_layers, 0, -1):
+        c = dataclasses.replace(cfg, n_layers=n)
+        if spec_bytes(c) + largest_draw_bytes(c) + SERVE_FULL_ROOM <= free:
+            return n
+    return 0
+
+
+def clone_cache(cache):
+    """A copy of a serving cache (dicts and lists of tensors)."""
+    if isinstance(cache, dict):
+        return {k: clone_cache(v) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [clone_cache(v) for v in cache]
+    return cache.clone()
+
+
+# each family's layer functions, which its model looks up by name at every
+# call: (module, the forward's layer, the decode step's layer)
+FORCED_LAYERS = {"Decoder": (transformer, "layer_apply", "decode_layer"),
+                 "RWKV6": (rwkv6, "_layer", "decode_layer"),
+                 "EncDec": (encdec, "_decoder_layer", "cross_decoder_layer")}
+
+
+class LayerForcing:
+    """Teacher forcing at every layer of a decode step (phase 19a).  Inside
+    ``with LayerForcing(model, tol) as forcing``, :meth:`forward` runs the
+    model's forward and records each (decoder) layer's input and output, and
+    ``model.decode_step`` runs each layer on the forward's input to it at
+    the step's position, in place of the layer below's output, and holds
+    its output to the forward's within ``tol`` of the largest |forward|
+    entry (the residual stream grows over a deep stack; ``worst``: the
+    largest such share).  A random stack of the reference's
+    init amplifies a rounding layer by layer, so over a whole depth the
+    decode and the forward part by float32's own error; forced, each
+    layer's cache write, cache read and mixing is held on its own."""
+
+    def __init__(self, model, tol):
+        self.mod, *self.names = FORCED_LAYERS[type(model).__name__]
+        self.model, self.tol, self.ins, self.outs, self.worst = model, tol, [], [], 0.0
+
+    def __enter__(self):
+        fwd, dec = (getattr(self.mod, n) for n in self.names)
+
+        def forward_layer(*args, **kw):
+            out = fwd(*args, **kw)
+            self.ins.append(args[1])
+            self.outs.append(out[0] if isinstance(out, tuple) else out)
+            return out
+
+        def decode_layer(group, lps, xs, *args, **kw):
+            caches, i = ((kw.get("caches"), kw.get("i")) if "cross" in self.names[1]
+                         else args[:2])
+            if caches is None:  # an encoder-decoder's forward runs the same layer
+                return dec(group, lps, xs, *args, **kw)
+            t = int(caches[0]["pos"][0])
+            # (B, 1, d) a position, or (B, d) (rwkv6)
+            ys = dec(group, lps, [self.ins[i][:, t:t + 1].reshape(xs[0].shape)], *args, **kw)
+            got, want = ys[0].float(), self.outs[i][:, t:t + 1].reshape(ys[0].shape).float()
+            share = ((got - want).abs().max() / want.abs().max()).item()
+            self.worst = max(self.worst, share)
+            check(share <= self.tol, f"forced layer {i}, position {t}: max|decode - forward| "
+                                     f"is {share:.3e} of the largest |forward| (> {self.tol})")
+            return ys
+
+        self.saved = fwd, dec
+        for n, fn in zip(self.names, (forward_layer, decode_layer)):
+            setattr(self.mod, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in zip(self.names, self.saved):
+            setattr(self.mod, n, fn)
+
+    def forward(self, tokens, extra):
+        """``llm_forward`` over ``tokens``, each layer's input and output
+        recorded for the decode steps that follow."""
+        self.ins.clear()
+        self.outs.clear()
+        return llm_forward(self.model, self.model.cfg, tokens, extra)
+
+
+def embedding_sensitivity(model, cfg, tokens, extra, logits):
+    """The forward's own float32 sensitivity: max |forward - ``logits``|
+    with the embedding rows of ``tokens`` scaled by 1 + 2^-23 (about one
+    rounding of each), restored after."""
+    rows = torch.unique(tokens).to(model.device)
+    emb = model.embed["embedding"]
+    with torch.no_grad():
+        keep = emb[rows].clone()
+        emb[rows] = keep * (1 + 2 ** -23)
+    try:
+        moved, _ = llm_forward(model, cfg, tokens, extra)
+    finally:
+        with torch.no_grad():
+            emb[rows] = keep
+    return (moved - logits).abs().max().item()
+
+
+def serve_full_f32(name, dev):
+    """Phase 19a for one architecture: float32 at full width and depth (or
+    the deepest depth the card holds beside the largest leaf's draw), TF32
+    off, on the card.  The prompt is decoded and 8 greedy tokens served as
+    a user runs them; then, with teacher forcing at every layer
+    (:class:`LayerForcing`) under one forward over the prompt and those
+    tokens, the prompt is decoded again and the 8 serve steps fed the same
+    tokens.  Gated: finite logits; every forced layer, the decode's and the
+    serve steps' logits == the forward's at ``SERVE_FULL_TOL``, the serve
+    steps' tokens == the forward's argmax wherever its top-2 gap clears the
+    tolerance, every token below ``vocab_size``.  Printed: the unforced
+    decode's gap to the forward and its tokens' agreement with the
+    forward's argmax, beside the forward's own float32 sensitivity
+    (:func:`embedding_sensitivity`).  An MoE model is gated at capacity 8,
+    which drops no token, and its own capacity is printed beside.  Returns
+    the line."""
+    t0 = time.perf_counter()
+    base = get_config(name)
+    cfg = dataclasses.replace(base, dtype="float32",
+                              **({"capacity_factor": 8.0} if base.n_experts else {}))
+    before = fresh_card()
+    free, _ = torch.cuda.mem_get_info()
+    depth = deepest_f32(cfg, free)
+    check(depth > 0, f"[serve_full] 19a {name}: not one float32 layer fits in {free:,} B")
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    held, init_peak = param_bytes([model]), torch.cuda.max_memory_allocated()
+    b, prompt, steps = SERVE_FULL_F32
+    tokens, extra = llm_inputs(cfg, b, prompt, seed=19)
+    got, _ = llm_forward(model, cfg, tokens, extra)
+    check(bool(torch.isfinite(got).all()), f"[serve_full] 19a {name}: logits not finite")
+    # the path as served, unforced: printed beside the forward's own sensitivity
+    sens = embedding_sensitivity(model, cfg, tokens, extra, got)
+    cache = llm_cache(model, cfg, b, prompt + steps, extra)
+    dec = llm_teacher_forced(model, cache, tokens[:, :prompt - 1]).float().cpu()
+    free_toks, _ = llm_greedy(model, cfg, cache, tokens[:, prompt - 1:prompt], steps)
+    seq = torch.cat([tokens, free_toks.cpu()], dim=1)
+    # every layer forced, one forward over the prompt and those tokens: the gates
+    with LayerForcing(model, SERVE_FULL_TOL) as forcing:
+        fwd, _ = forcing.forward(seq, extra)
+        cache = llm_cache(model, cfg, b, prompt + steps, extra)
+        head = llm_teacher_forced(model, cache, seq[:, :prompt - 1]).float().cpu()
+        served = [llm_greedy(model, cfg, cache, seq[:, p:p + 1], 1)
+                  for p in range(prompt - 1, prompt - 1 + steps)]
+    toks = torch.cat([t for t, _ in served], dim=1).cpu()
+    logits = torch.cat([lg for _, lg in served], dim=1).float().cpu()
+    want = fwd[:, prompt - 1:prompt - 1 + steps, :cfg.vocab_size]
+    forced_gap = max((head - fwd[:, :prompt - 1]).abs().max().item(),
+                     (logits - want).abs().max().item())
+    np.testing.assert_allclose(head.numpy(), fwd[:, :prompt - 1].numpy(), rtol=SERVE_FULL_TOL,
+                               atol=SERVE_FULL_TOL,
+                               err_msg=f"[serve_full] 19a {name}: forced decode vs forward")
+    np.testing.assert_allclose(logits.numpy(), want.numpy(), rtol=SERVE_FULL_TOL,
+                               atol=SERVE_FULL_TOL,
+                               err_msg=f"[serve_full] 19a {name}: forced serve steps vs forward")
+    clear = gap_clears(want, SERVE_FULL_TOL, SERVE_FULL_TOL)
+    check(torch.equal(toks[clear], want.argmax(-1)[clear]),
+          f"[serve_full] 19a {name}: greedy tokens {toks.tolist()} != the forward's argmax "
+          f"{want.argmax(-1).tolist()} where the gap clears ({clear.tolist()})")
+    check(bool((cache["pos"] == prompt - 1 + steps).all())
+          and max(int(toks.max()), int(free_toks.max())) < cfg.vocab_size,
+          f"[serve_full] 19a {name}: cache pos {cache['pos'].tolist()} or a token at or past "
+          f"vocab_size {cfg.vocab_size}")
+    free_agree = int((seq[:, prompt:] == want.argmax(-1)).sum())
+    line = (f"{name} float32, TF32 off, {depth} of {base.n_layers} layers "
+            f"({'full depth' if depth == base.n_layers else 'the deepest the card holds'}; "
+            f"{held:,} B of parameters, init peak {init_peak:,} B, {before:,} B allocated "
+            f"before, {free:,} B free), {b} prompts of {prompt}: finite logits; over the "
+            f"prompt and {steps} served tokens, every layer forced: each layer's decode output "
+            f"within {forcing.worst:.3e} of the largest |forward| entry (gate "
+            f"{SERVE_FULL_TOL}), the decode and serve-step logits max|dec - fwd| "
+            f"{forced_gap:.3e} ({SERVE_FULL_TOL}), the serve step's greedy tokens == the "
+            f"forward's argmax at all {int(clear.sum())} of {b * steps} steps whose top-2 gap "
+            f"clears {SERVE_FULL_TOL}; unforced (not gated): max|dec - fwd| "
+            f"{(dec - got[:, :prompt - 1]).abs().max().item():.3e}, {free_agree} of {b * steps} "
+            f"greedy tokens "
+            f"the forward's argmax, the forward's own sensitivity to its embedding rows "
+            f"scaled by 1 + 2^-23 {sens:.3e}")
+    if base.n_experts:  # the config's own capacity on the same weights, not gated
+        model.cfg = dataclasses.replace(cfg, capacity_factor=base.capacity_factor)
+        try:
+            low, _ = llm_forward(model, model.cfg, tokens, extra)
+        finally:
+            model.cfg = cfg
+        line += (f"; gated at capacity 8 (no drop); at its own {base.capacity_factor} "
+                 f"(groups of {cfg.moe_group_size}, not gated) the forward max|cf "
+                 f"{base.capacity_factor} - cf 8| {(low - got).abs().max().item():.3e}")
+    return line + f"; {time.perf_counter() - t0:.3f} s"
+
+
+def serve_full_bf16(name, dev, smi):
+    """Phase 19b for one architecture: bf16 at full width and depth, as
+    13c serves qwen3-1.7b: the build's peak against the parameters + the
+    largest leaf's float32 draw + its cast, the prefill fn over the
+    prompts, their first ``SERVE_FULL_FILL`` tokens decoded into the cache,
+    greedy steps, and seeded sampled steps run twice from copies of the
+    cache, bitwise equal.  Returns the lines to print."""
+    t0 = time.perf_counter()
+    cfg = get_config(name)
+    before = fresh_card()
+    print(f"[serve_full] 19b {name}: memory_allocated {before:,} B (requested "
+          f"{requested_bytes():,} B) before the build")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    model = get_model(cfg, device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    held, init_peak = param_bytes([model]), torch.cuda.max_memory_allocated()
+    draw = largest_draw_bytes(cfg)
+    bound = before + held + draw + draw // 2
+    check(init_peak <= bound,
+          f"[serve_full] 19b {name}: the build's peak {init_peak:,} B is past {before:,} B "
+          f"before + {held:,} B held + the largest draw {draw:,} B + its cast {draw // 2:,} B")
+    torch.cuda.reset_peak_memory_stats()
+    b, prompt, steps, max_len = SERVE_FULL_BF16
+    tokens, extra = llm_inputs(cfg, b, prompt, seed=20)
+    tokens, extra = tokens.to(dev), tuple(e.to(dev) for e in extra)
+    prefill = make_prefill_fn(model)
+    prefill(tokens, *extra)  # the first call pays cuBLAS' set-up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        last = prefill(tokens, *extra)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    cache = llm_cache(model, cfg, b, max_len, extra, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dec_last = llm_teacher_forced(model, cache, tokens[:, :SERVE_FULL_FILL])[:, -1].float()
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t1
+    first = masked_argmax(dec_last, cfg)[:, None]
+    copies = [clone_cache(cache), clone_cache(cache)]
+    t1 = time.perf_counter()
+    out, logits = llm_greedy(model, cfg, cache, first, steps)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t1
+    sampled, sample_s = [], []
+    for copy in copies:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t1 = time.perf_counter()
+        sampled.append(llm_greedy(model, cfg, copy, first, steps, temperature=SERVE_FULL_TEMP,
+                                  generator=gen))
+        torch.cuda.synchronize()
+        sample_s.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated()
+    (s_toks, s_logits), (s_toks2, s_logits2) = sampled
+    check(all(bool(torch.isfinite(t.float()).all()) for t in (last, dec_last, logits, s_logits)),
+          f"[serve_full] 19b {name}: logits not finite")
+    check(max(int(t.max()) for t in (first, out, s_toks, s_toks2)) < cfg.vocab_size,
+          f"[serve_full] 19b {name}: a token at or past vocab_size {cfg.vocab_size} "
+          f"({cfg.vocab_padded} padded): the padded slots were not masked")
+    check(torch.equal(s_toks, s_toks2) and torch.equal(s_logits, s_logits2),
+          f"[serve_full] 19b {name}: two sampled runs from one cache and seed differ")
+    for c in [cache] + copies:
+        check(bool((c["pos"] == SERVE_FULL_FILL + steps).all()),
+              f"[serve_full] 19b {name}: cache pos {c['pos'].tolist()} != "
+              f"{SERVE_FULL_FILL + steps}")
+    with torch.inference_mode():
+        step_kernels, step_us, step_ms = traced_launches(
+            lambda: model.decode_step(cache, tokens[:, :1]))
+    prefill_ms = statistics.median(walls) * 1e3
+    lines = [
+        f"{name} bf16, full width and depth ({cfg.n_layers} layers"
+        f"{f' + {cfg.n_encoder_layers} encoder layers' if cfg.n_encoder_layers else ''}, "
+        f"{sum(p.numel() for p in model.parameters()):,} parameters, {held:,} B), vocab "
+        f"{cfg.vocab_size} ({cfg.vocab_padded} padded), {b} requests: built in {build_s:.3f} s, "
+        f"max_memory_allocated {init_peak:,} B at init against {before:,} B before + {held:,} "
+        f"B held + the largest float32 draw {draw:,} B = {before + held + draw:,} B (gate: + "
+        f"its cast, {bound:,} B); prefill fn over {b} x {prompt} tokens {prefill_ms:.3f} ms "
+        f"(median of 3 after one warm-up; {[round(w * 1e3, 3) for w in walls]}); the first "
+        f"{SERVE_FULL_FILL} tokens of each prompt by decode into a max_len={max_len} cache "
+        f"{fill_s * 1e3 / SERVE_FULL_FILL:.3f} ms a step; "
+        f"{steps} greedy steps {greedy_s * 1e3 / steps:.3f} ms a step, "
+        f"{b * steps / greedy_s:.1f} tokens/s; {steps} sampled steps at temperature "
+        f"{SERVE_FULL_TEMP} {[round(t * 1e3 / steps, 3) for t in sample_s]} ms a step, twice "
+        f"from copies of the cache and one seed: bitwise equal, "
+        f"{int((s_toks != out).sum())} of {b * steps} tokens differ from the greedy ones",
+        f"{name} gates held: finite logits, every token below vocab_size, cache pos "
+        f"{cache['pos'].tolist()} before the traced step; max_memory_allocated {peak:,} B "
+        f"serving; a traced decode step {step_kernels} kernels, device {step_us / 1e3:.3f} ms "
+        f"of {step_ms:.3f} ms wall (busy {ratio(step_us / 1e3, step_ms)}); card {smi}; "
+        f"{time.perf_counter() - t0:.3f} s"]
+    return lines
+
+
+def serve_clients_card():
+    """Phase 19c: ``examples/serve_clients_torch.py`` on the card, small,
+    with sweeps off and an autotune cache of its own: each tenant's rows
+    and deadline errors, the cohort's rows bitwise ``run``'s (the example
+    checks it).  Returns the line."""
+    spec = importlib.util.spec_from_file_location(
+        "serve_clients_torch", Path(__file__).resolve().parent / "examples" /
+        "serve_clients_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with tempfile.TemporaryDirectory(prefix="repro_serve_clients_") as tmp, mock.patch.dict(
+            os.environ, REPRO_AUTOTUNE="0", REPRO_AUTOTUNE_CACHE=str(Path(tmp) / "autotune.json")):
+        t0 = time.perf_counter()
+        got = example.main(SERVE_CLIENTS_ARGS)
+        secs = time.perf_counter() - t0
+    want = int(SERVE_CLIENTS_ARGS[1]), int(SERVE_CLIENTS_ARGS[3])
+    check((got["viewer_rows"], got["cohort_rows"]) == want and got["cohort_errors"] == 0,
+          f"[serve_full] 19c the service example: {got}")
+    return (f"19c python examples/serve_clients_torch.py {' '.join(SERVE_CLIENTS_ARGS)} on "
+            f"the card (sweeps off): viewer {got['viewer_rows']} rows, {got['viewer_errors']} "
+            f"deadline errors; cohort {got['cohort_rows']} rows, {got['cohort_errors']} errors, "
+            f"bitwise run's; {got['served_cases']} cases in {got['windows']} windows "
+            f"({sum(1 for t in got['window_tenants'] if t > 1)} cross-tenant), "
+            f"{got['expired_cases']} expired; {got['wall_s']:.3f} s served, {secs:.3f} s in all")
+
+
+def serve_full_phase(smi):
+    """Phase 19: the six registry architectures one card holds, served at
+    full width and depth (printed as [serve_full]): 19a float32 against
+    the forward, 19b bf16 with greedy and sampled decode, then 19c the
+    radiomics service example; fails on any check."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    check(not torch.backends.cuda.matmul.allow_tf32, "[serve_full] TF32 must be off")
+    held = fresh_card()
+    live = sorted(((t.numel() * t.element_size(), tuple(t.shape)) for t in gc.get_objects()
+                   if isinstance(t, torch.Tensor) and t.is_cuda), reverse=True)
+    print(f"[serve_full] before the phase: memory_allocated {held:,} B (requested "
+          f"{requested_bytes():,} B), {len(live)} tensors on the card that the collector "
+          f"reaches, {sum(n for n, _ in live):,} B, the largest (bytes, shape) {live[:4]}")
+    zero_counts()
+    for name in SERVE_FULL:
+        print(f"[serve_full] 19a {serve_full_f32(name, dev)}")
+        for line in serve_full_bf16(name, dev, smi):
+            print(f"[serve_full] 19b {line}")
+    fresh_card()
+    launches = read_counts()
+    check(not any(launches.values()), f"[serve_full] the phase launched a hand kernel: {launches}")
+    print(f"[serve_full] 19a-b launched none of the hand kernels (rows 1-11, R) in "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    print(f"[serve_full] {serve_clients_card()}")
+    print(f"[serve_full] phase 19 took {time.perf_counter() - t_phase:.3f} s")
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port.")
@@ -4342,6 +4899,7 @@ def main():
     print(f"[setup] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
+    counting = start_counting_build()  # phase 5b's work counter, beside the normal build
     logs = _build.build()
     print(f"[setup] built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
@@ -4362,7 +4920,7 @@ def main():
     warm_s = warm_autotune(suite, cases, cohort_cases)
     resil_dir = Path(tempfile.mkdtemp(prefix="repro_resil_"))
     t0 = time.perf_counter()
-    soak_stream = list(stream_cases(SOAK_CASES, seed=0))  # phase 11's cases, made once
+    soak_stream = soak_cases()  # phase 11's cases, made once
     gen_s = time.perf_counter() - t0
     abandoned, cluster_rows = warm_resilience(resil_dir, soak_stream)
     warm_resil_s = time.perf_counter() - t0
@@ -4682,6 +5240,17 @@ def main():
                 print(f"[diam-ab] {variant} on {label}: a control (the parent's kernel); change "
                       f"{got:.4f}, parent {was:.4f} ({ratio(got, was)}, {band} the band "
                       f"{AB_BAND})")
+        ours = sass_by_kernel(diam_lib)
+        theirs = sass_by_kernel(_build.BUILD_DIR / "ab_parent_diameter.so")
+        if ours is not None:  # the work counter is compiled out of the normal build
+            differ = sorted(k for k in set(ours) | set(theirs) if ours.get(k) != theirs.get(k))
+            first = next((pair for pair in zip((ours.get(differ[0]) or "").splitlines(),
+                                               (theirs.get(differ[0]) or "").splitlines())
+                          if pair[0] != pair[1]), None) if differ else None
+            check(not differ, f"diameter.cu: the normal build's SASS differs from the parent's "
+                              f"in {len(differ)} kernels, {differ[:3]}; first line apart {first}")
+            print(f"[diam-ab] this tree's normal diameter library: the SASS of all {len(ours)} "
+                  f"kernels identical to the parent's")
         print(f"[diam-ab] parent {parent} vs this tree, same inputs, same bits (gram rtol 1e-6); "
               f"redesigned {changed} each below the parent's; nvidia-smi over the timed window: "
               f"{clocks}")
@@ -4737,6 +5306,17 @@ def main():
                   + f"; instruction-rate ceiling at {clock:.0f} MHz "
                   f"{rate_ceiling_ms(n, per['per_pair'], clock):.5f} ms, FP32 bound (counted "
                   f"work) {fp32_bound:.5f} ms{conv}")
+
+    # Queue 3's work question: every variant's pairs counted in normal and traced turns
+    t0 = time.perf_counter()
+    work_rows = diameter_work_check(load_counting_diameter(counting), ab_inputs)
+    for label, variant, block, pairs, traced_us in work_rows:
+        print(f"[work] {label:25s} {variant:12s} block {block:4d}: {pairs} pairs counted in each "
+              f"of {COUNT_TURNS} normal and {COUNT_TURNS} traced turns == computed_pairs; traced "
+              f"device us {'/'.join(f'{t:.1f}' for t in traced_us)}")
+    print(f"[work] {len(work_rows)} (input, variant, block) launches, every count == "
+          f"computed_pairs in normal and traced turns, maxima bitwise the normal build's; "
+          f"{time.perf_counter() - t0:.3f} s; card {smi}")
 
     # -- 6. the batched main path -------------------------------------------
     ext = BatchedExtractor()  # default device: the card
@@ -5807,7 +6387,11 @@ def main():
     # -- 18. a model laid out from its own blocks: no whole copy on the card --
     tp_blocks_phase(smi)
 
-    # -- 19. kernels line ---------------------------------------------------
+    # -- 19. every architecture one card holds, served at full width and depth
+    serve_full_phase(smi)
+
+    # -- 20. kernels line ---------------------------------------------------
+    print(f"[done] the script took {time.perf_counter() - T_START:.1f} s of its 1,200 s")
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -5853,7 +6437,7 @@ def main():
         for v in variants if v != "seqacc"
     ]
     print(json.dumps({"kernels": kernels}))
-    # -- 20. status -----------------------------------------------------------
+    # -- 21. status -----------------------------------------------------------
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -84,6 +84,22 @@ __device__ __forceinline__ void fold_pair(float qx, float qy, float qz, float (&
   m[3] = fmaxf(m[3], __fadd_rn(qy, qz));
 }
 
+// A work counter, compiled only where DIAMETER_COUNT_WORK is defined (the
+// normal build leaves count_pairs empty, so its code is unchanged): each
+// block adds the pairs of every tile it computes, rows times the columns
+// its pair loop sweeps, with one integer atomicAdd a tile, into a device
+// counter that diameter_work_take reads and resets.  chip_smoke.py builds
+// it into a library of its own and holds every variant's count to
+// kernels/diameter.py computed_pairs, in normal and in traced launches.
+#ifdef DIAMETER_COUNT_WORK
+__device__ unsigned long long g_pairs_computed;
+__device__ __forceinline__ void count_pairs(long long rows, long long cols) {
+  if (threadIdx.x == 0) atomicAdd(&g_pairs_computed, (unsigned long long)(rows * cols));
+}
+#else
+__device__ __forceinline__ void count_pairs(long long, long long) {}
+#endif
+
 __device__ __forceinline__ void write_partial(float* __restrict__ p, const float (&m)[4]) {
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -205,6 +221,7 @@ __global__ void __launch_bounds__(1024 / R)
         }
         stage_tile(smem + 6 * tile * ((t + 1 - t0) & 1), vb, mp, tile, i, j);
       }
+      count_pairs(row_threads * R, groups * cols);
       float rx[R], ry[R], rz[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -465,6 +482,7 @@ __global__ void __launch_bounds__(1024 / R)
 #pragma unroll
     for (int q = 0; q < 4; ++q) m[r][q] = kNeg;
   }
+  count_pairs(row_threads * R, groups * per);
   const float4* cx = reinterpret_cast<const float4*>(cols + s * per);
   const float4* cy = reinterpret_cast<const float4*>(cols + tile + s * per);
   const float4* cz = reinterpret_cast<const float4*>(cols + 2 * tile + s * per);
@@ -588,6 +606,7 @@ __global__ void __launch_bounds__(32 * kGramWarps, 4)
     gcols[2 * (ax * tile + slot) + 1] = make_double2(c, 0.0);
   });
   const double* const bcols = reinterpret_cast<const double*>(gcols);
+  count_pairs(tile / (16 * kGramGroups) * 16 * kGramGroups, n_pad);
 
   const int lane = threadIdx.x & 31, g = lane >> 2, k = lane & 3;
   for (int set = threadIdx.x >> 5; set < tile / (16 * kGramGroups); set += kGramWarps) {
@@ -763,5 +782,17 @@ int diameter_sched_launch(const float* v, const unsigned char* mask, const int* 
   }
   return finalize(partials, ntiles, batch, out, s);
 }
+
+#ifdef DIAMETER_COUNT_WORK
+// The counting build only: the pairs counted since the last call into
+// *pairs, and the counter reset to 0.  Call it once the launches have
+// finished (it copies through the legacy default stream).
+int diameter_work_take(unsigned long long* pairs) {
+  cudaError_t err = cudaMemcpyFromSymbol(pairs, g_pairs_computed, sizeof(*pairs));
+  if (err != cudaSuccess) return err;
+  const unsigned long long zero = 0;
+  return cudaMemcpyToSymbol(g_pairs_computed, &zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

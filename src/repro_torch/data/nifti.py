@@ -1,7 +1,7 @@
 """Minimal NIfTI-1 reader (pure numpy + stdlib gzip).
 
-The port's own copy of ``repro.data.nifti``'s readers, so ``repro_torch``
-reads real NIfTI inputs without importing the JAX package.
+The port's own copy of ``repro.data.nifti``, so ``repro_torch`` reads
+and writes real NIfTI files without importing the JAX package.
 
 Supports the subset PyRadiomics workflows need: single-file ``.nii`` /
 ``.nii.gz``, scalar volumes, little-endian, dtypes {uint8, int16, int32,
@@ -18,6 +18,8 @@ clear error rather than misread.
   z-slab is one contiguous byte range): the tiled path's reader.
 * :func:`read_nifti` -- the full volume, read as one z-slab over the whole
   z-range (gz files are decompressed to an in-memory stream first).
+* :func:`write_nifti` -- a volume to ``.nii`` or ``.nii.gz``, byte for
+  byte the reference's writer.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 
 _DTYPES = {2: np.uint8, 4: np.int16, 8: np.int32, 16: np.float32, 64: np.float64}
+_CODES = {np.dtype(v): k for k, v in _DTYPES.items()}
 
 _HDR_BYTES = 352  # 348-byte header + 4-byte extension flag
 
@@ -222,3 +225,33 @@ def read_nifti(path):
     data = data.reshape(hdr.shape)
     return _apply_scl(data, hdr), hdr.spacing
 
+
+def write_nifti(path, data: np.ndarray, spacing=(1.0, 1.0, 1.0),
+                scl_slope: float = 0.0, scl_inter: float = 0.0):
+    """Writes ``data`` (up to 7 dims, Fortran order on disk) as a NIfTI-1
+    single file: ``.nii``, or gzip-compressed where ``path`` ends in
+    ``.gz``.  A dtype outside {uint8, int16, int32, float32, float64} is
+    stored as float32; ``spacing`` fills pixdim[1:4], ``scl_slope`` and
+    ``scl_inter`` the header's rescale (0 leaves it unset).  Returns the
+    path."""
+    path = Path(path)
+    data = np.asarray(data)
+    if data.dtype not in _CODES:
+        data = data.astype(np.float32)
+    hdr = bytearray(_HDR_BYTES)
+    struct.pack_into("<i", hdr, 0, 348)
+    dim = [data.ndim] + list(data.shape) + [1] * (7 - data.ndim)
+    struct.pack_into("<8h", hdr, 40, *dim)
+    struct.pack_into("<h", hdr, 70, _CODES[np.dtype(data.dtype)])
+    struct.pack_into("<h", hdr, 72, data.dtype.itemsize * 8)
+    pix = [0.0] + list(np.asarray(spacing, np.float32)) + [0.0] * (7 - 3)
+    struct.pack_into("<8f", hdr, 76, *pix)
+    struct.pack_into("<f", hdr, 108, float(_HDR_BYTES))
+    struct.pack_into("<2f", hdr, 112, scl_slope, scl_inter)
+    hdr[344:348] = b"n+1\x00"
+    payload = bytes(hdr) + np.asfortranarray(data).tobytes(order="F")
+    if str(path).endswith(".gz"):
+        path.write_bytes(gzip.compress(payload, compresslevel=1))
+    else:
+        path.write_bytes(payload)
+    return path

@@ -3,11 +3,13 @@
 Also holds the state carried across from the reference (the marching-cubes
 tables and the synthetic case data) equal to the JAX package's.
 """
+import gzip
 import os
 import pathlib
 import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -62,10 +64,11 @@ def test_import_loads_no_jax_or_reference():
 
 
 def test_sources_import_no_jax_or_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "examples" / "quickstart_torch.py",
-                                          ROOT / "examples" / "cluster_pipeline_torch.py",
-                                          ROOT / "examples" / "train_lm_torch.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert {p.name for p in examples} >= {
+        "quickstart_torch.py", "cluster_pipeline_torch.py", "train_lm_torch.py",
+        "serve_lm_torch.py", "serve_clients_torch.py"}
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 10
     offenders = [str(p) for p in files if _FORBIDDEN_IMPORT.search(p.read_text())]
     assert not offenders
@@ -150,6 +153,40 @@ def test_read_nifti_equals_reference(tmp_path, suffix, dtype, slope, inter):
     for a, b in zip(ours, theirs):
         np.testing.assert_array_equal(a, b)
         assert a.dtype == b.dtype
+
+
+@pytest.mark.parametrize("suffix,dtype,slope,inter", [
+    (".nii", np.uint8, 0.0, 0.0),
+    (".nii.gz", np.float32, 0.0, 0.0),
+    (".nii", np.int16, 2.0, -1024.0),
+])
+def test_write_nifti_equals_reference(tmp_path, monkeypatch, suffix, dtype, slope, inter):
+    """The port's writer writes the JAX writer's bytes (a gzip member
+    stamps the clock, pinned here for both), and both readers read its
+    file back as the reference's."""
+    monkeypatch.setattr(gzip, "time", types.SimpleNamespace(time=lambda: 1_700_000_000.0))
+    rng = np.random.default_rng(0)
+    data = (rng.random((7, 5, 4)) * 100).astype(dtype)
+    ours = nifti.write_nifti(tmp_path / f"ours{suffix}", data, (0.8, 0.8, 2.5),
+                             scl_slope=slope, scl_inter=inter)
+    theirs = jax_nifti.write_nifti(tmp_path / f"theirs{suffix}", data, (0.8, 0.8, 2.5),
+                                   scl_slope=slope, scl_inter=inter)
+    assert ours == tmp_path / f"ours{suffix}"
+    assert ours.read_bytes() == theirs.read_bytes()
+    want = jax_nifti.read_nifti(theirs)
+    for got in (nifti.read_nifti(ours), jax_nifti.read_nifti(ours)):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+            assert a.dtype == b.dtype
+
+
+def test_write_nifti_stores_other_dtypes_as_float32(tmp_path):
+    data = np.arange(24, dtype=np.int64).reshape(2, 3, 4)
+    path = nifti.write_nifti(tmp_path / "wide.nii", data)
+    back, spacing = nifti.read_nifti(path)
+    assert back.dtype == np.float32 and np.array_equal(back, data.astype(np.float32))
+    np.testing.assert_array_equal(spacing, np.ones(3, np.float32))
+    assert path.read_bytes() == jax_nifti.write_nifti(tmp_path / "ref.nii", data).read_bytes()
 
 
 def test_mesh_entry_points_raise_without_cuda_but_the_dry_run(tmp_path):

@@ -17,7 +17,10 @@ Mirrors the reference's ``tests/test_service.py`` for
 * **demux**: a batch request's rows come back in its own order, with
   quarantine errors at the request's case index;
 * **failure**: a ``RuntimeError`` from a launch inside the driver reaches
-  ``close()`` and the next ``submit()``.
+  ``close()`` and the next ``submit()``;
+* ``examples/serve_clients_torch.py``, the two-tenant example, on the CPU
+  (its cohort rows checked bitwise against ``run`` inside), and raising
+  without a card unless asked for the CPU.
 
 Every ``result()`` and wait carries a timeout.
 """
@@ -356,8 +359,7 @@ def test_python_error_in_collect_fails_only_its_window(monkeypatch):
 
 
 def test_estimate_case_bytes_peeks_loader_nifti_header(tmp_path):
-    from repro_torch.data.nifti import read_nifti
-    from repro.data.nifti import write_nifti
+    from repro_torch.data.nifti import read_nifti, write_nifti
 
     img, msk, sp = _cases(1)[0]
     p = tmp_path / "mask.nii"
@@ -382,3 +384,31 @@ def test_estimate_case_bytes_peeks_loader_nifti_header(tmp_path):
         res = svc.submit([loader]).result(timeout=WAIT)
     np.testing.assert_array_equal(np.asarray(res.rows[0]), bx.run([(img, msk, sp)])[0][0])
     assert svcmod._peek_loader_shape(loader)[0] == msk.shape
+
+
+def _serve_clients_example():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / "serve_clients_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_clients_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    return example
+
+
+def test_serve_clients_example_on_cpu(capsys):
+    got = _serve_clients_example().main(["--device", "cpu", "--viewer-cases", "3",
+                                         "--cohort-cases", "4", "--cohort-batch", "2"])
+    out = capsys.readouterr().out
+    assert (got["viewer_rows"], got["cohort_rows"], got["cohort_errors"]) == (3, 4, 0)
+    assert got["served_cases"] + got["expired_cases"] == 7
+    assert out.count("[viewer] case") == 3 and out.count("[cohort] batch") == 2
+    assert "parity OK" in out
+
+
+def test_serve_clients_example_needs_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _serve_clients_example().main([])

@@ -238,7 +238,7 @@ def test_slab_sources_equal_reference(tmp_path, source):
         ours = FnSlabSource(lambda z0, z1: vol[:, :, z0:z1], vol.shape)
         theirs = jax_tiles.FnSlabSource(lambda z0, z1: vol[:, :, z0:z1], vol.shape)
     else:
-        path = jax_nifti.write_nifti(tmp_path / "v.nii", vol.astype(np.int16), SP,
+        path = nifti.write_nifti(tmp_path / "v.nii", vol.astype(np.int16), SP,
                                      scl_slope=2.0, scl_inter=-5.0)
         ours, theirs = NiftiSlabSource(path), jax_tiles.NiftiSlabSource(path)
         np.testing.assert_array_equal(ours.spacing, theirs.spacing)
@@ -255,7 +255,7 @@ def test_slab_sources_equal_reference(tmp_path, source):
 
 def test_read_nifti_slab_equals_reference(tmp_path):
     data = (np.random.default_rng(2).random((6, 5, 9)) * 50).astype(np.uint8)
-    path = jax_nifti.write_nifti(tmp_path / "c.nii", data, (0.7, 0.7, 2.0))
+    path = nifti.write_nifti(tmp_path / "c.nii", data, (0.7, 0.7, 2.0))
     for z0, z1 in ((0, 9), (2, 4), (8, 9)):
         for a, b in zip(nifti.read_nifti_slab(path, z0, z1),
                         jax_nifti.read_nifti_slab(path, z0, z1)):
@@ -263,7 +263,7 @@ def test_read_nifti_slab_equals_reference(tmp_path):
             assert a.dtype == b.dtype
     assert (nifti.read_nifti_header(path).data_bytes
             == jax_nifti.read_nifti_header(path).data_bytes == data.size)
-    gz = jax_nifti.write_nifti(tmp_path / "c.nii.gz", data, (0.7, 0.7, 2.0))
+    gz = nifti.write_nifti(tmp_path / "c.nii.gz", data, (0.7, 0.7, 2.0))
     for reader in (nifti.read_nifti_slab, jax_nifti.read_nifti_slab):
         with pytest.raises(ValueError, match="gunzip"):
             reader(gz, 0, 1)
@@ -476,8 +476,8 @@ def test_array_fn_and_nifti_sources_agree(tmp_path):
         spacing=SP,
     )
     mp, ip = tmp_path / "mask.nii", tmp_path / "img.nii"
-    jax_nifti.write_nifti(mp, mask, SP)
-    jax_nifti.write_nifti(ip, image, SP)
+    nifti.write_nifti(mp, mask, SP)
+    nifti.write_nifti(ip, image, SP)
     nifti_case = TiledCase(NiftiSlabSource(mp), image=NiftiSlabSource(ip))
     np.testing.assert_allclose(nifti_case.spacing, SP, rtol=1e-6)
     with warnings.catch_warnings():
@@ -497,7 +497,7 @@ def test_fn_source_shape_validated_and_gz_refused(tmp_path):
         ArraySlabSource(np.zeros((4, 4)))
     mask = np.zeros((6, 6, 6), np.float32)
     mask[2:4, 2:4, 2:4] = 1.0
-    p = jax_nifti.write_nifti(tmp_path / "m.nii.gz", mask, SP)
+    p = nifti.write_nifti(tmp_path / "m.nii.gz", mask, SP)
     with pytest.raises(ValueError, match="gunzip"):
         tiles.as_slab_source(p)
 
