@@ -1,0 +1,6 @@
+"""The glcm kernel's share of its roofline, in % (``readers.roofline_share``)."""
+from radbench import readers
+
+
+def read(run):
+    return readers.roofline_share(run, "glcm")
